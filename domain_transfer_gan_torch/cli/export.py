@@ -1,0 +1,164 @@
+"""Serving export: write the two generators as a serving artifact.
+
+The JAX package serialises each generator as a StableHLO module with the
+parameters baked in, which any XLA runtime can run without the model code.
+That format has no counterpart here that could carry a hand-built CUDA
+kernel, so the port's artifact is **data**, and the port's own model code
+loads it: the serving batch, dtype and architecture in ``manifest.json`` and
+the weights as plain ``state_dict``s.
+
+Artifacts written under --out:
+  predict_B.pt    float32 state_dict of netG_A_B   (A + z -> fake_B)
+  predict_A.pt    float32 state_dict of netG_B_A   (B -> fake_A)
+  manifest.json   the JAX manifest's keys (batch, grid_size, input_nc,
+                  output_nc, nlatent, model, serve_dtype, functions,
+                  platforms) plus what rebuilds the nets (ngf, n_blocks,
+                  norm, use_dropout, init_scheme)
+
+The ``.pt`` files hold tensors only and are read with
+``torch.load(weights_only=True)``.  ``--serve_dtype bfloat16`` makes the
+loaded generators run their convs and Linear layers in bf16 (norm statistics
+and affine stay fp32); the I/O contract stays float32 either way.
+
+Usage:
+  python -m domain_transfer_gan_torch.cli.export --expr_dir checkpoints/exp1 \
+      --params exp1_params.npz --out exp1_export \
+      [--batch 32] [--serve_dtype bfloat16] [--device cuda]
+
+``--expr_dir`` holds the run's ``opt.json``; ``--params`` is an ``.npz`` with
+flat keys in the JAX package's layout (``netG_A_B/conv0/kernel`` ...).
+``--init_seed N`` exports weights drawn from seed N instead.  Reading flax
+checkpoints comes with the checkpoint slice.
+
+Round-trip loading: :func:`load_exported`.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import os
+
+import torch
+
+from ..config import TrainConfig, load_train_config_from_expr_dir
+from ..models.api import DTYPES, create_model
+from ..nn import networks as N
+
+_FILES = {"predict_B": "netG_A_B", "predict_A": "netG_B_A"}
+
+
+def export_model(model, out_dir: str, batch: int = 32, device="cuda"):
+    """Write predict_B / predict_A at a fixed serving batch; returns the
+    manifest.  ``device`` names the platform the artifact is meant to be
+    served on and is recorded as ``platforms``; a server on another platform
+    refuses the artifact."""
+    os.makedirs(out_dir, exist_ok=True)
+    opt = model.opt
+    hw = opt.grid_size
+    manifest = {
+        "batch": batch, "grid_size": hw,
+        "input_nc": opt.input_nc, "output_nc": opt.output_nc,
+        "nlatent": opt.nlatent, "model": opt.model,
+        "serve_dtype": opt.compute_dtype,
+        "functions": {
+            "predict_B": {"args": [
+                ["A", [batch, hw, hw, opt.input_nc], "float32"],
+                ["z", [batch, opt.nlatent], "float32"]]},
+            "predict_A": {"args": [
+                ["B", [batch, hw, hw, opt.output_nc], "float32"]]},
+        },
+        "platforms": [torch.device(device).type],
+        "ngf": opt.ngf, "n_blocks": opt.n_blocks, "norm": opt.norm,
+        "use_dropout": bool(opt.use_dropout),
+        "init_scheme": opt.init_scheme,
+    }
+    for fn_name, net_name in _FILES.items():
+        sd = {k: v.detach().to("cpu", torch.float32).contiguous()
+              for k, v in model.nets[net_name].state_dict().items()}
+        torch.save(sd, os.path.join(out_dir, fn_name + ".pt"))
+    with open(os.path.join(out_dir, "manifest.json"), "w") as f:
+        json.dump(manifest, f, indent=2)
+    return manifest
+
+
+def load_exported(out_dir: str, name: str, device="cuda"):
+    """Load one exported generator; returns a callable over NHWC tensors at
+    the artifact's fixed batch: ``fn(A, z)`` for ``predict_B``, ``fn(B)``
+    for ``predict_A``.  The answer is a float32 tensor on ``device``.
+    ``plain_norm=True`` (for tests) runs every norm through the kernel's
+    plain version."""
+    if name not in _FILES:
+        raise ValueError("unknown function %r (have %s)"
+                         % (name, ", ".join(_FILES)))
+    with open(os.path.join(out_dir, "manifest.json")) as f:
+        m = json.load(f)
+    kw = dict(ngf=m["ngf"], n_blocks=m["n_blocks"],
+              use_dropout=m["use_dropout"], init_scheme=m["init_scheme"])
+    if name == "predict_B":
+        net = N.define_stochastic_G(m["nlatent"], m["input_nc"],
+                                    m["output_nc"], **kw)
+    else:
+        net = N.define_G(m["output_nc"], m["input_nc"], norm=m["norm"], **kw)
+    sd = torch.load(os.path.join(out_dir, name + ".pt"), map_location="cpu",
+                    weights_only=True)
+    net.load_state_dict(sd, strict=True)
+    device = torch.device(device)
+    net.place(device, DTYPES[m["serve_dtype"]]).eval().requires_grad_(False)
+    batch = int(m["batch"])
+    ones_z = name == "predict_B" and m["model"] == "cycle_gan"
+
+    def fn(*args: torch.Tensor, plain_norm: bool = False) -> torch.Tensor:
+        if any(a.shape[0] != batch for a in args):
+            raise ValueError("%s was exported at batch %d, got %s"
+                             % (name, batch,
+                                [tuple(a.shape) for a in args]))
+        # inference_mode is thread-local: enter it on the calling thread
+        with torch.inference_mode():
+            args = [a.to(device) for a in args]
+            if ones_z:  # cycle_gan: z == 1
+                args[1] = torch.ones_like(args[1])
+            return net(*args, plain_norm=plain_norm).float()
+
+    return fn
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--expr_dir", required=True,
+                    help="experiment directory holding opt.json")
+    ap.add_argument("--params", default=None,
+                    help="params .npz with flat keys in the JAX package's "
+                         "layout (netG_A_B/conv0/kernel ...)")
+    ap.add_argument("--init_seed", type=int, default=None,
+                    help="export weights drawn from this seed instead of "
+                         "--params")
+    ap.add_argument("--out", required=True)
+    ap.add_argument("--batch", type=int, default=32)
+    ap.add_argument("--serve_dtype", choices=["float32", "bfloat16"],
+                    default=None, help="compute dtype of the served "
+                    "generators (default: the run's compute_dtype)")
+    ap.add_argument("--device", default="cuda",
+                    help="where the model is built, and the platform the "
+                         "artifact is served on")
+    args = ap.parse_args(argv)
+    if (args.params is None) == (args.init_seed is None):
+        ap.error("give exactly one of --params and --init_seed")
+
+    opt: TrainConfig = load_train_config_from_expr_dir(args.expr_dir)
+    if args.serve_dtype:
+        opt.compute_dtype = args.serve_dtype
+    if args.init_seed is not None:
+        opt.seed = args.init_seed
+    model = create_model(opt, testing=True, device=args.device)
+    if args.params is not None:
+        model.load_params(args.params)
+    manifest = export_model(model, args.out, batch=args.batch,
+                            device=args.device)
+    print("exported %s -> %s (%s)" % (args.params or "seed %d" % opt.seed,
+                                      args.out,
+                                      ", ".join(manifest["functions"])))
+
+
+if __name__ == "__main__":
+    main()

@@ -1,0 +1,87 @@
+"""Residual blocks (internal NCHW layout).
+
+- :class:`ResnetBlock`: pad -> conv3x3 -> ReLU -> [dropout] -> pad ->
+  conv3x3 -> norm; out = ReLU(x + f(x)).  There is NO norm after the first
+  conv in the plain block.
+- :class:`CINResnetBlock`: pad -> conv3x3 -> CIN(z) -> ReLU -> [dropout] ->
+  pad -> conv3x3 -> InstanceNorm(affine); out = ReLU(x + f(x, z)).
+"""
+
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from ..ops.convs import reflect_pad2d, replicate_pad2d
+from .norms import CondInstanceNorm, InstanceNorm
+
+
+def _pad(x: torch.Tensor, padding_type: str, p: int):
+    """The padded tensor and the zero padding left for the conv to apply."""
+    if padding_type == "reflect":
+        return reflect_pad2d(x, p), 0
+    if padding_type == "replicate":
+        return replicate_pad2d(x, p), 0
+    if padding_type == "zero":
+        return x, p
+    raise NotImplementedError("padding [%s] is not implemented" % padding_type)
+
+
+def _check_norm(norm: str) -> None:
+    if norm == "batch":
+        raise NotImplementedError(
+            "--norm batch generators need BatchNorm2d with running "
+            "statistics from a trained checkpoint; they are ported with "
+            "the training slice")
+    if norm != "instance":
+        raise NotImplementedError(
+            "normalization layer [%s] is not found" % norm)
+
+
+def _conv3x3(x, conv: nn.Conv2d, padding_type: str):
+    h, p = _pad(x, padding_type, 1)
+    return F.conv2d(h, conv.weight, conv.bias, padding=p)
+
+
+class ResnetBlock(nn.Module):
+    def __init__(self, dim: int, padding_type: str = "reflect",
+                 norm: str = "instance", use_dropout: bool = False,
+                 use_bias: bool = True):
+        super().__init__()
+        _check_norm(norm)
+        self.padding_type = padding_type
+        self.conv1 = nn.Conv2d(dim, dim, 3, bias=use_bias)
+        self.dropout = nn.Dropout(0.5) if use_dropout else None
+        self.conv2 = nn.Conv2d(dim, dim, 3, bias=use_bias)
+        self.norm2 = InstanceNorm(dim, affine=True)
+
+    def forward(self, x, plain_norm: bool = False):
+        h = F.relu(_conv3x3(x, self.conv1, self.padding_type))
+        if self.dropout is not None:
+            h = self.dropout(h)
+        h = _conv3x3(h, self.conv2, self.padding_type)
+        h = self.norm2(h, plain_norm)
+        return F.relu(x + h)
+
+
+class CINResnetBlock(nn.Module):
+    def __init__(self, dim: int, nlatent: int, padding_type: str = "reflect",
+                 use_dropout: bool = False, use_bias: bool = True):
+        super().__init__()
+        self.padding_type = padding_type
+        self.conv1 = nn.Conv2d(dim, dim, 3, bias=use_bias)
+        # the ReLU that follows the CIN upstream is fused into the norm
+        self.cin1 = CondInstanceNorm(dim, nlatent, fuse_relu=True)
+        self.dropout = nn.Dropout(0.5) if use_dropout else None
+        self.conv2 = nn.Conv2d(dim, dim, 3, bias=use_bias)
+        self.norm2 = InstanceNorm(dim, affine=True)
+
+    def forward(self, x, z, plain_norm: bool = False):
+        h = _conv3x3(x, self.conv1, self.padding_type)
+        h = self.cin1(h, z, plain_norm)
+        if self.dropout is not None:
+            h = self.dropout(h)
+        h = _conv3x3(h, self.conv2, self.padding_type)
+        h = self.norm2(h, plain_norm)
+        return F.relu(x + h)

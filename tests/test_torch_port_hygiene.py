@@ -1,0 +1,149 @@
+"""The port stands alone: importing it pulls in nothing of JAX or of the JAX
+package, chip_smoke.py names neither, and the kernel wrapper raises rather
+than falls back when a launch is asked for without a card."""
+
+import os
+import pkgutil
+import re
+import subprocess
+import sys
+
+import pytest
+import torch
+
+import domain_transfer_gan_torch
+from domain_transfer_gan_torch.ops.kernels import build
+from domain_transfer_gan_torch.ops.kernels import instance_norm as K
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax",
+             "domain_transfer_gan_tpu")
+
+
+def _modules():
+    names = ["domain_transfer_gan_torch"]
+    for m in pkgutil.walk_packages(domain_transfer_gan_torch.__path__,
+                                   "domain_transfer_gan_torch."):
+        names.append(m.name)
+    return names
+
+
+def test_every_module_imports_without_jax():
+    """In a fresh interpreter: import every module of the port, then look
+    at sys.modules."""
+    names = _modules()
+    assert {"domain_transfer_gan_torch.cli.serve",
+            "domain_transfer_gan_torch.cli.export",
+            "domain_transfer_gan_torch.ops.kernels.instance_norm",
+            "domain_transfer_gan_torch.ops.kernels.build"} <= set(names)
+    code = (
+        "import importlib, sys\n"
+        "for n in %r: importlib.import_module(n)\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in %r)\n"
+        "print('BAD', bad)\n"
+        "sys.exit(1 if bad else 0)\n" % (names, FORBIDDEN))
+    env = dict(os.environ, PYTHONPATH=ROOT)
+    r = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                       capture_output=True, text=True, timeout=300)
+    assert r.returncode == 0, r.stdout + r.stderr
+
+
+@pytest.mark.parametrize("path", ["chip_smoke.py"] + sorted(
+    os.path.relpath(os.path.join(d, f), ROOT)
+    for d, _, fs in os.walk(os.path.join(ROOT, "domain_transfer_gan_torch"))
+    for f in fs if f.endswith(".py")))
+def test_source_names_no_jax_import(path):
+    """By text: no import of JAX, flax, optax, orbax or the JAX package."""
+    with open(os.path.join(ROOT, path)) as f:
+        src = f.read()
+    pat = re.compile(r"^\s*(?:import|from)\s+(%s)\b" % "|".join(FORBIDDEN),
+                     re.M)
+    assert not pat.findall(src), path
+
+
+def test_port_never_calls_a_library_norm_or_compile():
+    """The wrapper's kernel is the hand-written one: nothing in the package
+    reaches for F.instance_norm / group_norm / torch.compile."""
+    pat = re.compile(r"instance_norm\(|group_norm\(|torch\.compile|"
+                     r"F\.batch_norm\(")
+    pkg = os.path.join(ROOT, "domain_transfer_gan_torch")
+    for d, _, fs in os.walk(pkg):
+        for f in fs:
+            if f.endswith(".py"):
+                with open(os.path.join(d, f)) as fh:
+                    hits = [m for m in pat.findall(fh.read())]
+                assert not hits, (f, hits)
+
+
+def test_chip_smoke_refuses_to_run_without_a_card():
+    if torch.cuda.is_available():
+        pytest.skip("this machine has a CUDA device")
+    r = subprocess.run([sys.executable, os.path.join(ROOT, "chip_smoke.py")],
+                       cwd=ROOT, capture_output=True, text=True, timeout=300)
+    assert r.returncode != 0
+    assert '"ok"' not in r.stdout
+
+
+def test_launcher_raises_without_a_card():
+    """Asked to launch on a tensor that is not on a card, the launcher
+    raises; it never computes the plain version instead."""
+    x = torch.randn(2, 4, 4, 8)
+    before = K.instance_norm_fused.launches
+    with pytest.raises(RuntimeError, match="needs a CUDA tensor"):
+        K._launch(x, None, None, 1e-5, False, False)
+    assert K.instance_norm_fused.launches == before
+
+
+def test_cuda_dispatch_does_not_fall_back(monkeypatch):
+    """A tensor that says it is on the card goes to the launcher and to
+    nothing else: with the launcher failing, the wrapper fails."""
+    class OnCard(torch.Tensor):
+        @property
+        def is_cuda(self):
+            return True
+
+    def boom(*a, **k):
+        raise RuntimeError("launch refused")
+
+    def no_plain(*a, **k):
+        raise AssertionError("fell back to the plain version")
+
+    monkeypatch.setattr(K, "_launch", boom)
+    monkeypatch.setattr(K, "instance_norm_plain", no_plain)
+    x = torch.randn(2, 4, 4, 8).as_subclass(OnCard)
+    with pytest.raises(RuntimeError, match="launch refused"):
+        K.instance_norm_fused(x, None, None)
+
+
+def test_grad_on_the_card_is_refused_until_the_backward_kernel(monkeypatch):
+    class OnCard(torch.Tensor):
+        @property
+        def is_cuda(self):
+            return True
+
+    x = torch.randn(2, 4, 4, 8).as_subclass(OnCard).requires_grad_(True)
+    with pytest.raises(NotImplementedError, match="training slice"):
+        K.instance_norm_fused(x, None, None)
+
+
+def test_build_needs_nvcc_only_at_first_launch(monkeypatch, tmp_path):
+    """Importing the kernel modules builds nothing; a build without nvcc
+    raises KernelCompileError with the reason; a failing nvcc raises with its
+    output."""
+    assert build.kernel_names() == ["instance_norm"]
+    assert os.path.isfile(build.source_path("instance_norm"))
+    assert build.build_dir() == os.path.join(ROOT, "build")
+    monkeypatch.setattr(build, "build_dir", lambda: str(tmp_path))
+    monkeypatch.setattr(build, "_find_nvcc", lambda: "/bin/false")
+    with pytest.raises(build.KernelCompileError, match="nvcc failed"):
+        build.compile_kernel("instance_norm")
+    assert os.listdir(tmp_path) == []  # nothing half-built is left behind
+    monkeypatch.undo()
+    if not any(os.access(os.path.join(p, "nvcc"), os.X_OK)
+               for p in os.environ.get("PATH", "").split(os.pathsep)
+               + ["/usr/local/cuda/bin"]):
+        monkeypatch.setattr(build, "build_dir", lambda: str(tmp_path))
+        monkeypatch.delenv("CUDA_HOME", raising=False)
+        monkeypatch.delenv("CUDA_PATH", raising=False)
+        with pytest.raises(build.KernelCompileError, match="nvcc not found"):
+            build.load_library("instance_norm")
