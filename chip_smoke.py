@@ -10,11 +10,12 @@ It needs one CUDA device, ``nvcc`` and no network.  It
 1. prints the card's name and power limit and switches TF32 off, so the
    float32 phases compare in full float32;
 2. builds every CUDA source of ``domain_transfer_gan_torch/csrc`` into
-   ``build/``;
-3. holds the instance-norm kernel against its plain PyTorch version on the
-   card, at the shapes the serving path gives it and at edge shapes, in
-   float32 and bfloat16, over unbiased x relu x {no, per-channel, per-sample}
-   affine;
+   ``build/``, one ``nvcc`` per source, all started together;
+3. holds both instance-norm kernels against their plain PyTorch versions on
+   the card, at every shape the serving path and the train steps at batch 32
+   and batch 128 give them and at edge shapes, in float32 and bfloat16, over unbiased x relu x {no,
+   per-channel, per-sample} affine: the forward's y, mean, rstd, and the
+   backward's dx, dscale, dshift;
 4. drives the serving path at the published width (``aug_cycle_gan``, ngf 32,
    3 blocks, nlatent 16, 64x64, serving batch 32): seed-drawn weights ->
    ``export_model`` -> ``build_server`` on an ephemeral port -> HTTP requests
@@ -24,19 +25,32 @@ It needs one CUDA device, ``nvcc`` and no network.  It
    before and after, then ``predict_B`` and ``predict_A`` again from a
    bfloat16 artifact; then every norm site of both generators on the input
    its forward gives it, kernel against plain version, in both dtypes;
-5. times the kernel, its plain version and the library call
-   ``F.relu(F.instance_norm(...))`` at the path shapes, and the two
-   generators end to end, and prints the ``kernels`` line.
+5. drives the training path at the same width (nef 32, ndf 64, all six
+   networks): ``create_model`` -> ``train_instance``, 3 steps in float32 at
+   batch 32 against a twin model with the same weights whose norms run the
+   plain version in both directions, then at batch 128 one float32 step and
+   3 steps with bfloat16 compute, each against such a twin of its own dtype
+   (losses and gradient norms), and one step with ``norm="batch"``; the forward and backward launch counters are read
+   around every step and held to the counts the step's structure gives;
+6. times both kernels, their plain versions and the library calls
+   (``F.relu(F.instance_norm(...))`` and its backward) at the generators'
+   shapes, the two generators end to end and the train step in both dtypes, and
+   prints the ``kernels`` line.
 
 Any failed build, launch or check ends the run with a non-zero exit code.
 The last line of standard output is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 
-``--profile`` adds what PERF.md reports beyond the check: a
+``--twin-seeds N`` repeats phase 5 from N further seeds with the limits on
+fused-vs-twin deviations lifted and prints the deviations (the limits above
+were chosen from such a run).  ``--profile`` adds what PERF.md reports beyond
+the check: a
 ``torch.profiler`` breakdown of one ``predict_B`` and one ``predict_A``
-forward by kernel name, and per timed shape the kernel's time on one buffer
-that stays in L2, its time enqueued call by call from Python, and its time
-with the launch geometry's tile narrowing switched off.
+forward and of one train step per dtype by kernel name, both kernels'
+times at the discriminators' shapes, and per timed serving shape the forward
+kernel's time on one buffer that stays in L2, its
+time enqueued call by call from Python, and its time with the launch
+geometry's tile narrowing switched off.
 """
 
 from __future__ import annotations
@@ -69,6 +83,48 @@ EDGE_SHAPES = ((2, 4096, 4), (3, 169, 20), (4, 65536, 32))
 # 4 images, twice the bytes of (32, 4096, 32) in a grid of only 16 blocks
 TIMED_EXTRA_SHAPES = ((4, 65536, 32),)
 HEADLINE = ((32, 1024, 128), "float32")  # the most frequent site
+HW1_SHAPE = (8, 1, 16)  # one pixel: x - mean = 0, the unbiased divisor is 1
+
+TRAIN_BATCH = {"float32": 32, "bfloat16": 128}
+TRAIN_CFG = dict(model="aug_cycle_gan", grid_size=64, ngf=32, nef=32, ndf=64,
+                 nlatent=16, n_blocks=3, input_nc=3, output_nc=3,
+                 init_scheme="sane", seed=2025)
+# (losses, gnorms) of a fused step vs the same step of a twin model with the
+# same weights whose norms run the plain version forward and backward, in
+# the same compute dtype and at the same batch, relative to max(1, |value|).
+# Largest seen on an H100 over six runs from these seeds and eight from
+# others (--twin-seeds; cuDNN's weight gradients differ from run to run):
+# float32 8.8e-6 / 7.8e-4 at either batch; bfloat16, where a norm output one
+# ulp apart is spread by the bfloat16 convs downstream, 2.7e-3 / 2.3e-2.
+TRAIN_STEP1_RTOL = {"float32": (1e-4, 2e-3), "bfloat16": (1e-2, 8e-2)}
+# by step 3 the two models' weights differ: Adam's first updates are
+# lr * g / (|g| + 1e-8), so a gradient entry near zero that the two summation
+# orders put on either side of zero moves its weight by 2 * lr the other way.
+# Largest seen over the same runs: float32 3.6e-3 / 6.0e-2 (3.6e-2 from
+# these seeds), bfloat16 1.3e-2 / 2.5e-1 (7.3e-2 from these seeds).
+TRAIN_STEP3_RTOL = {"float32": (1e-2, 2e-1), "bfloat16": (5e-2, 5e-1)}
+# sanity only: bfloat16 compute vs float32 on the same inputs and weights,
+# step 1 losses (1.8e-3 to 9.8e-3 over the same runs, 5.3e-3 from these seeds)
+TRAIN_BF16_VS_FP32_RTOL = 2e-2
+
+def disc_shapes(n):
+    """(N, HW, C) of the three norm sites of D_A (ndf 32) and of D_B
+    (ndf 64) on n 64x64 images."""
+    return ((n, 256, 64), (n, 64, 128), (n, 16, 128),
+            (n, 256, 128), (n, 225, 256), (n, 196, 256))
+
+
+def train_sites(batch, n_blocks=3):
+    """Launches per train step by (N, HW, C) under norm="instance", the same
+    for the forward and the backward kernel.  Forward: two passes through
+    each generator (5 + 2 n_blocks and 5 + n_blocks sites), one concatenated
+    fake|real pass through D_A and D_B in the D phase (N = 2 batch) and one
+    in the G phase.  Backward: every one of those sites once."""
+    sites = {(batch, 4096, 32): 8, (batch, 4096, 64): 8,
+             (batch, 1024, 128): 2 * (1 + 2 * n_blocks) + 2 * (1 + n_blocks)}
+    for shape in disc_shapes(2 * batch) + disc_shapes(batch):
+        sites[shape] = 1
+    return sites
 
 FP32_ATOL = 1e-4   # kernel vs plain version, float32: sums in another order
 SERVE_ATOL = 1e-4  # served answer vs plain-norm generators, float32
@@ -87,6 +143,17 @@ BF16_MEAN_ATOL = 1.2e-2
 # float32.
 BF16_SERVE_MAX_ATOL = 6e-2
 BF16_SERVE_MEAN_ATOL = 4e-3
+
+
+# every shape both kernels are checked at, in both dtypes: every site of the
+# serving path and of a train step at batch 32 and at batch 128 (the
+# discriminators' concatenated pass has N = 2 batch; the launch geometry
+# differs with N), and edge shapes
+CHECK_SHAPES = tuple(dict.fromkeys(
+    PATH_SHAPES + tuple(s for b in sorted(set(TRAIN_BATCH.values()))
+                        for s in train_sites(b))
+    + EDGE_SHAPES + (HW1_SHAPE,)))
+BWD_SUM_RTOL = 1e-4  # dscale, dshift: fp32 sums of up to 65536 products
 
 
 def log(*a):
@@ -124,65 +191,142 @@ def _bf16_ulp(torch, v):
 def _bf16_ulps_apart(torch, y, yp):
     """Largest distance of two bfloat16 tensors in units of one bfloat16 ulp,
     after allowing the float32 values before rounding to differ by FP32_ATOL;
-    and the fraction of elements that differ at all."""
+    and the fraction of elements that differ at all.  Both as 0-d tensors on
+    the device: nothing is read back here."""
     diff = (y.float() - yp.float()).abs()
     ulp = _bf16_ulp(torch, torch.maximum(y.float().abs(), yp.float().abs()))
-    over = float(((diff - FP32_ATOL).clamp_min(0) / ulp).max())
-    return over, float((diff > 0).float().mean())
+    return (((diff - FP32_ATOL).clamp_min(0) / ulp).max(),
+            (diff > 0).float().mean())
+
+
+def _read(torch, *scalars):
+    """The values of 0-d device tensors as floats, in one copy to the host
+    (the one synchronization of a check case)."""
+    return torch.stack([s.float() for s in scalars]).tolist()
+
+
+def _rel_err(a, b):
+    """max |a - b| relative to max(1, max |b|), as a 0-d tensor."""
+    return (a.float() - b.float()).abs().max() / \
+        b.float().abs().max().clamp_min(1.0)
+
+
+def _check_cases():
+    for shape in CHECK_SHAPES:
+        for dtype in ("float32", "bfloat16"):
+            for unbiased in (False, True):
+                for relu in (False, True):
+                    for affine in ("none", "channel", "sample"):
+                        yield shape, dtype, unbiased, relu, affine
 
 
 def check_kernel(torch, instance_norm_fused, instance_norm_plain):
     """Phase 3.  Returns the largest float32 |y| error and the largest
     bfloat16 error beyond FP32_ATOL in units of one bfloat16 ulp."""
     worst32, worst_stats, worst16_ulps = 0.0, 0.0, 0.0
-    cases = 0
-    for shape in PATH_SHAPES + EDGE_SHAPES:
-        for dtype in (torch.float32, torch.bfloat16):
-            for unbiased in (False, True):
-                for relu in (False, True):
-                    for affine in ("none", "channel", "sample"):
-                        x, scale, shift = _make_inputs(
-                            torch, shape, dtype, affine, seed=cases)
-                        kw = dict(eps=1e-5, unbiased=unbiased, relu=relu,
-                                  return_stats=True)
-                        y, mean, rstd = instance_norm_fused(x, scale, shift,
-                                                            **kw)
-                        torch.cuda.synchronize()
-                        yp, meanp, rstdp = instance_norm_plain(
-                            x, scale, shift, **kw)
-                        torch.cuda.synchronize()
-                        what = "%r %s unbiased=%s relu=%s affine=%s" % (
-                            shape, dtype, unbiased, relu, affine)
-                        if y.shape != x.shape or y.dtype != x.dtype:
-                            raise AssertionError("bad output for " + what)
-                        if not bool(torch.isfinite(y.float()).all()):
-                            raise AssertionError("non-finite y for " + what)
-                        e_stats = max(float((mean - meanp).abs().max()),
-                                      float((rstd - rstdp).abs().max()))
-                        worst_stats = max(worst_stats, e_stats)
-                        if e_stats > FP32_ATOL:
-                            raise AssertionError(
-                                "mean/rstd differ by %g for %s"
-                                % (e_stats, what))
-                        diff = (y.float() - yp.float()).abs()
-                        if dtype == torch.float32:
-                            e = float(diff.max())
-                            worst32 = max(worst32, e)
-                            if e > FP32_ATOL:
-                                raise AssertionError(
-                                    "y differs by %g for %s" % (e, what))
-                        else:
-                            # one bf16 rounding apart at most
-                            over, _ = _bf16_ulps_apart(torch, y, yp)
-                            worst16_ulps = max(worst16_ulps, over)
-                            if over > 1.0:
-                                raise AssertionError(
-                                    "bf16 y is %.2f ulp off for %s"
-                                    % (over, what))
-                        cases += 1
-    log("kernel check: %d cases passed; float32 max |y err| %.3g, "
-        "max |mean/rstd err| %.3g (limit %.0e); bfloat16 max err %.2f ulp"
-        % (cases, worst32, worst_stats, FP32_ATOL, worst16_ulps))
+    t0 = time.perf_counter()
+    for cases, (shape, name, unbiased, relu, affine) in enumerate(
+            _check_cases()):
+        dtype = getattr(torch, name)
+        x, scale, shift = _make_inputs(torch, shape, dtype, affine,
+                                       seed=cases)
+        kw = dict(eps=1e-5, unbiased=unbiased, relu=relu, return_stats=True)
+        y, mean, rstd = instance_norm_fused(x, scale, shift, **kw)
+        yp, meanp, rstdp = instance_norm_plain(x, scale, shift, **kw)
+        what = "%r %s unbiased=%s relu=%s affine=%s" % (
+            shape, name, unbiased, relu, affine)
+        if y.shape != x.shape or y.dtype != x.dtype:
+            raise AssertionError("bad output for " + what)
+        finite, e_stats, e, over = _read(
+            torch, torch.isfinite(y.float()).all(),
+            torch.maximum((mean - meanp).abs().max(),
+                          (rstd - rstdp).abs().max()),
+            (y.float() - yp.float()).abs().max(),
+            _bf16_ulps_apart(torch, y, yp)[0])
+        if not finite:
+            raise AssertionError("non-finite y for " + what)
+        worst_stats = max(worst_stats, e_stats)
+        if e_stats > FP32_ATOL:
+            raise AssertionError("mean/rstd differ by %g for %s"
+                                 % (e_stats, what))
+        if dtype == torch.float32:
+            worst32 = max(worst32, e)
+            if e > FP32_ATOL:
+                raise AssertionError("y differs by %g for %s" % (e, what))
+        else:
+            # one bf16 rounding apart at most
+            worst16_ulps = max(worst16_ulps, over)
+            if over > 1.0:
+                raise AssertionError("bf16 y is %.2f ulp off for %s"
+                                     % (over, what))
+    log("kernel check: %d cases at %d shapes passed in %.1f s; float32 max "
+        "|y err| %.3g, max |mean/rstd err| %.3g (limit %.0e); bfloat16 max "
+        "err %.2f ulp" % (cases + 1, len(CHECK_SHAPES),
+                          time.perf_counter() - t0, worst32, worst_stats,
+                          FP32_ATOL, worst16_ulps))
+    return worst32, worst16_ulps
+
+
+def check_bwd_kernel(torch, K):
+    """Phase 3, backward.  dx, dscale, dshift of the kernel against
+    ``instance_norm_bwd_plain`` on the same x, dy, mean, rstd, scale, shift.
+    float32 dx within FP32_ATOL relative to the largest |dx|; bfloat16 dx
+    within one bfloat16 ulp; the float32 sums within BWD_SUM_RTOL of the
+    largest |sum|.  Returns the worst float32 |dx| error (relative to the
+    largest |dx|, at least 1) and the worst bfloat16 distance in ulps."""
+    worst32, worst_sums, worst16_ulps = 0.0, 0.0, 0.0
+    t0 = time.perf_counter()
+    for cases, (shape, name, unbiased, relu, affine) in enumerate(
+            _check_cases()):
+        dtype = getattr(torch, name)
+        x, scale, shift = _make_inputs(torch, shape, dtype, affine,
+                                       seed=1000 + cases)
+        g = torch.Generator(device="cuda").manual_seed(cases)
+        dy = torch.randn(x.shape, generator=g, device="cuda").to(dtype)
+        kw = dict(unbiased=unbiased, relu=relu)
+        _, mean, rstd = K.instance_norm_plain(x, scale, shift,
+                                              return_stats=True, **kw)
+        dx, ds, dt = K.instance_norm_bwd_fused(x, dy, mean, rstd, scale,
+                                               shift, **kw)
+        dxp, dsp, dtp = K.instance_norm_bwd_plain(x, dy, mean, rstd, scale,
+                                                  shift, **kw)
+        what = "%r %s unbiased=%s relu=%s affine=%s" % (
+            shape, name, unbiased, relu, affine)
+        if dx.shape != x.shape or dx.dtype != x.dtype:
+            raise AssertionError("bad dx for " + what)
+        if affine == "none":
+            if ds is not None or dt is not None:
+                raise AssertionError("dscale without an affine for " + what)
+            sums = []
+        else:
+            if ds.shape != dsp.shape or dt.shape != dtp.shape:
+                raise AssertionError("bad dscale/dshift for " + what)
+            sums = [_rel_err(ds, dsp), _rel_err(dt, dtp)]
+        finite, e, over, *e_sums = _read(
+            torch, torch.isfinite(dx.float()).all(), _rel_err(dx, dxp),
+            _bf16_ulps_apart(torch, dx, dxp)[0], *sums)
+        if not finite:
+            raise AssertionError("non-finite dx for " + what)
+        for sum_name, e_sum in zip(("dscale", "dshift"), e_sums):
+            worst_sums = max(worst_sums, e_sum)
+            if e_sum > BWD_SUM_RTOL:
+                raise AssertionError("%s differs by %g (relative) for %s"
+                                     % (sum_name, e_sum, what))
+        if dtype == torch.float32:
+            worst32 = max(worst32, e)
+            if e > FP32_ATOL:
+                raise AssertionError("dx differs by %g (relative) for %s"
+                                     % (e, what))
+        else:
+            worst16_ulps = max(worst16_ulps, over)
+            if over > 1.0:
+                raise AssertionError("bf16 dx is %.2f ulp off for %s"
+                                     % (over, what))
+    log("backward kernel check: %d cases at %d shapes passed in %.1f s; "
+        "float32 max |dx err| %.3g (limit %.0e, relative to max |dx|), max "
+        "|dscale/dshift err| %.3g (limit %.0e); bfloat16 max err %.2f ulp"
+        % (cases + 1, len(CHECK_SHAPES), time.perf_counter() - t0, worst32,
+           FP32_ATOL, worst_sums, BWD_SUM_RTOL, worst16_ulps))
     return worst32, worst16_ulps
 
 
@@ -226,82 +370,180 @@ def _time_device(torch, fn, calls=20, replays=5):
     return start.elapsed_time(end) / (replays * calls)
 
 
-def time_kernel(torch, F, K, site_counts, extra):
-    """Phase 5, per path shape and dtype.  Per-channel affine, biased
-    variance, fused ReLU: the case the library call covers too.  Times are
-    device times (CUDA-graph replay).  Inputs rotate over enough buffers to
-    exceed the 50 MB L2, so every launch reads x from device memory, as the
-    bound assumes.  ``site_counts[dtype][request][shape]`` are the launches
-    the serving path was seen to make.  With ``extra``: ``kernel_ms_l2_warm``
-    repeats on one buffer, which is closer to a norm that follows its conv;
-    ``kernel_eager_ms`` includes the host's enqueue time;
-    ``kernel_ms_wide_tile`` is the kernel without the tile narrowing of
-    ``launch_geometry`` (an SM count of 0 switches it off)."""
+def _n_buffers(nbytes):
+    """Buffers to rotate over so that a launch never finds its input in the
+    50 MB L2."""
+    return max(2, -(-3 * 50 * 2 ** 20 // nbytes))
+
+
+def time_kernel(torch, F, K, site_counts, train_counts, extra):
+    """Phase 6, forward kernel, per path shape and dtype.  Per-channel
+    affine, biased variance, fused ReLU: the case the library call covers
+    too.  Times are device times (CUDA-graph replay).  Inputs rotate over
+    enough buffers to exceed the 50 MB L2, so every launch reads x from
+    device memory, as the bound assumes.  ``site_counts[dtype][request]
+    [shape]`` are the launches the serving path was seen to make,
+    ``train_counts[dtype]["fwd"][shape]`` those of one train step.  The
+    serving shapes are timed in both dtypes with the plain version and the
+    library call beside the kernel; the generator sites of the bfloat16
+    batch-128 train step get ``kernel_ms`` and ``bound_ms`` only.  With
+    ``extra`` every row has all four times, the discriminator sites of the
+    train step are timed too, and the serving shapes gain:
+    ``kernel_ms_l2_warm`` repeats on one buffer, which is closer to a norm
+    that follows its conv; ``kernel_eager_ms`` includes the host's enqueue
+    time; ``kernel_ms_wide_tile`` is the kernel without the tile narrowing
+    of ``launch_geometry`` (an SM count of 0 switches it off)."""
     instance_norm_fused = K.instance_norm_fused
     instance_norm_plain = K.instance_norm_plain
+    serving = [(shape, name) for shape in PATH_SHAPES + TIMED_EXTRA_SHAPES
+               for name in ("float32", "bfloat16")]
     rows = []
-    for shape in PATH_SHAPES + TIMED_EXTRA_SHAPES:
+    for shape, name in serving + [c for c in _train_cases(disc=extra)
+                                  if c not in serving]:
+        beside = extra or (shape, name) in serving
         n, hw, c = shape
-        for dtype in (torch.float32, torch.bfloat16):
-            itemsize = torch.finfo(dtype).bits // 8
-            x_bytes = n * hw * c * itemsize
-            # x read once, y written once; scale, shift read as (C,) and
-            # mean, rstd written as (N, C), all float32
-            nbytes = 2 * x_bytes + 2 * c * 4 + 2 * n * c * 4
-            flops = 8 * n * hw * c
-            t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-            t_ops = flops / FP32_FLOP_PER_S * 1e3
-            n_buf = max(2, -(-3 * 50 * 2 ** 20 // (2 * x_bytes)))
-            bufs = [_make_inputs(torch, shape, dtype, "channel", seed=100 + i)
-                    for i in range(n_buf)]
-            kw = dict(eps=1e-5, unbiased=False, relu=True)
+        dtype = getattr(torch, name)
+        itemsize = torch.finfo(dtype).bits // 8
+        x_bytes = n * hw * c * itemsize
+        # x read once, y written once; scale, shift read as (C,) and
+        # mean, rstd written as (N, C), all float32
+        nbytes = 2 * x_bytes + 2 * c * 4 + 2 * n * c * 4
+        flops = 8 * n * hw * c
+        t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+        t_ops = flops / FP32_FLOP_PER_S * 1e3
+        n_buf = _n_buffers(2 * x_bytes)
+        bufs = [_make_inputs(torch, shape, dtype, "channel", seed=100 + i)
+                for i in range(n_buf)]
+        kw = dict(eps=1e-5, unbiased=False, relu=True)
 
-            def kernel(i):
-                x, s, b = bufs[i % n_buf]
-                return instance_norm_fused(x, s, b, **kw)
+        def kernel(i):
+            x, s, b = bufs[i % n_buf]
+            return instance_norm_fused(x, s, b, **kw)
 
-            def plain(i):
-                x, s, b = bufs[i % n_buf]
-                return instance_norm_plain(x, s, b, **kw)
+        def plain(i):
+            x, s, b = bufs[i % n_buf]
+            return instance_norm_plain(x, s, b, **kw)
 
-            def library(i):
-                # same memory: the NCHW view of the channels_last activation
-                x, s, b = bufs[i % n_buf]
-                return F.relu(F.instance_norm(
-                    x.permute(0, 3, 1, 2), weight=s.to(dtype),
-                    bias=b.to(dtype), eps=1e-5))
+        def library(i):
+            # same memory: the NCHW view of the channels_last activation
+            x, s, b = bufs[i % n_buf]
+            return F.relu(F.instance_norm(
+                x.permute(0, 3, 1, 2), weight=s.to(dtype),
+                bias=b.to(dtype), eps=1e-5))
 
-            name = str(dtype).split(".")[1]
-            row = {
-                "shape": list(shape), "dtype": name,
-                "bytes": nbytes,
-                "kernel_ms": _time_device(torch, kernel),
-                "bound_ms": max(t_bytes, t_ops),
-                "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-                "plain_ms": _time_device(torch, plain),
-                "library_ms": _time_device(torch, library),
-                "launches_per_predict_B":
-                    site_counts[name]["predict_B"].get(shape, 0),
-                "launches_per_predict_A":
-                    site_counts[name]["predict_A"].get(shape, 0),
-            }
-            if extra:
-                row["kernel_ms_l2_warm"] = _time_device(
-                    torch, lambda i: kernel(0))
-                row["kernel_eager_ms"] = _time_eager(torch, kernel)
-                sm_count = K._sm_count
-                K._sm_count = lambda index: 0
-                try:
-                    row["kernel_ms_wide_tile"] = _time_device(torch, kernel)
-                finally:
-                    K._sm_count = sm_count
-                row["geometry"] = list(K.launch_geometry(
-                    n, c, itemsize, True, sm_count(0)))
-                row["geometry_wide_tile"] = list(K.launch_geometry(
-                    n, c, itemsize, True, 0))
-            rows.append(row)
-            del bufs
-            torch.cuda.empty_cache()
+        row = {
+            "shape": list(shape), "dtype": name,
+            "bytes": nbytes,
+            "kernel_ms": _time_device(torch, kernel),
+            "bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "plain_ms": _time_device(torch, plain) if beside else None,
+            "library_ms": _time_device(torch, library) if beside else None,
+            "launches_per_predict_B":
+                site_counts[name]["predict_B"].get(shape, 0),
+            "launches_per_predict_A":
+                site_counts[name]["predict_A"].get(shape, 0),
+            "launches_per_train_step":
+                train_counts[name]["fwd"].get(shape, 0),
+        }
+        if extra and (shape, name) in serving:
+            row["kernel_ms_l2_warm"] = _time_device(
+                torch, lambda i: kernel(0))
+            row["kernel_eager_ms"] = _time_eager(torch, kernel)
+            sm_count = K._sm_count
+            K._sm_count = lambda index: 0
+            try:
+                row["kernel_ms_wide_tile"] = _time_device(torch, kernel)
+            finally:
+                K._sm_count = sm_count
+            row["geometry"] = list(K.launch_geometry(
+                n, c, itemsize, True, sm_count(0)))
+            row["geometry_wide_tile"] = list(K.launch_geometry(
+                n, c, itemsize, True, 0))
+        rows.append(row)
+        del bufs
+        torch.cuda.empty_cache()
+    return rows
+
+
+def _train_cases(disc):
+    """(shape, dtype name) of the norm sites of one train step, in the dtype
+    and at the batch the training path runs them: the generators' three
+    shapes, and with ``disc`` the discriminators' twelve."""
+    return [(shape, name) for name, batch in TRAIN_BATCH.items()
+            for shape in sorted(train_sites(batch), reverse=True)
+            if disc or shape[0] == batch and shape[1] >= 1024]
+
+
+def time_bwd_kernel(torch, F, K, train_counts, extra):
+    """Phase 6, backward kernel, at the generator sites of the training path
+    (with ``extra`` at the discriminator sites too) in the dtype and batch
+    that path runs them.  Per-channel affine, biased variance,
+    fused ReLU.  Device times by CUDA-graph replay over buffers that exceed
+    the L2.  ``bound_ms`` = (x and dy read once, dx written once, mean,
+    rstd, dscale, dshift as (N, C) and scale, shift as (C,), float32) over
+    the card's memory rate.  ``library_ms`` is the backward of
+    ``F.relu(F.instance_norm(x, weight, bias))`` on the same channels_last
+    memory (``torch.autograd.grad`` w.r.t. x, weight and bias): the time of
+    a captured forward + backward less the time of the captured forward."""
+    rows = []
+    for shape, name in _train_cases(disc=extra):
+        n, hw, c = shape
+        dtype = getattr(torch, name)
+        itemsize = torch.finfo(dtype).bits // 8
+        x_bytes = n * hw * c * itemsize
+        nbytes = 3 * x_bytes + 2 * c * 4 + 4 * n * c * 4
+        flops = 15 * n * hw * c
+        t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+        t_ops = flops / FP32_FLOP_PER_S * 1e3
+        n_buf = _n_buffers(3 * x_bytes)
+        kw = dict(unbiased=False, relu=True)
+        bufs = []
+        for i in range(n_buf):
+            x, s, b = _make_inputs(torch, shape, dtype, "channel",
+                                   seed=200 + i)
+            dy = torch.randn_like(x)
+            _, mean, rstd = K.instance_norm_plain(x, s, b, return_stats=True,
+                                                  **kw)
+            bufs.append((x, dy, mean, rstd, s, b))
+
+        def kernel(i):
+            return K.instance_norm_bwd_fused(*bufs[i % n_buf], **kw)
+
+        def plain(i):
+            return K.instance_norm_bwd_plain(*bufs[i % n_buf], **kw)
+
+        def lib_leaves(i):
+            x, dy, _, _, s, b = bufs[i % n_buf]
+            return (x.permute(0, 3, 1, 2).detach().requires_grad_(True),
+                    s.detach().to(dtype).requires_grad_(True),
+                    b.detach().to(dtype).requires_grad_(True),
+                    dy.permute(0, 3, 1, 2))
+
+        def library_fwd(i):
+            xl, sl, bl, _ = lib_leaves(i)
+            return F.relu(F.instance_norm(xl, weight=sl, bias=bl, eps=1e-5))
+
+        def library_fwd_bwd(i):
+            xl, sl, bl, dyl = lib_leaves(i)
+            y = F.relu(F.instance_norm(xl, weight=sl, bias=bl, eps=1e-5))
+            return torch.autograd.grad(y, (xl, sl, bl), dyl)
+
+        lib_both = _time_device(torch, library_fwd_bwd)
+        lib_fwd = _time_device(torch, library_fwd)
+        rows.append({
+            "shape": list(shape), "dtype": name, "bytes": nbytes,
+            "kernel_ms": _time_device(torch, kernel),
+            "bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "plain_ms": _time_device(torch, plain),
+            "library_ms": lib_both - lib_fwd,
+            "library_fwd_bwd_ms": lib_both,
+            "launches_per_train_step":
+                train_counts[name]["bwd"].get(shape, 0),
+        })
+        del bufs
+        torch.cuda.empty_cache()
     return rows
 
 
@@ -354,9 +596,10 @@ def _check_images(y, n, hw, nc, what):
         raise AssertionError("%s: output is ~0 everywhere" % what)
 
 
-def drive_serving_path(torch, fused, tmp):
-    """Phase 4.  Returns (launches counted on the main path, launches per
-    shape of the batch-32 requests, what the timing phases need)."""
+def drive_serving_path(torch, fused, fused_bwd, tmp):
+    """Phase 4.  Returns (forward and backward launches counted on the main
+    path, launches per shape of the batch-32 requests, what the timing
+    phases need)."""
     from domain_transfer_gan_torch.cli.serve import ExportedEndpoint
     from domain_transfer_gan_torch.config import TrainConfig
 
@@ -384,8 +627,9 @@ def drive_serving_path(torch, fused, tmp):
         return out
 
     # the main path starts here
-    fused.launches = 0
-    fused.launches_by_shape = {}
+    for wrapper in (fused, fused_bwd):
+        wrapper.launches = 0
+        wrapper.launches_by_shape = {}
     with Served(TrainConfig(**cfg), tmp + "/fp32", batch) as srv:
         with urllib.request.urlopen(srv.url + "/", timeout=30) as resp:
             manifest = json.loads(resp.read())
@@ -415,7 +659,11 @@ def drive_serving_path(torch, fused, tmp):
         got["A32_bf16"] = counted("predict_A n=32 bfloat16", lambda: _post(
             srv16.url + "/predict_A", {"B": B}))
         bf16_dir = srv16.out_dir
-    main_path_launches = fused.launches  # the main path ends here
+    # the main path ends here
+    main_path_launches, bwd_launches = fused.launches, fused_bwd.launches
+    if bwd_launches:
+        raise AssertionError("serving launched the backward kernel %d times"
+                             % bwd_launches)
 
     if manifest["batch"] != batch or manifest["platforms"] != ["cuda"] or \
             manifest["serve_dtype"] != "float32" or \
@@ -495,7 +743,7 @@ def drive_serving_path(torch, fused, tmp):
     log("serving path: max |served - plain-norm| %s" % json.dumps(errs))
     ctx = {"fp32_dir": fp32_dir, "bf16_dir": bf16_dir, "A": A, "B": B,
            "z": z, "batch": batch, "cfg": cfg}
-    return main_path_launches, site_counts, ctx
+    return main_path_launches, bwd_launches, site_counts, ctx
 
 
 def check_norm_sites(torch, ctx):
@@ -528,7 +776,7 @@ def check_norm_sites(torch, ctx):
                 raise AssertionError("norm site %r: kernel and plain version "
                                      "differ by %g" % (mod, e))
         else:
-            over, differ = _bf16_ulps_apart(torch, out, want)
+            over, differ = _read(torch, *_bf16_ulps_apart(torch, out, want))
             worst["bfloat16"] = max(worst["bfloat16"], over)
             worst["bfloat16_differ"] = max(worst["bfloat16_differ"], differ)
             if over > 1.0:
@@ -553,6 +801,273 @@ def check_norm_sites(torch, ctx):
         "differ" % (worst["float32"], worst["bfloat16"],
                     worst["bfloat16_differ"]))
     return worst
+
+
+class _Counters:
+    """The two wrappers' launch counters, read as differences."""
+
+    def __init__(self, K):
+        self.fwd, self.bwd = K.instance_norm_fused, K.instance_norm_bwd_fused
+
+    def reset(self):
+        for w in (self.fwd, self.bwd):
+            w.launches = 0
+            w.launches_by_shape = {}
+        self.bwd.dy_copies = 0
+
+    def read(self):
+        return {"fwd": dict(self.fwd.launches_by_shape),
+                "bwd": dict(self.bwd.launches_by_shape),
+                "dy_copies": self.bwd.dy_copies}
+
+    @staticmethod
+    def diff(after, before):
+        out = {"dy_copies": after["dy_copies"] - before["dy_copies"]}
+        for k in ("fwd", "bwd"):
+            out[k] = {shape: v - before[k].get(shape, 0)
+                      for shape, v in after[k].items()
+                      if v != before[k].get(shape, 0)}
+        return out
+
+
+def _train_inputs(batch, nlatent, seed):
+    rng = np.random.RandomState(seed)
+    A = rng.uniform(-1, 1, (batch, 64, 64, 3)).astype(np.float32)
+    B = rng.uniform(-1, 1, (batch, 64, 64, 3)).astype(np.float32)
+    zs = [(rng.randn(batch, nlatent).astype(np.float32),
+           rng.randn(batch, nlatent).astype(np.float32)) for _ in range(3)]
+    return A, B, zs
+
+
+def _floats(d):
+    return {k: float(v) for k, v in d.items()}
+
+
+def _held(got, want, rtol, what):
+    for k, w in want.items():
+        if not np.isfinite(got[k]):
+            raise AssertionError("%s: %s is not finite" % (what, k))
+        if abs(got[k] - w) > rtol * max(1.0, abs(w)):
+            raise AssertionError("%s: %s = %r, expected %r within %g"
+                                 % (what, k, got[k], w, rtol))
+    return max(abs(got[k] - w) / max(1.0, abs(w)) for k, w in want.items())
+
+
+def _snapshot(model):
+    return {name: {k: v.detach().clone()
+                   for k, v in net.state_dict().items()}
+            for name, net in model.nets.items()}
+
+
+def drive_training_path(torch, K, seed_offset=0, hold=True):
+    """Phase 5.  Returns (forward launches, backward launches counted on the
+    training path, launches of one step per dtype and direction and shape,
+    the largest deviations seen).  ``seed_offset`` moves the seeds of the
+    weights and of the inputs; with ``hold`` off the deviations from the
+    twins are measured and returned but held to no limit (``--twin-seeds``:
+    how the limits were chosen)."""
+    from domain_transfer_gan_torch.config import TrainConfig
+    from domain_transfer_gan_torch.models import create_model
+
+    counters = _Counters(K)
+    nlatent = TRAIN_CFG["nlatent"]
+
+    slack = 1.0 if hold else float("inf")
+
+    def model(**kw):
+        cfg = dict(TRAIN_CFG, seed=TRAIN_CFG["seed"] + seed_offset, **kw)
+        return create_model(TrainConfig(**cfg), testing=True, device="cuda")
+
+    def step(m, A, B, z, eps, plain_norm=False):
+        before = counters.read()
+        losses, visuals, gnorms = m.train_instance(A, B, z, eps,
+                                                   plain_norm=plain_norm)
+        torch.cuda.synchronize()
+        for k, v in visuals.items():
+            if tuple(v.shape) != A.shape or \
+                    not bool(torch.isfinite(v.float()).all()):
+                raise AssertionError("visual %s: shape %r or values"
+                                     % (k, tuple(v.shape)))
+        return (_floats(losses), _floats(gnorms),
+                counters.diff(counters.read(), before))
+
+    def check_counts(seen, batch, what, n_blocks=3, instance=True):
+        if instance:
+            want = train_sites(batch, n_blocks)
+        else:  # norm="batch": only the CIN generator's norms are left
+            want = {(batch, 4096, 32): 4, (batch, 4096, 64): 4,
+                    (batch, 1024, 128): 2 * (1 + 2 * n_blocks)}
+        for direction in ("fwd", "bwd"):
+            if seen[direction] != want:
+                raise AssertionError(
+                    "%s: %s launches by shape %r, expected %r"
+                    % (what, direction, seen[direction], want))
+
+    devs, step_counts = {}, {}
+
+    def against_twin(name, batch, it, lf, gf, lp, gp):
+        rl, rg = (TRAIN_STEP1_RTOL if it == 0 else TRAIN_STEP3_RTOL)[name]
+        tag = "%s batch %d step %d, fused vs plain-norm twin" % (
+            name, batch, it + 1)
+        key = "%s_b%d_step%d_" % (name, batch, it + 1)
+        devs[key + "losses"] = _held(lf, lp, rl * slack, tag)
+        devs[key + "gnorms"] = _held(gf, gp, rg * slack, tag)
+
+    counters.reset()  # the training path starts here
+
+    # (a) float32, batch 32, 3 steps, against the plain-norm twin
+    batch = TRAIN_BATCH["float32"]
+    A, B, zs = _train_inputs(batch, nlatent, seed=11 + seed_offset)
+    fused, twin = model(), model()
+    start = _snapshot(fused)
+    for it, (z, eps) in enumerate(zs):
+        lf, gf, seen = step(fused, A, B, z, eps)
+        check_counts(seen, batch, "float32 step %d" % (it + 1))
+        lp, gp, none = step(twin, A, B, z, eps, plain_norm=True)
+        if none["fwd"] or none["bwd"]:
+            raise AssertionError("the plain-norm twin launched a kernel")
+        against_twin("float32", batch, it, lf, gf, lp, gp)
+    step_counts["float32"] = seen
+    end = _snapshot(fused)
+    for name in end:
+        params = [k for k in end[name] if "running_" not in k]
+        if not any(bool((end[name][k] != start[name][k]).any())
+                   for k in params):
+            raise AssertionError("%s did not move in 3 steps" % name)
+    for name in ("netE_B", "netD_z_B"):
+        stats = [k for k in end[name] if "running_" in k]
+        if not stats or not all(bool((end[name][k] != start[name][k]).any())
+                                for k in stats):
+            raise AssertionError("%s: running statistics did not move" % name)
+    del fused, twin, start, end
+    torch.cuda.empty_cache()
+
+    # (b) batch 128: one float32 step and 3 steps with bfloat16 compute,
+    # each against a plain-norm twin of its own dtype; the bfloat16 step 1
+    # losses against the float32 ones only as a sanity check
+    batch = TRAIN_BATCH["bfloat16"]
+    A, B, zs = _train_inputs(batch, nlatent, seed=12 + seed_offset)
+    for name, n_steps in (("float32", 1), ("bfloat16", 3)):
+        fused, twin = model(compute_dtype=name), model(compute_dtype=name)
+        for it, (z, eps) in enumerate(zs[:n_steps]):
+            lf, gf, seen = step(fused, A, B, z, eps)
+            check_counts(seen, batch, "%s batch-%d step %d"
+                         % (name, batch, it + 1))
+            lp, gp, none = step(twin, A, B, z, eps, plain_norm=True)
+            if none["fwd"] or none["bwd"]:
+                raise AssertionError("the plain-norm twin launched a kernel")
+            against_twin(name, batch, it, lf, gf, lp, gp)
+            if it == 0 and name == "float32":
+                l32 = lf
+            elif it == 0:
+                devs["bfloat16_b%d_step1_losses_vs_float32" % batch] = _held(
+                    lf, l32, TRAIN_BF16_VS_FP32_RTOL * slack,
+                    "bfloat16 step 1 vs float32")
+        if any(p.dtype != torch.float32 for net in fused.nets.values()
+               for p in net.parameters()):
+            raise AssertionError("%s training cast a master parameter" % name)
+        del fused, twin
+        torch.cuda.empty_cache()
+    step_counts["bfloat16"] = seen
+
+    # (d) norm="batch" at a small depth: the branch runs on the card
+    batch = TRAIN_BATCH["float32"]
+    A, B, zs = _train_inputs(batch, nlatent, seed=13 + seed_offset)
+    bn = model(norm="batch", n_blocks=1)
+    lb, gb, seen = step(bn, A, B, *zs[0])
+    check_counts(seen, batch, "norm=batch step", n_blocks=1, instance=False)
+    if not all(np.isfinite(v) for v in list(lb.values()) + list(gb.values())):
+        raise AssertionError("norm=batch step is not finite: %r %r"
+                             % (lb, gb))
+    del bn
+    torch.cuda.empty_cache()
+
+    total = counters.read()  # the training path ends here
+    fwd, bwd = sum(total["fwd"].values()), sum(total["bwd"].values())
+    per_step = {d: {k: sum(v[k].values()) for k in ("fwd", "bwd")}
+                for d, v in step_counts.items()}
+    log("training path: launches per step %s, dy copies on the whole path "
+        "%d" % (json.dumps(per_step), total["dy_copies"]))
+    log("training path: launches per step and shape %s" % json.dumps(
+        {d: {k: {"%dx%dx%d" % sh: c for sh, c in sorted(v[k].items())}
+             for k in ("fwd", "bwd")} for d, v in step_counts.items()}))
+    log("training path: largest relative deviations %s" % json.dumps(devs))
+    return fwd, bwd, step_counts, devs
+
+
+def time_train_step(torch):
+    """train_step_ms and images/s per dtype at its batch: 3 warm-up steps,
+    then wall time around 10 steps that end in one synchronize()."""
+    from domain_transfer_gan_torch.config import TrainConfig
+    from domain_transfer_gan_torch.models import create_model
+
+    out = {"timed_steps": 10, "warmups": 3}
+    for name, batch in TRAIN_BATCH.items():
+        m = create_model(TrainConfig(**dict(TRAIN_CFG, compute_dtype=name)),
+                         testing=True, device="cuda")
+        A, B, _ = _train_inputs(batch, TRAIN_CFG["nlatent"], seed=14)
+        A, B = torch.from_numpy(A).cuda(), torch.from_numpy(B).cuda()
+        torch.cuda.reset_peak_memory_stats()
+        for _ in range(3):
+            m.train_instance(A, B)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(10):
+            m.train_instance(A, B)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        out["train_step_ms_%s_b%d" % (name, batch)] = dt / 10 * 1e3
+        out["train_images_per_s_%s_b%d" % (name, batch)] = 10 * batch / dt
+        out["peak_memory_gb_%s_b%d" % (name, batch)] = \
+            torch.cuda.max_memory_allocated() / 2 ** 30
+        del m
+        torch.cuda.empty_cache()
+    return out
+
+
+def profile_train_step(torch):
+    """Device time of one train step by kernel name (torch.profiler) per
+    dtype at its batch, and the device-busy share of the step's wall time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from domain_transfer_gan_torch.config import TrainConfig
+    from domain_transfer_gan_torch.models import create_model
+
+    out = {}
+    for name, batch in TRAIN_BATCH.items():
+        m = create_model(TrainConfig(**dict(TRAIN_CFG, compute_dtype=name)),
+                         testing=True, device="cuda")
+        A, B, _ = _train_inputs(batch, TRAIN_CFG["nlatent"], seed=15)
+        A, B = torch.from_numpy(A).cuda(), torch.from_numpy(B).cuda()
+        for _ in range(3):
+            m.train_instance(A, B)
+        torch.cuda.synchronize()
+        reps = 3
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            for _ in range(reps):
+                m.train_instance(A, B)
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) / reps * 1e3
+        kernels, count = {}, 0
+        for ev in prof.events():
+            if str(getattr(ev, "device_type", "")).endswith("CUDA"):
+                dur = ev.time_range.elapsed_us()
+                kernels[ev.name] = kernels.get(ev.name, 0.0) + dur / reps
+                count += 1
+        busy_ms = sum(kernels.values()) / 1e3
+        out["%s_b%d" % (name, batch)] = {
+            "step_wall_ms_under_profiler": wall_ms,
+            "device_busy_ms_per_step": busy_ms,
+            "device_busy_share": busy_ms / wall_ms,
+            "device_kernels_per_step": count / reps,
+            # ATen's elementwise kernels differ only late in their names
+            "kernels_us_per_step": _top_kernels(kernels, 24, width=200),
+        }
+        del m
+        torch.cuda.empty_cache()
+    return out
 
 
 def time_end_to_end(torch, ctx):
@@ -605,6 +1120,16 @@ def time_end_to_end(torch, ctx):
     return out
 
 
+def _top_kernels(kernels, n, width=80):
+    """The n largest entries of {kernel name: microseconds}, names cut to
+    ``width`` characters (times of names that then coincide are added)."""
+    short = {}
+    for k, v in kernels.items():
+        short[k[:width]] = short.get(k[:width], 0.0) + v
+    top = sorted(short.items(), key=lambda kv: -kv[1])[:n]
+    return {k: round(v, 1) for k, v in top}
+
+
 def profile_forward(torch, ctx):
     """Device time of one predict_B and one predict_A forward by kernel name
     (torch.profiler), float32, batch 32."""
@@ -635,10 +1160,9 @@ def profile_forward(torch, ctx):
             if str(getattr(ev, "device_type", "")).endswith("CUDA"):
                 dur = ev.time_range.elapsed_us()
                 kernels[ev.name] = kernels.get(ev.name, 0.0) + dur / reps
-        top = sorted(kernels.items(), key=lambda kv: -kv[1])
         out[name] = {
             "device_busy_ms_per_call": sum(kernels.values()) / 1e3,
-            "kernels_us_per_call": {k[:80]: round(v, 2) for k, v in top[:14]},
+            "kernels_us_per_call": _top_kernels(kernels, 14),
         }
     return out
 
@@ -648,6 +1172,11 @@ def main(argv=None):
     ap.add_argument("--profile", action="store_true",
                     help="also print a torch.profiler breakdown and the "
                          "kernel's extra timings")
+    ap.add_argument("--twin-seeds", type=int, default=0, metavar="N",
+                    help="also repeat the training phase from N further "
+                         "seeds and print, without holding them to the "
+                         "limits, the deviations of the fused steps from "
+                         "their plain-norm twins")
     args = ap.parse_args(argv)
 
     import torch
@@ -676,37 +1205,63 @@ def main(argv=None):
            torch.backends.cudnn.allow_tf32,
            torch.backends.cuda.matmul.allow_tf32))
 
-    # phase 2: build every kernel source from this checkout
+    # phase 2: build every kernel source from this checkout, together
     t0 = time.perf_counter()
-    built = [build.compile_kernel(name) for name in build.kernel_names()]
+    built = build.compile_all()
     build_s = time.perf_counter() - t0
     log("built %s in %.1f s" % (", ".join(built), build_s))
 
-    # phase 3: kernel against its plain version
+    # phase 3: kernels against their plain versions
     worst32, worst16_ulps = check_kernel(torch, K.instance_norm_fused,
                                          K.instance_norm_plain)
+    bwd_worst32, bwd_worst16_ulps = check_bwd_kernel(torch, K)
 
     # phase 4: the serving path
     with tempfile.TemporaryDirectory() as tmp:
-        launches, site_counts, ctx = drive_serving_path(
-            torch, K.instance_norm_fused, tmp)
+        launches, serving_bwd, site_counts, ctx = drive_serving_path(
+            torch, K.instance_norm_fused, K.instance_norm_bwd_fused, tmp)
         if launches < 1:
             raise AssertionError("the serving path never launched the kernel")
         check_norm_sites(torch, ctx)
 
-        # phase 5: times
-        rows = time_kernel(torch, F, K, site_counts, extra=args.profile)
-        e2e = time_end_to_end(torch, ctx)
-        prof = profile_forward(torch, ctx) if args.profile else None
+        # phase 5: the training path
+        train_fwd, train_bwd, train_counts, _ = drive_training_path(torch, K)
+        if train_fwd < 1 or train_bwd < 1:
+            raise AssertionError("the training path never launched a kernel")
+        for i in range(args.twin_seeds):
+            drive_training_path(torch, K, seed_offset=100 * (i + 1),
+                                hold=False)
 
-    head = next(r for r in rows
-                if (tuple(r["shape"]), r["dtype"]) == HEADLINE)
+        # phase 6: times
+        rows = time_kernel(torch, F, K, site_counts, train_counts,
+                           extra=args.profile)
+        bwd_rows = time_bwd_kernel(torch, F, K, train_counts,
+                                   extra=args.profile)
+        e2e = time_end_to_end(torch, ctx)
+        e2e.update(time_train_step(torch))
+        prof = None
+        if args.profile:
+            prof = profile_forward(torch, ctx)
+            prof["train_step"] = profile_train_step(torch)
+
+    def head_of(table):
+        return next(r for r in table
+                    if (tuple(r["shape"]), r["dtype"]) == HEADLINE)
+
+    def per_step(direction):
+        return {d: sum(v[direction].values())
+                for d, v in train_counts.items()}
+
+    head, bwd_head = head_of(rows), head_of(bwd_rows)
+    pallas = "domain_transfer_gan_tpu/ops/pallas/instance_norm.py"
     kernels = {"kernels": [{
         "name": "instance_norm_fwd",
         "route": "cuda",
         "source": "domain_transfer_gan_torch/csrc/instance_norm.cu",
-        "replaces": "domain_transfer_gan_tpu/ops/pallas/instance_norm.py:115",
-        "launches": launches,
+        "replaces": pallas + ":115",
+        "launches": launches + train_fwd,
+        "launches_serving_path": launches,
+        "launches_training_path": train_fwd,
         "max_abs_err": worst32,
         "max_err_bf16_ulps": worst16_ulps,
         "shape": list(HEADLINE[0]), "dtype": HEADLINE[1],
@@ -719,7 +1274,26 @@ def main(argv=None):
             site_counts["float32"]["predict_B"].values()),
         "launches_per_predict_A": sum(
             site_counts["float32"]["predict_A"].values()),
+        "launches_per_train_step": per_step("fwd"),
         "shapes": rows,
+    }, {
+        "name": "instance_norm_bwd",
+        "route": "cuda",
+        "source": "domain_transfer_gan_torch/csrc/instance_norm_bwd.cu",
+        "replaces": pallas + ":175",
+        "launches": serving_bwd + train_bwd,
+        "launches_serving_path": serving_bwd,
+        "launches_training_path": train_bwd,
+        "max_abs_err": bwd_worst32,
+        "max_err_bf16_ulps": bwd_worst16_ulps,
+        "shape": list(HEADLINE[0]), "dtype": HEADLINE[1],
+        "ms": bwd_head["kernel_ms"],
+        "plain_ms": bwd_head["plain_ms"],
+        "bound_ms": bwd_head["bound_ms"],
+        "bound_by": bwd_head["bound_by"],
+        "library_ms": bwd_head["library_ms"],
+        "launches_per_train_step": per_step("bwd"),
+        "shapes": bwd_rows,
     }]}
     log(json.dumps({"end_to_end": e2e, "card": smi}))
     if prof is not None:

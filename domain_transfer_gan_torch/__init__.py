@@ -10,14 +10,16 @@ Layout
 ------
 - ``config``     the experiment configuration (all fields of the JAX
                  package's ``TrainConfig``, so saved ``opt.json`` files load).
-- ``ops``        conv/pad geometry helpers; ``ops.kernels`` holds the
-                 hand-written CUDA kernels, their wrappers, their plain
-                 PyTorch versions and the build step that compiles ``csrc/``.
+- ``ops``        conv/pad geometry helpers and the loss / clipping math
+                 (``ops.numerics``); ``ops.kernels`` holds the hand-written
+                 CUDA kernels, their wrappers, their plain PyTorch versions
+                 and the build step that compiles ``csrc/``.
 - ``csrc``       CUDA C++ sources (``sm_90a``), compiled at first use.
-- ``nn``         instance / conditional-instance norms, residual blocks and
-                 the two generators.
+- ``nn``         instance / conditional-instance / batch norms, residual
+                 blocks and the six networks.
 - ``utils``      conversion of JAX parameter trees into ``state_dict``s.
-- ``models``     the inference API of the three model variants.
+- ``models``     training state and optimizers (``state``), the two-phase
+                 train step (``steps``) and the model API (``api``).
 - ``cli``        ``export`` (serving artifact) and ``serve`` (HTTP endpoint).
 
 Public tensors keep the JAX package's layout: images are NHWC float32 in

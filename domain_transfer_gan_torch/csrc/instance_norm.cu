@@ -49,86 +49,11 @@
 // tile in shared memory or registers to read it once, TMA loads, and a split
 // of HW over a cluster for shapes with few channels are left for later work.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "instance_norm_common.cuh"
+
+using namespace instance_norm;
 
 namespace {
-
-constexpr int kThreads = 256;
-
-template <typename T, int VEC>
-struct Pack;
-
-template <>
-struct Pack<float, 1> {
-  static __device__ __forceinline__ void load(const float* p, float (&v)[1]) { v[0] = *p; }
-  static __device__ __forceinline__ void store(float* p, const float (&v)[1]) { *p = v[0]; }
-};
-
-template <>
-struct Pack<float, 4> {
-  static __device__ __forceinline__ void load(const float* p, float (&v)[4]) {
-    const float4 q = *reinterpret_cast<const float4*>(p);
-    v[0] = q.x; v[1] = q.y; v[2] = q.z; v[3] = q.w;
-  }
-  static __device__ __forceinline__ void store(float* p, const float (&v)[4]) {
-    *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);
-  }
-};
-
-template <>
-struct Pack<__nv_bfloat16, 1> {
-  static __device__ __forceinline__ void load(const __nv_bfloat16* p, float (&v)[1]) {
-    v[0] = __bfloat162float(*p);
-  }
-  static __device__ __forceinline__ void store(__nv_bfloat16* p, const float (&v)[1]) {
-    *p = __float2bfloat16_rn(v[0]);
-  }
-};
-
-template <>
-struct Pack<__nv_bfloat16, 8> {
-  static __device__ __forceinline__ void load(const __nv_bfloat16* p, float (&v)[8]) {
-    const uint4 q = *reinterpret_cast<const uint4*>(p);
-    const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&q);
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const float2 f = __bfloat1622float2(h[i]);
-      v[2 * i] = f.x;
-      v[2 * i + 1] = f.y;
-    }
-  }
-  static __device__ __forceinline__ void store(__nv_bfloat16* p, const float (&v)[8]) {
-    uint4 q;
-    __nv_bfloat162* h = reinterpret_cast<__nv_bfloat162*>(&q);
-#pragma unroll
-    for (int i = 0; i < 4; ++i) h[i] = __floats2bfloat162_rn(v[2 * i], v[2 * i + 1]);
-    *reinterpret_cast<uint4*>(p) = q;
-  }
-};
-
-// Sum `acc` over the TY threads that share a tx; every thread of the block
-// calls this and gets the total of its own tx back in `acc`.
-template <int VEC>
-__device__ __forceinline__ void reduce_over_rows(float (&acc)[VEC], float* red, int tx_count) {
-  const int tid = threadIdx.x;
-  const int ty = tid / tx_count;
-  const int tx = tid - ty * tx_count;
-#pragma unroll
-  for (int v = 0; v < VEC; ++v) red[tid * VEC + v] = acc[v];
-  __syncthreads();
-  for (int s = (kThreads / tx_count) >> 1; s > 0; s >>= 1) {
-    if (ty < s) {
-#pragma unroll
-      for (int v = 0; v < VEC; ++v) red[tid * VEC + v] += red[(tid + s * tx_count) * VEC + v];
-    }
-    __syncthreads();
-  }
-#pragma unroll
-  for (int v = 0; v < VEC; ++v) acc[v] = red[tx * VEC + v];
-  __syncthreads();  // `red` is reused by the next reduction
-}
 
 template <typename T, int VEC>
 __global__ void __launch_bounds__(kThreads)
@@ -235,8 +160,6 @@ int launch(const void* x, const void* scale, const void* shift, void* y, void* m
   return static_cast<int>(cudaGetLastError());
 }
 
-bool aligned16(const void* p) { return (reinterpret_cast<uintptr_t>(p) & 15u) == 0; }
-
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16.  vec: 1, or 4 (float32) / 8 (bfloat16).
@@ -251,11 +174,9 @@ extern "C" int instance_norm_fwd(const void* x, const void* scale, const void* s
                                  int dtype, int vec, int tx_count, float eps, int unbiased, int relu,
                                  void* stream) {
   const int invalid = static_cast<int>(cudaErrorInvalidValue);
-  if (n < 1 || hw < 1 || c < 1) return invalid;
+  if (!geometry_ok(n, hw, c, affine_stride, vec, tx_count)) return invalid;
   if ((scale == nullptr) != (shift == nullptr)) return invalid;
-  if (affine_stride != 0 && affine_stride != c) return invalid;
-  if (tx_count < 1 || tx_count > 32 || (tx_count & (tx_count - 1)) != 0) return invalid;
-  if (vec != 1 && (c % vec != 0 || !aligned16(x) || !aligned16(y))) return invalid;
+  if (vec != 1 && (!aligned16(x) || !aligned16(y))) return invalid;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0 && vec == 1)
     return launch<float, 1>(x, scale, shift, y, mean, rstd, n, hw, c, affine_stride, tx_count, eps, unbiased, relu, s);

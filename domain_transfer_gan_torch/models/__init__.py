@@ -1,1 +1,6 @@
-from .api import GeneratorPair, build_generators, create_model
+from .api import (
+    AugmentedCycleGAN,
+    GeneratorPair,
+    build_generators,
+    create_model,
+)

@@ -1,17 +1,27 @@
-"""Inference API of the three model variants (``cycle_gan``,
-``stoch_cycle_gan``, ``aug_cycle_gan``): the two generators and the calls
-that only run them forward.
+"""Model API of the three variants (``cycle_gan``, ``stoch_cycle_gan``,
+``aug_cycle_gan``).
 
-``create_model(opt, testing=True, device=...)`` builds ``netG_A_B`` and
-``netG_B_A`` for the configured variant.  All tensors are NHWC; latent codes
-are flat (N, nlatent).  Inputs may be numpy arrays or tensors; outputs are
-float32 tensors on the model's device.  Everything that trains (the
-discriminators, the latent encoder, steps, optimizers, checkpoints) belongs
-to the training slice and raises ``NotImplementedError`` until then.
+``create_model(opt, device=...)`` builds the configured variant:
+
+- ``aug_cycle_gan`` -> :class:`AugmentedCycleGAN`: all six networks
+  (``netG_A_B``, ``netG_B_A``, ``netD_A``, ``netD_B``, ``netD_z_B``,
+  ``netE_B``), trainable, with ``train_instance`` (the two-phase step of
+  ``models/steps.py``), the learning-rate schedule and the forward-only calls;
+- ``stoch_cycle_gan`` / ``cycle_gan`` -> :class:`GeneratorPair`: the two
+  generators, frozen, and the forward-only calls.  Their train step is not
+  ported yet.
+
+All tensors are NHWC; latent codes are flat (N, nlatent).  Inputs may be
+numpy arrays or tensors; outputs are tensors on the model's device.  What
+still raises ``NotImplementedError``: the train steps of the other two
+variants, the supervised step, ``generate_cycle`` and checkpoints
+(``save`` / ``load``).
 """
 
 from __future__ import annotations
 
+import os
+from collections import OrderedDict
 from typing import Dict, Optional
 
 import numpy as np
@@ -21,16 +31,19 @@ from ..config import TrainConfig
 from ..nn import networks as N
 from ..utils.convert import (
     GENERATOR_NETS,
+    jax_batch_stats_to_buffers,
     jax_params_to_state_dict,
     unflatten_params,
 )
+from .state import DTYPES, init_state
+from .steps import make_aug_train_step
 
-DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 MODELS = ("cycle_gan", "stoch_cycle_gan", "aug_cycle_gan")
 
-_TRAINING_SLICE = ("%s belongs to the training slice of the PyTorch port "
-                   "(train steps, discriminators, latent encoder, "
-                   "optimizers, checkpoints), which is not ported yet")
+_NOT_PORTED = ("%s is not ported yet: the stoch_cycle_gan / cycle_gan and "
+               "supervised train steps, the generation helpers that need "
+               "them, and checkpoints (save / load) come with later slices "
+               "of the PyTorch port")
 
 
 def build_generators(cfg: TrainConfig,
@@ -72,9 +85,18 @@ class GeneratorPair:
         if generator is None:
             generator = torch.Generator()
             generator.manual_seed(opt.seed if opt.seed is not None else 0)
-        self.nets = build_generators(opt, generator)
-        for net in self.nets.values():
+        self.nets = self._build_nets(generator)
+
+    def _build_nets(self, generator: torch.Generator):
+        nets = build_generators(self.opt, generator)
+        for net in nets.values():
             net.place(self.device, self.dtype).eval().requires_grad_(False)
+        return nets
+
+    # a frozen pair runs under inference_mode; the training model overrides
+    # this, because a tensor made under inference_mode can never enter a
+    # graph later
+    _no_grad = staticmethod(torch.inference_mode)
 
     # -- inputs -----------------------------------------------------------
     def _tensor(self, x) -> torch.Tensor:
@@ -90,12 +112,12 @@ class GeneratorPair:
 
     # -- forward ----------------------------------------------------------
     def predict_A(self, real_B, plain_norm: bool = False) -> torch.Tensor:
-        with torch.inference_mode():
+        with self._no_grad():
             return self.nets["netG_B_A"](
                 self._tensor(real_B), plain_norm=plain_norm).float()
 
     def predict_B(self, real_A, z_B, plain_norm: bool = False) -> torch.Tensor:
-        with torch.inference_mode():
+        with self._no_grad():
             return self.nets["netG_A_B"](
                 self._tensor(real_A), self._prep_z(z_B),
                 plain_norm=plain_norm).float()
@@ -131,28 +153,45 @@ class GeneratorPair:
             self.load_jax_params(name, tree[name])
         return self
 
-    def load_jax_params(self, name: str, params):
-        """Load one generator from its JAX ``params`` subtree."""
-        # copies into the placed parameters: device and dtype stay
-        self.nets[name].load_state_dict(
-            jax_params_to_state_dict(name, params), strict=True)
+    def _load_converted(self, name: str, sd, expected, what: str):
+        """Copy a converted state into the placed net (device and dtype
+        stay), after checking that it names exactly the ``expected``
+        entries."""
+        want = {k for k, _ in expected}
+        if set(sd) != want:
+            raise KeyError("%s: %s and the module disagree on %s"
+                           % (name, what, sorted(set(sd) ^ want)))
+        self.nets[name].load_state_dict(sd, strict=False)
         return self
 
-    # -- the training slice -----------------------------------------------
+    def load_jax_params(self, name: str, params):
+        """Load one network's parameters from its JAX ``params`` subtree."""
+        return self._load_converted(
+            name, jax_params_to_state_dict(name, params),
+            self.nets[name].named_parameters(), "params")
+
+    def load_jax_batch_stats(self, name: str, batch_stats):
+        """Load one network's batch-norm running statistics from its JAX
+        ``batch_stats`` subtree (empty for a net without batch norm)."""
+        return self._load_converted(
+            name, jax_batch_stats_to_buffers(name, batch_stats),
+            self.nets[name].named_buffers(), "batch_stats")
+
+    # -- what later slices port ---------------------------------------------
     def _later(self, what):
-        raise NotImplementedError(_TRAINING_SLICE % what)
+        raise NotImplementedError(_NOT_PORTED % what)
 
     def train_instance(self, *a, **kw):
-        self._later("train_instance")
+        self._later("train_instance of %s" % self.opt.model)
 
     def supervised_train_instance(self, *a, **kw):
         self._later("supervised_train_instance")
 
     def generate_cycle(self, *a, **kw):
-        self._later("generate_cycle (it needs the latent encoder)")
+        self._later("generate_cycle")
 
     def update_learning_rate(self):
-        self._later("update_learning_rate")
+        self._later("update_learning_rate of %s" % self.opt.model)
 
     def save(self, *a, **kw):
         self._later("save")
@@ -161,14 +200,167 @@ class GeneratorPair:
         self._later("load (reading checkpoints; use load_params on an .npz)")
 
 
+class AugmentedCycleGAN(GeneratorPair):
+    """Augmented CycleGAN: the generator pair plus the latent encoder E_B,
+    the three discriminators and one Adam state per network.
+
+    Parameters and optimizer moments are float32; with
+    ``compute_dtype="bfloat16"`` the layers cast them per use, and norm
+    statistics, CIN scale/shift and losses stay float32.  Weights are drawn
+    on the CPU from ``generator`` (seeded from ``opt.seed``), so a seed gives
+    the same weights on every device; prior z, posterior noise and dropout
+    masks come from a second generator on the model's device.
+    """
+
+    net_names = ("netG_A_B", "netG_B_A", "netD_A", "netD_B", "netD_z_B",
+                 "netE_B")
+
+    def __init__(self, opt: TrainConfig, testing: bool = False,
+                 device="cuda", generator: Optional[torch.Generator] = None,
+                 image_size: Optional[int] = None):
+        self._image_size = image_size
+        super().__init__(opt, ignore_noise=False, device=device,
+                         generator=generator)
+        self.old_lr = opt.lr
+        self.old_lr_d = opt.lr / 5.0   # the D optimizers start at lr / 5
+        self.epoch = opt.epoch_count
+        self.training = True
+        self._noise = torch.Generator(device=self.device)
+        self._noise.manual_seed(opt.seed if opt.seed is not None else 0)
+        for name in GENERATOR_NETS:
+            self.nets[name].set_dropout_generator(self._noise)
+        self._train_step = make_aug_train_step(opt)
+        if not testing and opt.expr_dir:
+            with open(os.path.join(opt.expr_dir, "nets.txt"), "w") as f:
+                for name in self.net_names:
+                    N.print_network(name, self.nets[name], f)
+
+    def _build_nets(self, generator: torch.Generator):
+        self.state = init_state(self.opt, self.device, generator,
+                                image_size=self._image_size)
+        return self.state.nets
+
+    _no_grad = staticmethod(torch.no_grad)
+
+    def _set_mode(self, training: bool):
+        for net in self.nets.values():
+            net.train(training)
+
+    # -- mode toggles -------------------------------------------------------
+    def eval(self):
+        self.training = False
+
+    def train(self):
+        self.training = True
+
+    # -- forward ------------------------------------------------------------
+    def predict_A(self, real_B, plain_norm: bool = False) -> torch.Tensor:
+        self._set_mode(self.training)
+        return super().predict_A(real_B, plain_norm)
+
+    def predict_B(self, real_A, z_B, plain_norm: bool = False) -> torch.Tensor:
+        self._set_mode(self.training)
+        return super().predict_B(real_A, z_B, plain_norm)
+
+    def predict_enc_params(self, real_A, real_B):
+        """(mu, logvar) of the posterior of z given (A, B) when
+        ``stoch_enc``, else (mu,).  Never advances the encoder's running
+        statistics."""
+        real_A, real_B = self._tensor(real_A), self._tensor(real_B)
+        enc_in = (torch.cat([real_A, real_B], dim=-1)
+                  if self.opt.enc_A_B else real_B)
+        net = self.nets["netE_B"]
+        net.train(self.training)
+        with torch.no_grad():
+            stats = {k: b.clone() for k, b in net.named_buffers()}
+            mu, logvar = net(enc_in)
+            for k, b in net.named_buffers():
+                b.copy_(stats[k])
+        if self.opt.stoch_enc:
+            return mu.float(), logvar.float()
+        return (mu.float(),)
+
+    # -- training -----------------------------------------------------------
+    def sample_prior_z(self, batch: int) -> torch.Tensor:
+        return torch.randn((batch, self.opt.nlatent), device=self.device,
+                           generator=self._noise)
+
+    def _prep_prior(self, batch: int, prior_z_B) -> torch.Tensor:
+        """Draw from the prior when the caller passes None, otherwise accept
+        flat (B, nz) or image-layout (B, 1, 1, nz) codes."""
+        if prior_z_B is None:
+            return self.sample_prior_z(batch)
+        prior_z_B = self._tensor(prior_z_B)
+        if prior_z_B.dim() == 4:
+            prior_z_B = prior_z_B.reshape(prior_z_B.shape[0], -1)
+        return prior_z_B
+
+    def train_instance(self, real_A, real_B, prior_z_B=None, eps_post=None,
+                       plain_norm: bool = False):
+        """One two-phase train step.  ``eps_post`` is the noise of the
+        reparametrized posterior, (B, nlatent); None draws it here.  (The
+        JAX package draws it inside its step from the step's key; passing it
+        lets the two packages be compared on the same noise.)  Returns
+        (losses, visuals) and, with ``monitor_gnorm``, gnorms: ordered dicts
+        of device tensors; nothing is read back to the host."""
+        real_A, real_B = self._tensor(real_A), self._tensor(real_B)
+        prior_z_B = self._prep_prior(real_A.shape[0], prior_z_B)
+        eps_post = self._prep_prior(real_A.shape[0], eps_post)
+        losses, visuals, gnorms = self._train_step(
+            self.state, real_A, real_B, prior_z_B, eps_post,
+            float(self.old_lr), float(self.old_lr_d), plain_norm)
+        return self._format_train_out(losses, visuals, gnorms)
+
+    def _format_train_out(self, losses, visuals, gnorms):
+        order = ["D_A", "G_A", "Cyc_A", "Cyc_z_B", "KLD_z_B", "D_B", "G_B",
+                 "Cyc_B", "D_z_B", "P_t_A", "P_f_A", "P_t_B", "P_f_B"]
+        losses = OrderedDict((k, losses[k]) for k in order)
+        visuals = OrderedDict((k, visuals[k]) for k in (
+            "real_A", "fake_B", "rec_A", "real_B", "fake_A", "rec_B"))
+        if self.opt.monitor_gnorm:
+            g = OrderedDict((k, gnorms[k]) for k in (
+                "gnorm_G_A_B", "gnorm_G_B_A", "gnorm_E_B", "gnorm_D_B",
+                "gnorm_D_z_B", "gnorm_D_A", "mu_min", "mu_max",
+                "logvar_min", "logvar_max"))
+            return losses, visuals, g
+        return losses, visuals
+
+    # -- lr schedule --------------------------------------------------------
+    def update_learning_rate(self):
+        """Linear decay.  Upstream sets EVERY optimizer, the discriminators'
+        included, to the full decayed lr, so D's initial /5 discount ends
+        when decay starts; ``d_lr_mode="ratio"`` keeps D at lr / 5 of the
+        decayed schedule instead."""
+        lrd = self.opt.lr / self.opt.niter_decay
+        lr = self.old_lr - lrd
+        print("update learning rate: %f -> %f" % (self.old_lr, lr))
+        self.old_lr = lr
+        if self.opt.d_lr_mode == "ratio":
+            self.old_lr_d = lr / 5.0
+        else:
+            self.old_lr_d = lr
+
+    def _derive_lr_d(self):
+        """Recompute ``old_lr_d`` from a restored ``old_lr``: ``old_lr <
+        opt.lr`` iff decay has started."""
+        decayed = self.old_lr < self.opt.lr
+        reference = self.opt.d_lr_mode == "reference"
+        self.old_lr_d = self.old_lr if (reference and decayed) \
+            else self.old_lr / 5.0
+
+
 def create_model(opt: TrainConfig, testing: bool = False, device="cuda",
-                 generator: Optional[torch.Generator] = None) -> GeneratorPair:
-    """Model dispatch on ``opt.model``.  Only ``testing=True`` (inference)
-    is ported so far."""
+                 generator: Optional[torch.Generator] = None, **kw):
+    """Model dispatch on ``opt.model``.  ``testing`` only keeps
+    ``aug_cycle_gan`` from writing ``nets.txt``; for the other two variants
+    only ``testing=True`` (the frozen generator pair) is ported."""
     if opt.model not in MODELS:
         raise NotImplementedError("Specified model is not implemented.")
+    if opt.model == "aug_cycle_gan":
+        return AugmentedCycleGAN(opt, testing=testing, device=device,
+                                 generator=generator, **kw)
     if not testing:
-        raise NotImplementedError(_TRAINING_SLICE % "create_model(testing="
-                                  "False)")
+        raise NotImplementedError(
+            _NOT_PORTED % ("create_model(testing=False) for %s" % opt.model))
     return GeneratorPair(opt, ignore_noise=opt.model == "cycle_gan",
                          device=device, generator=generator)

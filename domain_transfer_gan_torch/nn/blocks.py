@@ -14,7 +14,8 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..ops.convs import reflect_pad2d, replicate_pad2d
-from .norms import CondInstanceNorm, InstanceNorm
+from .layers import Conv2d, Dropout
+from .norms import CondInstanceNorm, InstanceNorm, make_norm
 
 
 def _pad(x: torch.Tensor, padding_type: str, p: int):
@@ -28,20 +29,10 @@ def _pad(x: torch.Tensor, padding_type: str, p: int):
     raise NotImplementedError("padding [%s] is not implemented" % padding_type)
 
 
-def _check_norm(norm: str) -> None:
-    if norm == "batch":
-        raise NotImplementedError(
-            "--norm batch generators need BatchNorm2d with running "
-            "statistics from a trained checkpoint; they are ported with "
-            "the training slice")
-    if norm != "instance":
-        raise NotImplementedError(
-            "normalization layer [%s] is not found" % norm)
-
-
 def _conv3x3(x, conv: nn.Conv2d, padding_type: str):
     h, p = _pad(x, padding_type, 1)
-    return F.conv2d(h, conv.weight, conv.bias, padding=p)
+    bias = None if conv.bias is None else conv.bias.to(h.dtype)
+    return F.conv2d(h, conv.weight.to(h.dtype), bias, padding=p)
 
 
 class ResnetBlock(nn.Module):
@@ -49,12 +40,11 @@ class ResnetBlock(nn.Module):
                  norm: str = "instance", use_dropout: bool = False,
                  use_bias: bool = True):
         super().__init__()
-        _check_norm(norm)
         self.padding_type = padding_type
-        self.conv1 = nn.Conv2d(dim, dim, 3, bias=use_bias)
-        self.dropout = nn.Dropout(0.5) if use_dropout else None
-        self.conv2 = nn.Conv2d(dim, dim, 3, bias=use_bias)
-        self.norm2 = InstanceNorm(dim, affine=True)
+        self.conv1 = Conv2d(dim, dim, 3, bias=use_bias)
+        self.dropout = Dropout(0.5) if use_dropout else None
+        self.conv2 = Conv2d(dim, dim, 3, bias=use_bias)
+        self.norm2 = make_norm(norm, dim)
 
     def forward(self, x, plain_norm: bool = False):
         h = F.relu(_conv3x3(x, self.conv1, self.padding_type))
@@ -70,11 +60,11 @@ class CINResnetBlock(nn.Module):
                  use_dropout: bool = False, use_bias: bool = True):
         super().__init__()
         self.padding_type = padding_type
-        self.conv1 = nn.Conv2d(dim, dim, 3, bias=use_bias)
+        self.conv1 = Conv2d(dim, dim, 3, bias=use_bias)
         # the ReLU that follows the CIN upstream is fused into the norm
         self.cin1 = CondInstanceNorm(dim, nlatent, fuse_relu=True)
-        self.dropout = nn.Dropout(0.5) if use_dropout else None
-        self.conv2 = nn.Conv2d(dim, dim, 3, bias=use_bias)
+        self.dropout = Dropout(0.5) if use_dropout else None
+        self.conv2 = Conv2d(dim, dim, 3, bias=use_bias)
         self.norm2 = InstanceNorm(dim, affine=True)
 
     def forward(self, x, z, plain_norm: bool = False):

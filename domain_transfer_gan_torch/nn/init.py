@@ -4,12 +4,18 @@
 
 - every conv kernel (ConvTranspose and the 1x1 convs on z inside the
   conditional instance norm included) ~ N(0, 0.02), bias = 0;
+- BatchNorm2d scale ~ N(1, 0.02), bias = 0;
 - the custom InstanceNorm keeps its own reset: scale ~ N(0, 0.02), shift = 0
-  (a near-zero gain).
+  (a near-zero gain);
+- Linear and BatchNorm1d (the latent discriminator) keep the PyTorch
+  defaults: Linear weight and bias ~ U(-1/sqrt(fan_in), 1/sqrt(fan_in)),
+  BatchNorm1d scale = 1, bias = 0.
 
 ``sane`` swaps these for conventional choices with identical shapes:
-InstanceNorm scale = 1 and LeCun-normal kernels (a normal truncated at two
-standard deviations with variance 1/fan_in, fan_in = kh * kw * Cin).
+InstanceNorm and BatchNorm2d scale = 1 and LeCun-normal kernels (a normal
+truncated at two standard deviations with variance 1/fan_in,
+fan_in = kh * kw * Cin), the latent discriminator's Linear layers included
+(bias = 0).
 
 The two frameworks draw different numbers from the same seed, so only the
 distributions agree with the JAX package, not the values.
@@ -68,3 +74,22 @@ def init_instance_norm_scale_(scale: torch.Tensor, scheme: str,
     if scheme == "reference":
         return normal002_(scale, generator)
     return scale.fill_(1.0)
+
+
+@torch.no_grad()
+def batchnorm2d_scale_init_(scale: torch.Tensor, scheme: str,
+                            generator: torch.Generator) -> torch.Tensor:
+    """N(1, 0.02) under ``reference``, ones under ``sane``."""
+    _check(scheme)
+    if scheme == "reference":
+        return scale.normal_(1.0, 0.02, generator=generator)
+    return scale.fill_(1.0)
+
+
+@torch.no_grad()
+def torch_linear_init_(t: torch.Tensor, fan_in: int,
+                       generator: torch.Generator) -> torch.Tensor:
+    """The nn.Linear default for weight and bias:
+    U(-1/sqrt(fan_in), 1/sqrt(fan_in))."""
+    bound = 1.0 / math.sqrt(fan_in)
+    return t.uniform_(-bound, bound, generator=generator)

@@ -1,19 +1,26 @@
-"""The two generators of the serving path, as ``nn.Module``s.
+"""The six networks of the model family, as ``nn.Module``s.
 
-- :class:`CINResnetGenerator`  G_A->B, latent-conditioned: z is injected at
+- :class:`CINResnetGenerator`   G_A->B, latent-conditioned: z is injected at
   every norm site through a conditional instance norm.
-- :class:`ResnetGenerator`     G_B->A, deterministic.
+- :class:`ResnetGenerator`      G_B->A, deterministic.
+- :class:`Discriminator`        D_B, PatchGAN (13x13 patch logits at 64x64).
+- :class:`DiscriminatorEdges`   D_A, one global logit at 64x64.
+- :class:`DiscriminatorLatent`  D_z_B, an MLP on z.
+- :class:`LatentEncoder`        E_B, conv stack -> (mu, logvar).
 
 Module and parameter names follow the JAX package's parameter tree
-(``conv0``, ``cin0/shift_conv``, ``block0/norm2``, ``nr0/norm``, ``up0``...),
-so ``utils.convert`` maps one onto the other by path.  ``n_blocks`` is
-honoured and defaults to 3.
+(``conv0``, ``cin0/shift_conv``, ``block0/norm2``, ``nr0/norm``, ``nl1/norm``,
+``bn0/bn``, ``up0``...), so ``utils.convert`` maps one onto the other by path.
+``n_blocks`` is honoured and defaults to 3.  (The JAX package also carries
+``CINDiscriminator``, which nothing instantiates; it is not ported.)
 
 Public layout: images NHWC ``(N, H, W, C)``, z flat ``(N, nlatent)`` (a 4-D
 ``(N, nlatent, 1, 1)`` is flattened).  Inside, activations are NCHW tensors in
-``channels_last`` memory format in the compute dtype; the output is NHWC in
-the compute dtype.  The discriminators and the latent encoder are ported with
-the training slice.
+``channels_last`` memory format in the compute dtype; image outputs are NHWC
+in the compute dtype.  Parameters are float32 unless ``place`` cast them for
+serving; every layer casts them to its input's dtype per use (``nn.layers``).
+Train or eval mode is the module's own (``net.train()`` / ``net.eval()``): it
+steers dropout and the batch norms.
 """
 
 from __future__ import annotations
@@ -21,12 +28,20 @@ from __future__ import annotations
 from typing import Optional
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from ..ops.convs import conv_transpose2d_torch, reflect_pad2d
-from .blocks import CINResnetBlock, ResnetBlock, _check_norm
-from .init import init_kernel_
-from .norms import CondInstanceNorm, InstanceNorm
+from .blocks import CINResnetBlock, ResnetBlock
+from .init import init_kernel_, torch_linear_init_
+from .layers import Conv2d, Dropout, Linear
+from .norms import (
+    BatchNorm1d,
+    BatchNorm2d,
+    CondInstanceNorm,
+    InstanceNorm,
+    make_norm,
+)
 
 
 class TorchConvTranspose(nn.Module):
@@ -44,24 +59,42 @@ class TorchConvTranspose(nn.Module):
         self.bias = nn.Parameter(torch.zeros(features)) if use_bias else None
 
     def forward(self, x):
-        return conv_transpose2d_torch(x, self.weight, self.bias, self.stride,
-                                      self.padding, self.output_padding)
+        bias = None if self.bias is None else self.bias.to(x.dtype)
+        return conv_transpose2d_torch(x, self.weight.to(x.dtype), bias,
+                                      self.stride, self.padding,
+                                      self.output_padding)
 
 
 class _NormRelu(nn.Module):
-    """norm -> ReLU with the ReLU fused into the instance-norm kernel."""
+    """norm -> ReLU; with an instance norm the ReLU is fused into the
+    kernel."""
 
     def __init__(self, kind: str, features: int):
         super().__init__()
-        _check_norm(kind)
-        self.norm = InstanceNorm(features, affine=True, fuse_relu=True)
+        self.norm = make_norm(kind, features)
+        self.fused = isinstance(self.norm, InstanceNorm)
+        if self.fused:
+            self.norm.fuse_relu = True
 
     def forward(self, x, plain_norm: bool = False):
-        return self.norm(x, plain_norm)
+        h = self.norm(x, plain_norm)
+        return h if self.fused else F.relu(h)
 
 
-class _Generator(nn.Module):
-    """What the two generators share: init, placement, layout at the edges."""
+class _NormLRelu(nn.Module):
+    """norm -> LeakyReLU(0.2).  The instance norm runs without a fused
+    activation; the LeakyReLU is a separate elementwise pass."""
+
+    def __init__(self, kind: str, features: int):
+        super().__init__()
+        self.norm = make_norm(kind, features)
+
+    def forward(self, x, plain_norm: bool = False):
+        return F.leaky_relu(self.norm(x, plain_norm), 0.2)
+
+
+class _Net(nn.Module):
+    """What the networks share: init, placement, layout at the edges."""
 
     compute_dtype = torch.float32
 
@@ -77,21 +110,33 @@ class _Generator(nn.Module):
                 init_kernel_(m.weight.data, fan_in, scheme, generator)
                 if m.bias is not None:
                     m.bias.data.zero_()
-            elif isinstance(m, (InstanceNorm, CondInstanceNorm)):
+            elif isinstance(m, (InstanceNorm, CondInstanceNorm, BatchNorm2d)):
                 m.reset_parameters(scheme, generator)
         return self
 
-    def place(self, device, dtype: torch.dtype = torch.float32):
-        """Move to ``device`` with conv and Linear weights in ``dtype``
-        (kernels in channels_last); the InstanceNorm scale/shift stay fp32."""
+    def place(self, device, dtype: torch.dtype = torch.float32,
+              cast_weights: bool = True):
+        """Move to ``device`` and compute in ``dtype`` (kernels in
+        channels_last).  With ``cast_weights`` (serving) the conv and Linear
+        weights are stored in ``dtype``; without (training) every parameter
+        stays float32 and is cast per use.  Norm parameters and running
+        statistics are fp32 either way."""
         if dtype not in (torch.float32, torch.bfloat16):
             raise ValueError("compute dtype must be float32 or bfloat16, "
                              "got %s" % dtype)
         self.to(device=device, memory_format=torch.channels_last)
-        for m in self.modules():
-            if isinstance(m, (nn.Conv2d, nn.Linear, TorchConvTranspose)):
-                m.to(dtype)
+        if cast_weights:
+            for m in self.modules():
+                if isinstance(m, (nn.Conv2d, nn.Linear, TorchConvTranspose)):
+                    m.to(dtype)
         self.compute_dtype = dtype
+        return self
+
+    def set_dropout_generator(self, generator: Optional[torch.Generator]):
+        """Draw every dropout mask of this net from ``generator``."""
+        for m in self.modules():
+            if isinstance(m, Dropout):
+                m.generator = generator
         return self
 
     def _enter(self, x: torch.Tensor) -> torch.Tensor:
@@ -105,7 +150,7 @@ class _Generator(nn.Module):
         return torch.tanh(h).permute(0, 2, 3, 1).contiguous()
 
 
-class CINResnetGenerator(_Generator):
+class CINResnetGenerator(_Net):
     """Latent-conditioned ResNet generator G_A->B.
 
     The stem downsamples once (stride 2) to H/2, ``n_blocks`` CIN residual
@@ -120,11 +165,11 @@ class CINResnetGenerator(_Generator):
         self.nlatent = nlatent
         self.n_blocks = n_blocks
         cin = lambda f: CondInstanceNorm(f, nlatent, fuse_relu=True)
-        self.conv0 = nn.Conv2d(input_nc, ngf, 7)
+        self.conv0 = Conv2d(input_nc, ngf, 7)
         self.cin0 = cin(ngf)
-        self.conv1 = nn.Conv2d(ngf, 2 * ngf, 3, padding=1)
+        self.conv1 = Conv2d(ngf, 2 * ngf, 3, padding=1)
         self.cin1 = cin(2 * ngf)
-        self.conv2 = nn.Conv2d(2 * ngf, 4 * ngf, 3, stride=2, padding=1)
+        self.conv2 = Conv2d(2 * ngf, 4 * ngf, 3, stride=2, padding=1)
         self.cin2 = cin(4 * ngf)
         for i in range(n_blocks):
             self.add_module("block%d" % i, CINResnetBlock(
@@ -132,9 +177,9 @@ class CINResnetGenerator(_Generator):
                 use_dropout=use_dropout))
         self.up0 = TorchConvTranspose(4 * ngf, 2 * ngf, 3, 2, 1, 1)
         self.cin3 = cin(2 * ngf)
-        self.conv3 = nn.Conv2d(2 * ngf, ngf, 3, padding=1)
+        self.conv3 = Conv2d(2 * ngf, ngf, 3, padding=1)
         self.cin4 = cin(ngf)
-        self.conv4 = nn.Conv2d(ngf, output_nc, 7, padding=3)
+        self.conv4 = Conv2d(ngf, output_nc, 7, padding=3)
 
     def forward(self, x: torch.Tensor, z: torch.Tensor,
                 plain_norm: bool = False) -> torch.Tensor:
@@ -157,20 +202,19 @@ class CINResnetGenerator(_Generator):
         return self._leave(self.conv4(h))
 
 
-class ResnetGenerator(_Generator):
+class ResnetGenerator(_Net):
     """Deterministic ResNet generator G_B->A."""
 
     def __init__(self, input_nc: int, output_nc: int, ngf: int = 32,
                  n_blocks: int = 3, norm: str = "instance",
                  use_dropout: bool = False, padding_type: str = "reflect"):
         super().__init__()
-        _check_norm(norm)
         self.n_blocks = n_blocks
-        self.conv0 = nn.Conv2d(input_nc, ngf, 7)
+        self.conv0 = Conv2d(input_nc, ngf, 7)
         self.nr0 = _NormRelu(norm, ngf)
-        self.conv1 = nn.Conv2d(ngf, 2 * ngf, 3, padding=1)
+        self.conv1 = Conv2d(ngf, 2 * ngf, 3, padding=1)
         self.nr1 = _NormRelu(norm, 2 * ngf)
-        self.conv2 = nn.Conv2d(2 * ngf, 4 * ngf, 3, stride=2, padding=1)
+        self.conv2 = Conv2d(2 * ngf, 4 * ngf, 3, stride=2, padding=1)
         self.nr2 = _NormRelu(norm, 4 * ngf)
         for i in range(n_blocks):
             self.add_module("block%d" % i, ResnetBlock(
@@ -178,9 +222,9 @@ class ResnetGenerator(_Generator):
                 use_dropout=use_dropout))
         self.up0 = TorchConvTranspose(4 * ngf, 2 * ngf, 3, 2, 1, 1)
         self.nr3 = _NormRelu(norm, 2 * ngf)
-        self.conv3 = nn.Conv2d(2 * ngf, ngf, 3, padding=1)
+        self.conv3 = Conv2d(2 * ngf, ngf, 3, padding=1)
         self.nr4 = _NormRelu(norm, ngf)
-        self.conv4 = nn.Conv2d(ngf, output_nc, 7, padding=3)
+        self.conv4 = Conv2d(ngf, output_nc, 7, padding=3)
 
     def forward(self, x: torch.Tensor,
                 plain_norm: bool = False) -> torch.Tensor:
@@ -193,6 +237,147 @@ class ResnetGenerator(_Generator):
         h = self.nr3(self.up0(h), plain_norm)
         h = self.nr4(self.conv3(h), plain_norm)
         return self._leave(self.conv4(h))
+
+
+def _flat_logits(h: torch.Tensor, use_sigmoid: bool) -> torch.Tensor:
+    """An NCHW prediction map as NHWC, through a Sigmoid in the vanilla-GAN
+    mode."""
+    h = h.permute(0, 2, 3, 1)
+    return torch.sigmoid(h) if use_sigmoid else h
+
+
+class Discriminator(_Net):
+    """PatchGAN discriminator D_B.  On a 64x64 input it answers a 13x13 grid
+    of patch logits, NHWC ``(N, 13, 13, 1)``."""
+
+    def __init__(self, input_nc: int, ndf: int = 64, norm: str = "instance",
+                 use_sigmoid: bool = False):
+        super().__init__()
+        self.use_sigmoid = use_sigmoid
+        self.conv0 = Conv2d(input_nc, ndf, 4, stride=2, padding=1)
+        self.conv1 = Conv2d(ndf, 2 * ndf, 4, stride=2, padding=1)
+        self.nl1 = _NormLRelu(norm, 2 * ndf)
+        self.conv2 = Conv2d(2 * ndf, 4 * ndf, 4, padding=1)
+        self.nl2 = _NormLRelu(norm, 4 * ndf)
+        self.conv3 = Conv2d(4 * ndf, 4 * ndf, 4, padding=1)
+        self.nl3 = _NormLRelu(norm, 4 * ndf)
+        self.conv4 = Conv2d(4 * ndf, 1, 4, padding=1)
+
+    def forward(self, x: torch.Tensor, plain_norm: bool = False):
+        h = F.leaky_relu(self.conv0(self._enter(x)), 0.2)
+        h = self.nl1(self.conv1(h), plain_norm)
+        h = self.nl2(self.conv2(h), plain_norm)
+        h = self.nl3(self.conv3(h), plain_norm)
+        return _flat_logits(self.conv4(h), self.use_sigmoid)
+
+
+class DiscriminatorEdges(_Net):
+    """Global discriminator D_A: four stride-2 3x3 convs, then a valid 4x4
+    conv, one logit ``(N, 1, 1, 1)`` on a 64x64 input."""
+
+    def __init__(self, input_nc: int, ndf: int = 32, norm: str = "instance",
+                 use_sigmoid: bool = False):
+        super().__init__()
+        self.use_sigmoid = use_sigmoid
+        self.conv0 = Conv2d(input_nc, ndf, 3, stride=2, padding=1)
+        self.conv1 = Conv2d(ndf, 2 * ndf, 3, stride=2, padding=1)
+        self.nl1 = _NormLRelu(norm, 2 * ndf)
+        self.conv2 = Conv2d(2 * ndf, 4 * ndf, 3, stride=2, padding=1)
+        self.nl2 = _NormLRelu(norm, 4 * ndf)
+        self.conv3 = Conv2d(4 * ndf, 4 * ndf, 3, stride=2, padding=1)
+        self.nl3 = _NormLRelu(norm, 4 * ndf)
+        self.conv4 = Conv2d(4 * ndf, 1, 4)
+
+    def forward(self, x: torch.Tensor, plain_norm: bool = False):
+        h = F.leaky_relu(self.conv0(self._enter(x)), 0.2)
+        h = self.nl1(self.conv1(h), plain_norm)
+        h = self.nl2(self.conv2(h), plain_norm)
+        h = self.nl3(self.conv3(h), plain_norm)
+        return _flat_logits(self.conv4(h), self.use_sigmoid)
+
+
+class DiscriminatorLatent(_Net):
+    """MLP latent discriminator D_z_B:
+    3x [Linear(ndf) + BatchNorm1d + LeakyReLU(0.2)] + Linear(1), ``(N, 1)``.
+
+    Under the ``reference`` init its Linear layers keep the PyTorch default
+    (weight and bias ~ U(+-1/sqrt(fan_in))); under ``sane`` LeCun-normal
+    weights and zero biases.
+    """
+
+    def __init__(self, nlatent: int, ndf: int = 64, use_sigmoid: bool = False):
+        super().__init__()
+        self.nlatent = nlatent
+        self.use_sigmoid = use_sigmoid
+        self.fc0 = Linear(nlatent, ndf)
+        self.bn0 = BatchNorm1d(ndf)
+        self.fc1 = Linear(ndf, ndf)
+        self.bn1 = BatchNorm1d(ndf)
+        self.fc2 = Linear(ndf, ndf)
+        self.bn2 = BatchNorm1d(ndf)
+        self.fc3 = Linear(ndf, 1)
+
+    def reset_parameters(self, scheme: str, generator: torch.Generator):
+        for lin in (self.fc0, self.fc1, self.fc2, self.fc3):
+            if scheme == "reference":
+                torch_linear_init_(lin.weight.data, lin.in_features, generator)
+                torch_linear_init_(lin.bias.data, lin.in_features, generator)
+            else:
+                init_kernel_(lin.weight.data, lin.in_features, scheme,
+                             generator)
+                lin.bias.data.zero_()
+        return self
+
+    def forward(self, z: torch.Tensor, plain_norm: bool = False):
+        if z.dim() == 4:
+            z = z.reshape(z.shape[0], self.nlatent)
+        h = z.to(self.compute_dtype)
+        h = F.leaky_relu(self.bn0(self.fc0(h)), 0.2)
+        h = F.leaky_relu(self.bn1(self.fc1(h)), 0.2)
+        h = F.leaky_relu(self.bn2(self.fc2(h)), 0.2)
+        h = self.fc3(h)
+        return torch.sigmoid(h) if self.use_sigmoid else h
+
+
+class LatentEncoder(_Net):
+    """Conv latent encoder E_B: four stride-2 3x3 convs, a valid 4x4 conv,
+    then 1x1 conv heads for (mu, logvar), each ``(N, nlatent)``.
+
+    ``conv1..conv4`` have no bias.  The flatten assumes the conv stack
+    reduced H, W to 1x1, i.e. 64x64 inputs; ``adaptive_pool`` averages a
+    larger feature map first.
+    """
+
+    def __init__(self, nlatent: int, input_nc: int, nef: int = 32,
+                 norm: str = "batch", adaptive_pool: bool = False):
+        super().__init__()
+        self.adaptive_pool = adaptive_pool
+        self.conv0 = Conv2d(input_nc, nef, 3, stride=2, padding=1)
+        self.conv1 = Conv2d(nef, 2 * nef, 3, stride=2, padding=1, bias=False)
+        self.nr1 = _NormRelu(norm, 2 * nef)
+        self.conv2 = Conv2d(2 * nef, 4 * nef, 3, stride=2, padding=1,
+                            bias=False)
+        self.nr2 = _NormRelu(norm, 4 * nef)
+        self.conv3 = Conv2d(4 * nef, 8 * nef, 3, stride=2, padding=1,
+                            bias=False)
+        self.nr3 = _NormRelu(norm, 8 * nef)
+        self.conv4 = Conv2d(8 * nef, 8 * nef, 4, bias=False)
+        self.nr4 = _NormRelu(norm, 8 * nef)
+        self.enc_mu = Conv2d(8 * nef, nlatent, 1)
+        self.enc_logvar = Conv2d(8 * nef, nlatent, 1)
+
+    def forward(self, x: torch.Tensor, plain_norm: bool = False):
+        h = F.relu(self.conv0(self._enter(x)))
+        h = self.nr1(self.conv1(h), plain_norm)
+        h = self.nr2(self.conv2(h), plain_norm)
+        h = self.nr3(self.conv3(h), plain_norm)
+        h = self.nr4(self.conv4(h), plain_norm)
+        if self.adaptive_pool and (h.shape[2] > 1 or h.shape[3] > 1):
+            h = h.mean(dim=(2, 3), keepdim=True)
+        mu = self.enc_mu(h).permute(0, 2, 3, 1)
+        logvar = self.enc_logvar(h).permute(0, 2, 3, 1)
+        return (mu.reshape(mu.shape[0], -1),
+                logvar.reshape(logvar.shape[0], -1))
 
 
 # ---------------------------------------------------------------------------
@@ -220,5 +405,46 @@ def define_stochastic_G(nlatent, input_nc, output_nc, ngf, norm="instance",
     return net.reset_parameters(init_scheme, generator or torch.Generator())
 
 
+def define_D_A(input_nc, ndf, norm="instance", use_sigmoid=False,
+               init_scheme="reference",
+               generator: Optional[torch.Generator] = None):
+    net = DiscriminatorEdges(input_nc=input_nc, ndf=ndf, norm=norm,
+                             use_sigmoid=use_sigmoid)
+    return net.reset_parameters(init_scheme, generator or torch.Generator())
+
+
+def define_D_B(input_nc, ndf, norm="instance", use_sigmoid=False,
+               init_scheme="reference",
+               generator: Optional[torch.Generator] = None):
+    net = Discriminator(input_nc=input_nc, ndf=ndf, norm=norm,
+                        use_sigmoid=use_sigmoid)
+    return net.reset_parameters(init_scheme, generator or torch.Generator())
+
+
+def define_LAT_D(nlatent, ndf, use_sigmoid=False, init_scheme="reference",
+                 generator: Optional[torch.Generator] = None):
+    net = DiscriminatorLatent(nlatent=nlatent, ndf=ndf,
+                              use_sigmoid=use_sigmoid)
+    return net.reset_parameters(init_scheme, generator or torch.Generator())
+
+
+def define_E(nlatent, input_nc, nef, norm="batch", init_scheme="reference",
+             adaptive_pool=False,
+             generator: Optional[torch.Generator] = None):
+    net = LatentEncoder(nlatent=nlatent, input_nc=input_nc, nef=nef,
+                        norm=norm, adaptive_pool=adaptive_pool)
+    return net.reset_parameters(init_scheme, generator or torch.Generator())
+
+
 def count_params(net: nn.Module) -> int:
     return sum(p.numel() for p in net.parameters())
+
+
+def print_network(name: str, net: nn.Module, out_f=None) -> int:
+    """Parameter count + name -> ``nets.txt``."""
+    n = count_params(net)
+    if out_f is not None:
+        out_f.write("%s\n" % name)
+        out_f.write("Total number of parameters: %d\n" % n)
+        out_f.flush()
+    return n

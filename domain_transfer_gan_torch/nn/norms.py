@@ -8,8 +8,14 @@ Both variance conventions of the upstream model are kept:
 Statistics and the affine are fp32 whatever the compute dtype.  The modules
 take the networks' internal layout, an NCHW tensor in ``channels_last``
 memory format, and hand its free NHWC view to
-``ops.kernels.instance_norm_fused``: the hand-written CUDA kernel on the
-card, its plain version on the CPU.
+``ops.kernels.instance_norm_fused``: the hand-written CUDA kernels on the
+card (forward and backward), their plain versions on the CPU.  With
+``plain_norm=True`` a module computes ``instance_norm_plain`` under autograd
+instead, on either device; that is the twin the fused path is held against.
+
+:class:`BatchNorm2d` and :class:`BatchNorm1d` follow the JAX package's
+``flax.linen.BatchNorm(momentum=0.9)``, not ``torch.nn.BatchNorm``: the
+running average stores the *biased* batch variance.
 
 ``instance_norm_ref`` is the twin of the JAX package's ``instance_norm_xla``
 (variance as E[x^2] - mean^2 clamped at 0) and is kept for module-level
@@ -28,7 +34,12 @@ from ..ops.kernels.instance_norm import (
     instance_norm_fused,
     instance_norm_plain,
 )
-from .init import init_instance_norm_scale_, init_kernel_
+from .init import (
+    batchnorm2d_scale_init_,
+    init_instance_norm_scale_,
+    init_kernel_,
+)
+from .layers import Linear
 
 
 def instance_norm_stats(x: torch.Tensor, eps: float, unbiased: bool):
@@ -105,8 +116,9 @@ class CondInstanceNorm(nn.Module):
     """Conditional instance norm, the latent-injection mechanism:
     shift = ReLU(Linear(z)), scale = ReLU(Linear(z)) from the flat latent
     code z (N, nlatent); x is normalized over H,W with *unbiased* variance,
-    then out = norm(x) * scale + shift.  The Linear layers run in the
-    compute dtype, their outputs are cast to fp32 for the norm."""
+    then out = norm(x) * scale + shift.  The Linear layers run in z's dtype
+    (the generators hand z over in the compute dtype), their outputs are
+    cast to fp32 for the norm."""
 
     def __init__(self, features: int, nlatent: int, eps: float = 1e-5,
                  fuse_relu: bool = False):
@@ -115,8 +127,8 @@ class CondInstanceNorm(nn.Module):
         self.nlatent = nlatent
         self.eps = eps
         self.fuse_relu = fuse_relu
-        self.shift_conv = nn.Linear(nlatent, features)
-        self.scale_conv = nn.Linear(nlatent, features)
+        self.shift_conv = Linear(nlatent, features)
+        self.scale_conv = Linear(nlatent, features)
 
     def reset_parameters(self, scheme: str, generator: torch.Generator):
         for lin in (self.shift_conv, self.scale_conv):
@@ -126,8 +138,87 @@ class CondInstanceNorm(nn.Module):
 
     def forward(self, x: torch.Tensor, z: torch.Tensor,
                 plain_norm: bool = False):
-        z = z.to(self.shift_conv.weight.dtype)
         shift = F.relu(self.shift_conv(z)).to(torch.float32)
         scale = F.relu(self.scale_conv(z)).to(torch.float32)
         return _norm_nchw(x, scale, shift, self.eps, True, self.fuse_relu,
                           plain_norm)
+
+
+class _BatchNormCore(nn.Module):
+    """Batch norm over every axis but the channel axis 1, as
+    ``flax.linen.BatchNorm(momentum=0.9, epsilon=1e-5)`` computes it:
+    statistics in fp32 whatever the input's dtype, variance as
+    E[x^2] - mean^2 clamped at 0, and a running average that stores the
+    *biased* batch variance (``torch.nn.BatchNorm`` stores the unbiased one).
+    In train mode the running statistics advance once per call, in place."""
+
+    momentum = 0.9
+    eps = 1e-5
+
+    def __init__(self, features: int):
+        super().__init__()
+        self.weight = nn.Parameter(torch.ones(features))
+        self.bias = nn.Parameter(torch.zeros(features))
+        self.register_buffer("running_mean", torch.zeros(features))
+        self.register_buffer("running_var", torch.ones(features))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        dims = [d for d in range(x.dim()) if d != 1]
+        shape = [1, -1] + [1] * (x.dim() - 2)
+        x32 = x.to(torch.float32)
+        if self.training:
+            mean = x32.mean(dim=dims)
+            var = torch.clamp_min((x32 * x32).mean(dim=dims) - mean * mean,
+                                  0.0)
+            with torch.no_grad():
+                self.running_mean.mul_(self.momentum).add_(
+                    mean, alpha=1.0 - self.momentum)
+                self.running_var.mul_(self.momentum).add_(
+                    var, alpha=1.0 - self.momentum)
+        else:
+            mean, var = self.running_mean, self.running_var
+        mul = torch.rsqrt(var + self.eps) * self.weight
+        y = (x32 - mean.reshape(shape)) * mul.reshape(shape) \
+            + self.bias.reshape(shape)
+        return y.to(x.dtype)
+
+
+class BatchNorm2d(nn.Module):
+    """Batch norm over N, H, W of an NCHW activation.  Under the
+    ``reference`` init scale ~ N(1, 0.02), bias = 0.  The parameters live in
+    the child ``bn`` (``bn.weight``, ``bn.bias``, ``bn.running_mean``,
+    ``bn.running_var``), where the JAX package's tree has them."""
+
+    def __init__(self, features: int):
+        super().__init__()
+        self.bn = _BatchNormCore(features)
+
+    def reset_parameters(self, scheme: str, generator: torch.Generator):
+        batchnorm2d_scale_init_(self.bn.weight, scheme, generator)
+        with torch.no_grad():
+            self.bn.bias.zero_()
+
+    def forward(self, x: torch.Tensor, plain_norm: bool = False):
+        return self.bn(x)
+
+
+class BatchNorm1d(nn.Module):
+    """Batch norm over N of an (N, F) activation, scale = 1 and bias = 0 under
+    every init scheme (the latent discriminator's norms)."""
+
+    def __init__(self, features: int):
+        super().__init__()
+        self.bn = _BatchNormCore(features)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.bn(x)
+
+
+def make_norm(kind: str, features: int) -> nn.Module:
+    """``instance`` or ``batch`` norm with an affine; both are called as
+    ``norm(x, plain_norm)``."""
+    if kind == "instance":
+        return InstanceNorm(features, affine=True)
+    if kind == "batch":
+        return BatchNorm2d(features)
+    raise NotImplementedError("normalization layer [%s] is not found" % kind)

@@ -5,7 +5,8 @@ Each ``csrc/<name>.cu`` exposes a plain C interface and is compiled by
 covers the source, the compiler flags and every ``*.cuh`` header beside it, so
 an edited source is rebuilt and an unchanged one is reused.  The library is
 loaded with ``ctypes``.  Nothing happens at import time: the first launch of a
-kernel builds it, which takes a few seconds.
+kernel builds it, which takes a few seconds; ``compile_all`` builds every
+source at once.
 
 The build directory is ``build/`` beside the package (the repository root in
 a checkout).
@@ -19,6 +20,7 @@ import os
 import shutil
 import subprocess
 import threading
+from concurrent.futures import ThreadPoolExecutor
 from typing import Dict, List
 
 _PKG_DIR = os.path.dirname(os.path.dirname(os.path.dirname(
@@ -76,24 +78,32 @@ def _library_path(name: str) -> str:
 
 def compile_kernel(name: str) -> str:
     """Compile ``csrc/<name>.cu`` unless its library is there already;
-    returns the library's path."""
+    returns the library's path.  Safe to call from several threads at once:
+    each call writes a file of its own and renames it into place."""
     lib = _library_path(name)
-    with _lock:
-        if os.path.exists(lib):
-            return lib
-        os.makedirs(build_dir(), exist_ok=True)
-        tmp = "%s.tmp%d" % (lib, os.getpid())
-        cmd = [_find_nvcc(), *NVCC_FLAGS, "-I", CSRC_DIR, "-o", tmp,
-               source_path(name)]
-        proc = subprocess.run(cmd, stdout=subprocess.PIPE,
-                              stderr=subprocess.STDOUT, text=True)
-        if proc.returncode != 0:
-            if os.path.exists(tmp):
-                os.remove(tmp)
-            raise KernelCompileError("nvcc failed:\n%s\n%s"
-                                   % (" ".join(cmd), proc.stdout))
-        os.replace(tmp, lib)  # atomic: a reader never sees half a file
+    if os.path.exists(lib):
+        return lib
+    os.makedirs(build_dir(), exist_ok=True)
+    tmp = "%s.tmp%d.%d" % (lib, os.getpid(), threading.get_ident())
+    cmd = [_find_nvcc(), *NVCC_FLAGS, "-I", CSRC_DIR, "-o", tmp,
+           source_path(name)]
+    proc = subprocess.run(cmd, stdout=subprocess.PIPE,
+                          stderr=subprocess.STDOUT, text=True)
+    if proc.returncode != 0:
+        if os.path.exists(tmp):
+            os.remove(tmp)
+        raise KernelCompileError("nvcc failed:\n%s\n%s"
+                                 % (" ".join(cmd), proc.stdout))
+    os.replace(tmp, lib)  # atomic: a reader never sees half a file
     return lib
+
+
+def compile_all() -> List[str]:
+    """Compile every source of ``csrc/``, one ``nvcc`` per source, all started
+    together; returns the libraries' paths in ``kernel_names()`` order."""
+    names = kernel_names()
+    with ThreadPoolExecutor(max_workers=len(names)) as pool:
+        return list(pool.map(compile_kernel, names))
 
 
 def load_library(name: str) -> ctypes.CDLL:

@@ -12,9 +12,14 @@ the layout of each kernel:
   spatial axes flipped: the JAX package correlates the stride-dilated input
   with an unflipped kernel, PyTorch's transposed conv is the gradient of a
   correlation, and the two agree iff ours[.., i, j] = theirs[kh-1-i, kw-1-j];
-- CIN ``shift_conv`` / ``scale_conv`` Dense ``kernel (nlatent, C)`` ->
-  ``nn.Linear.weight (C, nlatent)``;
+- Dense ``kernel (in, out)`` (CIN ``shift_conv`` / ``scale_conv``, the latent
+  discriminator's ``fc*``) -> ``nn.Linear.weight (out, in)``;
+- batch norm ``bn/scale`` -> ``bn.weight`` (``bn/bias`` keeps its name);
 - ``bias`` and InstanceNorm ``scale`` / ``shift`` ``(C,)`` unchanged.
+
+``jax_batch_stats_to_buffers(net_name, batch_stats)`` does the same for one
+net's ``batch_stats`` subtree: ``bn/mean`` -> ``bn.running_mean``, ``bn/var``
+-> ``bn.running_var``.
 
 ``flatten_params`` / ``unflatten_params`` move between the nested tree and the
 flat ``netG_A_B/conv0/kernel`` keys of a params ``.npz``.  The inverse
@@ -29,6 +34,7 @@ import numpy as np
 import torch
 
 GENERATOR_NETS = ("netG_A_B", "netG_B_A")
+NET_NAMES = GENERATOR_NETS + ("netD_A", "netD_B", "netD_z_B", "netE_B")
 
 
 def _convert_leaf(path, value: np.ndarray) -> np.ndarray:
@@ -54,21 +60,45 @@ def _walk(tree: Mapping, prefix=()):
             yield prefix + (k,), v
 
 
+def _check_net(net_name: str) -> None:
+    if net_name not in NET_NAMES:
+        raise KeyError("unknown network %r (have %s)"
+                       % (net_name, ", ".join(NET_NAMES)))
+
+
+def _tensor(value: np.ndarray) -> torch.Tensor:
+    # a fresh C-ordered copy: the source may be read-only or a view
+    return torch.from_numpy(np.array(value, np.float32, order="C"))
+
+
 def jax_params_to_state_dict(net_name: str,
                              params: Mapping) -> Dict[str, torch.Tensor]:
-    """The port's ``state_dict`` (float32 CPU tensors) for one generator."""
-    if net_name not in GENERATOR_NETS:
-        raise NotImplementedError(
-            "%s is not ported yet: this slice converts %s; the "
-            "discriminators and the encoder come with the training slice"
-            % (net_name, ", ".join(GENERATOR_NETS)))
+    """The parameters of the port's module ``net_name`` (float32 CPU
+    tensors, keyed as in its ``state_dict``) from the JAX ``params``
+    subtree."""
+    _check_net(net_name)
     sd = {}
     for path, value in _walk(params):
         value = _convert_leaf(path, np.asarray(value, np.float32))
-        key = ".".join(path[:-1] + ("weight" if path[-1] == "kernel"
-                                    else path[-1],))
-        # a fresh C-ordered copy: the source may be read-only or a view
-        sd[key] = torch.from_numpy(np.array(value, np.float32, order="C"))
+        leaf = path[-1]
+        if leaf == "kernel" or path[-2:] == ("bn", "scale"):
+            leaf = "weight"
+        sd[".".join(path[:-1] + (leaf,))] = _tensor(value)
+    return sd
+
+
+def jax_batch_stats_to_buffers(net_name: str,
+                               batch_stats: Mapping) -> Dict[str, torch.Tensor]:
+    """The running statistics of the port's module ``net_name`` (keyed as in
+    its ``state_dict``) from the JAX ``batch_stats`` subtree; empty for a
+    net without batch norm."""
+    _check_net(net_name)
+    sd = {}
+    for path, value in _walk(batch_stats):
+        if path[-1] not in ("mean", "var"):
+            raise ValueError("unexpected batch statistic %s" % "/".join(path))
+        sd[".".join(path[:-1] + ("running_" + path[-1],))] = _tensor(
+            np.asarray(value, np.float32))
     return sd
 
 

@@ -5,7 +5,7 @@ skip elsewhere.  Run them on a machine with a card:
 
 This file imports nothing of the JAX package, so it also collects where flax
 is not installed.  chip_smoke.py runs the full matrix and the full-width
-serving path; these are the small-shape versions.
+serving and training paths; these are the small-shape versions.
 """
 
 import numpy as np
@@ -15,6 +15,8 @@ import torch
 from domain_transfer_gan_torch.config import TrainConfig
 from domain_transfer_gan_torch.models import create_model
 from domain_transfer_gan_torch.ops.kernels.instance_norm import (
+    instance_norm_bwd_fused,
+    instance_norm_bwd_plain,
     instance_norm_fused,
     instance_norm_plain,
 )
@@ -72,3 +74,118 @@ def test_generators_run_the_kernel_at_every_norm_site():
     assert instance_norm_fused.launches == before  # plain path: no launch
     assert float((fake_B - plain_B).abs().max()) <= 1e-4
     assert float((fake_A - plain_A).abs().max()) <= 1e-4
+
+
+@pytest.mark.cuda
+def test_backward_kernel_vs_plain_on_the_card():
+    """dx, dscale, dshift of the backward kernel against its plain version,
+    at an odd shape (scalar loads) and an aligned one (16-byte loads), and
+    HW = 1 with the unbiased divisor."""
+    _need_card()
+    rng = np.random.RandomState(10)
+    for n, h, w, c in ((3, 13, 13, 20), (4, 8, 16, 32), (2, 1, 1, 8)):
+        for affine in ("none", "channel", "sample"):
+            for relu in (False, True):
+                # float32: sums in another order, relative to the tensor's
+                # max; bfloat16 dx: one rounding of a value below 8
+                for dtype, tol in ((torch.float32, 1e-5),
+                                   (torch.bfloat16, 4e-2)):
+                    x = torch.from_numpy(rng.randn(n, h, w, c).astype(
+                        np.float32)).cuda().to(dtype)
+                    dy = torch.from_numpy(rng.randn(n, h, w, c).astype(
+                        np.float32)).cuda().to(dtype)
+                    scale = shift = None
+                    if affine != "none":
+                        lead = (c,) if affine == "channel" else (n, c)
+                        scale = torch.from_numpy(rng.rand(*lead).astype(
+                            np.float32) + 0.5).cuda()
+                        shift = torch.from_numpy(rng.randn(*lead).astype(
+                            np.float32)).cuda()
+                    kw = dict(unbiased=True, relu=relu)
+                    _, mean, rstd = instance_norm_plain(
+                        x, scale, shift, return_stats=True, **kw)
+                    before = instance_norm_bwd_fused.launches
+                    got = instance_norm_bwd_fused(x, dy, mean, rstd, scale,
+                                                  shift, **kw)
+                    torch.cuda.synchronize()
+                    assert instance_norm_bwd_fused.launches == before + 1
+                    want = instance_norm_bwd_plain(x, dy, mean, rstd, scale,
+                                                   shift, **kw)
+                    names = ("dx", "dscale", "dshift")
+                    if affine == "none":
+                        assert got[1] is None and got[2] is None
+                        names = names[:1]
+                    for name, g, w_ in zip(names, got, want):
+                        ref = max(1.0, float(w_.float().abs().max()))
+                        lim = tol if name == "dx" else 1e-5
+                        err = float((g.float() - w_.float()).abs().max())
+                        assert err <= lim * ref, (name, n, h, w, c, affine,
+                                                  relu, dtype, err)
+
+
+@pytest.mark.cuda
+def test_function_backward_runs_the_kernel_and_matches_autograd():
+    """Through the autograd.Function: gradients of x, scale and shift from
+    the two kernels against autograd of the plain forward, with a
+    non-contiguous cotangent."""
+    _need_card()
+    rng = np.random.RandomState(11)
+    n, h, w, c = 2, 8, 8, 16
+    x = torch.from_numpy(rng.randn(n, h, w, c).astype(np.float32)).cuda()
+    scale = torch.from_numpy(rng.rand(c).astype(np.float32) + 0.5).cuda()
+    shift = torch.from_numpy(rng.randn(c).astype(np.float32)).cuda()
+    # an NHWC view of an NCHW-contiguous weight: the cotangent is strided
+    wgt = torch.from_numpy(rng.randn(n, c, h, w).astype(
+        np.float32)).cuda().permute(0, 2, 3, 1)
+    grads = []
+    for fn in (instance_norm_fused, instance_norm_plain):
+        leaves = [t.clone().requires_grad_(True) for t in (x, scale, shift)]
+        before = (instance_norm_bwd_fused.launches,
+                  instance_norm_bwd_fused.dy_copies)
+        y = fn(*leaves, unbiased=False, relu=True)
+        grads.append(torch.autograd.grad((y * wgt).sum(), leaves))
+        after = (instance_norm_bwd_fused.launches,
+                 instance_norm_bwd_fused.dy_copies)
+        if fn is instance_norm_fused:
+            assert after == (before[0] + 1, before[1] + 1)
+        else:
+            assert after == before
+    for g, w_ in zip(*grads):
+        assert float((g - w_).abs().max()) <= 1e-4 * max(
+            1.0, float(w_.abs().max()))
+
+
+@pytest.mark.cuda
+def test_train_step_fused_vs_plain_on_the_card():
+    """One aug_cycle_gan train step at tiny size: the model whose norms run
+    the two kernels against its twin with plain norms, same weights and
+    inputs; the per-step launch counts."""
+    _need_card()
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = dict(model="aug_cycle_gan", grid_size=64, ngf=4, nef=4, ndf=4,
+               nlatent=8, n_blocks=2, init_scheme="sane", seed=3)
+    rng = np.random.RandomState(12)
+    A = rng.uniform(-1, 1, (4, 64, 64, 3)).astype(np.float32)
+    B = rng.uniform(-1, 1, (4, 64, 64, 3)).astype(np.float32)
+    z = rng.randn(4, 8).astype(np.float32)
+    eps = rng.randn(4, 8).astype(np.float32)
+    fused = create_model(TrainConfig(**cfg), testing=True, device="cuda")
+    plain = create_model(TrainConfig(**cfg), testing=True, device="cuda")
+    f0, b0 = instance_norm_fused.launches, instance_norm_bwd_fused.launches
+    lf, _, gf = fused.train_instance(A, B, z, eps)
+    f1, b1 = instance_norm_fused.launches, instance_norm_bwd_fused.launches
+    lp, _, gp = plain.train_instance(A, B, z, eps, plain_norm=True)
+    assert (instance_norm_fused.launches,
+            instance_norm_bwd_fused.launches) == (f1, b1)
+    # per generator pass 9 + 7 norm sites (n_blocks = 2), per discriminator
+    # pass 3 + 3: forward 16 + 6 + 6 + 16, backward 6 + 38
+    assert (f1 - f0, b1 - b0) == (44, 44)
+    for k in lf:
+        assert np.isfinite(float(lf[k])), k
+        # float32, sums in another order through ~20 layers
+        assert abs(float(lf[k]) - float(lp[k])) <= 1e-4 * max(
+            1.0, abs(float(lp[k]))), k
+    for k in gf:
+        assert abs(float(gf[k]) - float(gp[k])) <= 1e-3 * max(
+            1.0, abs(float(gp[k]))), k

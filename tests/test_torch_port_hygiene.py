@@ -35,7 +35,11 @@ def test_every_module_imports_without_jax():
     assert {"domain_transfer_gan_torch.cli.serve",
             "domain_transfer_gan_torch.cli.export",
             "domain_transfer_gan_torch.ops.kernels.instance_norm",
-            "domain_transfer_gan_torch.ops.kernels.build"} <= set(names)
+            "domain_transfer_gan_torch.ops.kernels.build",
+            "domain_transfer_gan_torch.ops.numerics",
+            "domain_transfer_gan_torch.nn.layers",
+            "domain_transfer_gan_torch.models.state",
+            "domain_transfer_gan_torch.models.steps"} <= set(names)
     code = (
         "import importlib, sys\n"
         "for n in %r: importlib.import_module(n)\n"
@@ -115,28 +119,69 @@ def test_cuda_dispatch_does_not_fall_back(monkeypatch):
         K.instance_norm_fused(x, None, None)
 
 
-def test_grad_on_the_card_is_refused_until_the_backward_kernel(monkeypatch):
+def test_grad_on_the_card_goes_to_the_backward_launcher_only(monkeypatch):
+    """A gradient asked for on a tensor that says it is on the card goes to
+    the backward launcher and to nothing else.  With that launcher failing the backward fails; it never computes
+    the plain backward instead."""
     class OnCard(torch.Tensor):
         @property
         def is_cuda(self):
             return True
 
+    plain, plain_bwd = K.instance_norm_plain, K.instance_norm_bwd_plain
+    launched = []
+
+    def fake_forward_launch(x, scale, shift, eps, unbiased, relu):
+        launched.append("fwd")
+        return plain(x, scale, shift, eps=eps, unbiased=unbiased, relu=relu,
+                     return_stats=True)
+
+    def boom(*a, **k):
+        launched.append("bwd")
+        raise RuntimeError("backward launch refused")
+
+    def no_plain(*a, **k):
+        raise AssertionError("fell back to the plain backward")
+
+    monkeypatch.setattr(K, "_launch", fake_forward_launch)
+    monkeypatch.setattr(K, "_launch_bwd", boom)
+    monkeypatch.setattr(K, "instance_norm_bwd_plain", no_plain)
     x = torch.randn(2, 4, 4, 8).as_subclass(OnCard).requires_grad_(True)
-    with pytest.raises(NotImplementedError, match="training slice"):
-        K.instance_norm_fused(x, None, None)
+    before = K.instance_norm_bwd_fused.launches
+    y = K.instance_norm_fused(x, None, None)
+    with pytest.raises(RuntimeError, match="backward launch refused"):
+        y.sum().backward()
+    assert launched == ["fwd", "bwd"]
+    assert K.instance_norm_bwd_fused.launches == before
+    monkeypatch.undo()
+    # and the launcher itself refuses a tensor that is not on a card
+    x = torch.randn(2, 4, 4, 8)
+    _, mean, rstd = plain(x, None, None, return_stats=True)
+    with pytest.raises(RuntimeError, match="needs a CUDA tensor"):
+        K._launch_bwd(x, x, mean, rstd, None, None, False, False)
+    assert plain_bwd(x, x, mean, rstd, None, None)[0].shape == x.shape
+
+
+# the name this test had while a gradient on the card was still refused;
+# both names select the same test
+test_grad_on_the_card_is_refused_until_the_backward_kernel = \
+    test_grad_on_the_card_goes_to_the_backward_launcher_only
 
 
 def test_build_needs_nvcc_only_at_first_launch(monkeypatch, tmp_path):
     """Importing the kernel modules builds nothing; a build without nvcc
     raises KernelCompileError with the reason; a failing nvcc raises with its
     output."""
-    assert build.kernel_names() == ["instance_norm"]
-    assert os.path.isfile(build.source_path("instance_norm"))
+    assert build.kernel_names() == ["instance_norm", "instance_norm_bwd"]
+    for name in build.kernel_names():
+        assert os.path.isfile(build.source_path(name))
     assert build.build_dir() == os.path.join(ROOT, "build")
     monkeypatch.setattr(build, "build_dir", lambda: str(tmp_path))
     monkeypatch.setattr(build, "_find_nvcc", lambda: "/bin/false")
     with pytest.raises(build.KernelCompileError, match="nvcc failed"):
         build.compile_kernel("instance_norm")
+    with pytest.raises(build.KernelCompileError, match="nvcc failed"):
+        build.compile_all()  # one nvcc per source, started together
     assert os.listdir(tmp_path) == []  # nothing half-built is left behind
     monkeypatch.undo()
     if not any(os.access(os.path.join(p, "nvcc"), os.X_OK)

@@ -41,3 +41,191 @@ def images(seed, n, hw=64, c=3):
 
 def latents(seed, n, nlatent):
     return np.random.RandomState(seed).randn(n, nlatent).astype(np.float32)
+
+
+# ---------------------------------------------------------------------------
+# the two-phase train step, both packages side by side
+# ---------------------------------------------------------------------------
+
+TINY = dict(model="aug_cycle_gan", grid_size=64, ngf=4, nef=4, ndf=4,
+            nlatent=8, batchSize=4)
+# XLA:CPU compiles the step several times faster with its expensive passes
+# off, and the numbers stay float32
+FAST_COMPILE = {"xla_backend_optimization_level": 0,
+                "xla_llvm_disable_expensive_passes": True}
+
+
+def run_both_train_steps(flags, n_steps=2, batch=4, seed=0):
+    """``n_steps`` of the JAX ``make_aug_train_step`` and of the port's
+    ``train_instance`` from identical numpy-drawn weights, batch-norm
+    statistics, inputs, ``prior_z`` and ``eps_post`` (the JAX step draws
+    eps_post from its key; the same draw is handed to the port).
+
+    Returns per step the two packages' losses and gnorms as dicts of floats,
+    and at the end every net's parameters and running statistics, the JAX
+    side converted to the port's ``state_dict`` keys."""
+    import jax.numpy as jnp
+
+    from domain_transfer_gan_tpu.config import TrainConfig as JaxConfig
+    from domain_transfer_gan_tpu.models.state import (
+        TrainState,
+        adam_tx,
+        build_networks,
+        init_state,
+    )
+    from domain_transfer_gan_tpu.models.steps import make_aug_train_step
+
+    from domain_transfer_gan_torch.config import TrainConfig
+    from domain_transfer_gan_torch.models import create_model
+    from domain_transfer_gan_torch.utils.convert import (
+        jax_batch_stats_to_buffers,
+        jax_params_to_state_dict,
+    )
+
+    cfg = dict(TINY, **flags)
+    jcfg = JaxConfig(use_pallas=False, **cfg)
+    # shapes only: running the flax initializers op by op costs ~25 s
+    nets = build_networks(jcfg)
+    shapes = jax.eval_shape(
+        lambda key: init_state(jcfg, key, image_size=64)[1],
+        jax.random.PRNGKey(seed))
+    blank = jax.tree_util.tree_map(lambda a: np.zeros(a.shape, np.float32),
+                                   dict(shapes.params))
+    params = {k: randomize(v, seed + i)
+              for i, (k, v) in enumerate(sorted(blank.items()))}
+    stats = jax.tree_util.tree_map_with_path(
+        lambda path, v: (np.ones if path[-1].key == "var" else np.zeros)(
+            v.shape, np.float32), dict(shapes.batch_stats))
+    jparams = jax.tree_util.tree_map(jnp.asarray, params)
+    tx = adam_tx(jcfg.beta1)
+    state = TrainState(
+        params=jparams, batch_stats=jax.tree_util.tree_map(jnp.asarray, stats),
+        opt_state={k: tx.init(jparams[k]) for k in jparams},
+        step=jnp.zeros((), jnp.int32))
+    jstep = jax.jit(make_aug_train_step(nets, jcfg),
+                    compiler_options=FAST_COMPILE)
+
+    model = create_model(TrainConfig(**cfg), testing=True, device="cpu")
+    for k in params:
+        model.load_jax_params(k, params[k])
+        model.load_jax_batch_stats(k, np_tree(state.batch_stats[k]))
+
+    A, B = images(seed + 10, batch), images(seed + 11, batch)
+    steps = []
+    for it in range(n_steps):
+        z = latents(seed + 20 + it, batch, cfg["nlatent"])
+        key = jax.random.PRNGKey(100 + it)
+        k_eps = jax.random.split(key, 5)[0]  # as the JAX step splits it
+        eps = np.asarray(jax.random.normal(k_eps, z.shape, jnp.float32))
+        state, jl, _, jg = jstep(
+            state, jnp.asarray(A), jnp.asarray(B), jnp.asarray(z),
+            jnp.float32(model.old_lr), jnp.float32(model.old_lr_d), key)
+        tl, tv, tg = model.train_instance(A, B, z, eps)
+        steps.append({
+            "jax_losses": {k: float(v) for k, v in jl.items()},
+            "jax_gnorms": {k: float(v) for k, v in jg.items()},
+            "losses": {k: float(v) for k, v in tl.items()},
+            "gnorms": {k: float(v) for k, v in tg.items()},
+            "loss_keys": list(tl), "gnorm_keys": list(tg),
+            "visuals": tv,
+        })
+    want, got = {}, {}
+    for k in params:
+        sd = jax_params_to_state_dict(k, np_tree(state.params[k]))
+        sd.update(jax_batch_stats_to_buffers(
+            k, np_tree(state.batch_stats[k])))
+        want[k] = {n: v.numpy() for n, v in sd.items()}
+        got[k] = {n: v.detach().numpy().copy()
+                  for n, v in model.nets[k].state_dict().items()}
+    return {"steps": steps, "jax_state": want, "state": got, "model": model,
+            "start": {k: {n: v.numpy() for n, v in
+                          jax_params_to_state_dict(k, params[k]).items()}
+                      for k in params}}
+
+
+def check_two_step_parity(run, lr=2e-4, frozen=()):
+    """What every flag variant is held to.  Step 1: float32 on both sides,
+    other summation orders.  Step 2 starts from parameters that already
+    differ: Adam's first update is lr * g / (|g| + 1e-8), so a gradient entry
+    near zero can land on the other side of zero and move its parameter by
+    up to 2 * lr the other way; losses and norms of the second step are held
+    to a looser tolerance for that reason, and the parameters to 2 Adam
+    steps of that worst case, with at least nine tenths of a network's
+    entries within lr / 10."""
+    for it, (rl, rg) in enumerate(((2e-4, 2e-3), (5e-3, 4e-2))):
+        st = run["steps"][it]
+        assert set(st["losses"]) == set(st["jax_losses"])
+        assert set(st["gnorms"]) == set(st["jax_gnorms"])
+        for k, w in st["jax_losses"].items():
+            assert np.isfinite(st["losses"][k]), (it, k)
+            assert abs(st["losses"][k] - w) <= rl * max(1.0, abs(w)), (
+                it, k, st["losses"][k], w)
+        for k, w in st["jax_gnorms"].items():
+            assert abs(st["gnorms"][k] - w) <= rg * max(1.0, abs(w)), (
+                it, k, st["gnorms"][k], w)
+    for net, want in run["jax_state"].items():
+        got, start = run["state"][net], run["start"][net]
+        assert set(got) == set(want), net
+        moved, total, off = 0.0, 0, 0
+        for name, w in want.items():
+            d = np.abs(got[name] - w)
+            if name.rsplit(".", 1)[-1].startswith("running_"):
+                assert d.max() <= 1e-3 * max(1.0, np.abs(w).max()), (net,
+                                                                     name)
+                continue
+            assert d.max() <= 2 * 2 * lr * 1.05, (net, name, d.max())
+            total += d.size
+            off += int((d > 0.1 * lr).sum())
+            moved = max(moved, np.abs(got[name] - start[name]).max())
+        # (a bias in front of an instance norm has a gradient of exactly 0
+        # in exact arithmetic: Adam turns its rounding noise into +-lr)
+        assert off <= 0.1 * total, (net, off, total)
+        assert (moved == 0.0) == (net in frozen), (net, moved)
+
+
+def check_variant_specifics(run, flags):
+    """What a flag must change, beyond agreeing with the JAX step."""
+    st = run["steps"][0]
+    model = run["model"]
+    if flags.get("stoch_enc"):
+        # a real posterior: logvar is not zeroed, the KLD is positive
+        assert st["gnorms"]["logvar_max"] != 0.0
+        assert st["losses"]["KLD_z_B"] > 0.0
+    else:
+        assert st["gnorms"]["logvar_max"] == 0.0
+    z_gan_on = flags.get("z_gan", 1) and not flags.get("stoch_enc")
+    # without the z-GAN netD_z_B gets zero gradients: Adam leaves it alone
+    assert (st["gnorms"]["gnorm_D_z_B"] > 0.0) == bool(z_gan_on)
+    assert model.nets["netE_B"].conv0.weight.shape[1] == (
+        6 if flags.get("enc_A_B", 1) else 3)
+    if flags.get("no_lsgan"):
+        for k in ("P_t_A", "P_f_A", "P_t_B", "P_f_B"):
+            assert 0.0 < st["losses"][k] < 1.0, k  # sigmoid probabilities
+    batch = flags.get("norm") == "batch"
+    for net in ("netG_B_A", "netD_A", "netD_B"):
+        moved = [k for k, v in run["state"][net].items()
+                 if k.endswith("running_mean") and np.abs(v).max() > 0]
+        assert bool(moved) == batch, net
+    assert not [k for k in run["state"]["netG_A_B"] if "running" in k]
+
+
+def run_port_train_steps(flags, n_steps=2, batch=2, seed=0):
+    """The port alone: ``n_steps`` of ``train_instance`` from seed-drawn
+    weights, in the shape ``check_variant_specifics`` reads."""
+    from domain_transfer_gan_torch.config import TrainConfig
+    from domain_transfer_gan_torch.models import create_model
+
+    cfg = dict(TINY, init_scheme="sane", seed=seed, **flags)
+    model = create_model(TrainConfig(**cfg), testing=True, device="cpu")
+    A, B = images(seed + 10, batch), images(seed + 11, batch)
+    steps = []
+    for it in range(n_steps):
+        tl, _, tg = model.train_instance(
+            A, B, latents(seed + 20 + it, batch, cfg["nlatent"]),
+            latents(seed + 30 + it, batch, cfg["nlatent"]))
+        steps.append({"losses": {k: float(v) for k, v in tl.items()},
+                      "gnorms": {k: float(v) for k, v in tg.items()}})
+    state = {k: {n: v.detach().numpy().copy()
+                 for n, v in net.state_dict().items()}
+             for k, net in model.nets.items()}
+    return {"steps": steps, "state": state, "model": model}
