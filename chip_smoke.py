@@ -12,17 +12,20 @@ It needs one CUDA device, ``nvcc`` and no network.  It
 2. builds every CUDA source of ``domain_transfer_gan_torch/csrc`` into
    ``build/``, one ``nvcc`` per source, all started together;
 3. holds both instance-norm kernels against their plain PyTorch versions on
-   the card, at every shape the serving path and the train steps at batch 32
-   and batch 128 give them and at edge shapes, in float32 and bfloat16, over unbiased x relu x {no,
-   per-channel, per-sample} affine: the forward's y, mean, rstd, and the
-   backward's dx, dscale, dshift;
+   the card, each in both its variants (the on-chip cluster one wherever
+   ``cluster_plan`` can take the shape, the streaming one everywhere), at
+   every shape the serving path and the train steps at batch 32 and batch
+   128 give them and at edge shapes, in float32 and bfloat16, over unbiased
+   x relu x {no, per-channel, per-sample} affine: the forward's y, mean,
+   rstd, and the backward's dx, dscale, dshift;
 4. drives the serving path at the published width (``aug_cycle_gan``, ngf 32,
    3 blocks, nlatent 16, 64x64, serving batch 32): seed-drawn weights ->
    ``export_model`` -> ``build_server`` on an ephemeral port -> HTTP requests
    (manifest, ``predict_B`` with z, without z and padded, chunked,
    ``predict_A``, a malformed body), each answer compared with the same
    generators run with the kernel's plain version, the launch counters read
-   before and after, then ``predict_B`` and ``predict_A`` again from a
+   before and after (every launch must take the cluster variant), then
+   ``predict_B`` and ``predict_A`` again from a
    bfloat16 artifact; then every norm site of both generators on the input
    its forward gives it, kernel against plain version, in both dtypes;
 5. drives the training path at the same width (nef 32, ndf 64, all six
@@ -30,12 +33,17 @@ It needs one CUDA device, ``nvcc`` and no network.  It
    batch 32 against a twin model with the same weights whose norms run the
    plain version in both directions, then at batch 128 one float32 step and
    3 steps with bfloat16 compute, each against such a twin of its own dtype
-   (losses and gradient norms), and one step with ``norm="batch"``; the forward and backward launch counters are read
-   around every step and held to the counts the step's structure gives;
-6. times both kernels, their plain versions and the library calls
-   (``F.relu(F.instance_norm(...))`` and its backward) at the generators'
-   shapes, the two generators end to end and the train step in both dtypes, and
-   prints the ``kernels`` line.
+   (losses and gradient norms), and one step with ``norm="batch"``; the
+   forward and backward launch counters are read around every step and held
+   to the counts the step's structure gives, and every launch must take the
+   cluster variant;
+6. times both kernels (the cluster and the streaming variant, in turns in
+   this run, with the plan beside each row) at every site of the serving path
+   and the train steps and at the 256x256 request's, their plain versions
+   and the library calls (``F.relu(F.instance_norm(...))`` and its backward)
+   at the generators' shapes, the two generators end to end and the train
+   step in both dtypes, and prints the ``kernels`` line with the launches
+   per variant.
 
 Any failed build, launch or check ends the run with a non-zero exit code.
 The last line of standard output is
@@ -46,11 +54,12 @@ fused-vs-twin deviations lifted and prints the deviations (the limits above
 were chosen from such a run).  ``--profile`` adds what PERF.md reports beyond
 the check: a
 ``torch.profiler`` breakdown of one ``predict_B`` and one ``predict_A``
-forward and of one train step per dtype by kernel name, both kernels'
-times at the discriminators' shapes, and per timed serving shape the forward
-kernel's time on one buffer that stays in L2, its
-time enqueued call by call from Python, and its time with the launch
-geometry's tile narrowing switched off.
+forward and of one train step per dtype by kernel name, the plain and
+library times at the discriminators' shapes, at every timed shape both
+kernels' times under every cluster size that holds the slab,
+and per timed serving shape the forward kernel's time on one buffer that
+stays in L2, its time enqueued call by call from Python, and the streaming
+variant's time with the launch geometry's tile narrowing switched off.
 """
 
 from __future__ import annotations
@@ -220,61 +229,116 @@ def _check_cases():
                         yield shape, dtype, unbiased, relu, affine
 
 
-def check_kernel(torch, instance_norm_fused, instance_norm_plain):
-    """Phase 3.  Returns the largest float32 |y| error and the largest
-    bfloat16 error beyond FP32_ATOL in units of one bfloat16 ulp."""
-    worst32, worst_stats, worst16_ulps = 0.0, 0.0, 0.0
+def _on_chip_plan(K, shape, itemsize, arrays):
+    """The cluster variant's plan for a shape (also where the wrapper picks
+    the streaming one), or None where the cluster variant cannot run."""
+    n, hw, c = shape
+    try:
+        return K.cluster_plan(n, hw, c, itemsize, arrays, K._sm_count(0),
+                              on_chip=True)
+    except ValueError:
+        return None
+
+
+def _picked_variant(K, shape, itemsize, arrays):
+    n, hw, c = shape
+    return K.cluster_plan(n, hw, c, itemsize, arrays,
+                          K._sm_count(0)).variant
+
+
+def _variants(K, shape, itemsize, arrays):
+    """The plans a case is checked under: the cluster variant's wherever it
+    can run, and the streaming one everywhere."""
+    chip = _on_chip_plan(K, shape, itemsize, arrays)
+    return ([chip] if chip is not None else []) + [K.STREAMING]
+
+
+class _Worst:
+    """Largest errors per variant, and the cases held per variant."""
+
+    def __init__(self, *names):
+        self.names = names
+        self.cases = {"cluster": 0, "streaming": 0}
+        self.worst = {v: dict.fromkeys(names, 0.0) for v in self.cases}
+
+    def add(self, variant, **errs):
+        for k, e in errs.items():
+            self.worst[variant][k] = max(self.worst[variant][k], e)
+
+    def overall(self, name):
+        return max(w[name] for w in self.worst.values())
+
+    def summary(self):
+        return {v: dict(self.worst[v], cases=self.cases[v])
+                for v in self.cases}
+
+
+def check_kernel(torch, K):
+    """Phase 3, forward.  Both variants of the kernel against
+    ``instance_norm_plain`` on the same inputs: the cluster variant at
+    every case whose shape it takes, the streaming variant at every case.
+    float32 y, mean, rstd within FP32_ATOL; bfloat16 y within one bfloat16
+    ulp.  Returns a ``_Worst`` (float32 |y| error, mean/rstd error,
+    bfloat16 distance in ulps)."""
+    worst = _Worst("y_float32", "stats", "y_bfloat16_ulps")
     t0 = time.perf_counter()
     for cases, (shape, name, unbiased, relu, affine) in enumerate(
             _check_cases()):
         dtype = getattr(torch, name)
         x, scale, shift = _make_inputs(torch, shape, dtype, affine,
                                        seed=cases)
-        kw = dict(eps=1e-5, unbiased=unbiased, relu=relu, return_stats=True)
-        y, mean, rstd = instance_norm_fused(x, scale, shift, **kw)
-        yp, meanp, rstdp = instance_norm_plain(x, scale, shift, **kw)
-        what = "%r %s unbiased=%s relu=%s affine=%s" % (
-            shape, name, unbiased, relu, affine)
-        if y.shape != x.shape or y.dtype != x.dtype:
-            raise AssertionError("bad output for " + what)
-        finite, e_stats, e, over = _read(
-            torch, torch.isfinite(y.float()).all(),
-            torch.maximum((mean - meanp).abs().max(),
-                          (rstd - rstdp).abs().max()),
-            (y.float() - yp.float()).abs().max(),
-            _bf16_ulps_apart(torch, y, yp)[0])
-        if not finite:
-            raise AssertionError("non-finite y for " + what)
-        worst_stats = max(worst_stats, e_stats)
-        if e_stats > FP32_ATOL:
-            raise AssertionError("mean/rstd differ by %g for %s"
-                                 % (e_stats, what))
-        if dtype == torch.float32:
-            worst32 = max(worst32, e)
-            if e > FP32_ATOL:
-                raise AssertionError("y differs by %g for %s" % (e, what))
-        else:
-            # one bf16 rounding apart at most
-            worst16_ulps = max(worst16_ulps, over)
-            if over > 1.0:
-                raise AssertionError("bf16 y is %.2f ulp off for %s"
-                                     % (over, what))
-    log("kernel check: %d cases at %d shapes passed in %.1f s; float32 max "
-        "|y err| %.3g, max |mean/rstd err| %.3g (limit %.0e); bfloat16 max "
-        "err %.2f ulp" % (cases + 1, len(CHECK_SHAPES),
-                          time.perf_counter() - t0, worst32, worst_stats,
-                          FP32_ATOL, worst16_ulps))
-    return worst32, worst16_ulps
+        yp, meanp, rstdp = K.instance_norm_plain(
+            x, scale, shift, eps=1e-5, unbiased=unbiased, relu=relu,
+            return_stats=True)
+        for plan in _variants(K, shape, x.element_size(), 1):
+            y, mean, rstd = K._launch(x, scale, shift, 1e-5, unbiased, relu,
+                                      plan=plan)
+            what = "%r %s unbiased=%s relu=%s affine=%s, %r" % (
+                shape, name, unbiased, relu, affine, plan)
+            if y.shape != x.shape or y.dtype != x.dtype:
+                raise AssertionError("bad output for " + what)
+            finite, e_stats, e, over = _read(
+                torch, torch.isfinite(y.float()).all(),
+                torch.maximum((mean - meanp).abs().max(),
+                              (rstd - rstdp).abs().max()),
+                (y.float() - yp.float()).abs().max(),
+                _bf16_ulps_apart(torch, y, yp)[0])
+            if not finite:
+                raise AssertionError("non-finite y for " + what)
+            worst.cases[plan.variant] += 1
+            worst.add(plan.variant, stats=e_stats)
+            if e_stats > FP32_ATOL:
+                raise AssertionError("mean/rstd differ by %g for %s"
+                                     % (e_stats, what))
+            if dtype == torch.float32:
+                worst.add(plan.variant, y_float32=e)
+                if e > FP32_ATOL:
+                    raise AssertionError("y differs by %g for %s" % (e, what))
+            else:
+                # one bf16 rounding apart at most
+                worst.add(plan.variant, y_bfloat16_ulps=over)
+                if over > 1.0:
+                    raise AssertionError("bf16 y is %.2f ulp off for %s"
+                                         % (over, what))
+    log("kernel check: %d cases at %d shapes in %.1f s, limits %.0e float32 "
+        "and 1 bfloat16 ulp; per variant %s" % (
+            cases + 1, len(CHECK_SHAPES), time.perf_counter() - t0,
+            FP32_ATOL, json.dumps(worst.summary())))
+    if worst.cases["streaming"] != cases + 1:
+        raise AssertionError("the streaming variant was not held at every "
+                             "case")
+    return worst
 
 
 def check_bwd_kernel(torch, K):
-    """Phase 3, backward.  dx, dscale, dshift of the kernel against
-    ``instance_norm_bwd_plain`` on the same x, dy, mean, rstd, scale, shift.
-    float32 dx within FP32_ATOL relative to the largest |dx|; bfloat16 dx
-    within one bfloat16 ulp; the float32 sums within BWD_SUM_RTOL of the
-    largest |sum|.  Returns the worst float32 |dx| error (relative to the
-    largest |dx|, at least 1) and the worst bfloat16 distance in ulps."""
-    worst32, worst_sums, worst16_ulps = 0.0, 0.0, 0.0
+    """Phase 3, backward.  Both variants' dx, dscale, dshift against
+    ``instance_norm_bwd_plain`` on the same x, dy, mean, rstd, scale, shift,
+    as ``check_kernel`` does for the forward.  float32 dx within FP32_ATOL
+    relative to the largest |dx|; bfloat16 dx within one bfloat16 ulp; the
+    float32 sums within BWD_SUM_RTOL of the largest |sum|.  Returns a
+    ``_Worst`` (float32 |dx| error relative to the largest |dx|, at least 1;
+    the sums' error; bfloat16 distance in ulps)."""
+    worst = _Worst("dx_float32", "sums", "dx_bfloat16_ulps")
     t0 = time.perf_counter()
     for cases, (shape, name, unbiased, relu, affine) in enumerate(
             _check_cases()):
@@ -286,48 +350,54 @@ def check_bwd_kernel(torch, K):
         kw = dict(unbiased=unbiased, relu=relu)
         _, mean, rstd = K.instance_norm_plain(x, scale, shift,
                                               return_stats=True, **kw)
-        dx, ds, dt = K.instance_norm_bwd_fused(x, dy, mean, rstd, scale,
-                                               shift, **kw)
         dxp, dsp, dtp = K.instance_norm_bwd_plain(x, dy, mean, rstd, scale,
                                                   shift, **kw)
-        what = "%r %s unbiased=%s relu=%s affine=%s" % (
-            shape, name, unbiased, relu, affine)
-        if dx.shape != x.shape or dx.dtype != x.dtype:
-            raise AssertionError("bad dx for " + what)
-        if affine == "none":
-            if ds is not None or dt is not None:
-                raise AssertionError("dscale without an affine for " + what)
-            sums = []
-        else:
-            if ds.shape != dsp.shape or dt.shape != dtp.shape:
-                raise AssertionError("bad dscale/dshift for " + what)
-            sums = [_rel_err(ds, dsp), _rel_err(dt, dtp)]
-        finite, e, over, *e_sums = _read(
-            torch, torch.isfinite(dx.float()).all(), _rel_err(dx, dxp),
-            _bf16_ulps_apart(torch, dx, dxp)[0], *sums)
-        if not finite:
-            raise AssertionError("non-finite dx for " + what)
-        for sum_name, e_sum in zip(("dscale", "dshift"), e_sums):
-            worst_sums = max(worst_sums, e_sum)
-            if e_sum > BWD_SUM_RTOL:
-                raise AssertionError("%s differs by %g (relative) for %s"
-                                     % (sum_name, e_sum, what))
-        if dtype == torch.float32:
-            worst32 = max(worst32, e)
-            if e > FP32_ATOL:
-                raise AssertionError("dx differs by %g (relative) for %s"
-                                     % (e, what))
-        else:
-            worst16_ulps = max(worst16_ulps, over)
-            if over > 1.0:
-                raise AssertionError("bf16 dx is %.2f ulp off for %s"
-                                     % (over, what))
-    log("backward kernel check: %d cases at %d shapes passed in %.1f s; "
-        "float32 max |dx err| %.3g (limit %.0e, relative to max |dx|), max "
-        "|dscale/dshift err| %.3g (limit %.0e); bfloat16 max err %.2f ulp"
-        % (cases + 1, len(CHECK_SHAPES), time.perf_counter() - t0, worst32,
-           FP32_ATOL, worst_sums, BWD_SUM_RTOL, worst16_ulps))
-    return worst32, worst16_ulps
+        for plan in _variants(K, shape, x.element_size(), 2):
+            dx, ds, dt = K._launch_bwd(x, dy, mean, rstd, scale, shift,
+                                       unbiased, relu, plan=plan)
+            what = "%r %s unbiased=%s relu=%s affine=%s, %r" % (
+                shape, name, unbiased, relu, affine, plan)
+            if dx.shape != x.shape or dx.dtype != x.dtype:
+                raise AssertionError("bad dx for " + what)
+            if affine == "none":
+                if ds is not None or dt is not None:
+                    raise AssertionError("dscale without an affine for "
+                                         + what)
+                sums = []
+            else:
+                if ds.shape != dsp.shape or dt.shape != dtp.shape:
+                    raise AssertionError("bad dscale/dshift for " + what)
+                sums = [_rel_err(ds, dsp), _rel_err(dt, dtp)]
+            finite, e, over, *e_sums = _read(
+                torch, torch.isfinite(dx.float()).all(), _rel_err(dx, dxp),
+                _bf16_ulps_apart(torch, dx, dxp)[0], *sums)
+            if not finite:
+                raise AssertionError("non-finite dx for " + what)
+            worst.cases[plan.variant] += 1
+            for sum_name, e_sum in zip(("dscale", "dshift"), e_sums):
+                worst.add(plan.variant, sums=e_sum)
+                if e_sum > BWD_SUM_RTOL:
+                    raise AssertionError("%s differs by %g (relative) for %s"
+                                         % (sum_name, e_sum, what))
+            if dtype == torch.float32:
+                worst.add(plan.variant, dx_float32=e)
+                if e > FP32_ATOL:
+                    raise AssertionError("dx differs by %g (relative) for %s"
+                                         % (e, what))
+            else:
+                worst.add(plan.variant, dx_bfloat16_ulps=over)
+                if over > 1.0:
+                    raise AssertionError("bf16 dx is %.2f ulp off for %s"
+                                         % (over, what))
+    log("backward kernel check: %d cases at %d shapes in %.1f s, limits "
+        "%.0e float32 dx (relative to max |dx|), %.0e dscale/dshift, 1 "
+        "bfloat16 ulp; per variant %s" % (
+            cases + 1, len(CHECK_SHAPES), time.perf_counter() - t0,
+            FP32_ATOL, BWD_SUM_RTOL, json.dumps(worst.summary())))
+    if worst.cases["streaming"] != cases + 1:
+        raise AssertionError("the streaming variant was not held at every "
+                             "case")
+    return worst
 
 
 def _time_eager(torch, fn, iters=20, warmup=3):
@@ -376,30 +446,91 @@ def _n_buffers(nbytes):
     return max(2, -(-3 * 50 * 2 ** 20 // nbytes))
 
 
+def _serving_cases():
+    return [(shape, name) for shape in PATH_SHAPES + TIMED_EXTRA_SHAPES
+            for name in ("float32", "bfloat16")]
+
+
+def _train_cases():
+    """(shape, dtype name) of the norm sites of one train step, in the dtype
+    and at the batch the training path runs them."""
+    return [(shape, name) for name, batch in TRAIN_BATCH.items()
+            for shape in sorted(train_sites(batch), reverse=True)]
+
+
+def _timed_cases():
+    serving = _serving_cases()
+    return serving + [c for c in _train_cases() if c not in serving]
+
+
+def _plan_row(plan, n):
+    return {"variant": plan.variant, "cluster": plan.cluster,
+            "rows": plan.rows, "stages": plan.stages,
+            "threads": plan.threads, "smem_bytes": plan.smem_bytes,
+            "ctas": n * plan.cluster}
+
+
+def _time_variants(torch, K, launch, shape, itemsize, arrays, sweep):
+    """Device ms of ``launch(i, plan)`` under the cluster variant's plan
+    (``cluster_ms``, where it can run) and under the streaming plan (the PR
+    1/2 kernels, ``streaming_ms``), timed in turns (streaming, cluster,
+    cluster, streaming) and averaged per plan; ``kernel_ms`` is the time of
+    the variant the wrapper picks (``variant``), ``plan`` the cluster
+    variant's plan.  With ``sweep`` also under every cluster size that holds
+    the slab."""
+    n, hw, c = shape
+    sm_count = K._sm_count(0)
+    picked = _picked_variant(K, shape, itemsize, arrays)
+    chip = _on_chip_plan(K, shape, itemsize, arrays)
+
+    def timed(p):
+        return _time_device(torch, lambda i: launch(i, p))
+
+    out = {"variant": picked,
+           "plan": _plan_row(chip or K.STREAMING, n)}
+    if chip is not None:
+        s1, k1, k2, s2 = (timed(p) for p in (K.STREAMING, chip, chip,
+                                             K.STREAMING))
+        out["cluster_ms"], out["streaming_ms"] = (k1 + k2) / 2, (s1 + s2) / 2
+    else:
+        out["cluster_ms"], out["streaming_ms"] = None, timed(K.STREAMING)
+    out["kernel_ms"] = out[picked + "_ms"]
+    if sweep:
+        out["cluster_sweep_ms"] = {}
+        for k in (1, 2, 4, 8, 16):
+            try:
+                p = K.cluster_plan(n, hw, c, itemsize, arrays, sm_count,
+                                   cluster=k)
+            except ValueError:
+                continue
+            out["cluster_sweep_ms"][str(k)] = timed(p)
+    return out
+
+
 def time_kernel(torch, F, K, site_counts, train_counts, extra):
     """Phase 6, forward kernel, per path shape and dtype.  Per-channel
     affine, biased variance, fused ReLU: the case the library call covers
     too.  Times are device times (CUDA-graph replay).  Inputs rotate over
     enough buffers to exceed the 50 MB L2, so every launch reads x from
-    device memory, as the bound assumes.  ``site_counts[dtype][request]
-    [shape]`` are the launches the serving path was seen to make,
-    ``train_counts[dtype]["fwd"][shape]`` those of one train step.  The
-    serving shapes are timed in both dtypes with the plain version and the
-    library call beside the kernel; the generator sites of the bfloat16
-    batch-128 train step get ``kernel_ms`` and ``bound_ms`` only.  With
-    ``extra`` every row has all four times, the discriminator sites of the
-    train step are timed too, and the serving shapes gain:
+    device memory, as the bound assumes.  ``cluster_ms`` and
+    ``streaming_ms`` are the two variants, timed in turns in this run,
+    ``kernel_ms`` the one the wrapper picks (``variant``); ``plan`` says how
+    the cluster variant ran.  ``site_counts[dtype][request][shape]`` are the launches
+    the serving path was seen to make, ``train_counts[dtype]["fwd"][shape]``
+    those of one train step.  The serving shapes are timed in both dtypes
+    with the plain version and the library call beside the kernel; the
+    sites of the train steps (generators and discriminators) get the
+    kernel's times and ``bound_ms`` only.  With ``extra`` every row has all
+    the times and ``cluster_sweep_ms`` (the cluster variant at each cluster
+    size that holds the slab), and the serving shapes gain:
     ``kernel_ms_l2_warm`` repeats on one buffer, which is closer to a norm
     that follows its conv; ``kernel_eager_ms`` includes the host's enqueue
-    time; ``kernel_ms_wide_tile`` is the kernel without the tile narrowing
-    of ``launch_geometry`` (an SM count of 0 switches it off)."""
-    instance_norm_fused = K.instance_norm_fused
-    instance_norm_plain = K.instance_norm_plain
-    serving = [(shape, name) for shape in PATH_SHAPES + TIMED_EXTRA_SHAPES
-               for name in ("float32", "bfloat16")]
+    time; ``streaming_ms_wide_tile`` is the streaming variant without the
+    tile narrowing of ``launch_geometry`` (an SM count of 0 switches it
+    off)."""
+    serving = _serving_cases()
     rows = []
-    for shape, name in serving + [c for c in _train_cases(disc=extra)
-                                  if c not in serving]:
+    for shape, name in _timed_cases():
         beside = extra or (shape, name) in serving
         n, hw, c = shape
         dtype = getattr(torch, name)
@@ -414,15 +545,14 @@ def time_kernel(torch, F, K, site_counts, train_counts, extra):
         n_buf = _n_buffers(2 * x_bytes)
         bufs = [_make_inputs(torch, shape, dtype, "channel", seed=100 + i)
                 for i in range(n_buf)]
-        kw = dict(eps=1e-5, unbiased=False, relu=True)
 
-        def kernel(i):
+        def launch(i, plan):
             x, s, b = bufs[i % n_buf]
-            return instance_norm_fused(x, s, b, **kw)
+            return K._launch(x, s, b, 1e-5, False, True, plan=plan)
 
         def plain(i):
             x, s, b = bufs[i % n_buf]
-            return instance_norm_plain(x, s, b, **kw)
+            return K.instance_norm_plain(x, s, b, eps=1e-5, relu=True)
 
         def library(i):
             # same memory: the NCHW view of the channels_last activation
@@ -431,10 +561,10 @@ def time_kernel(torch, F, K, site_counts, train_counts, extra):
                 x.permute(0, 3, 1, 2), weight=s.to(dtype),
                 bias=b.to(dtype), eps=1e-5))
 
-        row = {
-            "shape": list(shape), "dtype": name,
-            "bytes": nbytes,
-            "kernel_ms": _time_device(torch, kernel),
+        row = {"shape": list(shape), "dtype": name, "bytes": nbytes}
+        row.update(_time_variants(torch, K, launch, shape, itemsize, 1,
+                                  sweep=extra))
+        row.update({
             "bound_ms": max(t_bytes, t_ops),
             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
             "plain_ms": _time_device(torch, plain) if beside else None,
@@ -445,15 +575,17 @@ def time_kernel(torch, F, K, site_counts, train_counts, extra):
                 site_counts[name]["predict_A"].get(shape, 0),
             "launches_per_train_step":
                 train_counts[name]["fwd"].get(shape, 0),
-        }
+        })
         if extra and (shape, name) in serving:
             row["kernel_ms_l2_warm"] = _time_device(
-                torch, lambda i: kernel(0))
-            row["kernel_eager_ms"] = _time_eager(torch, kernel)
+                torch, lambda i: launch(0, None))
+            row["kernel_eager_ms"] = _time_eager(
+                torch, lambda i: launch(i, None))
             sm_count = K._sm_count
             K._sm_count = lambda index: 0
             try:
-                row["kernel_ms_wide_tile"] = _time_device(torch, kernel)
+                row["streaming_ms_wide_tile"] = _time_device(
+                    torch, lambda i: launch(i, K.STREAMING))
             finally:
                 K._sm_count = sm_count
             row["geometry"] = list(K.launch_geometry(
@@ -466,28 +598,24 @@ def time_kernel(torch, F, K, site_counts, train_counts, extra):
     return rows
 
 
-def _train_cases(disc):
-    """(shape, dtype name) of the norm sites of one train step, in the dtype
-    and at the batch the training path runs them: the generators' three
-    shapes, and with ``disc`` the discriminators' twelve."""
-    return [(shape, name) for name, batch in TRAIN_BATCH.items()
-            for shape in sorted(train_sites(batch), reverse=True)
-            if disc or shape[0] == batch and shape[1] >= 1024]
-
-
 def time_bwd_kernel(torch, F, K, train_counts, extra):
-    """Phase 6, backward kernel, at the generator sites of the training path
-    (with ``extra`` at the discriminator sites too) in the dtype and batch
-    that path runs them.  Per-channel affine, biased variance,
-    fused ReLU.  Device times by CUDA-graph replay over buffers that exceed
-    the L2.  ``bound_ms`` = (x and dy read once, dx written once, mean,
-    rstd, dscale, dshift as (N, C) and scale, shift as (C,), float32) over
-    the card's memory rate.  ``library_ms`` is the backward of
-    ``F.relu(F.instance_norm(x, weight, bias))`` on the same channels_last
-    memory (``torch.autograd.grad`` w.r.t. x, weight and bias): the time of
-    a captured forward + backward less the time of the captured forward."""
+    """Phase 6, backward kernel, at the serving shapes in both dtypes (the
+    bfloat16 batch-32 rows and the 256x256 request are on no training path:
+    they complete the table) and at every site of the training path in the
+    dtype and batch that path runs them; the plain and library times of the
+    discriminator sites only with ``extra``.  Per-channel affine, biased variance, fused ReLU.
+    Device times by CUDA-graph replay over buffers that exceed the L2;
+    ``kernel_ms``, ``streaming_ms``, ``plan`` and, with ``extra``,
+    ``cluster_sweep_ms`` as for the forward.  ``bound_ms`` = (x and dy read
+    once, dx written once, mean, rstd, dscale, dshift as (N, C) and scale,
+    shift as (C,), float32) over the card's memory rate.  ``library_ms`` is
+    the backward of ``F.relu(F.instance_norm(x, weight, bias))`` on the same
+    channels_last memory (``torch.autograd.grad`` w.r.t. x, weight and
+    bias): the time of a captured forward + backward less the time of the
+    captured forward."""
     rows = []
-    for shape, name in _train_cases(disc=extra):
+    for shape, name in _timed_cases():
+        beside = extra or shape[1] >= 1024
         n, hw, c = shape
         dtype = getattr(torch, name)
         itemsize = torch.finfo(dtype).bits // 8
@@ -507,8 +635,8 @@ def time_bwd_kernel(torch, F, K, train_counts, extra):
                                                   **kw)
             bufs.append((x, dy, mean, rstd, s, b))
 
-        def kernel(i):
-            return K.instance_norm_bwd_fused(*bufs[i % n_buf], **kw)
+        def launch(i, plan):
+            return K._launch_bwd(*bufs[i % n_buf], False, True, plan=plan)
 
         def plain(i):
             return K.instance_norm_bwd_plain(*bufs[i % n_buf], **kw)
@@ -529,19 +657,21 @@ def time_bwd_kernel(torch, F, K, train_counts, extra):
             y = F.relu(F.instance_norm(xl, weight=sl, bias=bl, eps=1e-5))
             return torch.autograd.grad(y, (xl, sl, bl), dyl)
 
-        lib_both = _time_device(torch, library_fwd_bwd)
-        lib_fwd = _time_device(torch, library_fwd)
-        rows.append({
-            "shape": list(shape), "dtype": name, "bytes": nbytes,
-            "kernel_ms": _time_device(torch, kernel),
+        row = {"shape": list(shape), "dtype": name, "bytes": nbytes}
+        row.update(_time_variants(torch, K, launch, shape, itemsize, 2,
+                                  sweep=extra))
+        lib_both = _time_device(torch, library_fwd_bwd) if beside else None
+        lib_fwd = _time_device(torch, library_fwd) if beside else None
+        row.update({
             "bound_ms": max(t_bytes, t_ops),
             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-            "plain_ms": _time_device(torch, plain),
-            "library_ms": lib_both - lib_fwd,
+            "plain_ms": _time_device(torch, plain) if beside else None,
+            "library_ms": lib_both - lib_fwd if beside else None,
             "library_fwd_bwd_ms": lib_both,
             "launches_per_train_step":
                 train_counts[name]["bwd"].get(shape, 0),
         })
+        rows.append(row)
         del bufs
         torch.cuda.empty_cache()
     return rows
@@ -597,9 +727,10 @@ def _check_images(y, n, hw, nc, what):
 
 
 def drive_serving_path(torch, fused, fused_bwd, tmp):
-    """Phase 4.  Returns (forward and backward launches counted on the main
-    path, launches per shape of the batch-32 requests, what the timing
-    phases need)."""
+    """Phase 4.  Returns (forward launches counted on the main path, the same
+    per variant, launches per shape of the batch-32 requests, what the
+    timing phases need).  The backward kernel must not launch, and every
+    forward launch must take the cluster variant."""
     from domain_transfer_gan_torch.cli.serve import ExportedEndpoint
     from domain_transfer_gan_torch.config import TrainConfig
 
@@ -630,6 +761,7 @@ def drive_serving_path(torch, fused, fused_bwd, tmp):
     for wrapper in (fused, fused_bwd):
         wrapper.launches = 0
         wrapper.launches_by_shape = {}
+        wrapper.launches_by_variant = {"cluster": 0, "streaming": 0}
     with Served(TrainConfig(**cfg), tmp + "/fp32", batch) as srv:
         with urllib.request.urlopen(srv.url + "/", timeout=30) as resp:
             manifest = json.loads(resp.read())
@@ -661,9 +793,14 @@ def drive_serving_path(torch, fused, fused_bwd, tmp):
         bf16_dir = srv16.out_dir
     # the main path ends here
     main_path_launches, bwd_launches = fused.launches, fused_bwd.launches
+    by_variant = dict(fused.launches_by_variant)
     if bwd_launches:
         raise AssertionError("serving launched the backward kernel %d times"
                              % bwd_launches)
+    if by_variant != {"cluster": main_path_launches, "streaming": 0}:
+        raise AssertionError("serving launched the forward kernel's variants "
+                             "%r: every serving shape must take the cluster "
+                             "one" % by_variant)
 
     if manifest["batch"] != batch or manifest["platforms"] != ["cuda"] or \
             manifest["serve_dtype"] != "float32" or \
@@ -736,14 +873,15 @@ def drive_serving_path(torch, fused, fused_bwd, tmp):
             "(limits %g, %g)" % (errs["B32_bf16_vs_fp32"],
                                  errs["B32_bf16_vs_fp32_mean"],
                                  BF16_MAX_ATOL, BF16_MEAN_ATOL))
-    log("serving path: launches per request %s" % json.dumps(counts))
+    log("serving path: launches per request %s, per variant %s"
+        % (json.dumps(counts), json.dumps(by_variant)))
     log("serving path: launches per request and shape %s" % json.dumps(
         {name: {"%dx%dx%d" % k: v for k, v in sorted(per.items())}
          for name, per in counts_by_shape.items()}))
     log("serving path: max |served - plain-norm| %s" % json.dumps(errs))
     ctx = {"fp32_dir": fp32_dir, "bf16_dir": bf16_dir, "A": A, "B": B,
            "z": z, "batch": batch, "cfg": cfg}
-    return main_path_launches, bwd_launches, site_counts, ctx
+    return main_path_launches, by_variant, site_counts, ctx
 
 
 def check_norm_sites(torch, ctx):
@@ -813,7 +951,12 @@ class _Counters:
         for w in (self.fwd, self.bwd):
             w.launches = 0
             w.launches_by_shape = {}
+            w.launches_by_variant = {"cluster": 0, "streaming": 0}
         self.bwd.dy_copies = 0
+
+    def variants(self):
+        return {"fwd": dict(self.fwd.launches_by_variant),
+                "bwd": dict(self.bwd.launches_by_variant)}
 
     def read(self):
         return {"fwd": dict(self.fwd.launches_by_shape),
@@ -860,9 +1003,10 @@ def _snapshot(model):
 
 
 def drive_training_path(torch, K, seed_offset=0, hold=True):
-    """Phase 5.  Returns (forward launches, backward launches counted on the
-    training path, launches of one step per dtype and direction and shape,
-    the largest deviations seen).  ``seed_offset`` moves the seeds of the
+    """Phase 5.  Returns (forward and backward launches counted on the
+    training path, per variant: every one must take the variant
+    ``cluster_plan`` picks for its shape and dtype; launches of one step per
+    dtype and direction and shape; the largest deviations seen).  ``seed_offset`` moves the seeds of the
     weights and of the inputs; with ``hold`` off the deviations from the
     twins are measured and returned but held to no limit (``--twin-seeds``:
     how the limits were chosen)."""
@@ -878,6 +1022,8 @@ def drive_training_path(torch, K, seed_offset=0, hold=True):
         cfg = dict(TRAIN_CFG, seed=TRAIN_CFG["seed"] + seed_offset, **kw)
         return create_model(TrainConfig(**cfg), testing=True, device="cuda")
 
+    expected = {d: {"cluster": 0, "streaming": 0} for d in ("fwd", "bwd")}
+
     def step(m, A, B, z, eps, plain_norm=False):
         before = counters.read()
         losses, visuals, gnorms = m.train_instance(A, B, z, eps,
@@ -888,8 +1034,13 @@ def drive_training_path(torch, K, seed_offset=0, hold=True):
                     not bool(torch.isfinite(v.float()).all()):
                 raise AssertionError("visual %s: shape %r or values"
                                      % (k, tuple(v.shape)))
-        return (_floats(losses), _floats(gnorms),
-                counters.diff(counters.read(), before))
+        seen = counters.diff(counters.read(), before)
+        itemsize = torch.finfo(m.dtype).bits // 8
+        for direction, arrays in (("fwd", 1), ("bwd", 2)):
+            for shape, count in seen[direction].items():
+                variant = _picked_variant(K, shape, itemsize, arrays)
+                expected[direction][variant] += count
+        return _floats(losses), _floats(gnorms), seen
 
     def check_counts(seen, batch, what, n_blocks=3, instance=True):
         if instance:
@@ -983,16 +1134,21 @@ def drive_training_path(torch, K, seed_offset=0, hold=True):
     torch.cuda.empty_cache()
 
     total = counters.read()  # the training path ends here
+    variants = counters.variants()
     fwd, bwd = sum(total["fwd"].values()), sum(total["bwd"].values())
+    if variants != expected:
+        raise AssertionError("the training path launched the variants %r, "
+                             "the plan picks %r" % (variants, expected))
     per_step = {d: {k: sum(v[k].values()) for k in ("fwd", "bwd")}
                 for d, v in step_counts.items()}
-    log("training path: launches per step %s, dy copies on the whole path "
-        "%d" % (json.dumps(per_step), total["dy_copies"]))
+    log("training path: launches per step %s, per variant on the whole path "
+        "%s, dy copies on the whole path %d"
+        % (json.dumps(per_step), json.dumps(variants), total["dy_copies"]))
     log("training path: launches per step and shape %s" % json.dumps(
         {d: {k: {"%dx%dx%d" % sh: c for sh, c in sorted(v[k].items())}
              for k in ("fwd", "bwd")} for d, v in step_counts.items()}))
     log("training path: largest relative deviations %s" % json.dumps(devs))
-    return fwd, bwd, step_counts, devs
+    return variants, step_counts, devs
 
 
 def time_train_step(torch):
@@ -1062,6 +1218,8 @@ def profile_train_step(torch):
             "device_busy_ms_per_step": busy_ms,
             "device_busy_share": busy_ms / wall_ms,
             "device_kernels_per_step": count / reps,
+            # both variants of both instance-norm kernels, all launches
+            "instance_norm_ms_per_step": _norm_ms(kernels),
             # ATen's elementwise kernels differ only late in their names
             "kernels_us_per_step": _top_kernels(kernels, 24, width=200),
         }
@@ -1120,6 +1278,11 @@ def time_end_to_end(torch, ctx):
     return out
 
 
+def _norm_ms(kernels):
+    """Milliseconds of the instance-norm kernels in {kernel name: us}."""
+    return sum(v for k, v in kernels.items() if "instance_norm" in k) / 1e3
+
+
 def _top_kernels(kernels, n, width=80):
     """The n largest entries of {kernel name: microseconds}, names cut to
     ``width`` characters (times of names that then coincide are added)."""
@@ -1162,6 +1325,7 @@ def profile_forward(torch, ctx):
                 kernels[ev.name] = kernels.get(ev.name, 0.0) + dur / reps
         out[name] = {
             "device_busy_ms_per_call": sum(kernels.values()) / 1e3,
+            "instance_norm_ms_per_call": _norm_ms(kernels),
             "kernels_us_per_call": _top_kernels(kernels, 14),
         }
     return out
@@ -1212,20 +1376,21 @@ def main(argv=None):
     log("built %s in %.1f s" % (", ".join(built), build_s))
 
     # phase 3: kernels against their plain versions
-    worst32, worst16_ulps = check_kernel(torch, K.instance_norm_fused,
-                                         K.instance_norm_plain)
-    bwd_worst32, bwd_worst16_ulps = check_bwd_kernel(torch, K)
+    worst = check_kernel(torch, K)
+    bwd_worst = check_bwd_kernel(torch, K)
 
     # phase 4: the serving path
     with tempfile.TemporaryDirectory() as tmp:
-        launches, serving_bwd, site_counts, ctx = drive_serving_path(
+        launches, serving_variants, site_counts, ctx = drive_serving_path(
             torch, K.instance_norm_fused, K.instance_norm_bwd_fused, tmp)
         if launches < 1:
             raise AssertionError("the serving path never launched the kernel")
         check_norm_sites(torch, ctx)
 
         # phase 5: the training path
-        train_fwd, train_bwd, train_counts, _ = drive_training_path(torch, K)
+        train_variants, train_counts, _ = drive_training_path(torch, K)
+        train_fwd = sum(train_variants["fwd"].values())
+        train_bwd = sum(train_variants["bwd"].values())
         if train_fwd < 1 or train_bwd < 1:
             raise AssertionError("the training path never launched a kernel")
         for i in range(args.twin_seeds):
@@ -1262,8 +1427,12 @@ def main(argv=None):
         "launches": launches + train_fwd,
         "launches_serving_path": launches,
         "launches_training_path": train_fwd,
-        "max_abs_err": worst32,
-        "max_err_bf16_ulps": worst16_ulps,
+        "launches_by_variant": {
+            v: serving_variants[v] + train_variants["fwd"][v]
+            for v in serving_variants},
+        "max_abs_err": worst.overall("y_float32"),
+        "max_err_bf16_ulps": worst.overall("y_bfloat16_ulps"),
+        "check_by_variant": worst.summary(),
         "shape": list(HEADLINE[0]), "dtype": HEADLINE[1],
         "ms": head["kernel_ms"],
         "plain_ms": head["plain_ms"],
@@ -1281,11 +1450,13 @@ def main(argv=None):
         "route": "cuda",
         "source": "domain_transfer_gan_torch/csrc/instance_norm_bwd.cu",
         "replaces": pallas + ":175",
-        "launches": serving_bwd + train_bwd,
-        "launches_serving_path": serving_bwd,
+        "launches": train_bwd,
+        "launches_serving_path": 0,
         "launches_training_path": train_bwd,
-        "max_abs_err": bwd_worst32,
-        "max_err_bf16_ulps": bwd_worst16_ulps,
+        "launches_by_variant": train_variants["bwd"],
+        "max_abs_err": bwd_worst.overall("dx_float32"),
+        "max_err_bf16_ulps": bwd_worst.overall("dx_bfloat16_ulps"),
+        "check_by_variant": bwd_worst.summary(),
         "shape": list(HEADLINE[0]), "dtype": HEADLINE[1],
         "ms": bwd_head["kernel_ms"],
         "plain_ms": bwd_head["plain_ms"],

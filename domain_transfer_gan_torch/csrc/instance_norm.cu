@@ -14,41 +14,63 @@
 // and shift are fp32, read as scale[n * affine_stride + c]: affine_stride = C
 // for per-sample (N, C) maps, 0 for per-channel (C,) parameters; null pointers
 // mean no affine.  mean and rstd are (N, C) fp32 and are written out because
-// the backward kernel needs them.
-//
-// What differs from the TPU kernel.  That one holds a whole (samples, HW,
-// channel-tile) block in on-chip memory and therefore refuses shapes whose
-// block does not fit.  Here a thread block loops over HW, so every HW >= 1 and
-// every C >= 1 is served and no size falls back.
-//
-// Launch geometry (chosen by the Python wrapper, checked below):
-//   * grid  = N * ceil(C / (TX * VEC)) blocks, one per (sample, channel tile);
-//   * block = 256 threads laid out as TX (channel direction) x TY = 256 / TX
-//     (row direction).  Thread (tx, ty) owns VEC neighbouring channels
-//     c0 = (tile * TX + tx) * VEC .. c0 + VEC - 1 and the rows ty, ty + TY, ...
-//     Neighbouring tx read neighbouring addresses, so a row of the tile is one
-//     coalesced segment of TX * VEC * sizeof(T) bytes;
-//   * VEC is 1 (any C, any alignment) or the number of elements in 16 bytes
-//     (4 for fp32, 8 for bf16), which needs C % VEC == 0 and 16-byte aligned
-//     base pointers.  TX is a power of two <= 32.  The wrapper narrows the
-//     tile (smaller TX) while the grid would leave most of the 132 SMs idle.
-//
-// Reduction order: each thread sums its rows in order in a register, then the
-// TY partial sums of a channel are added by a binary tree in shared memory
-// (stride TY/2, TY/4, ..., 1).  The order is fixed, so results are
-// reproducible from run to run.  Pass 1 gives the mean, pass 2 the centered
-// sum of squares (the same form as the TPU kernel, not E[x^2] - mean^2),
-// pass 3 writes y.
+// the backward kernel needs them.  The variance is the centered one (as the
+// TPU kernel's, never E[x^2] - mean^2).
 //
 // Bound.  The function is memory-bound: ~8 floating-point operations per
 // element against 2 * sizeof(T) bytes.  It must read x once and write y once
 // (scale, shift, mean, rstd are N * C * 16 bytes, negligible), so the least
-// time on an H100 SXM is 2 * N * HW * C * sizeof(T) / 3.35e12 s.  This kernel
-// reads x three times; the second and third reads of a tile come mostly from
-// the 50 MB L2 (one path-shape activation is at most 16.8 MB).  Keeping the
-// tile in shared memory or registers to read it once, TMA loads, and a split
-// of HW over a cluster for shapes with few channels are left for later work.
+// time on an H100 SXM is 2 * N * HW * C * sizeof(T) / 3.35e12 s.
+//
+// Two variants; ops/kernels/instance_norm.py::cluster_plan picks one per
+// shape, and a refused launch is an error, never a move to the other.
+//
+// 1. On chip (instance_norm_fwd_cluster, the main path's): a cluster of K
+//    CTAs per sample holds the sample's slab in shared memory, so x is read
+//    from device memory exactly once and y is written from shared memory
+//    (instance_norm_cluster.cuh: layout, copies, reduction order).  CTA rank
+//    k bulk-copies its rows [k * rows, min((k + 1) * rows, HW)) in `stages`
+//    copies and
+//      pass 1  sums them, stage by stage as the copies land;
+//      pass 2  sums (x - m_k)^2 about its own mean m_k, from shared memory;
+//      merge   publishes (sum_k, M2_k, m_k) and, after the one cluster
+//              barrier, every CTA adds the K sums in rank order (the mean)
+//              and M2 = sum_k M2_k + n_k (m_k - mean)^2 in rank order (Chan
+//              et al.'s merge: the centered sum of squares about the
+//              sample's mean, with one exchange instead of two);
+//      pass 3  normalises from shared memory and writes y with 16-byte
+//              stores (bulk stores from shared memory measured slower).
+//    A cluster of one CTA is an ordinary launch whose barriers are block
+//    barriers.  Taken where C * sizeof(T) is a multiple of 16 bytes, the
+//    tensors are 16-byte aligned and some K <= 16 fits the slab into 227 KB
+//    per CTA: every shape of the serving path and of the train steps.
+// 2. Streaming (instance_norm_fwd, the first port of the kernel): one block
+//    per (sample, channel tile) loops over HW, so every HW >= 1 and C >= 1 is
+//    served.  It reads x three times (mean, centered variance, output; the
+//    second and third reads mostly from the 50 MB L2).  Taken elsewhere:
+//    rows of other widths, and slabs no cluster holds (the 256x256 request
+//    (4, 65536, 32): 4-8 MB per sample).
+//      * grid  = N * ceil(C / (TX * VEC)) blocks, one per (sample, channel
+//        tile);
+//      * block = 256 threads laid out as TX (channel direction) x TY = 256 /
+//        TX (row direction).  Thread (tx, ty) owns VEC neighbouring channels
+//        c0 = (tile * TX + tx) * VEC .. c0 + VEC - 1 and the rows ty, ty + TY,
+//        ...  Neighbouring tx read neighbouring addresses, so a row of the
+//        tile is one coalesced segment of TX * VEC * sizeof(T) bytes;
+//      * VEC is 1 (any C, any alignment) or the number of elements in 16
+//        bytes (4 for fp32, 8 for bf16), which needs C % VEC == 0 and 16-byte
+//        aligned base pointers.  TX is a power of two <= 32; the wrapper
+//        narrows the tile (smaller TX) while the grid would leave most of the
+//        132 SMs idle (launch_geometry).
+//      * reduction order: each thread sums its rows in order in a register,
+//        then the TY partial sums of a channel are added by a binary tree in
+//        shared memory (stride TY/2, TY/4, ..., 1).  Pass 1 gives the mean,
+//        pass 2 the centered sum of squares, pass 3 writes y.
+//
+// Both variants add in a fixed order and use no atomics, so a result repeats
+// bit for bit from run to run.
 
+#include "instance_norm_cluster.cuh"
 #include "instance_norm_common.cuh"
 
 using namespace instance_norm;
@@ -187,4 +209,211 @@ extern "C" int instance_norm_fwd(const void* x, const void* scale, const void* s
   if (dtype == 1 && vec == 8)
     return launch<__nv_bfloat16, 8>(x, scale, shift, y, mean, rstd, n, hw, c, affine_stride, tx_count, eps, unbiased, relu, s);
   return invalid;
+}
+
+
+// ---------------------------------------------------------------------------
+// The on-chip variant (see the head of this file).
+
+namespace {
+
+template <typename T>
+__global__ void __launch_bounds__(kClusterThreadsMax)
+instance_norm_fwd_cluster_kernel(const T* __restrict__ x, const float* __restrict__ scale,
+                                 const float* __restrict__ shift, T* __restrict__ y,
+                                 float* __restrict__ mean_out, float* __restrict__ rstd_out,
+                                 int hw, int c, int affine_stride, int k_count, int rows,
+                                 int stages, float eps, int unbiased, int relu) {
+  constexpr int VEC = 16 / sizeof(T);
+  extern __shared__ __align__(16) unsigned char smem[];
+  const ClusterLayout lay = cluster_layout(1, rows, c, sizeof(T), blockDim.x, stages);
+  T* slab = reinterpret_cast<T*>(smem);
+  float* part = reinterpret_cast<float*>(smem + lay.part);  // [3][c]: sum, M2, mean of the CTA
+  float* stat = reinterpret_cast<float*>(smem + lay.stat);  // [2][c]
+  float* red = reinterpret_cast<float*>(smem + lay.red);
+  uint64_t* bars = reinterpret_cast<uint64_t*>(smem + lay.bars);
+
+  const int rank = static_cast<int>(cg::this_cluster().block_rank());
+  const int n = blockIdx.x / k_count;
+  const int packs = c / VEC;
+  const int ty_count = blockDim.x / packs;
+  const int tid = threadIdx.x;
+  const int ty = tid / packs;
+  const int tx = tid - ty * packs;
+  const int c0 = tx * VEC;
+  const int first = min(rank * rows, hw);
+  const int last = min(first + rows, hw);
+  const size_t sample = static_cast<size_t>(n) * hw * c;
+
+  if (tid == 0) {
+    const T* const src[1] = {x};
+    start_loads<T, 1>(slab, 0, src, sample, first, last, c, stages, bars);
+  }
+  __syncthreads();
+
+  // pass 1: the CTA's sums, stage by stage as the copies land
+  float acc[VEC], v[VEC];
+#pragma unroll
+  for (int i = 0; i < VEC; ++i) acc[i] = 0.f;
+  for (int s = 0; s < stages; ++s) {
+    int r0, r1;
+    stage_rows(first, last, stages, s, r0, r1);
+    if (r1 == r0) continue;
+    mbar_wait(&bars[s], 0);
+    for (int r = r0 + ty; r < r1; r += ty_count) {
+      Pack<T, VEC>::load(slab + static_cast<size_t>(r - first) * c + c0, v);
+#pragma unroll
+      for (int i = 0; i < VEC; ++i) acc[i] += v[i];
+    }
+  }
+  tree_over_rows<VEC>(acc, red, packs, ty_count);
+  const int own = last - first;
+  float sum[VEC] = {};
+  if (ty == 0) {
+#pragma unroll
+    for (int i = 0; i < VEC; ++i) {
+      sum[i] = red[tx * VEC + i];
+      stat[c0 + i] = own > 0 ? sum[i] / static_cast<float>(own) : 0.f;
+    }
+  }
+  __syncthreads();
+  float local_mean[VEC];
+#pragma unroll
+  for (int i = 0; i < VEC; ++i) local_mean[i] = stat[c0 + i];
+
+  // pass 2: the CTA's centered sum of squares, about its own mean
+#pragma unroll
+  for (int i = 0; i < VEC; ++i) acc[i] = 0.f;
+  for (int r = first + ty; r < last; r += ty_count) {
+    Pack<T, VEC>::load(slab + static_cast<size_t>(r - first) * c + c0, v);
+#pragma unroll
+    for (int i = 0; i < VEC; ++i) {
+      const float d = v[i] - local_mean[i];
+      acc[i] += d * d;
+    }
+  }
+  tree_over_rows<VEC>(acc, red, packs, ty_count);  // its first barrier orders the reads of stat
+  if (ty == 0) {
+#pragma unroll
+    for (int i = 0; i < VEC; ++i) {
+      part[c0 + i] = sum[i];
+      part[c + c0 + i] = red[tx * VEC + i];
+      part[2 * c + c0 + i] = local_mean[i];
+    }
+  }
+
+  // the one exchange: every CTA merges the K (sum, M2) pairs in rank order,
+  // M2 = sum_k M2_k + n_k (mean_k - mean)^2 (Chan et al.), the centered sum
+  // of squares about the sample's mean
+  cluster_sync(k_count);
+  if (ty == 0) {
+    float mean[VEC], m2[VEC];
+    cluster_total<VEC>(mean, part, c0, k_count);
+#pragma unroll
+    for (int i = 0; i < VEC; ++i) {
+      mean[i] /= static_cast<float>(hw);
+      m2[i] = 0.f;
+    }
+    cg::cluster_group cluster = cg::this_cluster();
+#pragma unroll 4
+    for (int k = 0; k < k_count; ++k) {
+      const float nk = static_cast<float>(rows_of_rank(k, rows, hw));
+      const float* pk = k_count == 1 ? part : cluster.map_shared_rank(part, k);
+      float qk[VEC], mk[VEC];
+#pragma unroll
+      for (int i = 0; i < VEC; ++i) qk[i] = mk[i] = 0.f;
+      add_f4<VEC>(qk, pk + c + c0);
+      add_f4<VEC>(mk, pk + 2 * c + c0);
+#pragma unroll
+      for (int i = 0; i < VEC; ++i) {
+        const float d = mk[i] - mean[i];
+        m2[i] += qk[i] + nk * d * d;  // an empty CTA adds 0 + 0 * d * d
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < VEC; ++i) {
+      stat[c0 + i] = mean[i];
+      stat[c + c0 + i] = m2[i];
+    }
+  }
+  // no CTA reads another's shared memory after this point; each waits for
+  // the others' arrival only before it exits
+  if (k_count > 1) cluster_arrive();
+  __syncthreads();
+
+  const float correction =
+      unbiased ? static_cast<float>(hw) / static_cast<float>(hw > 1 ? hw - 1 : 1) : 1.f;
+  float mean[VEC], rstd[VEC], a[VEC], b[VEC];
+#pragma unroll
+  for (int i = 0; i < VEC; ++i) {
+    mean[i] = stat[c0 + i];
+    const float var = stat[c + c0 + i] / static_cast<float>(hw) * correction;
+    rstd[i] = rsqrtf(var + eps);
+    a[i] = scale ? scale[static_cast<size_t>(n) * affine_stride + c0 + i] : 1.f;
+    b[i] = shift ? shift[static_cast<size_t>(n) * affine_stride + c0 + i] : 0.f;
+  }
+  if (rank == 0 && ty == 0) {
+#pragma unroll
+    for (int i = 0; i < VEC; ++i) {
+      mean_out[static_cast<size_t>(n) * c + c0 + i] = mean[i];
+      rstd_out[static_cast<size_t>(n) * c + c0 + i] = rstd[i];
+    }
+  }
+
+  // pass 3: normalise, affine, ReLU, 16-byte stores straight to y
+  T* yp = y + sample + c0;
+  for (int r = first + ty; r < last; r += ty_count) {
+    Pack<T, VEC>::load(slab + static_cast<size_t>(r - first) * c + c0, v);
+#pragma unroll
+    for (int i = 0; i < VEC; ++i) {
+      float o = (v[i] - mean[i]) * rstd[i];
+      o = o * a[i] + b[i];
+      v[i] = relu ? fmaxf(o, 0.f) : o;
+    }
+    Pack<T, VEC>::store(yp + static_cast<size_t>(r) * c, v);
+  }
+  if (k_count > 1) cluster_wait();
+}
+
+}  // namespace
+
+// The on-chip variant.  dtype: 0 = float32, 1 = bfloat16.  The plan
+// (ops/kernels/instance_norm.py::cluster_plan): `cluster` CTAs per sample
+// (1, 2, 4, 8 or 16), `rows` rows per CTA, `stages` copies per CTA,
+// `threads` per CTA (a multiple of C / VEC), `smem_bytes` of dynamic shared
+// memory, which must equal the layout's size.  x and y 16-byte aligned,
+// C * sizeof(T) a multiple of 16.  scale, shift, affine_stride as for
+// instance_norm_fwd.  Launches on `stream`, allocates nothing, does not
+// synchronise.  Returns the cudaError_t of the launch (0 on success),
+// cudaErrorInvalidValue for arguments the kernel does not take,
+// cudaErrorInvalidConfiguration if no cluster of this shape fits the card.
+extern "C" int instance_norm_fwd_cluster(const void* x, const void* scale, const void* shift,
+                                         void* y, void* mean, void* rstd, int n, int hw, int c,
+                                         int affine_stride, int dtype, int cluster, int rows,
+                                         int stages, int threads, int smem_bytes, float eps,
+                                         int unbiased, int relu, void* stream) {
+  const int invalid = static_cast<int>(cudaErrorInvalidValue);
+  if (dtype != 0 && dtype != 1) return invalid;
+  const int itemsize = dtype == 0 ? 4 : 2;
+  if (!cluster_plan_ok(n, hw, c, affine_stride, itemsize, 1, cluster, rows, stages, threads,
+                       smem_bytes))
+    return invalid;
+  if (x == nullptr || y == nullptr || mean == nullptr || rstd == nullptr) return invalid;
+  if ((scale == nullptr) != (shift == nullptr)) return invalid;
+  if (!aligned16(x) || !aligned16(y)) return invalid;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int blocks = n * cluster;
+  if (dtype == 0)
+    return launch_cluster(instance_norm_fwd_cluster_kernel<float>, blocks, cluster, threads,
+                          smem_bytes, s, static_cast<const float*>(x),
+                          static_cast<const float*>(scale), static_cast<const float*>(shift),
+                          static_cast<float*>(y), static_cast<float*>(mean),
+                          static_cast<float*>(rstd), hw, c, affine_stride, cluster, rows, stages,
+                          eps, unbiased, relu);
+  return launch_cluster(instance_norm_fwd_cluster_kernel<__nv_bfloat16>, blocks, cluster, threads,
+                        smem_bytes, s, static_cast<const __nv_bfloat16*>(x),
+                        static_cast<const float*>(scale), static_cast<const float*>(shift),
+                        static_cast<__nv_bfloat16*>(y), static_cast<float*>(mean),
+                        static_cast<float*>(rstd), hw, c, affine_stride, cluster, rows, stages,
+                        eps, unbiased, relu);
 }

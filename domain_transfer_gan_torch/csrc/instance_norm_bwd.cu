@@ -32,28 +32,44 @@
 // the caller sums them over N, as the TPU package does outside its kernel.
 // Both null means the caller does not want them (no affine).
 //
-// What differs from the TPU kernel.  That one holds a whole (samples, HW,
-// channel-tile) block of x, dy and dx in on-chip memory and refuses shapes
-// that do not fit.  Here a thread block loops over HW, so every HW >= 1 and
-// every C >= 1 is served and no size falls back.
-//
-// Launch geometry: the forward's (instance_norm_common.cuh), chosen by the
-// same Python function.  grid = N * ceil(C / (TX * VEC)) blocks of 256
-// threads, one block per (sample, channel tile).
-//
-// Reduction order: each thread sums its rows in order in registers, then the
-// TY partial sums of a channel are added by a fixed binary tree in shared
-// memory, dshift first, then dscale.  No atomics: results repeat run to run.
-// Pass 1 reads x and dy and reduces, pass 2 reads both again and writes dx.
-//
 // Bound.  Memory-bound: ~15 floating-point operations per element against
 // 3 * sizeof(T) bytes.  The function must read x and dy once and write dx once
 // (mean, rstd, scale, shift, dscale, dshift are N * C * 24 bytes, negligible),
 // so the least time on an H100 SXM is 3 * N * HW * C * sizeof(T) / 3.35e12 s.
-// This kernel reads x and dy twice; the second read of a tile comes mostly
-// from the 50 MB L2.  Keeping the tile on chip to read it once, TMA loads and
-// a split of HW over a cluster are left for later work, as for the forward.
+//
+// Two variants, picked per shape by ops/kernels/instance_norm.py::cluster_plan
+// as for the forward (instance_norm.cu); a refused launch is an error, never
+// a move to the other.
+//
+// 1. On chip (instance_norm_bwd_cluster, the training path's): a cluster of K
+//    CTAs per sample holds the sample's x and dy in shared memory, so both
+//    are read from device memory exactly once (instance_norm_cluster.cuh:
+//    layout, copies, reduction order).  CTA rank k bulk-copies x and dy of
+//    its rows in `stages` copies (one mbarrier per stage counts both) and
+//      pass 1  sums dy' and dy' * xhat, stage by stage as the copies land;
+//      merge   publishes the pair and, after the one cluster barrier, every
+//              CTA adds the K pairs in rank order; rank 0 writes dscale and
+//              dshift;
+//      pass 2  forms dx from shared memory and writes it with 16-byte
+//              stores.
+//    A cluster of one CTA is an ordinary launch whose barriers are block
+//    barriers.  Taken where C * sizeof(T) is a multiple of 16 bytes, the
+//    tensors are 16-byte aligned and some K <= 16 fits x and dy into 227 KB
+//    per CTA: every shape of the train steps (a float32 (32, 4096, 64) site
+//    needs K = 16, 2 MB per sample).
+// 2. Streaming (instance_norm_bwd, the first port of the kernel): one block
+//    of 256 threads per (sample, channel tile) loops over HW, with the
+//    forward's streaming geometry (instance_norm_common.cuh, chosen by the
+//    same Python function); every HW >= 1 and C >= 1 is served.  Pass 1
+//    reads x and dy and reduces (each thread in row order, then a fixed
+//    binary tree over the TY partials, dshift first, then dscale); pass 2
+//    reads both again, mostly from the 50 MB L2, and writes dx.  Taken
+//    elsewhere: rows of other widths, and slabs no cluster holds.
+//
+// Both variants add in a fixed order and use no atomics, so a result repeats
+// bit for bit from run to run.
 
+#include "instance_norm_cluster.cuh"
 #include "instance_norm_common.cuh"
 
 using namespace instance_norm;
@@ -215,4 +231,185 @@ extern "C" int instance_norm_bwd(const void* x, const void* dy, const void* mean
   if (dtype == 1 && vec == 8)
     return launch<__nv_bfloat16, 8>(x, dy, mean, rstd, scale, shift, dx, dscale, dshift, n, hw, c, affine_stride, tx_count, unbiased, relu, st);
   return invalid;
+}
+
+
+// ---------------------------------------------------------------------------
+// The on-chip variant (see the head of this file).
+
+namespace {
+
+template <typename T>
+__global__ void __launch_bounds__(kClusterThreadsMax)
+instance_norm_bwd_cluster_kernel(const T* __restrict__ x, const T* __restrict__ dy,
+                                 const float* __restrict__ mean_in,
+                                 const float* __restrict__ rstd_in,
+                                 const float* __restrict__ scale,
+                                 const float* __restrict__ shift, T* __restrict__ dx,
+                                 float* __restrict__ dscale_out, float* __restrict__ dshift_out,
+                                 int hw, int c, int affine_stride, int k_count, int rows,
+                                 int stages, int unbiased, int relu) {
+  constexpr int VEC = 16 / sizeof(T);
+  extern __shared__ __align__(16) unsigned char smem[];
+  const ClusterLayout lay = cluster_layout(2, rows, c, sizeof(T), blockDim.x, stages);
+  T* xs = reinterpret_cast<T*>(smem);
+  T* gs = xs + static_cast<size_t>(rows) * c;
+  float* part = reinterpret_cast<float*>(smem + lay.part);  // [2][c]: dshift, dscale
+  float* stat = reinterpret_cast<float*>(smem + lay.stat);  // [2][c]
+  float* red = reinterpret_cast<float*>(smem + lay.red);
+  uint64_t* bars = reinterpret_cast<uint64_t*>(smem + lay.bars);
+
+  const int rank = static_cast<int>(cg::this_cluster().block_rank());
+  const int n = blockIdx.x / k_count;
+  const int packs = c / VEC;
+  const int ty_count = blockDim.x / packs;
+  const int tid = threadIdx.x;
+  const int ty = tid / packs;
+  const int tx = tid - ty * packs;
+  const int c0 = tx * VEC;
+  const int first = min(rank * rows, hw);
+  const int last = min(first + rows, hw);
+  const size_t sample = static_cast<size_t>(n) * hw * c;
+
+  if (tid == 0) {
+    const T* const src[2] = {x, dy};
+    start_loads<T, 2>(xs, rows * c, src, sample, first, last, c, stages, bars);
+  }
+
+  float mean[VEC], rstd[VEC], s[VEC], t[VEC];
+#pragma unroll
+  for (int i = 0; i < VEC; ++i) {
+    mean[i] = mean_in[static_cast<size_t>(n) * c + c0 + i];
+    rstd[i] = rstd_in[static_cast<size_t>(n) * c + c0 + i];
+    s[i] = scale ? scale[static_cast<size_t>(n) * affine_stride + c0 + i] : 1.f;
+    t[i] = scale ? shift[static_cast<size_t>(n) * affine_stride + c0 + i] : 0.f;
+  }
+  __syncthreads();
+
+  // pass 1: the CTA's dshift (acc[0..VEC)) and dscale (acc[VEC..2 VEC))
+  float acc[2 * VEC], xv[VEC], gv[VEC];
+#pragma unroll
+  for (int i = 0; i < 2 * VEC; ++i) acc[i] = 0.f;
+  for (int st = 0; st < stages; ++st) {
+    int r0, r1;
+    stage_rows(first, last, stages, st, r0, r1);
+    if (r1 == r0) continue;
+    mbar_wait(&bars[st], 0);
+    for (int r = r0 + ty; r < r1; r += ty_count) {
+      const size_t off = static_cast<size_t>(r - first) * c + c0;
+      Pack<T, VEC>::load(xs + off, xv);
+      Pack<T, VEC>::load(gs + off, gv);
+#pragma unroll
+      for (int i = 0; i < VEC; ++i) {
+        const float xhat = (xv[i] - mean[i]) * rstd[i];
+        const float g = (relu && !pre_positive(xhat, s[i], t[i])) ? 0.f : gv[i];
+        acc[i] += g;
+        acc[VEC + i] += g * xhat;
+      }
+    }
+  }
+  tree_over_rows<2 * VEC>(acc, red, packs, ty_count);
+  if (ty == 0) {
+#pragma unroll
+    for (int i = 0; i < VEC; ++i) {
+      part[c0 + i] = red[tx * 2 * VEC + i];
+      part[c + c0 + i] = red[tx * 2 * VEC + VEC + i];
+    }
+  }
+  cluster_sync(k_count);
+  if (ty == 0) {
+    float sum_g[VEC], sum_gx[VEC];
+    cluster_total<VEC>(sum_g, part, c0, k_count);
+    cluster_total<VEC>(sum_gx, part, c + c0, k_count);
+#pragma unroll
+    for (int i = 0; i < VEC; ++i) {
+      stat[c0 + i] = sum_g[i];
+      stat[c + c0 + i] = sum_gx[i];
+    }
+    if (rank == 0 && dscale_out != nullptr) {
+#pragma unroll
+      for (int i = 0; i < VEC; ++i) {
+        dscale_out[static_cast<size_t>(n) * c + c0 + i] = sum_gx[i];
+        dshift_out[static_cast<size_t>(n) * c + c0 + i] = sum_g[i];
+      }
+    }
+  }
+  // no CTA reads another's shared memory after this point; each waits for
+  // the others' arrival only before it exits
+  if (k_count > 1) cluster_arrive();
+  __syncthreads();
+
+  const float inv_hw = 1.f / static_cast<float>(hw);
+  const float inv_d = unbiased ? 1.f / static_cast<float>(hw > 1 ? hw - 1 : 1) : inv_hw;
+  float k[VEC], mg[VEC], mgx[VEC];
+#pragma unroll
+  for (int i = 0; i < VEC; ++i) {
+    k[i] = s[i] * rstd[i];
+    mg[i] = stat[c0 + i] * inv_hw;
+    mgx[i] = stat[c + c0 + i] * inv_d;
+  }
+
+  // pass 2: dx from the slab in shared memory, 16-byte stores
+  T* dxp = dx + sample + c0;
+  for (int r = first + ty; r < last; r += ty_count) {
+    const size_t off = static_cast<size_t>(r - first) * c + c0;
+    Pack<T, VEC>::load(xs + off, xv);
+    Pack<T, VEC>::load(gs + off, gv);
+#pragma unroll
+    for (int i = 0; i < VEC; ++i) {
+      const float xhat = (xv[i] - mean[i]) * rstd[i];
+      const float g = (relu && !pre_positive(xhat, s[i], t[i])) ? 0.f : gv[i];
+      xv[i] = k[i] * (g - mg[i] - xhat * mgx[i]);
+    }
+    Pack<T, VEC>::store(dxp + static_cast<size_t>(r) * c, xv);
+  }
+  if (k_count > 1) cluster_wait();
+}
+
+}  // namespace
+
+// The on-chip variant.  dtype: 0 = float32, 1 = bfloat16.  The plan
+// (ops/kernels/instance_norm.py::cluster_plan): `cluster` CTAs per sample,
+// `rows` rows per CTA, `stages` copies per CTA, `threads` per CTA (a multiple
+// of C / VEC), `smem_bytes` of dynamic shared memory, which must equal the
+// layout's size.  x, dy and dx 16-byte aligned, C * sizeof(T) a multiple of
+// 16.  The other arguments as for instance_norm_bwd.  Launches on `stream`,
+// allocates nothing, does not synchronise.  Returns the cudaError_t of the
+// launch (0 on success), cudaErrorInvalidValue for arguments the kernel does
+// not take, cudaErrorInvalidConfiguration if no cluster of this shape fits
+// the card.
+extern "C" int instance_norm_bwd_cluster(const void* x, const void* dy, const void* mean,
+                                         const void* rstd, const void* scale, const void* shift,
+                                         void* dx, void* dscale, void* dshift, int n, int hw,
+                                         int c, int affine_stride, int dtype, int cluster,
+                                         int rows, int stages, int threads, int smem_bytes,
+                                         int unbiased, int relu, void* stream) {
+  const int invalid = static_cast<int>(cudaErrorInvalidValue);
+  if (dtype != 0 && dtype != 1) return invalid;
+  const int itemsize = dtype == 0 ? 4 : 2;
+  if (!cluster_plan_ok(n, hw, c, affine_stride, itemsize, 2, cluster, rows, stages, threads,
+                       smem_bytes))
+    return invalid;
+  if (x == nullptr || dy == nullptr || dx == nullptr || mean == nullptr || rstd == nullptr)
+    return invalid;
+  if ((scale == nullptr) != (shift == nullptr)) return invalid;
+  if ((dscale == nullptr) != (dshift == nullptr)) return invalid;
+  if (!aligned16(x) || !aligned16(dy) || !aligned16(dx)) return invalid;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const int blocks = n * cluster;
+  if (dtype == 0)
+    return launch_cluster(instance_norm_bwd_cluster_kernel<float>, blocks, cluster, threads,
+                          smem_bytes, st, static_cast<const float*>(x),
+                          static_cast<const float*>(dy), static_cast<const float*>(mean),
+                          static_cast<const float*>(rstd), static_cast<const float*>(scale),
+                          static_cast<const float*>(shift), static_cast<float*>(dx),
+                          static_cast<float*>(dscale), static_cast<float*>(dshift), hw, c,
+                          affine_stride, cluster, rows, stages, unbiased, relu);
+  return launch_cluster(instance_norm_bwd_cluster_kernel<__nv_bfloat16>, blocks, cluster, threads,
+                        smem_bytes, st, static_cast<const __nv_bfloat16*>(x),
+                        static_cast<const __nv_bfloat16*>(dy), static_cast<const float*>(mean),
+                        static_cast<const float*>(rstd), static_cast<const float*>(scale),
+                        static_cast<const float*>(shift), static_cast<__nv_bfloat16*>(dx),
+                        static_cast<float*>(dscale), static_cast<float*>(dshift), hw, c,
+                        affine_stride, cluster, rows, stages, unbiased, relu);
 }

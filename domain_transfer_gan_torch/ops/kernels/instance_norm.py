@@ -9,14 +9,23 @@ On a CUDA tensor its forward launches the hand-written kernel of
 ``csrc/instance_norm_bwd.cu``, or they raise; on a CPU tensor they compute
 the plain versions ``instance_norm_plain`` and ``instance_norm_bwd_plain``
 (the hand-derived backward, not autograd of the forward).  There is no way
-from a kernel to its plain version.  Unlike the TPU kernels, which refuse
-blocks that do not fit their on-chip memory, the CUDA kernels loop over the
-spatial extent and take every ``HW`` and ``C``.
+from a kernel to its plain version.
+
+Each kernel has two variants, and :func:`cluster_plan` picks one per shape:
+the on-chip one ("cluster") splits a sample's HW rows over a thread-block
+cluster that holds the whole slab in shared memory, so x (and dy) are read
+from device memory once; the streaming one (one block per sample and channel
+tile looping over HW, geometry from :func:`launch_geometry`) takes every
+shape, and runs where the slab does not fit a cluster, where its rows are
+not a multiple of 16 bytes, and at the mid-size shapes where the card
+measured it faster.  A refused launch raises; nothing moves to the other
+variant.
 
 Each wrapper counts its launches (``instance_norm_fused.launches``,
-``instance_norm_bwd_fused.launches``, and the same per ``(N, HW, C)`` in
-``launches_by_shape``); ``instance_norm_bwd_fused.dy_copies`` counts the
-incoming gradients that had to be copied into NHWC order first.
+``instance_norm_bwd_fused.launches``, the same per ``(N, HW, C)`` in
+``launches_by_shape`` and per variant in ``launches_by_variant``);
+``instance_norm_bwd_fused.dy_copies`` counts the incoming gradients that had
+to be copied into NHWC order first.
 """
 
 from __future__ import annotations
@@ -24,7 +33,7 @@ from __future__ import annotations
 import ctypes
 import functools
 import threading
-from typing import Optional, Tuple
+from typing import List, NamedTuple, Optional, Tuple
 
 import torch
 from torch.autograd.function import once_differentiable
@@ -126,6 +135,155 @@ def launch_geometry(n: int, c: int, itemsize: int, aligned: bool,
     return vec, tx
 
 
+class ClusterPlan(NamedTuple):
+    """How a kernel runs one shape.  ``variant`` is ``"cluster"`` (the
+    on-chip kernels: ``cluster`` CTAs per sample, each holding ``rows`` rows
+    of x, and of dy for the backward, in ``smem_bytes`` of shared memory,
+    copied in ``stages`` bulk copies, ``threads`` threads) or
+    ``"streaming"`` (the kernels that loop over HW, geometry from
+    :func:`launch_geometry`; the other fields are 0)."""
+
+    variant: str
+    cluster: int = 0
+    rows: int = 0
+    stages: int = 0
+    threads: int = 0
+    smem_bytes: int = 0
+
+    def row_ranges(self, hw: int) -> List[Tuple[int, int]]:
+        """``[first, last)`` rows of each CTA of a cluster, in rank order."""
+        return [(min(k * self.rows, hw), min((k + 1) * self.rows, hw))
+                for k in range(self.cluster)]
+
+    def stage_ranges(self, first: int, last: int) -> List[Tuple[int, int]]:
+        """``[r0, r1)`` rows of each bulk copy of the CTA owning
+        ``[first, last)`` (the kernels skip empty ones)."""
+        per = -(-(last - first) // self.stages)
+        out = []
+        for s in range(self.stages):
+            r0 = min(first + s * per, last)
+            out.append((r0, min(r0 + per, last)))
+        return out
+
+
+STREAMING = ClusterPlan("streaming")
+
+SMEM_PER_CTA_MAX = 232448  # 227 KB: what an H100 CTA may opt in to
+CLUSTER_MAX = 16           # needs the non-portable cluster attribute above 8
+_CLUSTER_PORTABLE = 8
+_CLUSTER_THREADS = 256  # csrc/instance_norm_cluster.cuh::kClusterThreadsMax
+_STAGE_BYTES = 16 << 10    # target size of one bulk copy
+_MAX_STAGES = 4
+# K grows from the smallest cluster that holds the slab only for large slabs
+# (PERF.md has the sweep): from _FILL_SLAB_BYTES of x per sample, until the
+# grid has a CTA for every SM; from _SPLIT_SLAB_BYTES of x (and dy), until a
+# CTA holds _SPLIT_CTA_BYTES, so that two or more CTAs share an SM
+_FILL_SLAB_BYTES = 256 << 10
+_SPLIT_SLAB_BYTES = 512 << 10
+_SPLIT_CTA_BYTES = 64 << 10
+# samples of more than this and less than _FILL_SLAB_BYTES of x take the
+# streaming variant in a batch of fewer samples than half the SMs, or where
+# their slab needs a cluster of more than one CTA (PERF.md)
+_MID_SLAB_BYTES = 32 << 10
+
+
+def _cluster_smem_bytes(arrays: int, rows: int, c: int, itemsize: int,
+                        threads: int, stages: int) -> int:
+    """Dynamic shared memory of a cluster CTA, as
+    ``csrc/instance_norm_cluster.cuh::cluster_layout`` lays it out: the slab,
+    3 C partials, 2 C totals, the tree (one row of C * arrays floats per warp
+    where C / vec divides 32, else per thread row), the barriers."""
+    packs = c * itemsize // 16
+    tree_rows = threads // 32 if 32 % packs == 0 and packs < 32 else \
+        threads // packs
+    return (arrays * rows * c * itemsize + 5 * c * 4
+            + tree_rows * c * arrays * 4 + stages * 8)
+
+
+@functools.lru_cache(maxsize=None)
+def cluster_plan(n: int, hw: int, c: int, itemsize: int, arrays: int,
+                 sm_count: int, aligned: bool = True,
+                 cluster: Optional[int] = None,
+                 on_chip: bool = False) -> ClusterPlan:
+    """The plan of one launch: the on-chip variant where a sample's slab fits
+    a cluster and the card measured it faster, else the streaming one.
+    ``arrays`` is 1 for the forward (x), 2 for the backward (x and dy).
+
+    The on-chip variant needs rows of a multiple of 16 bytes (C * itemsize)
+    and 16-byte aligned tensors, so that every row boundary is a legal bulk
+    copy boundary.  Its cluster size K is the smallest power of two whose
+    CTAs' slabs fit ``SMEM_PER_CTA_MAX``, doubled, up to the portable 8,
+    while a sample's x of ``_FILL_SLAB_BYTES`` or more leaves the grid N * K
+    with fewer CTAs than the card has SMs, and while a slab (x, and dy for
+    the backward) of ``_SPLIT_SLAB_BYTES`` or more leaves a CTA more than
+    ``_SPLIT_CTA_BYTES``.  Every CTA a cluster adds costs time
+    (a cluster of one is an ordinary launch), so K stays as small as that
+    allows.  No K up to 16 fits: streaming.
+
+    Mid-size samples, of more than ``_MID_SLAB_BYTES`` and less than
+    ``_FILL_SLAB_BYTES`` of x, take the streaming variant in two cases: in a
+    batch of fewer samples than half the SMs (the float32 discriminator
+    sites of a batch of 32), whose cluster grid has at most one CTA on at
+    most half the SMs, each loading its whole slab before it writes while
+    the streaming grid overlaps the loads and stores of a thousand blocks;
+    and where the slab needs a cluster of more than one CTA, whose launch
+    and exchange cost more there than the re-reads from L2 they save.  The
+    card measured the streaming variant faster in both (PERF.md).
+
+    ``on_chip`` forces the on-chip variant with the K above, ``cluster``
+    forces K as well (checks and measurements of other plans); they raise
+    if the variant cannot run so.
+    """
+    row_bytes = c * itemsize
+    packs = row_bytes // 16
+    forced = cluster is not None or on_chip
+    if not aligned or row_bytes % 16 or packs > _CLUSTER_THREADS:
+        if forced:
+            raise ValueError("the cluster variant does not take C=%d at %d "
+                             "bytes (aligned=%s)" % (c, itemsize, aligned))
+        return STREAMING
+    threads = packs * (_CLUSTER_THREADS // packs)
+
+    def cta_bytes(k):
+        return arrays * -(-hw // k) * row_bytes
+
+    def plan(k):
+        rows = -(-hw // k)
+        stages = max(1, min(_MAX_STAGES, rows, -(-cta_bytes(k)
+                                                 // _STAGE_BYTES)))
+        smem = _cluster_smem_bytes(arrays, rows, c, itemsize, threads, stages)
+        if smem > SMEM_PER_CTA_MAX:
+            return None
+        return ClusterPlan("cluster", k, rows, stages, threads, smem)
+
+    if cluster is not None:
+        got = plan(cluster) if cluster in (1, 2, 4, 8, 16) else None
+        if got is None:
+            raise ValueError("no cluster of %r CTAs holds a (%d, %d) slab of "
+                             "%d arrays" % (cluster, hw, c, arrays))
+        return got
+    k = 1
+    while k <= CLUSTER_MAX and plan(k) is None:
+        k *= 2
+    if k > CLUSTER_MAX:
+        if forced:
+            raise ValueError("no cluster holds a (%d, %d) slab of %d arrays"
+                             % (hw, c, arrays))
+        return STREAMING
+    slab = cta_bytes(1)
+    x_slab = slab // arrays
+    if (not forced and _MID_SLAB_BYTES < x_slab < _FILL_SLAB_BYTES
+            and (2 * n < sm_count or k > 1)):
+        return STREAMING
+    while (k < _CLUSTER_PORTABLE and x_slab >= _FILL_SLAB_BYTES
+           and n * k < sm_count):
+        k *= 2
+    while (k < _CLUSTER_PORTABLE and slab >= _SPLIT_SLAB_BYTES
+           and cta_bytes(k) > _SPLIT_CTA_BYTES):
+        k *= 2
+    return plan(k)
+
+
 @functools.lru_cache(maxsize=None)
 def _sm_count(device_index: int) -> int:
     return torch.cuda.get_device_properties(device_index).multi_processor_count
@@ -135,9 +293,17 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 # instance_norm_fwd(x, scale, shift, y, mean, rstd; n, hw, c, affine_stride,
 #                   dtype, vec, tx; eps; unbiased, relu; stream)
 _FWD_ARGTYPES = [_P] * 6 + [_I] * 7 + [ctypes.c_float, _I, _I, _P]
+# instance_norm_fwd_cluster(x, scale, shift, y, mean, rstd; n, hw, c,
+#     affine_stride, dtype, cluster, rows, stages, threads, smem_bytes; eps;
+#     unbiased, relu; stream)
+_FWD_CLUSTER_ARGTYPES = [_P] * 6 + [_I] * 10 + [ctypes.c_float, _I, _I, _P]
 # instance_norm_bwd(x, dy, mean, rstd, scale, shift, dx, dscale, dshift; n, hw,
 #                   c, affine_stride, dtype, vec, tx, unbiased, relu; stream)
 _BWD_ARGTYPES = [_P] * 9 + [_I] * 9 + [_P]
+# instance_norm_bwd_cluster(x, dy, mean, rstd, scale, shift, dx, dscale,
+#     dshift; n, hw, c, affine_stride, dtype, cluster, rows, stages, threads,
+#     smem_bytes, unbiased, relu; stream)
+_BWD_CLUSTER_ARGTYPES = [_P] * 9 + [_I] * 12 + [_P]
 
 
 def _c_function(kernel_name: str, fn_name: str, argtypes):
@@ -176,18 +342,36 @@ def _check_launchable(x: torch.Tensor, what: str) -> None:
                          % (tuple(x.shape),))
 
 
-def _count(wrapper, key) -> None:
+def _count(wrapper, key, variant: str) -> None:
     with _count_lock:
         wrapper.launches += 1
         by_shape = wrapper.launches_by_shape
         by_shape[key] = by_shape.get(key, 0) + 1
+        by_variant = wrapper.launches_by_variant
+        by_variant[variant] = by_variant.get(variant, 0) + 1
+
+
+def _plan_for(x: torch.Tensor, arrays: int, aligned: bool,
+              plan: Optional[ClusterPlan]):
+    """The plan of a launch on x (``plan`` if given), and the streaming
+    geometry ``(vec, tx)`` it needs."""
+    n, h, w, c = x.shape
+    sm_count = _sm_count(x.device.index)
+    if plan is None:
+        plan = cluster_plan(n, h * w, c, x.element_size(), arrays, sm_count,
+                            aligned)
+    if plan.variant == "cluster" and not aligned:
+        raise ValueError("the cluster variant needs 16-byte aligned tensors")
+    vec, tx = launch_geometry(n, c, x.element_size(), aligned, sm_count)
+    return plan, vec, tx
 
 
 def _launch(x: torch.Tensor, scale: Optional[torch.Tensor],
             shift: Optional[torch.Tensor], eps: float, unbiased: bool,
-            relu: bool):
-    """Launch the forward kernel on x's device and current stream.  Raises
-    when x is not a contiguous CUDA tensor or the launch is refused."""
+            relu: bool, plan: Optional[ClusterPlan] = None):
+    """Launch the forward kernel on x's device and current stream, the
+    variant :func:`cluster_plan` picks (or ``plan``).  Raises when x is not
+    a contiguous CUDA tensor or the launch is refused."""
     _check_launchable(x, "forward")
     n, h, w, c = x.shape
     hw = h * w
@@ -196,21 +380,27 @@ def _launch(x: torch.Tensor, scale: Optional[torch.Tensor],
     mean = torch.empty((n, c), dtype=torch.float32, device=x.device)
     rstd = torch.empty((n, c), dtype=torch.float32, device=x.device)
     aligned = x.data_ptr() % 16 == 0 and y.data_ptr() % 16 == 0
-    vec, tx = launch_geometry(n, c, x.element_size(), aligned,
-                              _sm_count(x.device.index))
-    fn = _c_function(KERNEL_NAME, "instance_norm_fwd", _FWD_ARGTYPES)
+    plan, vec, tx = _plan_for(x, 1, aligned, plan)
+    head = (x.data_ptr(), _ptr(scale), _ptr(shift), y.data_ptr(),
+            mean.data_ptr(), rstd.data_ptr(), n, hw, c, affine_stride,
+            _DTYPE_CODE[x.dtype])
+    tail = (float(eps), int(unbiased), int(relu))
     # the kernel must be launched with x's device current
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream().cuda_stream
-        err = fn(x.data_ptr(), _ptr(scale), _ptr(shift), y.data_ptr(),
-                 mean.data_ptr(), rstd.data_ptr(), n, hw, c, affine_stride,
-                 _DTYPE_CODE[x.dtype], vec, tx, float(eps), int(unbiased),
-                 int(relu), stream)
+        if plan.variant == "cluster":
+            fn = _c_function(KERNEL_NAME, "instance_norm_fwd_cluster",
+                             _FWD_CLUSTER_ARGTYPES)
+            err = fn(*head, *plan[1:], *tail, stream)
+        else:
+            fn = _c_function(KERNEL_NAME, "instance_norm_fwd", _FWD_ARGTYPES)
+            err = fn(*head, vec, tx, *tail, stream)
     if err != 0:
         raise RuntimeError(
             "instance_norm_fwd launch failed with cudaError %d for x %r %s, "
-            "vec=%d tx=%d" % (err, tuple(x.shape), x.dtype, vec, tx))
-    _count(instance_norm_fused, (n, hw, c))
+            "%r (streaming vec=%d tx=%d)"
+            % (err, tuple(x.shape), x.dtype, plan, vec, tx))
+    _count(instance_norm_fused, (n, hw, c), plan.variant)
     return y, mean, rstd
 
 
@@ -256,9 +446,11 @@ def instance_norm_bwd_plain(x: torch.Tensor, dy: torch.Tensor,
 
 def _launch_bwd(x: torch.Tensor, dy: torch.Tensor, mean: torch.Tensor,
                 rstd: torch.Tensor, scale: Optional[torch.Tensor],
-                shift: Optional[torch.Tensor], unbiased: bool, relu: bool):
-    """Launch the backward kernel on x's device and current stream.  Raises
-    when x or dy is not a contiguous CUDA tensor or the launch is refused."""
+                shift: Optional[torch.Tensor], unbiased: bool, relu: bool,
+                plan: Optional[ClusterPlan] = None):
+    """Launch the backward kernel on x's device and current stream, the
+    variant :func:`cluster_plan` picks (or ``plan``).  Raises when x or dy
+    is not a contiguous CUDA tensor or the launch is refused."""
     _check_launchable(x, "backward")
     n, h, w, c = x.shape
     hw = h * w
@@ -281,21 +473,27 @@ def _launch_bwd(x: torch.Tensor, dy: torch.Tensor, mean: torch.Tensor,
         dscale = torch.empty((n, c), dtype=torch.float32, device=x.device)
         dshift = torch.empty((n, c), dtype=torch.float32, device=x.device)
     aligned = all(t.data_ptr() % 16 == 0 for t in (x, dy, dx))
-    vec, tx = launch_geometry(n, c, x.element_size(), aligned,
-                              _sm_count(x.device.index))
-    fn = _c_function(BWD_KERNEL_NAME, "instance_norm_bwd", _BWD_ARGTYPES)
+    plan, vec, tx = _plan_for(x, 2, aligned, plan)
+    head = (x.data_ptr(), dy.data_ptr(), mean.data_ptr(), rstd.data_ptr(),
+            _ptr(scale), _ptr(shift), dx.data_ptr(), _ptr(dscale),
+            _ptr(dshift), n, hw, c, affine_stride, _DTYPE_CODE[x.dtype])
+    tail = (int(unbiased), int(relu))
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream().cuda_stream
-        err = fn(x.data_ptr(), dy.data_ptr(), mean.data_ptr(),
-                 rstd.data_ptr(), _ptr(scale), _ptr(shift), dx.data_ptr(),
-                 _ptr(dscale), _ptr(dshift), n, hw, c, affine_stride,
-                 _DTYPE_CODE[x.dtype], vec, tx, int(unbiased), int(relu),
-                 stream)
+        if plan.variant == "cluster":
+            fn = _c_function(BWD_KERNEL_NAME, "instance_norm_bwd_cluster",
+                             _BWD_CLUSTER_ARGTYPES)
+            err = fn(*head, *plan[1:], *tail, stream)
+        else:
+            fn = _c_function(BWD_KERNEL_NAME, "instance_norm_bwd",
+                             _BWD_ARGTYPES)
+            err = fn(*head, vec, tx, *tail, stream)
     if err != 0:
         raise RuntimeError(
             "instance_norm_bwd launch failed with cudaError %d for x %r %s, "
-            "vec=%d tx=%d" % (err, tuple(x.shape), x.dtype, vec, tx))
-    _count(instance_norm_bwd_fused, (n, hw, c))
+            "%r (streaming vec=%d tx=%d)"
+            % (err, tuple(x.shape), x.dtype, plan, vec, tx))
+    _count(instance_norm_bwd_fused, (n, hw, c), plan.variant)
     return dx, dscale, dshift
 
 
@@ -329,6 +527,7 @@ def instance_norm_bwd_fused(x: torch.Tensor, dy: torch.Tensor,
 
 instance_norm_bwd_fused.launches = 0
 instance_norm_bwd_fused.launches_by_shape = {}
+instance_norm_bwd_fused.launches_by_variant = {"cluster": 0, "streaming": 0}
 instance_norm_bwd_fused.dy_copies = 0
 
 
@@ -403,3 +602,4 @@ def instance_norm_fused(x: torch.Tensor, scale: Optional[torch.Tensor],
 
 instance_norm_fused.launches = 0
 instance_norm_fused.launches_by_shape = {}
+instance_norm_fused.launches_by_variant = {"cluster": 0, "streaming": 0}

@@ -14,6 +14,7 @@ import torch
 
 from domain_transfer_gan_torch.config import TrainConfig
 from domain_transfer_gan_torch.models import create_model
+from domain_transfer_gan_torch.ops.kernels import instance_norm as K
 from domain_transfer_gan_torch.ops.kernels.instance_norm import (
     instance_norm_bwd_fused,
     instance_norm_bwd_plain,
@@ -189,3 +190,94 @@ def test_train_step_fused_vs_plain_on_the_card():
     for k in gf:
         assert abs(float(gf[k]) - float(gp[k])) <= 1e-3 * max(
             1.0, abs(float(gp[k]))), k
+
+
+def _variant_plans(n, hw, c, itemsize, arrays):
+    """The streaming plan and every cluster size that holds the slab."""
+    plans = [K.STREAMING]
+    for k in (1, 2, 4, 8, 16):
+        try:
+            plans.append(K.cluster_plan(n, hw, c, itemsize, arrays, 132,
+                                        cluster=k))
+        except ValueError:
+            pass
+    return plans
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(3, 169, 20), (2, 4096, 32),
+                                   (4, 16, 128), (2, 1, 8)])
+def test_each_forward_variant_vs_plain(shape):
+    """Both variants of the forward kernel, the cluster one at every size
+    that holds the slab, against the plain version: float32 within 1e-4,
+    bfloat16 within one rounding of an output below 8."""
+    _need_card()
+    n, hw, c = shape
+    rng = np.random.RandomState(13)
+    for dtype, atol in ((torch.float32, 1e-4), (torch.bfloat16, 4e-2)):
+        x = torch.from_numpy(rng.randn(n, 1, hw, c).astype(
+            np.float32)).cuda().to(dtype)
+        scale = torch.from_numpy(rng.rand(n, c).astype(np.float32)).cuda()
+        shift = torch.from_numpy(rng.randn(n, c).astype(np.float32)).cuda()
+        want = instance_norm_plain(x, scale, shift, unbiased=True, relu=True,
+                                   return_stats=True)
+        for plan in _variant_plans(n, hw, c, x.element_size(), 1):
+            before = dict(instance_norm_fused.launches_by_variant)
+            got = K._launch(x, scale, shift, 1e-5, True, True, plan=plan)
+            torch.cuda.synchronize()
+            assert instance_norm_fused.launches_by_variant[plan.variant] == \
+                before[plan.variant] + 1
+            for g, w_, lim in zip(got, want, (atol, 1e-4, 1e-4)):
+                err = float((g.float() - w_.float()).abs().max())
+                assert err <= lim, (plan, dtype, err)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(3, 169, 20), (2, 4096, 32),
+                                   (4, 16, 128), (2, 1, 8)])
+def test_each_backward_variant_vs_plain(shape):
+    """Both variants of the backward kernel, the cluster one at every size
+    that holds x and dy, against the plain version, relative to the largest
+    |value|: float32 dx and sums within 1e-5, bfloat16 dx within one
+    rounding."""
+    _need_card()
+    n, hw, c = shape
+    rng = np.random.RandomState(14)
+    for dtype, tol in ((torch.float32, 1e-5), (torch.bfloat16, 4e-2)):
+        x = torch.from_numpy(rng.randn(n, 1, hw, c).astype(
+            np.float32)).cuda().to(dtype)
+        dy = torch.from_numpy(rng.randn(n, 1, hw, c).astype(
+            np.float32)).cuda().to(dtype)
+        scale = torch.from_numpy(rng.rand(c).astype(np.float32) + .5).cuda()
+        shift = torch.from_numpy(rng.randn(c).astype(np.float32)).cuda()
+        kw = dict(unbiased=True, relu=True)
+        _, mean, rstd = instance_norm_plain(x, scale, shift,
+                                            return_stats=True, **kw)
+        want = instance_norm_bwd_plain(x, dy, mean, rstd, scale, shift, **kw)
+        for plan in _variant_plans(n, hw, c, x.element_size(), 2):
+            before = dict(instance_norm_bwd_fused.launches_by_variant)
+            got = K._launch_bwd(x, dy, mean, rstd, scale, shift, True, True,
+                                plan=plan)
+            torch.cuda.synchronize()
+            assert instance_norm_bwd_fused.launches_by_variant[
+                plan.variant] == before[plan.variant] + 1
+            for name, g, w_ in zip(("dx", "dscale", "dshift"), got, want):
+                ref = max(1.0, float(w_.float().abs().max()))
+                lim = tol if name == "dx" else 1e-5
+                err = float((g.float() - w_.float()).abs().max())
+                assert err <= lim * ref, (plan, dtype, name, err)
+
+
+@pytest.mark.cuda
+def test_path_shapes_take_the_cluster_variant():
+    """At a generator shape the wrappers launch the cluster variant."""
+    _need_card()
+    x = torch.randn(4, 32, 32, 128, device="cuda", requires_grad=True)
+    fwd = dict(instance_norm_fused.launches_by_variant)
+    bwd = dict(instance_norm_bwd_fused.launches_by_variant)
+    instance_norm_fused(x, None, None, relu=True).sum().backward()
+    torch.cuda.synchronize()
+    assert instance_norm_fused.launches_by_variant == dict(
+        fwd, cluster=fwd["cluster"] + 1)
+    assert instance_norm_bwd_fused.launches_by_variant == dict(
+        bwd, cluster=bwd["cluster"] + 1)
