@@ -14,10 +14,11 @@ It needs one CUDA device, ``nvcc`` and no network.  It
 3. holds both instance-norm kernels against their plain PyTorch versions on
    the card, each in both its variants (the on-chip cluster one wherever
    ``cluster_plan`` can take the shape, the streaming one everywhere), at
-   every shape the serving path and the train steps at batch 32 and batch
-   128 give them and at edge shapes, in float32 and bfloat16, over unbiased
-   x relu x {no, per-channel, per-sample} affine: the forward's y, mean,
-   rstd, and the backward's dx, dscale, dshift;
+   every shape the serving path, the train steps at batch 32 and batch
+   128 and the training CLI's evaluations and visuals (the generators at 10,
+   25, 50, 100 and 250 images) give them and at edge shapes, in float32 and
+   bfloat16, over unbiased x relu x {no, per-channel, per-sample} affine:
+   the forward's y, mean, rstd, and the backward's dx, dscale, dshift;
 4. drives the serving path at the published width (``aug_cycle_gan``, ngf 32,
    3 blocks, nlatent 16, 64x64, serving batch 32): seed-drawn weights ->
    ``export_model`` -> ``build_server`` on an ephemeral port -> HTTP requests
@@ -38,12 +39,28 @@ It needs one CUDA device, ``nvcc`` and no network.  It
    to the counts the step's structure gives, and every launch must take the
    cluster variant;
 6. times both kernels (the cluster and the streaming variant, in turns in
-   this run, with the plan beside each row) at every site of the serving path
-   and the train steps and at the 256x256 request's, their plain versions
-   and the library calls (``F.relu(F.instance_norm(...))`` and its backward)
-   at the generators' shapes, the two generators end to end and the train
-   step in both dtypes, and prints the ``kernels`` line with the launches
-   per variant.
+   this run, with the plan beside each row) at every site of the serving
+   path, the train steps and the eval batch of 100 and at the 256x256
+   request's, beside their plain versions and the library calls
+   (``F.relu(F.instance_norm(...))`` and its backward), the two generators
+   end to end and the train step in both dtypes, and prints the ``kernels``
+   line with the launches per variant;
+7. (run before 6, whose rows carry its launch counts) drives the training
+   CLI, ``python -m domain_transfer_gan_torch.cli.train`` as a user calls
+   it, at the published width on a synthetic npz set (420 train images with
+   a dev split of 100, 150 test images, so the last eval batch is a padded
+   tail): 2 epochs with every cadence firing and the train set on the card,
+   then one more with ``--continue_train``; it holds the artifact contract,
+   finite losses in every log line, the resume and the lr schedule, the
+   launch counts by shape and variant that the run's structure gives
+   (train steps, eval_mse_A and the UBO's 50 forward + backward steps at
+   the eval batch, the grids), a bit-exact checkpoint round trip, the UBO
+   of the test set's padded tail batch from that checkpoint against the
+   same with every norm through the plain version on the same noise (after
+   the run, outside its launch counts and times), and
+   ``cli.export --chk_path`` + the
+   server's ``predict_B`` against the loaded checkpoint; it prints the
+   CLI's train images/s, seconds per eval batch and the save's cost.
 
 Any failed build, launch or check ends the run with a non-zero exit code.
 The last line of standard output is
@@ -54,12 +71,13 @@ fused-vs-twin deviations lifted and prints the deviations (the limits above
 were chosen from such a run).  ``--profile`` adds what PERF.md reports beyond
 the check: a
 ``torch.profiler`` breakdown of one ``predict_B`` and one ``predict_A``
-forward and of one train step per dtype by kernel name, the plain and
-library times at the discriminators' shapes, at every timed shape both
+forward and of one train step per dtype by kernel name, at every timed
+shape both
 kernels' times under every cluster size that holds the slab,
-and per timed serving shape the forward kernel's time on one buffer that
+per timed serving shape the forward kernel's time on one buffer that
 stays in L2, its time enqueued call by call from Python, and the streaming
-variant's time with the launch geometry's tile narrowing switched off.
+variant's time with the launch geometry's tile narrowing switched off, and a
+breakdown of the UBO's RMSprop steps at the eval batch of 100.
 """
 
 from __future__ import annotations
@@ -116,22 +134,33 @@ TRAIN_STEP3_RTOL = {"float32": (1e-2, 2e-1), "bfloat16": (5e-2, 5e-1)}
 # step 1 losses (1.8e-3 to 9.8e-3 over the same runs, 5.3e-3 from these seeds)
 TRAIN_BF16_VS_FP32_RTOL = 2e-2
 
-def disc_shapes(n):
-    """(N, HW, C) of the three norm sites of D_A (ndf 32) and of D_B
-    (ndf 64) on n 64x64 images."""
+def disc_shapes(n, ndf=64):
+    """(N, HW, C) of the three norm sites of D_A (ndf 32, hard-wired) and of
+    D_B (``ndf``) on n 64x64 images."""
     return ((n, 256, 64), (n, 64, 128), (n, 16, 128),
-            (n, 256, 128), (n, 225, 256), (n, 196, 256))
+            (n, 256, 2 * ndf), (n, 225, 4 * ndf), (n, 196, 4 * ndf))
 
 
-def train_sites(batch, n_blocks=3):
+def gen_sites(n, fn, ngf=32, n_blocks=3):
+    """Launches of one forward of a generator on n 64x64 images by (N, HW,
+    C): ``fn`` "B" is netG_A_B (two norms per residual block), "A" netG_B_A
+    (one); both have 2 + 2 + 1 more in their stem and head."""
+    per_block = 2 if fn == "B" else 1
+    return {(n, 4096, ngf): 2, (n, 4096, 2 * ngf): 2,
+            (n, 1024, 4 * ngf): 1 + per_block * n_blocks}
+
+
+def train_sites(batch, n_blocks=3, ngf=32, ndf=64):
     """Launches per train step by (N, HW, C) under norm="instance", the same
     for the forward and the backward kernel.  Forward: two passes through
     each generator (5 + 2 n_blocks and 5 + n_blocks sites), one concatenated
     fake|real pass through D_A and D_B in the D phase (N = 2 batch) and one
     in the G phase.  Backward: every one of those sites once."""
-    sites = {(batch, 4096, 32): 8, (batch, 4096, 64): 8,
-             (batch, 1024, 128): 2 * (1 + 2 * n_blocks) + 2 * (1 + n_blocks)}
-    for shape in disc_shapes(2 * batch) + disc_shapes(batch):
+    sites = {}
+    for fn in ("B", "A"):
+        for shape, k in gen_sites(batch, fn, ngf, n_blocks).items():
+            sites[shape] = sites.get(shape, 0) + 2 * k
+    for shape in disc_shapes(2 * batch, ndf) + disc_shapes(batch, ndf):
         sites[shape] = 1
     return sites
 
@@ -154,13 +183,41 @@ BF16_SERVE_MAX_ATOL = 6e-2
 BF16_SERVE_MEAN_ATOL = 4e-3
 
 
+# the training CLI phase (phase 7): a synthetic npz set of 420 train images
+# (100 of them the dev split, 10 steps of 32 per epoch) and 150 test images
+# (eval batches of 100 and a tail of 50 padded to 100), 2 epochs, then one
+# resumed; the generators run at the eval batch of 100 (eval_mse_A, the
+# UBO's 50 RMSprop steps), at 50 (eval_mse_A's test tail), at the 25 of a
+# dev visual batch, at 10 (the inference grid's header) and at 250 (the
+# multi and inference grids)
+CLI_DATA = dict(n_train=420, n_test=150, dev_size=100)
+CLI_EPOCHS, CLI_RESUMED_EPOCHS = 2, 1
+EVAL_BATCH, UBO_STEPS, DEV_VIS_BATCH, NUM_MULTI = 100, 50, 25, 10
+# eval_mse_A runs a short tail batch as it is (the UBO pads it to 100)
+CLI_EVAL_TAIL = CLI_DATA["n_test"] % EVAL_BATCH
+CLI_BATCHES = tuple(sorted({EVAL_BATCH, CLI_EVAL_TAIL, DEV_VIS_BATCH,
+                            NUM_MULTI, DEV_VIS_BATCH * NUM_MULTI}))
+EVAL_SHAPES = tuple(gen_sites(EVAL_BATCH, "B"))
+# the UBO of the test set's padded tail batch, from the trained checkpoint,
+# vs the same with every norm through the plain version, on the same noise:
+# float32 on the card, the kernels' sums in another order.  Step 1 is the
+# starting iterate's bound (~5e4 nats from 12288 per-pixel terms).
+# RMSprop's first update is 10 lr * sign(g) per entry, so an entry whose
+# gradient sits at 0 may move either way; the 50th step's bound sees that
+# and the gradients' magnitudes too, and is held loosely.
+UBO_STEP1_RTOL = 1e-5
+UBO_LAST_RTOL = 1e-3
+EXPORT_ATOL = 1e-5  # exported predict_B vs the loaded checkpoint's, float32
+
 # every shape both kernels are checked at, in both dtypes: every site of the
-# serving path and of a train step at batch 32 and at batch 128 (the
+# serving path, of a train step at batch 32 and at batch 128 (the
 # discriminators' concatenated pass has N = 2 batch; the launch geometry
-# differs with N), and edge shapes
+# differs with N) and of the training CLI's evaluations and visuals, and
+# edge shapes
 CHECK_SHAPES = tuple(dict.fromkeys(
     PATH_SHAPES + tuple(s for b in sorted(set(TRAIN_BATCH.values()))
                         for s in train_sites(b))
+    + tuple(s for n in CLI_BATCHES for s in gen_sites(n, "B"))
     + EDGE_SHAPES + (HW1_SHAPE,)))
 BWD_SUM_RTOL = 1e-4  # dscale, dshift: fp32 sums of up to 65536 products
 
@@ -458,9 +515,15 @@ def _train_cases():
             for shape in sorted(train_sites(batch), reverse=True)]
 
 
+def _eval_cases():
+    """The generator sites at the CLI's eval batch, float32 (phase 7)."""
+    return [(shape, "float32") for shape in EVAL_SHAPES]
+
+
 def _timed_cases():
     serving = _serving_cases()
-    return serving + [c for c in _train_cases() if c not in serving]
+    return serving + [c for c in _train_cases() + _eval_cases()
+                      if c not in serving]
 
 
 def _plan_row(plan, n):
@@ -507,7 +570,7 @@ def _time_variants(torch, K, launch, shape, itemsize, arrays, sweep):
     return out
 
 
-def time_kernel(torch, F, K, site_counts, train_counts, extra):
+def time_kernel(torch, F, K, site_counts, train_counts, cli_counts, extra):
     """Phase 6, forward kernel, per path shape and dtype.  Per-channel
     affine, biased variance, fused ReLU: the case the library call covers
     too.  Times are device times (CUDA-graph replay).  Inputs rotate over
@@ -517,11 +580,10 @@ def time_kernel(torch, F, K, site_counts, train_counts, extra):
     ``kernel_ms`` the one the wrapper picks (``variant``); ``plan`` says how
     the cluster variant ran.  ``site_counts[dtype][request][shape]`` are the launches
     the serving path was seen to make, ``train_counts[dtype]["fwd"][shape]``
-    those of one train step.  The serving shapes are timed in both dtypes
-    with the plain version and the library call beside the kernel; the
-    sites of the train steps (generators and discriminators) get the
-    kernel's times and ``bound_ms`` only.  With ``extra`` every row has all
-    the times and ``cluster_sweep_ms`` (the cluster variant at each cluster
+    those of one train step, ``cli_counts["fwd"][shape]`` those of the
+    whole training CLI phase (float32).  Every row has the plain version's
+    and the library call's times beside the kernel's.  With ``extra`` every
+    row also has ``cluster_sweep_ms`` (the cluster variant at each cluster
     size that holds the slab), and the serving shapes gain:
     ``kernel_ms_l2_warm`` repeats on one buffer, which is closer to a norm
     that follows its conv; ``kernel_eager_ms`` includes the host's enqueue
@@ -531,7 +593,6 @@ def time_kernel(torch, F, K, site_counts, train_counts, extra):
     serving = _serving_cases()
     rows = []
     for shape, name in _timed_cases():
-        beside = extra or (shape, name) in serving
         n, hw, c = shape
         dtype = getattr(torch, name)
         itemsize = torch.finfo(dtype).bits // 8
@@ -567,15 +628,22 @@ def time_kernel(torch, F, K, site_counts, train_counts, extra):
         row.update({
             "bound_ms": max(t_bytes, t_ops),
             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-            "plain_ms": _time_device(torch, plain) if beside else None,
-            "library_ms": _time_device(torch, library) if beside else None,
+            "plain_ms": _time_device(torch, plain),
+            "library_ms": _time_device(torch, library),
             "launches_per_predict_B":
                 site_counts[name]["predict_B"].get(shape, 0),
             "launches_per_predict_A":
                 site_counts[name]["predict_A"].get(shape, 0),
             "launches_per_train_step":
                 train_counts[name]["fwd"].get(shape, 0),
+            "launches_training_cli": cli_counts["fwd"].get(shape, 0)
+                if name == "float32" else 0,
         })
+        if (shape, name) in _eval_cases():
+            row["launches_per_eval_A_batch"] = gen_sites(
+                EVAL_BATCH, "A").get(shape, 0)
+            row["launches_per_ubo_batch"] = UBO_STEPS * gen_sites(
+                EVAL_BATCH, "B")[shape]
         if extra and (shape, name) in serving:
             row["kernel_ms_l2_warm"] = _time_device(
                 torch, lambda i: launch(0, None))
@@ -598,12 +666,12 @@ def time_kernel(torch, F, K, site_counts, train_counts, extra):
     return rows
 
 
-def time_bwd_kernel(torch, F, K, train_counts, extra):
+def time_bwd_kernel(torch, F, K, train_counts, cli_counts, extra):
     """Phase 6, backward kernel, at the serving shapes in both dtypes (the
     bfloat16 batch-32 rows and the 256x256 request are on no training path:
-    they complete the table) and at every site of the training path in the
-    dtype and batch that path runs them; the plain and library times of the
-    discriminator sites only with ``extra``.  Per-channel affine, biased variance, fused ReLU.
+    they complete the table), at every site of the training path in the
+    dtype and batch that path runs them, and at the eval batch's generator
+    sites (the UBO's backward).  Per-channel affine, biased variance, fused ReLU.
     Device times by CUDA-graph replay over buffers that exceed the L2;
     ``kernel_ms``, ``streaming_ms``, ``plan`` and, with ``extra``,
     ``cluster_sweep_ms`` as for the forward.  ``bound_ms`` = (x and dy read
@@ -615,7 +683,6 @@ def time_bwd_kernel(torch, F, K, train_counts, extra):
     captured forward."""
     rows = []
     for shape, name in _timed_cases():
-        beside = extra or shape[1] >= 1024
         n, hw, c = shape
         dtype = getattr(torch, name)
         itemsize = torch.finfo(dtype).bits // 8
@@ -660,17 +727,22 @@ def time_bwd_kernel(torch, F, K, train_counts, extra):
         row = {"shape": list(shape), "dtype": name, "bytes": nbytes}
         row.update(_time_variants(torch, K, launch, shape, itemsize, 2,
                                   sweep=extra))
-        lib_both = _time_device(torch, library_fwd_bwd) if beside else None
-        lib_fwd = _time_device(torch, library_fwd) if beside else None
+        lib_both = _time_device(torch, library_fwd_bwd)
+        lib_fwd = _time_device(torch, library_fwd)
         row.update({
             "bound_ms": max(t_bytes, t_ops),
             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-            "plain_ms": _time_device(torch, plain) if beside else None,
-            "library_ms": lib_both - lib_fwd if beside else None,
+            "plain_ms": _time_device(torch, plain),
+            "library_ms": lib_both - lib_fwd,
             "library_fwd_bwd_ms": lib_both,
             "launches_per_train_step":
                 train_counts[name]["bwd"].get(shape, 0),
+            "launches_training_cli": cli_counts["bwd"].get(shape, 0)
+                if name == "float32" else 0,
         })
+        if (shape, name) in _eval_cases():
+            row["launches_per_ubo_batch"] = UBO_STEPS * gen_sites(
+                EVAL_BATCH, "B")[shape]
         rows.append(row)
         del bufs
         torch.cuda.empty_cache()
@@ -1151,6 +1223,327 @@ def drive_training_path(torch, K, seed_offset=0, hold=True):
     return variants, step_counts, devs
 
 
+CLI_WIDTH = dict(ngf=32, nef=32, ndf=64, n_blocks=3, nlatent=16)
+CLI_ARTIFACTS = ("latest", "best_A", "best_B", "best_mse_A.txt",
+                 "best_bpp_B.txt", "history_mse_A.npy", "history_ubo_B.npy",
+                 "nets.txt", "opt.txt", "opt.json", "opt.pkl", "results.txt",
+                 "results.json")
+CLI_VIS = {"vis_cycle": 2, "train_vis_cycle": 1, "vis_multi": 1,
+           "vis_inf": 1, "vis_pred_B": 1, "vis_latest": 3}
+CLI_PRINT_EVERY = 3  # steps; the display fires at the epoch's 10th
+
+
+def _cli_argv(root, ckpt, device, width, extra=()):
+    """The training CLI at the published width: 2 epochs (the second one
+    decays the lr), every cadence firing, the train set on the device."""
+    argv = ["--dataroot", root, "--name", "cli", "--checkpoints_dir", ckpt,
+            "--grid_size", "64", "--batchSize", str(TRAIN_BATCH["float32"]),
+            "--niter", "1", "--niter_decay", "1", "--save_epoch_freq", "1",
+            "--eval_A_freq", "1", "--eval_B_freq", "1",
+            "--print_freq", str(CLI_PRINT_EVERY * TRAIN_BATCH["float32"]),
+            "--display_freq", "320",
+            "--dev_size", str(CLI_DATA["dev_size"]), "--device_data", "1",
+            "--use_pallas", "1", "--init_scheme", "sane", "--seed", "2026",
+            "--device", device]
+    for k, v in width.items():
+        argv += ["--" + k, str(v)]
+    return argv + list(extra)
+
+
+def cli_expected(width, epochs):
+    """Launches of the training CLI phase by (N, HW, C), forward and
+    backward, from its structure: per epoch the train steps, eval_mse_A
+    (netG_B_A, a short tail batch at its size) and the UBO (netG_A_B forward
+    and backward per RMSprop step, every batch padded to 100), the dev UBO's
+    first grid (netG_A_B at 25), and one
+    display: generate_cycle at 25 (two passes through each generator), the
+    multi grid (netG_A_B at 250) and the inference grid (netG_B_A at 10,
+    netG_A_B at 250)."""
+    ngf, nb, batch = width["ngf"], width["n_blocks"], TRAIN_BATCH["float32"]
+    steps = (CLI_DATA["n_train"] - CLI_DATA["dev_size"]) // batch
+    sizes = [min(EVAL_BATCH, n - lo) for n in (CLI_DATA["dev_size"],
+                                               CLI_DATA["n_test"])
+             for lo in range(0, n, EVAL_BATCH)]
+    eval_batches = len(sizes)
+    fwd, bwd = {}, {}
+
+    def add(d, sites, k):
+        for shape, c in sites.items():
+            d[shape] = d.get(shape, 0) + k * c
+
+    def g(n, fn):
+        return gen_sites(n, fn, ngf, nb)
+
+    for d in (fwd, bwd):
+        add(d, train_sites(batch, nb, ngf, width["ndf"]), epochs * steps)
+        add(d, g(EVAL_BATCH, "B"), epochs * eval_batches * UBO_STEPS)
+    for n in sizes:
+        add(fwd, g(n, "A"), epochs)
+    add(fwd, g(DEV_VIS_BATCH, "B"), epochs * 3)
+    add(fwd, g(DEV_VIS_BATCH, "A"), epochs * 2)
+    add(fwd, g(DEV_VIS_BATCH * NUM_MULTI, "B"), epochs * 2)
+    add(fwd, g(NUM_MULTI, "A"), epochs)
+    return {"fwd": fwd, "bwd": bwd, "steps_per_epoch": steps,
+            "eval_batches": eval_batches}
+
+
+def check_ubo_against_plain(torch, model, real_A, real_B):
+    """The UBO of one eval batch on the card (``real_A``/``real_B``, padded
+    to the eval batch as the CLI pads it), through the kernels and with
+    every norm through its plain version, on the same seeded noise, read at
+    step 1 and at step UBO_STEPS."""
+    from domain_transfer_gan_torch.eval.metrics import variational_ubo
+
+    gen = torch.Generator(device=model.device)
+    gen.manual_seed(31)
+    eps = torch.randn((UBO_STEPS, EVAL_BATCH, model.opt.nlatent),
+                      device=model.device, generator=gen)
+    dequant = torch.rand((EVAL_BATCH,) + real_B.shape[1:],
+                         device=model.device, generator=gen) / 127.5
+    got = {}
+    for plain in (False, True):
+        for steps in (1, UBO_STEPS):
+            got[plain, steps] = variational_ubo(
+                model, real_A, real_B, steps, pad_to=EVAL_BATCH,
+                dequant=dequant, eps=eps[:steps], plain_norm=plain)
+    (ub1, kl1, _), (ubl, _, _) = got[False, 1], got[False, UBO_STEPS]
+    (pub1, pkl1, _), (publ, _, _) = got[True, 1], got[True, UBO_STEPS]
+    dev = {"ubo_step1": abs(ub1 - pub1) / abs(pub1),
+           "kld_step1": abs(kl1 - pkl1) / max(1.0, abs(pkl1)),
+           "ubo_last": abs(ubl - publ) / abs(publ)}
+    if not all(np.isfinite(v) for v in (ub1, kl1, ubl)):
+        raise AssertionError("UBO not finite: %r" % ((ub1, kl1, ubl),))
+    if dev["ubo_step1"] > UBO_STEP1_RTOL or dev["kld_step1"] > UBO_STEP1_RTOL:
+        raise AssertionError("first UBO step, kernels vs plain norms: %r "
+                             "(limit %g)" % (dev, UBO_STEP1_RTOL))
+    if dev["ubo_last"] > UBO_LAST_RTOL:
+        raise AssertionError("UBO step %d, kernels vs plain norms: %r "
+                             "(limit %g)" % (UBO_STEPS, dev, UBO_LAST_RTOL))
+    ubo_vals = {"step1": ub1, "step%d" % UBO_STEPS: ubl,
+                "rows": len(real_A), "padded_to": EVAL_BATCH}
+    return dev, ubo_vals
+
+
+def _log_figures(log):
+    """Throughput windows and eval times as the CLI printed them."""
+    import re
+    ips = [float(v) for v in re.findall(r"throughput: ([\d.]+) images/sec",
+                                        log)]
+    evals = {k: [float(t) for t in re.findall(
+        r"\] %s: [\d.]+, TEST_%s: [\d.]+, TIME: ([\d.]+)" % (k, k[4:]), log)]
+        for k in ("DEV_MSE_A", "DEV_BPP_B")}
+    return ips, evals
+
+
+def drive_training_cli(torch, K, tmp, device="cuda", width=CLI_WIDTH):
+    """Phase 7: the training CLI on the card, then export and serve from its
+    checkpoint.  Returns (launches of the CLI run by direction and shape,
+    the same by variant, launches of the served request, the figures)."""
+    import os
+    import re
+    import statistics
+
+    from domain_transfer_gan_torch.cli.export import main as export_main
+    from domain_transfer_gan_torch.cli.serve import build_server
+    from domain_transfer_gan_torch.cli.train import train_model
+    from domain_transfer_gan_torch.config import \
+        load_train_config_from_expr_dir
+    from domain_transfer_gan_torch.data import AlignedIterator, \
+        load_numpy_data
+    from domain_transfer_gan_torch.data.synthetic import \
+        write_synthetic_dataset
+    from domain_transfer_gan_torch.models import create_model
+    from domain_transfer_gan_torch.utils import checkpoint
+
+    root, ckpt = tmp + "/cli_data", tmp + "/cli_runs"
+    write_synthetic_dataset(root, n_train=CLI_DATA["n_train"],
+                            n_test=CLI_DATA["n_test"], size=64)
+    epochs = CLI_EPOCHS + CLI_RESUMED_EPOCHS
+    want = cli_expected(width, epochs)
+    counters = _Counters(K)
+    counters.reset()  # the training CLI's path starts here
+    t0 = time.perf_counter()
+    first = train_model(argv=_cli_argv(root, ckpt, device, width))
+    t1 = time.perf_counter()
+    second = train_model(argv=_cli_argv(
+        root, ckpt, device, width,
+        ["--continue_train", "--niter_decay", "2"]))
+    if device == "cuda":
+        torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    seen, variants = counters.read(), counters.variants()  # ends here
+
+    for direction in ("fwd", "bwd"):
+        if seen[direction] != want[direction]:
+            raise AssertionError(
+                "training CLI: %s launches by shape %r, expected %r" % (
+                    direction, sorted(seen[direction].items()),
+                    sorted(want[direction].items())))
+    expected = {d: {"cluster": 0, "streaming": 0} for d in ("fwd", "bwd")}
+    for direction, arrays in (("fwd", 1), ("bwd", 2)):
+        for shape, count in seen[direction].items():
+            expected[direction][_picked_variant(K, shape, 4, arrays)] += count
+    if variants != expected:
+        raise AssertionError("training CLI launched the variants %r, the "
+                             "plan picks %r" % (variants, expected))
+
+    # artifacts
+    expr = os.path.join(ckpt, "cli")
+    for f in CLI_ARTIFACTS:
+        if not os.path.exists(os.path.join(expr, f)):
+            raise AssertionError("training CLI: %s missing" % f)
+    pngs = {}
+    for d, at_least in CLI_VIS.items():
+        files = [f for f in os.listdir(os.path.join(expr, d))
+                 if f.endswith(".png")]
+        pngs[d] = len(files)
+        if len(files) < at_least or not all(
+                os.path.getsize(os.path.join(expr, d, f)) > 0
+                for f in files):
+            raise AssertionError("training CLI: %s holds %r" % (d, files))
+
+    # the log: finite losses, the resume, the lr schedule
+    with open(os.path.join(expr, "results.txt")) as f:
+        log_text = f.read()
+    lines = log_text.splitlines()
+    loss_lines = [i for i, ln in enumerate(lines) if ln.startswith("(epoch:")]
+    steps = want["steps_per_epoch"]
+    run_steps = (CLI_EPOCHS * steps, CLI_RESUMED_EPOCHS * steps)
+    if len(loss_lines) != sum(n // CLI_PRINT_EVERY for n in run_steps):
+        raise AssertionError("training CLI: %d loss lines" % len(loss_lines))
+    for i in loss_lines:
+        for ln in lines[i:i + 2]:  # the losses and the gnorms under them
+            vals = re.findall(r"\w+: (\S+) ", ln.split(") ", 1)[-1])
+            if len(vals) < 10 or not all(np.isfinite(float(v))
+                                         for v in vals):
+                raise AssertionError("training CLI: %r" % ln)
+    m = re.search(r"resumed from \S+latest \(epoch (\d+), step (\d+)\)",
+                  log_text)
+    if not m or (int(m.group(1)), int(m.group(2))) != (
+            CLI_EPOCHS, CLI_EPOCHS * steps):
+        raise AssertionError("training CLI: no resume line for epoch %d"
+                             % CLI_EPOCHS)
+    lr = 2e-4
+    if (first.epoch, first.state.step) != (CLI_EPOCHS, CLI_EPOCHS * steps) \
+            or (second.epoch, second.state.step) != (epochs, epochs * steps) \
+            or "(epoch: %d, iters:" % epochs not in log_text \
+            or abs(first.old_lr) > 1e-12 \
+            or abs(second.old_lr - (lr - lr / 2)) > 1e-12:
+        raise AssertionError(
+            "training CLI: epochs %d/%d, steps %d/%d, lr %r/%r" % (
+                first.epoch, second.epoch, first.state.step,
+                second.state.step, first.old_lr, second.old_lr))
+
+    # the checkpoint round trip, bit for bit
+    latest = os.path.join(expr, "latest")
+    opt = load_train_config_from_expr_dir(expr)
+    loaded = create_model(opt, testing=True, device=device)
+    loaded.load(latest)
+    for name, net in second.nets.items():
+        mine = loaded.nets[name].state_dict()
+        for k, v in net.state_dict().items():
+            if not torch.equal(mine[k], v):
+                raise AssertionError("checkpoint: %s.%s differs" % (name, k))
+        a, b = second.state.opt_state[name], loaded.state.opt_state[name]
+        if a.count != b.count or not all(
+                torch.equal(x, y) for x, y in zip(a.mu + a.nu, b.mu + b.nu)):
+            raise AssertionError("checkpoint: Adam state of %s" % name)
+    payload = checkpoint.read_checkpoint(latest)
+    if (loaded.state.step, loaded.epoch) != (second.state.step,
+                                             second.epoch) \
+            or loaded.old_lr != payload["old_lr"] \
+            or abs(loaded.old_lr - (second.old_lr + lr / 2)) > 1e-12:
+        raise AssertionError("checkpoint: step/epoch/lr %r vs %r" % (
+            (loaded.state.step, loaded.epoch, loaded.old_lr),
+            (second.state.step, second.epoch, second.old_lr)))
+
+    # the UBO from the checkpoint, kernels vs plain norms, on the test set's
+    # tail batch (padded to the eval batch)
+    *_, testA, testB = load_numpy_data(root, grid_size=64,
+                                       dev_size=CLI_DATA["dev_size"])
+    *_, tail = AlignedIterator(testA, testB, batch_size=EVAL_BATCH)
+    ubo_dev, ubo_vals = check_ubo_against_plain(torch, loaded, tail["A"],
+                                                tail["B"])
+
+    # what a save of 'latest' costs: the copy to the host the loop waits
+    # for, and the whole write on the writer thread
+    t = time.perf_counter()
+    writer = checkpoint.AsyncCheckpointer()
+    writer.save(tmp + "/timed_latest", second._ckpt_payload())
+    save_call_s = time.perf_counter() - t
+    writer.wait()
+    save_total_s = time.perf_counter() - t
+    writer.close()
+
+    # export from the checkpoint, serve, one predict_B request
+    out = tmp + "/cli_export"
+    export_main(["--chk_path", latest, "--out", out, "--device", device])
+    rng = np.random.RandomState(5)
+    A = rng.uniform(-1, 1, (32, 64, 64, 3)).astype(np.float32)
+    z = rng.randn(32, width["nlatent"]).astype(np.float32)
+    want_B = loaded.predict_B(A, z).cpu().numpy()
+    server = build_server(out, port=0, device=device)
+    thread = threading.Thread(target=server.serve_forever, daemon=True)
+    thread.start()
+    counters.reset()  # the served request starts here
+    try:
+        got_B = _post("http://127.0.0.1:%d/predict_B"
+                      % server.server_address[1], {"A": A, "z": z})
+    finally:
+        served = counters.read()  # and ends here
+        server.shutdown()
+        server.server_close()
+        thread.join(timeout=30)
+    if thread.is_alive():
+        raise RuntimeError("the server thread did not stop")
+    _check_images(got_B, 32, 64, 3, "served predict_B")
+    export_err = float(np.abs(got_B - want_B).max())
+    if export_err > EXPORT_ATOL:
+        raise AssertionError("exported predict_B is %g from the loaded "
+                             "checkpoint's (limit %g)"
+                             % (export_err, EXPORT_ATOL))
+    if served["fwd"] != gen_sites(32, "B", width["ngf"], width["n_blocks"]) \
+            or served["bwd"]:
+        raise AssertionError("served request launched %r" % served)
+
+    ips, evals = _log_figures(log_text)
+    # steady windows: not a run's first (its set-up), and no epoch end (the
+    # evals, the save) or display inside
+    steady, k = [], 0
+    for n in run_steps:
+        for p in range(CLI_PRINT_EVERY, n + 1, CLI_PRINT_EVERY):
+            if p > CLI_PRINT_EVERY and \
+                    (p - 1) // steps == (p - CLI_PRINT_EVERY) // steps:
+                steady.append(ips[k])
+            k += 1
+    per_batch = want["eval_batches"]
+    figures = {
+        "train_images_per_s_windows": ips,
+        "train_images_per_s_steady": steady,
+        "train_images_per_s_steady_median": statistics.median(steady)
+        if steady else None,
+        "eval_A_s_per_batch": [t / per_batch for t in evals["DEV_MSE_A"]],
+        "eval_B_s_per_batch": [t / per_batch for t in evals["DEV_BPP_B"]],
+        "save_latest_call_s": save_call_s,
+        "save_latest_total_s": save_total_s,
+        "run_s": t1 - t0, "resumed_run_s": t2 - t1,
+        "ubo_kernels_vs_plain": ubo_dev,
+        "ubo_tail_batch": ubo_vals,
+        "export_max_abs_err": export_err,
+        "pngs": pngs,
+    }
+    log("training CLI: launches by direction and shape %s, per variant "
+           "%s; the served request %s" % (
+               json.dumps({d: {"%dx%dx%d" % sh: c for sh, c in
+                               sorted(seen[d].items())}
+                           for d in ("fwd", "bwd")}),
+               json.dumps(variants),
+               json.dumps({"%dx%dx%d" % sh: c for sh, c in
+                           sorted(served["fwd"].items())})))
+    log("training CLI: %s" % json.dumps(figures))
+    return seen, variants, served, figures
+
+
 def time_train_step(torch):
     """train_step_ms and images/s per dtype at its batch: 3 warm-up steps,
     then wall time around 10 steps that end in one synchronize()."""
@@ -1226,6 +1619,51 @@ def profile_train_step(torch):
         del m
         torch.cuda.empty_cache()
     return out
+
+
+def profile_ubo_step(torch):
+    """Device time of the UBO's RMSprop steps at the eval batch of 100
+    (float32, full width: one netG_A_B forward and backward to z each) by
+    kernel name (torch.profiler), and the device-busy share of the steps'
+    wall time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from domain_transfer_gan_torch.config import TrainConfig
+    from domain_transfer_gan_torch.eval import metrics
+    from domain_transfer_gan_torch.models import create_model
+
+    m = create_model(TrainConfig(**TRAIN_CFG), testing=True, device="cuda")
+    n, nlat = EVAL_BATCH, TRAIN_CFG["nlatent"]
+    A, B, _ = _train_inputs(n, nlat, seed=16)
+    A, B = torch.from_numpy(A).cuda(), torch.from_numpy(B).cuda()
+    B = B + torch.rand_like(B) / 127.5
+    mu = torch.zeros((n, nlat), device="cuda")
+    lv = torch.full((n, nlat), -4.6, device="cuda")
+    args = (A, B, mu, lv, torch.zeros_like(mu), torch.zeros_like(lv),
+            torch.full((1, 64, 64, 3), -4.6, device="cuda"),
+            torch.ones(n, device="cuda"), 64 * 64 * 3.0)
+    metrics.ubo_chunk(m, *args, 3)
+    torch.cuda.synchronize()
+    reps = 5
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        metrics.ubo_chunk(m, *args, reps)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) / reps * 1e3
+    kernels, count = {}, 0
+    for ev in prof.events():
+        if str(getattr(ev, "device_type", "")).endswith("CUDA"):
+            dur = ev.time_range.elapsed_us()
+            kernels[ev.name] = kernels.get(ev.name, 0.0) + dur / reps
+            count += 1
+    busy_ms = sum(kernels.values()) / 1e3
+    return {"step_wall_ms_under_profiler": wall_ms,
+            "device_busy_ms_per_step": busy_ms,
+            "device_busy_share": busy_ms / wall_ms,
+            "device_kernels_per_step": count / reps,
+            "instance_norm_ms_per_step": _norm_ms(kernels),
+            "kernels_us_per_step": _top_kernels(kernels, 16, width=120)}
 
 
 def time_end_to_end(torch, ctx):
@@ -1397,10 +1835,18 @@ def main(argv=None):
             drive_training_path(torch, K, seed_offset=100 * (i + 1),
                                 hold=False)
 
+        # phase 7: the training CLI, then export and serve from its
+        # checkpoint (before phase 6, whose rows carry its launch counts)
+        cli_counts, cli_variants, cli_served, _ = drive_training_cli(
+            torch, K, tmp)
+        cli_fwd = sum(cli_counts["fwd"].values())
+        cli_bwd = sum(cli_counts["bwd"].values())
+        served_fwd = sum(cli_served["fwd"].values())
+
         # phase 6: times
         rows = time_kernel(torch, F, K, site_counts, train_counts,
-                           extra=args.profile)
-        bwd_rows = time_bwd_kernel(torch, F, K, train_counts,
+                           cli_counts, extra=args.profile)
+        bwd_rows = time_bwd_kernel(torch, F, K, train_counts, cli_counts,
                                    extra=args.profile)
         e2e = time_end_to_end(torch, ctx)
         e2e.update(time_train_step(torch))
@@ -1408,6 +1854,7 @@ def main(argv=None):
         if args.profile:
             prof = profile_forward(torch, ctx)
             prof["train_step"] = profile_train_step(torch)
+            prof["ubo_step_b%d" % EVAL_BATCH] = profile_ubo_step(torch)
 
     def head_of(table):
         return next(r for r in table
@@ -1424,12 +1871,13 @@ def main(argv=None):
         "route": "cuda",
         "source": "domain_transfer_gan_torch/csrc/instance_norm.cu",
         "replaces": pallas + ":115",
-        "launches": launches + train_fwd,
+        "launches": launches + train_fwd + cli_fwd + served_fwd,
         "launches_serving_path": launches,
         "launches_training_path": train_fwd,
+        "launches_training_cli": cli_fwd + served_fwd,
         "launches_by_variant": {
             v: serving_variants[v] + train_variants["fwd"][v]
-            for v in serving_variants},
+            + cli_variants["fwd"][v] for v in serving_variants},
         "max_abs_err": worst.overall("y_float32"),
         "max_err_bf16_ulps": worst.overall("y_bfloat16_ulps"),
         "check_by_variant": worst.summary(),
@@ -1450,10 +1898,13 @@ def main(argv=None):
         "route": "cuda",
         "source": "domain_transfer_gan_torch/csrc/instance_norm_bwd.cu",
         "replaces": pallas + ":175",
-        "launches": train_bwd,
+        "launches": train_bwd + cli_bwd,
         "launches_serving_path": 0,
         "launches_training_path": train_bwd,
-        "launches_by_variant": train_variants["bwd"],
+        "launches_training_cli": cli_bwd,
+        "launches_by_variant": {
+            v: train_variants["bwd"][v] + cli_variants["bwd"][v]
+            for v in train_variants["bwd"]},
         "max_abs_err": bwd_worst.overall("dx_float32"),
         "max_err_bf16_ulps": bwd_worst.overall("dx_bfloat16_ulps"),
         "check_by_variant": bwd_worst.summary(),

@@ -21,14 +21,17 @@ loaded generators run their convs and Linear layers in bf16 (norm statistics
 and affine stay fp32); the I/O contract stays float32 either way.
 
 Usage:
-  python -m domain_transfer_gan_torch.cli.export --expr_dir checkpoints/exp1 \
-      --params exp1_params.npz --out exp1_export \
+  python -m domain_transfer_gan_torch.cli.export \
+      --chk_path checkpoints/exp1/latest --out exp1_export \
       [--batch 32] [--serve_dtype bfloat16] [--device cuda]
 
-``--expr_dir`` holds the run's ``opt.json``; ``--params`` is an ``.npz`` with
-flat keys in the JAX package's layout (``netG_A_B/conv0/kernel`` ...).
-``--init_seed N`` exports weights drawn from seed N instead.  Reading flax
-checkpoints comes with the checkpoint slice.
+The weights come from exactly one of: ``--chk_path``, a checkpoint that the
+port's training CLI wrote (its directory holds the run's ``opt.json``);
+``--params``, an ``.npz`` with flat keys in the JAX package's layout
+(``netG_A_B/conv0/kernel`` ...), with ``--expr_dir`` naming the directory of
+``opt.json``; ``--init_seed N``, weights drawn from seed N (with
+``--expr_dir``).  Reading the JAX package's checkpoints is ROADMAP M15;
+the JAX CLI's ``--use_ema`` waits for EMA (M11) and is not a flag here.
 
 Round-trip loading: :func:`load_exported`.
 """
@@ -125,8 +128,12 @@ def load_exported(out_dir: str, name: str, device="cuda"):
 
 def main(argv=None):
     ap = argparse.ArgumentParser()
-    ap.add_argument("--expr_dir", required=True,
-                    help="experiment directory holding opt.json")
+    ap.add_argument("--chk_path", default=None,
+                    help="a checkpoint of the port's training CLI "
+                         "(expr_dir/latest, best_A, best_B)")
+    ap.add_argument("--expr_dir", default=None,
+                    help="experiment directory holding opt.json (default: "
+                         "the directory of --chk_path)")
     ap.add_argument("--params", default=None,
                     help="params .npz with flat keys in the JAX package's "
                          "layout (netG_A_B/conv0/kernel ...)")
@@ -142,22 +149,30 @@ def main(argv=None):
                     help="where the model is built, and the platform the "
                          "artifact is served on")
     args = ap.parse_args(argv)
-    if (args.params is None) == (args.init_seed is None):
-        ap.error("give exactly one of --params and --init_seed")
+    sources = [a for a in (args.chk_path, args.params, args.init_seed)
+               if a is not None]
+    if len(sources) != 1:
+        ap.error("give exactly one of --chk_path, --params and --init_seed")
+    expr_dir = args.expr_dir or (os.path.dirname(args.chk_path)
+                                 if args.chk_path else None)
+    if expr_dir is None:
+        ap.error("--params and --init_seed need --expr_dir")
 
-    opt: TrainConfig = load_train_config_from_expr_dir(args.expr_dir)
+    opt: TrainConfig = load_train_config_from_expr_dir(expr_dir)
     if args.serve_dtype:
         opt.compute_dtype = args.serve_dtype
     if args.init_seed is not None:
         opt.seed = args.init_seed
     model = create_model(opt, testing=True, device=args.device)
-    if args.params is not None:
+    if args.chk_path is not None:
+        model.load(args.chk_path)
+    elif args.params is not None:
         model.load_params(args.params)
     manifest = export_model(model, args.out, batch=args.batch,
                             device=args.device)
-    print("exported %s -> %s (%s)" % (args.params or "seed %d" % opt.seed,
-                                      args.out,
-                                      ", ".join(manifest["functions"])))
+    print("exported %s -> %s (%s)" % (
+        args.chk_path or args.params or "seed %d" % opt.seed, args.out,
+        ", ".join(manifest["functions"])))
 
 
 if __name__ == "__main__":

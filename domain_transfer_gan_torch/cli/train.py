@@ -1,0 +1,319 @@
+"""The training CLI of the port: the JAX package's ``cli/train.py`` on one
+torch device (``--device``, default ``cuda``), npz data path.
+
+The artifact contract is the JAX one, file for file: ``results.{txt,json}``,
+``history_mse_A.npy`` / ``history_ubo_B.npy``, the ``latest`` / ``best_A`` /
+``best_B`` checkpoints (the port's ``torch.save`` format) with
+``best_mse_A.txt`` / ``best_bpp_B.txt``, ``nets.txt``,
+``opt.{txt,json,pkl}``, the vis dirs and their PNGs, and the source
+snapshot.  Resume is real: ``--continue_train`` reloads ``which_epoch``,
+continues at its epoch + 1 and keeps ``results.json`` and the histories.
+
+The train set lives on the device when ``--device_data`` says so (1, or -1
+with the set under ``--device_data_max_gb``): it is copied there once and
+each step gathers its batch with ``index_select`` from the iterator's index
+vectors, the same rows in the same order as the host feed.
+
+    python -m domain_transfer_gan_torch.cli.train --dataroot DATA --name RUN \\
+        --grid_size 64 [--device cuda]
+
+The instance norms run the hand-written CUDA kernels on a CUDA device
+whatever ``--use_pallas`` says (the flag is accepted and has no effect).
+
+Flags the port does not run yet are refused by name (``config.refuse_unported``).
+"""
+
+from __future__ import annotations
+
+import itertools
+import json
+import os
+import sys
+import time
+from shutil import copyfile
+
+import numpy as np
+import torch
+
+from ..config import TrainConfig, TrainOptions, create_sub_dirs, \
+    refuse_unported
+from ..data import AlignedIterator, UnalignedIterator, load_numpy_data
+from ..eval import eval_mse_A, eval_ubo_B, one_to_three_channels
+from ..eval.visualize import (
+    inference_grid,
+    interleave_columns,
+    multi_grid,
+    save_image_grid,
+    to_numpy,
+)
+from ..models import create_model
+from ..utils.artifacts import (
+    copy_scripts_to_folder,
+    format_log,
+    print_log,
+    save_results,
+)
+from ..utils.profiling import StepTimer
+
+SUB_DIRS = ["vis_multi", "vis_cycle", "vis_latest", "train_vis_cycle"]
+
+
+def visualize_cycle(opt, visuals, eidx, uidx, train):
+    """6-column cycle grid."""
+    imgs = [one_to_three_channels(to_numpy(v)[..., :3])
+            for v in visuals.values()]
+    grid = interleave_columns(imgs)
+    save_dir = opt.train_vis_cycle if train else opt.vis_cycle
+    save_path = os.path.join(save_dir, "cycle_%02d_%04d.png" % (eidx, uidx))
+    save_image_grid(grid, save_path, nrow=len(imgs))
+    copyfile(save_path, os.path.join(opt.vis_latest, "cycle.png"))
+
+
+def visualize_multi(opt, real_A, model, eidx, uidx):
+    """Same z-set across the batch."""
+    grid = multi_grid(opt, real_A, model)
+    save_path = os.path.join(opt.vis_multi,
+                             "multi_%02d_%04d.png" % (eidx, uidx))
+    save_image_grid(grid, save_path, nrow=opt.num_multi + 1)
+    copyfile(save_path, os.path.join(opt.vis_latest, "multi.png"))
+
+
+def visualize_inference(opt, real_A, real_B, model, eidx, uidx):
+    """Posterior-z transfer grid."""
+    grid, num = inference_grid(opt, real_A, real_B, model)
+    save_path = os.path.join(opt.vis_inf, "inf_%02d_%04d.png" % (eidx, uidx))
+    save_image_grid(grid, save_path, nrow=num + 1)
+    copyfile(save_path, os.path.join(opt.vis_latest, "inf.png"))
+
+
+def check_losses_finite(losses, epoch, step) -> None:
+    """``--check_numerics``: read every loss (one sync per step, a debug
+    mode) and raise naming the non-finite ones."""
+    vals = dict(zip(losses, torch.stack(
+        [torch.as_tensor(v, dtype=torch.float32).reshape(())
+         for v in losses.values()]).tolist()))
+    bad = [k for k, v in vals.items() if not np.isfinite(v)]
+    if bad:
+        raise FloatingPointError(
+            "non-finite losses at epoch %d step %d: %s (values: %s)"
+            % (epoch, step, bad, {k: vals[k] for k in bad}))
+
+
+def _device(opt) -> torch.device:
+    """The run's device.  A CUDA device that is not there is an error: the
+    CLI never falls back to the CPU."""
+    device = torch.device(opt.device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "--device %s asks for CUDA, but torch.cuda.is_available() is "
+            "False; pass --device cpu to train on the CPU" % opt.device)
+    return device
+
+
+def train_model(opt: TrainConfig = None, argv=None):
+    if opt is None:
+        opt = TrainOptions().parse(sub_dirs=SUB_DIRS, args=argv)
+    else:
+        refuse_unported(opt)
+    device = _device(opt)
+    # resume appends to the prior run's log instead of truncating it
+    out_f = open(os.path.join(opt.expr_dir, "results.txt"),
+                 "a" if opt.continue_train else "w")
+    try:
+        return _train(opt, device, out_f)
+    finally:
+        out_f.close()
+
+
+def _train(opt: TrainConfig, device: torch.device, out_f):
+    copy_scripts_to_folder(opt.expr_dir)
+    if opt.seed is not None:
+        print("using random seed:", opt.seed)
+        np.random.seed(opt.seed)
+
+    # ----- data ---------------------------------------------------------
+    trainA, trainB, devA, devB, testA, testB = load_numpy_data(
+        opt.dataroot, grid_size=opt.grid_size, dev_size=opt.dev_size,
+        antialias=bool(opt.resize_antialias))
+    train_dataset = UnalignedIterator(trainA, trainB,
+                                      batch_size=opt.batchSize)
+    print_log(out_f, "#training images = %d" % len(train_dataset))
+    test_dataset = AlignedIterator(testA, testB, batch_size=100)
+    print_log(out_f, "#test images = %d" % len(test_dataset))
+    dev_dataset = AlignedIterator(devA, devB, batch_size=100)
+    print_log(out_f, "#dev images = %d" % len(dev_dataset))
+    dev_cycle = itertools.cycle(AlignedIterator(devA, devB, batch_size=25))
+
+    # ----- model --------------------------------------------------------
+    model = create_model(opt, device=device, image_size=opt.grid_size)
+    create_sub_dirs(opt, ["vis_inf"])
+    print_log(out_f, "model [%s] was created" % type(model).__name__)
+
+    resumed = False
+    if opt.continue_train:
+        chk = os.path.join(opt.expr_dir, opt.which_epoch)
+        if os.path.exists(chk):
+            model.load(chk)
+            resumed = True
+            print_log(out_f, "resumed from %s (epoch %d, step %d)"
+                      % (chk, model.epoch, int(model.state.step)))
+        else:
+            print_log(out_f, "WARNING: --continue_train set but %s missing"
+                      % chk)
+
+    total_steps = 0
+    timer = StepTimer()
+    results = {
+        "best_dev_mse_A": sys.float_info.max,
+        "best_test_mse_A": sys.float_info.max,
+        "best_dev_bpp_B": sys.float_info.max,
+        "best_test_bpp_B": sys.float_info.max,
+    }
+    results_path = os.path.join(opt.expr_dir, "results.json")
+    if opt.continue_train and os.path.exists(results_path):
+        # keep the best metrics of before the restart, so that a worse
+        # epoch after it cannot overwrite best_A / best_B
+        with open(results_path) as f:
+            results.update(json.load(f))
+    save_results(opt.expr_dir, results)
+    # the per-epoch np.save writes the WHOLE list: start from the saved one
+    history_mse_A, history_ubo_B = [], []
+    if resumed:
+        for name, hist in (("history_mse_A.npy", history_mse_A),
+                           ("history_ubo_B.npy", history_ubo_B)):
+            p = os.path.join(opt.expr_dir, name)
+            if os.path.exists(p):
+                hist.extend(tuple(row) for row in np.load(p))
+    create_sub_dirs(opt, ["vis_pred_B"])
+
+    # 'latest' is written at the END of epoch E with epoch=E: resume
+    # continues at E+1
+    start_epoch = model.epoch + 1 if resumed else opt.epoch_count
+
+    # ----- device-resident train set ------------------------------------
+    data_A = data_B = None
+    if opt.device_data:
+        ds_bytes = trainA.nbytes + trainB.nbytes
+        if opt.device_data == 1 or \
+                ds_bytes <= opt.device_data_max_gb * (1 << 30):
+            data_A = torch.from_numpy(trainA).to(device)
+            data_B = torch.from_numpy(trainB).to(device)
+            train_dataset.yield_indices = True
+            print_log(out_f, "train set on %s (%.1f MB): on-device batch "
+                      "gather" % (device, ds_bytes / 2 ** 20))
+
+    losses = None
+    for epoch in range(start_epoch, opt.niter + opt.niter_decay + 1):
+        model.epoch = epoch
+        epoch_start_time = time.time()
+        epoch_iter = 0
+
+        for i, data in enumerate(train_dataset):
+            if data_A is not None:
+                idx_A = data["A_idx"]
+                out = model.train_instance_indexed(data_A, data_B, idx_A,
+                                                   data["B_idx"])
+            else:
+                out = model.train_instance(data["A"], data["B"])
+            total_steps += opt.batchSize
+            epoch_iter += opt.batchSize
+            if opt.monitor_gnorm:
+                losses, visuals, gnorms = out
+            else:
+                losses, visuals = out
+            if opt.check_numerics:
+                check_losses_finite(losses, epoch, i)
+            timer.tick(opt.batchSize)
+
+            if opt.display_freq and total_steps % opt.display_freq == 0:
+                uidx = epoch_iter // opt.batchSize
+                visualize_cycle(opt, visuals, epoch, uidx, train=True)
+                dev_data = next(dev_cycle)
+                dev_A, dev_B = dev_data["A"], dev_data["B"]
+                dev_z = model.sample_prior_z(dev_A.shape[0])
+                dev_visuals = model.generate_cycle(dev_A, dev_B, dev_z)
+                visualize_cycle(opt, dev_visuals, epoch, uidx, train=False)
+                visualize_multi(opt, dev_A, model, epoch, uidx)
+                visualize_inference(opt, dev_A, dev_B, model, epoch, uidx)
+
+            if opt.print_freq and total_steps % opt.print_freq == 0:
+                sec_per_item, img_per_sec, _, _ = timer.window(
+                    sync_tensor=losses["D_A"])
+                print_log(out_f, format_log(epoch, epoch_iter, losses,
+                                            sec_per_item))
+                if opt.monitor_gnorm:
+                    print_log(out_f, format_log(epoch, epoch_iter, gnorms,
+                                                sec_per_item, prefix=False)
+                              + "\n")
+                print_log(out_f, "  throughput: %.1f images/sec" % img_per_sec)
+
+        if opt.save_epoch_freq and epoch % opt.save_epoch_freq == 0:
+            print_log(out_f, "saving the model at the end of epoch %d, "
+                      "iters %d" % (epoch, total_steps))
+            model.save("latest", async_save=True)
+
+        # ----- evaluate mappings; a frequency of 0 means never -----------
+        if opt.eval_A_freq and epoch % opt.eval_A_freq == 0:
+            t = time.time()
+            dev_mse_A = eval_mse_A(dev_dataset, model)
+            test_mse_A = eval_mse_A(test_dataset, model)
+            t = time.time() - t
+            history_mse_A.append((dev_mse_A, test_mse_A))
+            np.save(os.path.join(opt.expr_dir, "history_mse_A"),
+                    history_mse_A)
+            res_str_list = ["[%d] DEV_MSE_A: %.4f, TEST_MSE_A: %.4f, "
+                            "TIME: %.4f" % (epoch, dev_mse_A, test_mse_A, t)]
+            if dev_mse_A < results["best_dev_mse_A"]:
+                with open(os.path.join(opt.expr_dir, "best_mse_A.txt"),
+                          "w") as f:
+                    f.write(res_str_list[0] + "\n")
+                results["best_dev_mse_A"] = dev_mse_A
+                results["best_test_mse_A"] = test_mse_A
+                model.save("best_A")
+                save_results(opt.expr_dir, results)
+                res_str_list += ["*** BEST DEV A ***"]
+            print_log(out_f, "\n".join(["-" * 60] + res_str_list + ["-" * 60]))
+
+        if opt.eval_B_freq and epoch % opt.eval_B_freq == 0:
+            t = time.time()
+            steps = 1 if opt.model == "cycle_gan" else 50
+            dev_ubo_B, dev_bpp_B, dev_kld_B = eval_ubo_B(
+                dev_dataset, model, steps, True, "pred_B_%d" % epoch,
+                opt.vis_pred_B)
+            test_ubo_B, test_bpp_B, test_kld_B = eval_ubo_B(
+                test_dataset, model, steps, False, "pred_B", opt.vis_pred_B)
+            t = time.time() - t
+            history_ubo_B.append((dev_ubo_B, dev_bpp_B, dev_kld_B,
+                                  test_ubo_B, test_bpp_B, test_kld_B))
+            np.save(os.path.join(opt.expr_dir, "history_ubo_B"),
+                    history_ubo_B)
+            res_str_list = ["[%d] DEV_BPP_B: %.4f, TEST_BPP_B: %.4f, "
+                            "TIME: %.4f" % (epoch, dev_bpp_B, test_bpp_B, t)]
+            if dev_bpp_B < results["best_dev_bpp_B"]:
+                with open(os.path.join(opt.expr_dir, "best_bpp_B.txt"),
+                          "w") as f:
+                    f.write(res_str_list[0] + "\n")
+                results["best_dev_bpp_B"] = dev_bpp_B
+                results["best_test_bpp_B"] = test_bpp_B
+                save_results(opt.expr_dir, results)
+                model.save("best_B")
+                res_str_list += ["*** BEST BPP B ***"]
+            print_log(out_f, "\n".join(["-" * 60] + res_str_list + ["-" * 60]))
+
+        print_log(out_f, "End of epoch %d / %d \t Time Taken: %d sec"
+                  % (epoch, opt.niter + opt.niter_decay,
+                     time.time() - epoch_start_time))
+
+        if epoch > opt.niter:
+            model.update_learning_rate()
+
+    model.wait_for_saves()
+    # wait for the device before returning, so that a caller's clock
+    # around train_model sees the whole run
+    if losses is not None and device.type == "cuda":
+        torch.cuda.synchronize(device)
+    return model
+
+
+if __name__ == "__main__":
+    train_model()

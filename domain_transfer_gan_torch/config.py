@@ -2,14 +2,23 @@
 
 The port keeps its own copy of the JAX package's ``TrainConfig`` with every
 field under the same name and default, so an ``opt.json`` / ``opt.pkl`` /
-``opt.txt`` written by either package loads here.  Fields that only steer the
-TPU runtime (mesh axes, host-device emulation, Pallas switch, ...) are kept
-as inert data: nothing in the port reads them.  There is no command-line
-parser yet; the training slice adds it.
+``opt.txt`` written by either package loads here, plus one field of its own,
+``device`` (default ``cuda``).  Fields that only steer the TPU runtime
+(``host_devices``, ``data_axis``) are kept as inert data.
+
+:class:`TrainOptions` is the training CLI's parser: the JAX package's flag
+names, defaults and choices, plus ``--device``.  The instance norms always
+run the hand-written CUDA kernels on a CUDA device (their plain PyTorch
+versions on a CPU tensor), so ``--use_pallas`` is accepted and selects
+nothing, like the TPU runtime's flags.  A flag that asks for something the port does not run
+yet is refused by :func:`refuse_unported` with an error that names the flag
+and its ROADMAP item; none is ignored silently.  ``README.md`` lists the
+flags that are accepted and have no effect.
 """
 
 from __future__ import annotations
 
+import argparse
 import dataclasses
 import json
 import os
@@ -122,6 +131,7 @@ class TrainConfig:
     coordinator: str = ""          # inert (multi-host)
     num_processes: int = 0         # inert (multi-host)
     process_id: int = -1           # inert (multi-host)
+    device: str = "cuda"           # the port's own: where the CLI runs
 
     # derived (filled by finalize / the loaders)
     expr_dir: str = ""
@@ -220,3 +230,167 @@ def load_train_config_from_expr_dir(expr_dir: str, **overrides) -> TrainConfig:
     cfg = TrainConfig(**kwargs)
     cfg.expr_dir = expr_dir
     return cfg
+
+
+# (flag, the field whose value the message shows or None, is it asked for,
+# ROADMAP item): what the training CLI refuses
+_UNPORTED = (
+    ("--model", "model", lambda c: c.model != "aug_cycle_gan", "M6"),
+    ("--supervised", None, lambda c: bool(c.supervised), "M6"),
+    ("--numpy_data", "numpy_data", lambda c: not c.numpy_data, "M9"),
+    ("--num_devices", "num_devices", lambda c: int(c.num_devices) > 1,
+     "M12"),
+    ("--coordinator", "coordinator", lambda c: bool(c.coordinator), "M12"),
+    ("--num_processes", "num_processes", lambda c: int(c.num_processes) > 1,
+     "M12"),
+    ("--process_id", "process_id", lambda c: int(c.process_id) >= 0, "M12"),
+    ("--spatial", "spatial", lambda c: int(c.spatial) > 1, "M13"),
+    ("--tensor", "tensor", lambda c: int(c.tensor) > 1, "M13"),
+    ("--pipeline", "pipeline", lambda c: int(c.pipeline) > 1, "M13"),
+    ("--microbatches", "microbatches", lambda c: int(c.microbatches) > 0,
+     "M13"),
+    ("--ckpt_backend", "ckpt_backend", lambda c: c.ckpt_backend != "flax",
+     "M15"),
+    ("--profile_dir", "profile_dir", lambda c: bool(c.profile_dir), "M10"),
+    ("--pool_size", "pool_size", lambda c: int(c.pool_size) > 0, "M11"),
+    ("--ema", "ema", lambda c: float(c.ema) > 0.0, "M11"),
+    ("--grad_accum", "grad_accum", lambda c: int(c.grad_accum or 1) > 1,
+     "M11"),
+    ("--remat", None, lambda c: bool(c.remat), "M11"),
+)
+
+
+class UnportedFlagError(NotImplementedError):
+    """A training flag that asks for a part of the system the port does not
+    run yet."""
+
+
+def refuse_unported(cfg: TrainConfig) -> None:
+    """Raise :class:`UnportedFlagError` naming the first flag of ``cfg``
+    that asks for something the port's training CLI does not run, and the
+    ROADMAP item that ports it."""
+    for flag, field, asked, item in _UNPORTED:
+        if asked(cfg):
+            if field is not None:
+                flag = "%s %s" % (flag, getattr(cfg, field))
+            raise UnportedFlagError(
+                "%s is not ported to the PyTorch package yet (ROADMAP %s)"
+                % (flag, item))
+
+
+class TrainOptions:
+    """argparse shim with the JAX package's flag surface plus ``--device``."""
+
+    def __init__(self):
+        self.parser = argparse.ArgumentParser()
+        self.initialized = False
+
+    def initialize(self):
+        p = self.parser
+        d = TrainConfig()  # defaults from the dataclass
+        p.add_argument("--dataroot", type=str, required=True, help="path to data")
+        p.add_argument("--name", type=str, required=True,
+                       help="name of the experiment; decides where samples/models go")
+        p.add_argument("--checkpoints_dir", type=str, default=d.checkpoints_dir)
+        p.add_argument("--input_nc", type=int, default=d.input_nc)
+        p.add_argument("--output_nc", type=int, default=d.output_nc)
+        p.add_argument("--grid_size", type=int, default=d.grid_size)
+        p.add_argument("--numpy_data", type=int, choices=[0, 1], default=d.numpy_data)
+        p.add_argument("--nThreads", type=int, default=d.nThreads)
+        p.add_argument("--seed", type=int, default=None)
+        p.add_argument("--model", type=str, default=d.model,
+                       choices=["cycle_gan", "stoch_cycle_gan", "aug_cycle_gan"])
+        p.add_argument("--gpu_ids", type=str, default=d.gpu_ids)
+        p.add_argument("--supervised", action="store_true")
+        p.add_argument("--sup_frac", type=float, default=d.sup_frac)
+        p.add_argument("--lambda_sup_A", type=float, default=d.lambda_sup_A)
+        p.add_argument("--lambda_sup_B", type=float, default=d.lambda_sup_B)
+        p.add_argument("--batchSize", type=int, default=d.batchSize)
+        p.add_argument("--continue_train", action="store_true")
+        p.add_argument("--which_epoch", type=str, default=d.which_epoch)
+        p.add_argument("--epoch_count", type=int, default=d.epoch_count)
+        p.add_argument("--niter", type=int, default=d.niter)
+        p.add_argument("--niter_decay", type=int, default=d.niter_decay)
+        p.add_argument("--beta1", type=float, default=d.beta1)
+        p.add_argument("--lr", type=float, default=d.lr)
+        p.add_argument("--ngf", type=int, default=d.ngf)
+        p.add_argument("--nef", type=int, default=d.nef)
+        p.add_argument("--ndf", type=int, default=d.ndf)
+        p.add_argument("--nlatent", type=int, default=d.nlatent)
+        p.add_argument("--which_model_netD", type=str, default=d.which_model_netD)
+        p.add_argument("--which_model_netG", type=str, default=d.which_model_netG)
+        p.add_argument("--norm", type=str, default=d.norm)
+        p.add_argument("--use_dropout", action="store_true")
+        p.add_argument("--max_gnorm", type=float, default=d.max_gnorm)
+        p.add_argument("--stoch_enc", action="store_true")
+        p.add_argument("--z_gan", type=int, default=d.z_gan, choices=[0, 1])
+        p.add_argument("--enc_A_B", type=int, default=d.enc_A_B, choices=[0, 1])
+        p.add_argument("--no_lsgan", action="store_true")
+        p.add_argument("--lambda_A", type=float, default=d.lambda_A)
+        p.add_argument("--lambda_B", type=float, default=d.lambda_B)
+        p.add_argument("--lambda_z_B", type=float, default=d.lambda_z_B)
+        p.add_argument("--monitor_gnorm", type=bool, default=d.monitor_gnorm)
+        p.add_argument("--display_freq", type=int, default=d.display_freq)
+        p.add_argument("--print_freq", type=int, default=d.print_freq)
+        p.add_argument("--save_epoch_freq", type=int, default=d.save_epoch_freq)
+        p.add_argument("--num_multi", type=int, default=d.num_multi)
+        p.add_argument("--eval_A_freq", type=int, default=d.eval_A_freq)
+        p.add_argument("--eval_B_freq", type=int, default=d.eval_B_freq)
+        p.add_argument("--n_blocks", type=int, default=d.n_blocks)
+        p.add_argument("--init_scheme", type=str, default=d.init_scheme,
+                       choices=["reference", "sane"])
+        p.add_argument("--use_pallas", type=int, choices=[0, 1], default=int(d.use_pallas),
+                       help="no effect here: the CUDA instance-norm kernels "
+                            "always run on a CUDA device")
+        p.add_argument("--compute_dtype", type=str, default=d.compute_dtype,
+                       choices=["float32", "bfloat16"])
+        p.add_argument("--num_devices", type=int, default=d.num_devices)
+        p.add_argument("--dev_size", type=int, default=d.dev_size)
+        p.add_argument("--legacy_eval_constants", action="store_true")
+        p.add_argument("--remat", action="store_true")
+        p.add_argument("--pool_size", type=int, default=d.pool_size)
+        p.add_argument("--resize_antialias", type=int, choices=[0, 1],
+                       default=d.resize_antialias)
+        p.add_argument("--spatial", type=int, default=d.spatial)
+        p.add_argument("--tensor", type=int, default=d.tensor)
+        p.add_argument("--pipeline", type=int, default=d.pipeline)
+        p.add_argument("--microbatches", type=int, default=d.microbatches)
+        p.add_argument("--host_devices", type=int, default=d.host_devices,
+                       help="TPU package only; no effect here")
+        p.add_argument("--check_numerics", type=int, choices=[0, 1],
+                       default=d.check_numerics)
+        p.add_argument("--ema", type=float, default=d.ema)
+        p.add_argument("--grad_accum", type=int, default=d.grad_accum)
+        p.add_argument("--d_lr_mode", type=str, default=d.d_lr_mode,
+                       choices=["reference", "ratio"])
+        p.add_argument("--device_data", type=int, choices=[-1, 0, 1],
+                       default=d.device_data)
+        p.add_argument("--device_data_max_gb", type=float,
+                       default=d.device_data_max_gb)
+        p.add_argument("--coordinator", type=str, default=d.coordinator)
+        p.add_argument("--num_processes", type=int, default=d.num_processes)
+        p.add_argument("--process_id", type=int, default=d.process_id)
+        p.add_argument("--ckpt_backend", type=str, default=d.ckpt_backend,
+                       choices=["flax", "orbax"])
+        p.add_argument("--profile_dir", type=str, default=d.profile_dir)
+        p.add_argument("--data_axis", type=str, default=d.data_axis,
+                       help="TPU package only; no effect here")
+        p.add_argument("--device", type=str, default=d.device,
+                       help="torch device the CLI trains on (cpu for tests)")
+        self.initialized = True
+
+    def parse(self, sub_dirs=None, args=None) -> TrainConfig:
+        """Parse, refuse unported flags (before anything is written), print
+        the options, then create the experiment dir and its option dumps."""
+        if not self.initialized:
+            self.initialize()
+        ns = self.parser.parse_args(args)
+        names = {f.name for f in dataclasses.fields(TrainConfig)}
+        cfg = TrainConfig(**{k: v for k, v in vars(ns).items() if k in names})
+        cfg.use_pallas = bool(ns.use_pallas)
+        refuse_unported(cfg)
+        print("------------ Options -------------")
+        for k, v in sorted(vars(cfg).items()):
+            print("%s: %s" % (str(k), str(v)))
+        print("-------------- End ----------------")
+        return cfg.finalize(sub_dirs=sub_dirs)

@@ -1,0 +1,240 @@
+"""Evaluation metrics of the training CLI: ``eval_mse_A`` and the
+variational upper bound (UBO) on -log p(B | A), the port of the JAX
+package's ``eval/metrics.py`` (``eval_mse_A``, ``variational_ubo``,
+``eval_ubo_B``).
+
+The UBO is an RMSprop optimisation of per-sample (mu, logvar) *through* the
+frozen ``netG_A_B``: each step is one generator forward and one backward
+whose gradient flows only to z (through the conditional instance norms'
+per-sample scale/shift), so on the card every step launches the forward
+and the backward instance-norm kernel at each of the generator's norm
+sites.  torch-RMSprop semantics exactly: alpha = 0.99, eps = 1e-8 outside
+the square root, lr = 1e-2, ``sq = alpha sq + (1 - alpha) g^2`` then
+``p -= lr g / (sqrt(sq) + eps)``.
+
+What holds as in the JAX package:
+
+- nets run in train mode when ``model.training`` is set (upstream never
+  switched them to eval mode) and write no batch-norm running statistics;
+  no parameter gradient is computed (``torch.autograd.grad`` w.r.t.
+  ``(mu, logvar)`` only, the generator's parameters frozen meanwhile);
+- ``npix`` comes from the image shape, or is upstream's 64 * 64 * 3 under
+  ``legacy_eval_constants``;
+- a short batch is padded with copies of its first sample to the dataset's
+  batch size and those rows get zero weight, so the metrics equal an
+  unpadded run's (the dequantisation noise is drawn at the padded shape);
+- the metrics returned are those of the last iterate (the values before the
+  final update);
+- the host reads results once per chunk of 100 steps, never per step.
+
+The random draws (dequantisation noise, the reparametrisation's eps) come
+from the model's ``torch.Generator``; ``dequant`` and ``eps`` may be passed
+instead, so a test can feed the JAX package's draws.  ``plain_norm=True``
+runs every norm through its plain version (a check's twin; the CLI never
+asks for it).
+"""
+
+from __future__ import annotations
+
+import math
+import os
+from typing import Optional
+
+import numpy as np
+import torch
+
+from ..nn.networks import frozen
+from ..ops.numerics import (
+    gauss_reparametrize_eps,
+    kld_std_gauss,
+    log_prob_laplace,
+)
+from .visualize import visualize_data
+
+RMS_ALPHA = 0.99
+RMS_EPS = 1e-8
+RMS_LR = 1e-2
+CHUNK = 100  # the host reads the metrics (and dumps visuals) this often
+
+
+def _npix(model, real_B) -> float:
+    if getattr(model.opt, "legacy_eval_constants", False):
+        return 64 * 64 * 3
+    return float(np.prod(real_B.shape[1:]))
+
+
+# ---------------------------------------------------------------------------
+# MSE_A
+# ---------------------------------------------------------------------------
+
+def eval_mse_A(dataset, model) -> float:
+    """Mean over batches of mean((netG_B_A(B) - A)^2)."""
+    vals = []
+    with frozen(model.nets["netG_B_A"], bool(model.training)) as net, \
+            torch.no_grad():
+        for batch in dataset:
+            pred_A = net(model._tensor(batch["B"])).float()
+            vals.append(torch.mean((pred_A - model._tensor(batch["A"])) ** 2))
+    # one read for the whole dataset; averaged in float64 like np.mean
+    return float(np.mean(torch.stack(vals).cpu().numpy().astype(np.float64)))
+
+
+# ---------------------------------------------------------------------------
+# variational UBO / BPP
+# ---------------------------------------------------------------------------
+
+def ubo_chunk(model, real_A, real_B_deq, mu, logvar, sq_mu, sq_lv,
+              logvar_B, mask, npix: float, steps: int, eps=None,
+              plain_norm: bool = False):
+    """``steps`` RMSprop steps on (mu, logvar) from the given state.
+
+    ``eps``: None (drawn per step from the model's generator) or a
+    (steps, n, nlatent) tensor.  Returns the new (mu, logvar, sq_mu, sq_lv)
+    and the masked-mean UBO and KLD of the last step's iterate, all device
+    tensors."""
+    net = model.nets["netG_A_B"]
+    ignore_noise = getattr(model, "ignore_noise", False)
+    denom = mask.sum()
+    ubo_m = kld_m = None
+    with frozen(net, bool(model.training)), torch.enable_grad():
+        for s in range(steps):
+            e = eps[s] if eps is not None else torch.randn(
+                mu.shape, dtype=mu.dtype, device=mu.device,
+                generator=model._noise)
+            mu_ = mu.detach().requires_grad_(True)
+            lv_ = logvar.detach().requires_grad_(True)
+            z = gauss_reparametrize_eps(mu_, lv_, e)
+            if ignore_noise:
+                z = torch.ones_like(z)
+            fake_B = net(real_A, z, plain_norm=plain_norm).float()
+            lp = log_prob_laplace(real_B_deq, fake_B, logvar_B)
+            lp = lp.reshape(lp.shape[0], -1).sum(dim=1)
+            kld = kld_std_gauss(mu_, lv_)
+            ubo = (-lp + kld) + npix * math.log(127.5)
+            ubo_m = (ubo * mask).sum() / denom
+            kld_m = (kld * mask).sum() / denom
+            g_mu, g_lv = torch.autograd.grad(ubo_m, (mu_, lv_))
+            with torch.no_grad():
+                sq_mu = RMS_ALPHA * sq_mu + (1 - RMS_ALPHA) * g_mu ** 2
+                sq_lv = RMS_ALPHA * sq_lv + (1 - RMS_ALPHA) * g_lv ** 2
+                mu = mu - RMS_LR * g_mu / (torch.sqrt(sq_mu) + RMS_EPS)
+                logvar = logvar - RMS_LR * g_lv / (torch.sqrt(sq_lv)
+                                                   + RMS_EPS)
+    return mu, logvar, sq_mu, sq_lv, ubo_m.detach(), kld_m.detach()
+
+
+def variational_ubo(model, real_A, real_B, steps: int,
+                    visualize: bool = False, vis_name=None, vis_path=None,
+                    verbose: bool = False, logvar_B=None, vis_batch: int = 25,
+                    compute_l1: bool = False, pad_to: Optional[int] = None,
+                    dequant=None, eps=None, plain_norm: bool = False):
+    """Iterative variational upper bound on -log p(B|A); returns (ubo, kld,
+    bpp) of the final iterate.  A batch shorter than ``pad_to`` is padded
+    with zero-weight rows.  ``dequant`` (the padded batch's shape) and
+    ``eps`` ((steps, n, nlatent)) replace the model's draws."""
+    if visualize and (vis_name is None or vis_path is None):
+        raise ValueError("visualize needs vis_name and vis_path")
+    real_A, real_B = model._tensor(real_A), model._tensor(real_B)
+    n_real = real_A.shape[0]
+    if pad_to is not None and n_real < pad_to:
+        pad = pad_to - n_real
+        real_A = torch.cat([real_A, real_A[:1].expand(pad, *real_A.shape[1:])])
+        real_B = torch.cat([real_B, real_B[:1].expand(pad, *real_B.shape[1:])])
+    n = real_A.shape[0]
+    dev = real_B.device
+    mask = (torch.arange(n, device=dev) < n_real).to(real_B.dtype)
+    vis_batch = min(vis_batch, n_real)
+    nlat = model.opt.nlatent
+    npix = _npix(model, real_B)
+
+    if dequant is None:
+        dequant = torch.rand(real_B.shape, dtype=real_B.dtype, device=dev,
+                             generator=model._noise) * (1.0 / 127.5)
+    real_B_deq = real_B + model._tensor(dequant)
+
+    if logvar_B is None:
+        logvar_B = torch.full((1,) + tuple(real_B.shape[1:]),
+                              math.log(0.01), dtype=real_B.dtype, device=dev)
+    else:
+        logvar_B = model._tensor(logvar_B)
+        if logvar_B.dim() == 4 and logvar_B.shape[-1] != real_B.shape[-1]:
+            logvar_B = logvar_B.permute(0, 2, 3, 1)  # NCHW compat
+
+    # q's parameters start at zeros / log(0.01), the encoder's if present
+    mu = torch.zeros((n, nlat), dtype=real_B.dtype, device=dev)
+    logvar = torch.full((n, nlat), math.log(0.01), dtype=real_B.dtype,
+                        device=dev)
+    if "netE_B" in model.nets:
+        params = model.predict_enc_params(real_A, real_B, plain_norm)
+        mu = params[0]
+        if len(params) == 2:
+            logvar = params[1]
+    sq_mu = torch.zeros_like(mu)
+    sq_lv = torch.zeros_like(logvar)
+    if eps is not None:
+        eps = model._tensor(eps)
+
+    def posterior_sample():
+        if not model.opt.stoch_enc:
+            return mu
+        e = torch.randn(mu.shape, dtype=mu.dtype, device=dev,
+                        generator=model._noise)
+        return gauss_reparametrize_eps(mu, logvar, e)
+
+    def vis_dump(tag):
+        z_vis = posterior_sample()[:vis_batch]
+        vis_B = model.predict_B(real_A[:vis_batch], z_vis, plain_norm)
+        save_path = os.path.join(vis_path, "%s_%s.png" % (vis_name, tag))
+        visualize_data(model.opt, [real_A[:vis_batch], real_B[:vis_batch],
+                                   vis_B], real_A[:vis_batch].shape,
+                       save_path)
+
+    if visualize:
+        vis_dump("0")
+
+    done = 0
+    ubo_val = kld_val = float("nan")
+    while done < steps:
+        todo = min(CHUNK, steps - done)
+        chunk_eps = None if eps is None else eps[done:done + todo]
+        mu, logvar, sq_mu, sq_lv, ubo_dev, kld_dev = ubo_chunk(
+            model, real_A, real_B_deq, mu, logvar, sq_mu, sq_lv, logvar_B,
+            mask, npix, todo, chunk_eps, plain_norm)
+        done += todo
+        ubo_val, kld_val = torch.stack([ubo_dev, kld_dev]).tolist()
+        bpp = ubo_val / (npix * math.log(2.0))
+        if verbose:
+            msg = "[%d] UBO: %.4f, KLD: %.4f, BPP: %.4f" % (done, ubo_val,
+                                                            kld_val, bpp)
+            if compute_l1:
+                # a stochastic encoder scores a fresh posterior sample, a
+                # deterministic one the posterior mean
+                rec_B = model.predict_B(real_A, posterior_sample(),
+                                        plain_norm)
+                msg += ", L1: %.4f" % float(torch.mean(torch.abs(
+                    real_B_deq[:n_real] - rec_B[:n_real])))
+            print(msg)
+        if visualize and done % CHUNK == 0:
+            vis_dump(str(done))
+
+    bpp = ubo_val / (npix * math.log(2.0))
+    return ubo_val, kld_val, bpp
+
+
+def eval_ubo_B(dataset, model, steps: int = 500, visualize: bool = False,
+               vis_name=None, vis_path=None, verbose: bool = False,
+               logvar_B=None, vis_batch: int = 25, compute_l1: bool = False):
+    """Mean UBO / BPP / KLD over the dataset.  With ``visualize`` every
+    batch writes its grids under the same file names, so the files show the
+    last batch, as upstream's do."""
+    ubo_B, bpp_B, kld_B = [], [], []
+    pad_to = getattr(dataset, "batch_size", None)
+    for batch in dataset:
+        ubo, kld, bpp = variational_ubo(
+            model, batch["A"], batch["B"], steps, visualize, vis_name,
+            vis_path, verbose, logvar_B, vis_batch, compute_l1,
+            pad_to=pad_to)
+        ubo_B.append(ubo)
+        bpp_B.append(bpp)
+        kld_B.append(kld)
+    return float(np.mean(ubo_B)), float(np.mean(bpp_B)), float(np.mean(kld_B))

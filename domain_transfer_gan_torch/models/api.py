@@ -12,10 +12,17 @@
   ported yet.
 
 All tensors are NHWC; latent codes are flat (N, nlatent).  Inputs may be
-numpy arrays or tensors; outputs are tensors on the model's device.  What
-still raises ``NotImplementedError``: the train steps of the other two
-variants, the supervised step, ``generate_cycle`` and checkpoints
-(``save`` / ``load``).
+numpy arrays or tensors; outputs are tensors on the model's device.
+
+``AugmentedCycleGAN`` also has the generation helpers of the training CLI
+(``generate_cycle``, ``inference_multi``, ``generate_multi``), the
+device-resident train feed (``train_instance_indexed``) and checkpoints
+(``save`` / ``load`` / ``wait_for_saves``, the port's own ``torch.save``
+format).
+
+What still raises ``NotImplementedError``: the train steps of the other two
+variants and the supervised step, with their ``generate_cycle`` and
+checkpoints, and reading the JAX package's checkpoints.
 """
 
 from __future__ import annotations
@@ -29,6 +36,14 @@ import torch
 
 from ..config import TrainConfig
 from ..nn import networks as N
+from ..nn.networks import frozen
+from ..ops.numerics import gauss_reparametrize_eps
+from ..utils.checkpoint import (
+    AsyncCheckpointer,
+    read_checkpoint,
+    to_cpu,
+    write_checkpoint,
+)
 from ..utils.convert import (
     GENERATOR_NETS,
     jax_batch_stats_to_buffers,
@@ -41,9 +56,11 @@ from .steps import make_aug_train_step
 MODELS = ("cycle_gan", "stoch_cycle_gan", "aug_cycle_gan")
 
 _NOT_PORTED = ("%s is not ported yet: the stoch_cycle_gan / cycle_gan and "
-               "supervised train steps, the generation helpers that need "
-               "them, and checkpoints (save / load) come with later slices "
-               "of the PyTorch port")
+               "supervised train steps, with the generation helpers and "
+               "checkpoints of those two variants, come with a later slice "
+               "of the PyTorch port (ROADMAP M6)")
+
+CKPT_FORMAT = "domain_transfer_gan_torch checkpoint 1"
 
 
 def build_generators(cfg: TrainConfig,
@@ -188,16 +205,17 @@ class GeneratorPair:
         self._later("supervised_train_instance")
 
     def generate_cycle(self, *a, **kw):
-        self._later("generate_cycle")
+        self._later("generate_cycle of %s" % self.opt.model)
 
     def update_learning_rate(self):
         self._later("update_learning_rate of %s" % self.opt.model)
 
     def save(self, *a, **kw):
-        self._later("save")
+        self._later("save of %s" % self.opt.model)
 
     def load(self, *a, **kw):
-        self._later("load (reading checkpoints; use load_params on an .npz)")
+        self._later("load of %s (use load_params on an .npz)"
+                    % self.opt.model)
 
 
 class AugmentedCycleGAN(GeneratorPair):
@@ -242,10 +260,6 @@ class AugmentedCycleGAN(GeneratorPair):
 
     _no_grad = staticmethod(torch.no_grad)
 
-    def _set_mode(self, training: bool):
-        for net in self.nets.values():
-            net.train(training)
-
     # -- mode toggles -------------------------------------------------------
     def eval(self):
         self.training = False
@@ -254,31 +268,69 @@ class AugmentedCycleGAN(GeneratorPair):
         self.training = True
 
     # -- forward ------------------------------------------------------------
+    # In the model's mode (train-mode batch statistics while training, as
+    # upstream evaluates), and never advancing a running statistic.
     def predict_A(self, real_B, plain_norm: bool = False) -> torch.Tensor:
-        self._set_mode(self.training)
-        return super().predict_A(real_B, plain_norm)
+        with frozen(self.nets["netG_B_A"], self.training):
+            return super().predict_A(real_B, plain_norm)
 
     def predict_B(self, real_A, z_B, plain_norm: bool = False) -> torch.Tensor:
-        self._set_mode(self.training)
-        return super().predict_B(real_A, z_B, plain_norm)
+        with frozen(self.nets["netG_A_B"], self.training):
+            return super().predict_B(real_A, z_B, plain_norm)
 
-    def predict_enc_params(self, real_A, real_B):
-        """(mu, logvar) of the posterior of z given (A, B) when
-        ``stoch_enc``, else (mu,).  Never advances the encoder's running
-        statistics."""
+    def _encode(self, real_A, real_B, plain_norm: bool = False):
         real_A, real_B = self._tensor(real_A), self._tensor(real_B)
         enc_in = (torch.cat([real_A, real_B], dim=-1)
                   if self.opt.enc_A_B else real_B)
-        net = self.nets["netE_B"]
-        net.train(self.training)
-        with torch.no_grad():
-            stats = {k: b.clone() for k, b in net.named_buffers()}
-            mu, logvar = net(enc_in)
-            for k, b in net.named_buffers():
-                b.copy_(stats[k])
+        with frozen(self.nets["netE_B"], self.training) as net, \
+                torch.no_grad():
+            mu, logvar = net(enc_in, plain_norm=plain_norm)
+        return mu.float(), logvar.float()
+
+    def predict_enc_params(self, real_A, real_B, plain_norm: bool = False):
+        """(mu, logvar) of the posterior of z given (A, B) when
+        ``stoch_enc``, else (mu,).  Never advances the encoder's running
+        statistics."""
+        mu, logvar = self._encode(real_A, real_B, plain_norm)
         if self.opt.stoch_enc:
-            return mu.float(), logvar.float()
-        return (mu.float(),)
+            return mu, logvar
+        return (mu,)
+
+    def _posterior_z(self, real_A_ish, real_B) -> torch.Tensor:
+        """A posterior sample of z given (A, B) under ``stoch_enc``, else
+        the posterior mean."""
+        mu, logvar = self._encode(real_A_ish, real_B)
+        if self.opt.stoch_enc:
+            eps = torch.randn(mu.shape, dtype=mu.dtype, device=mu.device,
+                              generator=self._noise)
+            return gauss_reparametrize_eps(mu, logvar, eps)
+        return mu
+
+    # -- generation helpers (the training CLI's visuals) --------------------
+    def generate_cycle(self, real_A, real_B, prior_z_B):
+        """A -> B -> A with ``prior_z_B`` and B -> A -> B with the posterior
+        z of (fake_A, B); the six images in the train step's visuals order."""
+        real_A, real_B = self._tensor(real_A), self._tensor(real_B)
+        prior_z_B = self._prep_prior(real_A.shape[0], prior_z_B)
+        fake_B = self.predict_B(real_A, prior_z_B)
+        fake_A = self.predict_A(real_B)
+        rec_A = self.predict_A(fake_B)
+        post_z = self._posterior_z(fake_A, real_B)
+        rec_B = self.predict_B(fake_A, post_z)
+        return OrderedDict([("real_A", real_A), ("fake_B", fake_B),
+                            ("rec_A", rec_A), ("real_B", real_B),
+                            ("fake_A", fake_A), ("rec_B", rec_B)])
+
+    def inference_multi(self, real_A, real_B):
+        """Every A decoded with every z inferred from the B batch:
+        (len(A) * len(B), H, W, C), A-major."""
+        real_A, real_B = self._tensor(real_A), self._tensor(real_B)
+        num = real_B.shape[0]
+        multi_A = real_A.repeat_interleave(num, dim=0)
+        fake_A = self.predict_A(real_B)
+        post_z = self._posterior_z(fake_A, real_B)
+        multi_z = post_z.repeat(real_A.shape[0], 1)
+        return self.predict_B(multi_A, multi_z)
 
     # -- training -----------------------------------------------------------
     def sample_prior_z(self, batch: int) -> torch.Tensor:
@@ -310,6 +362,19 @@ class AugmentedCycleGAN(GeneratorPair):
             self.state, real_A, real_B, prior_z_B, eps_post,
             float(self.old_lr), float(self.old_lr_d), plain_norm)
         return self._format_train_out(losses, visuals, gnorms)
+
+    def train_instance_indexed(self, data_A: torch.Tensor,
+                               data_B: torch.Tensor, idx_A, idx_B,
+                               prior_z_B=None, eps_post=None):
+        """:meth:`train_instance` on rows ``idx_A`` / ``idx_B`` of a train
+        set that lives on the model's device: the batch is gathered there
+        (``index_select``), so only the index vectors cross from the host.
+        The same rows as the host feed, so the same step."""
+        idx_A = torch.as_tensor(idx_A, dtype=torch.int64).to(self.device)
+        idx_B = torch.as_tensor(idx_B, dtype=torch.int64).to(self.device)
+        return self.train_instance(data_A.index_select(0, idx_A),
+                                   data_B.index_select(0, idx_B),
+                                   prior_z_B, eps_post)
 
     def _format_train_out(self, losses, visuals, gnorms):
         order = ["D_A", "G_A", "Cyc_A", "Cyc_z_B", "KLD_z_B", "D_B", "G_B",
@@ -347,6 +412,78 @@ class AugmentedCycleGAN(GeneratorPair):
         reference = self.opt.d_lr_mode == "reference"
         self.old_lr_d = self.old_lr if (reference and decayed) \
             else self.old_lr / 5.0
+
+    # -- checkpoints (latest / best_A / best_B) ------------------------------
+    def _ckpt_payload(self) -> dict:
+        """The JAX package's payload in torch form: every net's
+        ``state_dict`` (parameters and batch-norm buffers), one Adam state
+        per net, ``step``, ``old_lr`` and ``epoch``.  Device tensors; the
+        writer copies them to the CPU."""
+        return {
+            "format": CKPT_FORMAT,
+            "nets": {name: dict(net.state_dict())
+                     for name, net in self.nets.items()},
+            "opt_state": {name: {"mu": list(s.mu), "nu": list(s.nu),
+                                 "count": int(s.count)}
+                          for name, s in self.state.opt_state.items()},
+            "step": int(self.state.step),
+            "old_lr": float(self.old_lr),
+            "epoch": int(self.epoch),
+        }
+
+    def save(self, chk_name: str, async_save: bool = False):
+        """Write ``expr_dir/chk_name``.  With ``async_save`` the payload is
+        copied to the CPU here and written by a background thread
+        (``utils.checkpoint.AsyncCheckpointer``); either way the file is
+        published by an atomic rename."""
+        chk_path = os.path.join(self.opt.expr_dir, chk_name)
+        if async_save:
+            if not hasattr(self, "_async_ckpt"):
+                self._async_ckpt = AsyncCheckpointer()
+            self._async_ckpt.save(chk_path, self._ckpt_payload())
+            return
+        write_checkpoint(chk_path, to_cpu(self._ckpt_payload()))
+
+    def wait_for_saves(self):
+        """Block until every asynchronous save is on disk; re-raises a
+        failed one."""
+        if hasattr(self, "_async_ckpt"):
+            self._async_ckpt.wait()
+
+    def load(self, chk_path: str):
+        """Restore a checkpoint written by :meth:`save`: parameters, buffers
+        and Adam moments are copied into this model's tensors (device and
+        dtype stay), ``step``, ``old_lr``, ``epoch`` set, ``old_lr_d``
+        derived.  Raises if a net or an entry is missing or extra."""
+        self.wait_for_saves()
+        payload = read_checkpoint(chk_path)
+        if not isinstance(payload, dict) or \
+                payload.get("format") != CKPT_FORMAT:
+            raise ValueError(
+                "%s is not a checkpoint of this package (reading the JAX "
+                "package's checkpoints is ROADMAP M15)" % chk_path)
+        if set(payload["nets"]) != set(self.nets):
+            raise KeyError("%s holds nets %s, the model has %s" % (
+                chk_path, sorted(payload["nets"]), sorted(self.nets)))
+        with torch.no_grad():
+            for name, net in self.nets.items():
+                net.load_state_dict(payload["nets"][name], strict=True)
+                saved, state = payload["opt_state"][name], \
+                    self.state.opt_state[name]
+                for mine, theirs in ((state.mu, saved["mu"]),
+                                     (state.nu, saved["nu"])):
+                    if len(mine) != len(theirs):
+                        raise KeyError("%s: Adam state of %s has %d "
+                                       "tensors, the model %d" % (
+                                           chk_path, name, len(theirs),
+                                           len(mine)))
+                    for t, v in zip(mine, theirs):
+                        t.copy_(v)
+                state.count = int(saved["count"])
+        self.state.step = int(payload["step"])
+        self.old_lr = float(payload["old_lr"])
+        self.epoch = int(payload["epoch"])
+        self._derive_lr_d()
 
 
 def create_model(opt: TrainConfig, testing: bool = False, device="cuda",

@@ -25,6 +25,7 @@ steers dropout and the batch norms.
 
 from __future__ import annotations
 
+import contextlib
 from typing import Optional
 
 import torch
@@ -434,6 +435,28 @@ def define_E(nlatent, input_nc, nef, norm="batch", init_scheme="reference",
     net = LatentEncoder(nlatent=nlatent, input_nc=input_nc, nef=nef,
                         norm=norm, adaptive_pool=adaptive_pool)
     return net.reset_parameters(init_scheme, generator or torch.Generator())
+
+
+@contextlib.contextmanager
+def frozen(net: nn.Module, training: bool):
+    """``net`` in train or eval mode as ``training`` says, its parameters
+    not requiring grad, and its buffers (batch-norm running statistics)
+    restored on exit: a forward in train mode uses batch statistics but
+    leaves no trace."""
+    mode = net.training
+    requires = [p.requires_grad for p in net.parameters()]
+    buffers = [b.clone() for b in net.buffers()]
+    net.train(training)
+    net.requires_grad_(False)
+    try:
+        yield net
+    finally:
+        with torch.no_grad():
+            for b, saved in zip(net.buffers(), buffers):
+                b.copy_(saved)
+        for p, r in zip(net.parameters(), requires):
+            p.requires_grad_(r)
+        net.train(mode)
 
 
 def count_params(net: nn.Module) -> int:

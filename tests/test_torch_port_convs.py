@@ -14,6 +14,10 @@ from domain_transfer_gan_tpu.ops import convs as jc
 from domain_transfer_gan_torch.ops import convs as tc
 from domain_transfer_gan_torch.utils.convert import jax_params_to_state_dict
 
+from torch_port_helpers import one_torch_thread  # noqa: F401 (a fixture)
+
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
+
 RTOL, ATOL = 1e-5, 1e-5  # fp32, same sums in another order
 
 

@@ -39,7 +39,17 @@ def test_every_module_imports_without_jax():
             "domain_transfer_gan_torch.ops.numerics",
             "domain_transfer_gan_torch.nn.layers",
             "domain_transfer_gan_torch.models.state",
-            "domain_transfer_gan_torch.models.steps"} <= set(names)
+            "domain_transfer_gan_torch.models.steps",
+            "domain_transfer_gan_torch.cli.train",
+            "domain_transfer_gan_torch.data.npz",
+            "domain_transfer_gan_torch.data.resize",
+            "domain_transfer_gan_torch.data.iterators",
+            "domain_transfer_gan_torch.data.synthetic",
+            "domain_transfer_gan_torch.eval.metrics",
+            "domain_transfer_gan_torch.eval.visualize",
+            "domain_transfer_gan_torch.utils.artifacts",
+            "domain_transfer_gan_torch.utils.checkpoint",
+            "domain_transfer_gan_torch.utils.profiling"} <= set(names)
     code = (
         "import importlib, sys\n"
         "for n in %r: importlib.import_module(n)\n"
@@ -86,6 +96,20 @@ def test_chip_smoke_refuses_to_run_without_a_card():
                        cwd=ROOT, capture_output=True, text=True, timeout=300)
     assert r.returncode != 0
     assert '"ok"' not in r.stdout
+
+
+def test_train_cli_asks_for_cuda_and_does_not_fall_back(tmp_path):
+    """Without --device the training CLI runs on CUDA; here, with no card,
+    it raises instead of training on the CPU."""
+    if torch.cuda.is_available():
+        pytest.skip("this machine has a CUDA device")
+    from domain_transfer_gan_torch.cli.train import train_model
+    from domain_transfer_gan_torch.config import TrainConfig
+    assert TrainConfig().device == "cuda"
+    with pytest.raises(RuntimeError, match="asks for CUDA"):
+        train_model(argv=["--dataroot", str(tmp_path / "none"), "--name",
+                          "n", "--checkpoints_dir", str(tmp_path)])
+    assert not os.path.exists(str(tmp_path / "n" / "results.txt"))
 
 
 def test_launcher_raises_without_a_card():

@@ -29,6 +29,10 @@ from domain_transfer_gan_torch.ops.kernels.instance_norm import (
     launch_geometry,
 )
 
+from torch_port_helpers import one_torch_thread  # noqa: F401 (a fixture)
+
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
+
 # fp32: the same arithmetic in another summation order
 RTOL = ATOL = 1e-5
 

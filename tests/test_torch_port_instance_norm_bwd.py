@@ -25,6 +25,10 @@ from domain_transfer_gan_torch.ops.kernels.instance_norm import (
     instance_norm_plain,
 )
 
+from torch_port_helpers import one_torch_thread  # noqa: F401 (a fixture)
+
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
+
 FWD_RTOL = 1e-4   # forward, fp32: another summation order
 GRAD_RTOL = 1e-3  # gradients, fp32, relative to the tensor's largest value
 AFFINES = ("none", "channel", "sample")

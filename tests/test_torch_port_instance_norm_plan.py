@@ -39,12 +39,17 @@ PATH_BY_ITEMSIZE = {
 }
 PATH = PATH_BY_ITEMSIZE[4] | PATH_BY_ITEMSIZE[2]
 GENERATOR = {s for s in PATH if s[1] >= 1024}
+# the generator sites of the training CLI (float32): the eval batch of 100,
+# its tail of 50, the grids at 10, 25 and 250
+CLI = {s for n in CS.CLI_BATCHES for s in CS.gen_sites(n, "B")}
 
 
 def test_the_shapes_are_the_smoke_tests():
-    assert len(SHAPES) == len(CS.CHECK_SHAPES) == 34
+    assert len(SHAPES) == len(CS.CHECK_SHAPES) == 34 + len(CLI)
     assert len(GENERATOR) == 6 and len(PATH) == 6 + 4 * 6
-    assert PATH <= set(SHAPES) and {s for s, _, _ in STREAMED} <= PATH
+    assert len(CLI) == 5 * 3 and not CLI & PATH
+    assert PATH | CLI <= set(SHAPES)
+    assert {s for s, _, _ in STREAMED} <= PATH
 
 
 # discriminator sites whose samples hold 32-256 KB of x in a batch of fewer
@@ -74,6 +79,10 @@ def test_plan(shape, itemsize, arrays):
         want = "streaming" if (shape, itemsize, arrays) in STREAMED else \
             "cluster"
         assert plan.variant == want
+    elif shape in CLI and itemsize == 4:
+        # at the eval batch of 100 the card measured it 1.19-1.75x faster
+        # than the streaming variant (PERF.md)
+        assert plan.variant == "cluster"
     if shape == (4, 65536, 32):
         assert plan == K.STREAMING  # 4-8 MB of x per sample: no cluster holds it
         with pytest.raises(ValueError):

@@ -29,6 +29,10 @@ from domain_transfer_gan_torch.utils.convert import jax_params_to_state_dict
 
 from torch_port_helpers import images, latents, randomize
 
+from torch_port_helpers import one_torch_thread  # noqa: F401 (a fixture)
+
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
+
 ATOL = 1e-4
 KEY = jax.random.PRNGKey(0)
 NGF, NLATENT = 4, 8
@@ -301,16 +305,17 @@ def test_what_waits_for_the_training_slice():
     with pytest.raises(NotImplementedError, match="not ported yet"):
         create_model(stoch, testing=False, device="cpu")
     m = create_model(stoch, testing=True, device="cpu")
-    with pytest.raises(NotImplementedError, match="not ported yet"):
-        m.train_instance(None, None)
+    # aug_cycle_gan's checkpoints and generate_cycle came with the CLI
+    # slice; the other variants' still wait for their train step
+    for call in (m.train_instance, m.save, m.load, m.generate_cycle):
+        with pytest.raises(NotImplementedError, match="not ported yet"):
+            call(None, None)
     aug = create_model(TrainConfig(model="aug_cycle_gan", **kw),
                        testing=False, device="cpu")
     assert set(aug.nets) == {"netG_A_B", "netG_B_A", "netD_A", "netD_B",
                              "netD_z_B", "netE_B"}
-    for call in (aug.supervised_train_instance, aug.save, aug.load,
-                 aug.generate_cycle):
-        with pytest.raises(NotImplementedError, match="not ported yet"):
-            call()
+    with pytest.raises(NotImplementedError, match="not ported yet"):
+        aug.supervised_train_instance()
     for flags in (dict(pool_size=8), dict(ema=0.5), dict(grad_accum=2),
                   dict(remat=True)):
         with pytest.raises(NotImplementedError, match="not ported yet"):

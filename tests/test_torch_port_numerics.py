@@ -13,6 +13,10 @@ from domain_transfer_gan_tpu.ops import numerics as jn
 
 from domain_transfer_gan_torch.ops import numerics as tn
 
+from torch_port_helpers import one_torch_thread  # noqa: F401 (a fixture)
+
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
+
 # float32 elementwise math and short sums on both sides
 RTOL, ATOL = 1e-5, 1e-6
 

@@ -35,6 +35,10 @@ from domain_transfer_gan_torch.utils.convert import flatten_params
 
 from torch_port_helpers import images, latents, randomize
 
+from torch_port_helpers import one_torch_thread  # noqa: F401 (a fixture)
+
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
+
 TINY = dict(model="aug_cycle_gan", grid_size=64, ngf=4, nef=4, ndf=4,
             nlatent=8)
 BATCH = 4

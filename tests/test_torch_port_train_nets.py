@@ -22,6 +22,10 @@ from domain_transfer_gan_torch.utils.convert import (
 
 from torch_port_helpers import images, latents, np_tree, randomize
 
+from torch_port_helpers import one_torch_thread  # noqa: F401 (a fixture)
+
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
+
 ATOL = 1e-4  # fp32, O(1) outputs through up to six conv + norm layers
 NLATENT, NDF = 8, 4
 KEY = jax.random.PRNGKey(0)

@@ -19,6 +19,10 @@ from torch_port_helpers import (
     run_both_train_steps,
 )
 
+from torch_port_helpers import one_torch_thread  # noqa: F401 (a fixture)
+
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
+
 LOSS_KEYS = ["D_A", "G_A", "Cyc_A", "Cyc_z_B", "KLD_z_B", "D_B", "G_B",
              "Cyc_B", "D_z_B", "P_t_A", "P_f_A", "P_t_B", "P_f_B"]
 GNORM_KEYS = ["gnorm_G_A_B", "gnorm_G_B_A", "gnorm_E_B", "gnorm_D_B",

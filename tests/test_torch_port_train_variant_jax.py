@@ -18,6 +18,10 @@ from torch_port_helpers import (
     run_both_train_steps,
 )
 
+from torch_port_helpers import one_torch_thread  # noqa: F401 (a fixture)
+
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
+
 FLAGS = dict(stoch_enc=True, norm="batch")
 
 

@@ -23,6 +23,10 @@ from torch_port_helpers import (
     run_port_train_steps,
 )
 
+from torch_port_helpers import one_torch_thread  # noqa: F401 (a fixture)
+
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
+
 VARIANTS = [dict(stoch_enc=True), dict(z_gan=0), dict(enc_A_B=0),
             dict(no_lsgan=True), dict(stoch_enc=True, z_gan=0),
             dict(norm="batch")]

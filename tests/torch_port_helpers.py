@@ -2,8 +2,21 @@
 inputs and weights handed to both the JAX package and the PyTorch port."""
 
 import numpy as np
+import pytest
+import torch
 
 import jax
+
+
+@pytest.fixture(scope="module")
+def one_torch_thread():
+    """Run a module's tiny CPU workloads on one torch thread, then restore
+    the count: the test runner starts several workers on one machine, and
+    each worker's default of one thread per core makes them thrash."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 def np_tree(tree):
