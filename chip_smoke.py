@@ -15,8 +15,9 @@ It needs one CUDA device, ``nvcc`` and no network.  It
    the card, each in both its variants (the on-chip cluster one wherever
    ``cluster_plan`` can take the shape, the streaming one everywhere), at
    every shape the serving path, the train steps at batch 32 and batch
-   128 and the training CLI's evaluations and visuals (the generators at 10,
-   25, 50, 100 and 250 images) give them and at edge shapes, in float32 and
+   128, the training CLI's evaluations and visuals (the generators at 10,
+   25, 50, 100 and 250 images) and the evaluation CLI's (at 5, 64, 150, 200
+   and 320 besides) give them and at edge shapes, in float32 and
    bfloat16, over unbiased x relu x {no, per-channel, per-sample} affine:
    the forward's y, mean, rstd, and the backward's dx, dscale, dshift;
 4. drives the serving path at the published width (``aug_cycle_gan``, ngf 32,
@@ -60,7 +61,25 @@ It needs one CUDA device, ``nvcc`` and no network.  It
    the run, outside its launch counts and times), and
    ``cli.export --chk_path`` + the
    server's ``predict_B`` against the loaded checkpoint; it prints the
-   CLI's train images/s, seconds per eval batch and the save's cost.
+   CLI's train images/s, seconds per eval batch and the save's cost;
+8. (also before 6) the other two variants and the supervised step at the
+   same width: 3 float32 ``stoch_cycle_gan`` steps at batch 32, one
+   bfloat16-compute step at batch 128, one ``cycle_gan`` step and 3
+   supervised steps, each against a plain-norm twin with phase 5's limits
+   and its launches by shape held to the step's structure; one epoch each
+   of ``--model stoch_cycle_gan``, ``--model cycle_gan`` and
+   ``aug_cycle_gan --supervised`` through the training CLI on phase 7's
+   data (eval-A, eval-B, ``latest``), an export of the
+   ``stoch_cycle_gan`` checkpoint and one served ``predict_B``; then the
+   evaluation CLI, ``python -m domain_transfer_gan_torch.cli.test`` as a
+   user calls it, on the three checkpoints: every ``--metric`` on the
+   supervised one (``bpp`` with ``--train_logvar 1``: 500 UBO steps at
+   N = 200), all but ``bpp`` on the other two; each run's launches by
+   shape and variant held to its structure, each metric's files and
+   numbers checked, ``TEST_MSE_A`` held to ``eval_mse_A`` over the same
+   batch, and the first ``bpp`` chunk held to the same with plain norms on
+   the same noise (after the runs); it prints each run's and each
+   metric's seconds.
 
 Any failed build, launch or check ends the run with a non-zero exit code.
 The last line of standard output is
@@ -77,7 +96,7 @@ kernels' times under every cluster size that holds the slab,
 per timed serving shape the forward kernel's time on one buffer that
 stays in L2, its time enqueued call by call from Python, and the streaming
 variant's time with the launch geometry's tile narrowing switched off, and a
-breakdown of the UBO's RMSprop steps at the eval batch of 100.
+breakdown of the UBO's RMSprop steps at the eval batches of 100 and 200.
 """
 
 from __future__ import annotations
@@ -209,6 +228,22 @@ UBO_STEP1_RTOL = 1e-5
 UBO_LAST_RTOL = 1e-3
 EXPORT_ATOL = 1e-5  # exported predict_B vs the loaded checkpoint's, float32
 
+# phase 8: the other variants, the supervised step and the evaluation CLI on
+# the phase-7 data set.  The evaluation CLI scores at batch 200: the test set
+# (150 images) as one batch, padded to 200 by the UBO of --metric bpp (500
+# steps of netG_A_B forward + backward), the dev set (100) as one batch,
+# train_logvar on a 20 % train subset (64 images, one batch); --metric
+# visual decodes one dev batch of 10 with 5 samples per grid (50 images, an
+# inference header of 5), --metric z_div 32 inputs x 10 z's
+TEST_BATCH, BPP_STEPS = 200, 500
+TEST_SUBSET = (CLI_DATA["n_train"] - CLI_DATA["dev_size"]) // 5
+TEST_VIS_BATCH, TEST_NUM_MULTI, Z_DIV_INPUTS = 10, 5, 32
+TEST_CLI_BATCHES = tuple(sorted({
+    TEST_BATCH, CLI_DATA["n_test"], CLI_DATA["dev_size"], TEST_SUBSET,
+    TEST_VIS_BATCH, TEST_VIS_BATCH * TEST_NUM_MULTI, TEST_NUM_MULTI,
+    DEV_VIS_BATCH, Z_DIV_INPUTS * NUM_MULTI}))
+TEST_SHAPES = tuple(gen_sites(TEST_BATCH, "B"))
+
 # every shape both kernels are checked at, in both dtypes: every site of the
 # serving path, of a train step at batch 32 and at batch 128 (the
 # discriminators' concatenated pass has N = 2 batch; the launch geometry
@@ -217,7 +252,8 @@ EXPORT_ATOL = 1e-5  # exported predict_B vs the loaded checkpoint's, float32
 CHECK_SHAPES = tuple(dict.fromkeys(
     PATH_SHAPES + tuple(s for b in sorted(set(TRAIN_BATCH.values()))
                         for s in train_sites(b))
-    + tuple(s for n in CLI_BATCHES for s in gen_sites(n, "B"))
+    + tuple(s for n in CLI_BATCHES + TEST_CLI_BATCHES
+            for s in gen_sites(n, "B"))
     + EDGE_SHAPES + (HW1_SHAPE,)))
 BWD_SUM_RTOL = 1e-4  # dscale, dshift: fp32 sums of up to 65536 products
 
@@ -520,10 +556,16 @@ def _eval_cases():
     return [(shape, "float32") for shape in EVAL_SHAPES]
 
 
+def _test_cases():
+    """The generator sites at the evaluation CLI's batch, float32 (phase
+    8)."""
+    return [(shape, "float32") for shape in TEST_SHAPES]
+
+
 def _timed_cases():
     serving = _serving_cases()
     return serving + [c for c in _train_cases() + _eval_cases()
-                      if c not in serving]
+                      + _test_cases() if c not in serving]
 
 
 def _plan_row(plan, n):
@@ -570,7 +612,8 @@ def _time_variants(torch, K, launch, shape, itemsize, arrays, sweep):
     return out
 
 
-def time_kernel(torch, F, K, site_counts, train_counts, cli_counts, extra):
+def time_kernel(torch, F, K, site_counts, train_counts, cli_counts,
+                variant_counts, bpp_counts, extra):
     """Phase 6, forward kernel, per path shape and dtype.  Per-channel
     affine, biased variance, fused ReLU: the case the library call covers
     too.  Times are device times (CUDA-graph replay).  Inputs rotate over
@@ -581,7 +624,9 @@ def time_kernel(torch, F, K, site_counts, train_counts, cli_counts, extra):
     the cluster variant ran.  ``site_counts[dtype][request][shape]`` are the launches
     the serving path was seen to make, ``train_counts[dtype]["fwd"][shape]``
     those of one train step, ``cli_counts["fwd"][shape]`` those of the
-    whole training CLI phase (float32).  Every row has the plain version's
+    whole training CLI phase (float32), ``variant_counts["fwd"][shape]``
+    those of phase 8 (float32), ``bpp_counts["fwd"][shape]`` those of its
+    ``--metric bpp`` run (the rows at the evaluation CLI's batch).  Every row has the plain version's
     and the library call's times beside the kernel's.  With ``extra`` every
     row also has ``cluster_sweep_ms`` (the cluster variant at each cluster
     size that holds the slab), and the serving shapes gain:
@@ -638,12 +683,11 @@ def time_kernel(torch, F, K, site_counts, train_counts, cli_counts, extra):
                 train_counts[name]["fwd"].get(shape, 0),
             "launches_training_cli": cli_counts["fwd"].get(shape, 0)
                 if name == "float32" else 0,
+            "launches_phase8": variant_counts["fwd"].get(shape, 0)
+                if name == "float32" else 0,
         })
-        if (shape, name) in _eval_cases():
-            row["launches_per_eval_A_batch"] = gen_sites(
-                EVAL_BATCH, "A").get(shape, 0)
-            row["launches_per_ubo_batch"] = UBO_STEPS * gen_sites(
-                EVAL_BATCH, "B")[shape]
+        if (shape, name) in _test_cases():
+            row["launches_bpp_run"] = bpp_counts["fwd"].get(shape, 0)
         if extra and (shape, name) in serving:
             row["kernel_ms_l2_warm"] = _time_device(
                 torch, lambda i: launch(0, None))
@@ -666,12 +710,14 @@ def time_kernel(torch, F, K, site_counts, train_counts, cli_counts, extra):
     return rows
 
 
-def time_bwd_kernel(torch, F, K, train_counts, cli_counts, extra):
+def time_bwd_kernel(torch, F, K, train_counts, cli_counts, variant_counts,
+                    bpp_counts, extra):
     """Phase 6, backward kernel, at the serving shapes in both dtypes (the
     bfloat16 batch-32 rows and the 256x256 request are on no training path:
     they complete the table), at every site of the training path in the
-    dtype and batch that path runs them, and at the eval batch's generator
-    sites (the UBO's backward).  Per-channel affine, biased variance, fused ReLU.
+    dtype and batch that path runs them, and at the generator sites of the
+    two CLIs' eval batches (the UBO's backward at 100 and 200).
+    Per-channel affine, biased variance, fused ReLU.
     Device times by CUDA-graph replay over buffers that exceed the L2;
     ``kernel_ms``, ``streaming_ms``, ``plan`` and, with ``extra``,
     ``cluster_sweep_ms`` as for the forward.  ``bound_ms`` = (x and dy read
@@ -739,10 +785,11 @@ def time_bwd_kernel(torch, F, K, train_counts, cli_counts, extra):
                 train_counts[name]["bwd"].get(shape, 0),
             "launches_training_cli": cli_counts["bwd"].get(shape, 0)
                 if name == "float32" else 0,
+            "launches_phase8": variant_counts["bwd"].get(shape, 0)
+                if name == "float32" else 0,
         })
-        if (shape, name) in _eval_cases():
-            row["launches_per_ubo_batch"] = UBO_STEPS * gen_sites(
-                EVAL_BATCH, "B")[shape]
+        if (shape, name) in _test_cases():
+            row["launches_bpp_run"] = bpp_counts["bwd"].get(shape, 0)
         rows.append(row)
         del bufs
         torch.cuda.empty_cache()
@@ -1045,6 +1092,29 @@ class _Counters:
         return out
 
 
+def _add(d, sites, k=1):
+    for shape, c in sites.items():
+        d[shape] = d.get(shape, 0) + k * c
+
+
+def _tally(K, seen, itemsize, expected):
+    """Add the launches ``seen`` by direction and shape to ``expected``, per
+    the variant ``cluster_plan`` picks for each shape."""
+    for direction, arrays in (("fwd", 1), ("bwd", 2)):
+        for shape, count in seen[direction].items():
+            expected[direction][_picked_variant(K, shape, itemsize,
+                                                arrays)] += count
+
+
+def _held_counts(seen, want, what):
+    for direction in ("fwd", "bwd"):
+        got = {k: v for k, v in seen[direction].items() if v}
+        if got != {k: v for k, v in want[direction].items() if v}:
+            raise AssertionError("%s: %s launches by shape %r, expected %r"
+                                 % (what, direction, sorted(got.items()),
+                                    sorted(want[direction].items())))
+
+
 def _train_inputs(batch, nlatent, seed):
     rng = np.random.RandomState(seed)
     A = rng.uniform(-1, 1, (batch, 64, 64, 3)).astype(np.float32)
@@ -1107,11 +1177,7 @@ def drive_training_path(torch, K, seed_offset=0, hold=True):
                 raise AssertionError("visual %s: shape %r or values"
                                      % (k, tuple(v.shape)))
         seen = counters.diff(counters.read(), before)
-        itemsize = torch.finfo(m.dtype).bits // 8
-        for direction, arrays in (("fwd", 1), ("bwd", 2)):
-            for shape, count in seen[direction].items():
-                variant = _picked_variant(K, shape, itemsize, arrays)
-                expected[direction][variant] += count
+        _tally(K, seen, torch.finfo(m.dtype).bits // 8, expected)
         return _floats(losses), _floats(gnorms), seen
 
     def check_counts(seen, batch, what, n_blocks=3, instance=True):
@@ -1267,45 +1333,43 @@ def cli_expected(width, epochs):
     eval_batches = len(sizes)
     fwd, bwd = {}, {}
 
-    def add(d, sites, k):
-        for shape, c in sites.items():
-            d[shape] = d.get(shape, 0) + k * c
-
     def g(n, fn):
         return gen_sites(n, fn, ngf, nb)
 
     for d in (fwd, bwd):
-        add(d, train_sites(batch, nb, ngf, width["ndf"]), epochs * steps)
-        add(d, g(EVAL_BATCH, "B"), epochs * eval_batches * UBO_STEPS)
+        _add(d, train_sites(batch, nb, ngf, width["ndf"]), epochs * steps)
+        _add(d, g(EVAL_BATCH, "B"), epochs * eval_batches * UBO_STEPS)
     for n in sizes:
-        add(fwd, g(n, "A"), epochs)
-    add(fwd, g(DEV_VIS_BATCH, "B"), epochs * 3)
-    add(fwd, g(DEV_VIS_BATCH, "A"), epochs * 2)
-    add(fwd, g(DEV_VIS_BATCH * NUM_MULTI, "B"), epochs * 2)
-    add(fwd, g(NUM_MULTI, "A"), epochs)
+        _add(fwd, g(n, "A"), epochs)
+    _add(fwd, g(DEV_VIS_BATCH, "B"), epochs * 3)
+    _add(fwd, g(DEV_VIS_BATCH, "A"), epochs * 2)
+    _add(fwd, g(DEV_VIS_BATCH * NUM_MULTI, "B"), epochs * 2)
+    _add(fwd, g(NUM_MULTI, "A"), epochs)
     return {"fwd": fwd, "bwd": bwd, "steps_per_epoch": steps,
             "eval_batches": eval_batches}
 
 
-def check_ubo_against_plain(torch, model, real_A, real_B):
+def check_ubo_against_plain(torch, model, real_A, real_B,
+                            pad_to=EVAL_BATCH, logvar_B=None):
     """The UBO of one eval batch on the card (``real_A``/``real_B``, padded
-    to the eval batch as the CLI pads it), through the kernels and with
-    every norm through its plain version, on the same seeded noise, read at
-    step 1 and at step UBO_STEPS."""
+    to ``pad_to`` as the CLIs pad it, under ``logvar_B``), through the
+    kernels and with every norm through its plain version, on the same
+    seeded noise, read at step 1 and at step UBO_STEPS."""
     from domain_transfer_gan_torch.eval.metrics import variational_ubo
 
     gen = torch.Generator(device=model.device)
     gen.manual_seed(31)
-    eps = torch.randn((UBO_STEPS, EVAL_BATCH, model.opt.nlatent),
+    eps = torch.randn((UBO_STEPS, pad_to, model.opt.nlatent),
                       device=model.device, generator=gen)
-    dequant = torch.rand((EVAL_BATCH,) + real_B.shape[1:],
+    dequant = torch.rand((pad_to,) + real_B.shape[1:],
                          device=model.device, generator=gen) / 127.5
     got = {}
     for plain in (False, True):
         for steps in (1, UBO_STEPS):
             got[plain, steps] = variational_ubo(
-                model, real_A, real_B, steps, pad_to=EVAL_BATCH,
-                dequant=dequant, eps=eps[:steps], plain_norm=plain)
+                model, real_A, real_B, steps, pad_to=pad_to,
+                logvar_B=logvar_B, dequant=dequant, eps=eps[:steps],
+                plain_norm=plain)
     (ub1, kl1, _), (ubl, _, _) = got[False, 1], got[False, UBO_STEPS]
     (pub1, pkl1, _), (publ, _, _) = got[True, 1], got[True, UBO_STEPS]
     dev = {"ubo_step1": abs(ub1 - pub1) / abs(pub1),
@@ -1320,7 +1384,7 @@ def check_ubo_against_plain(torch, model, real_A, real_B):
         raise AssertionError("UBO step %d, kernels vs plain norms: %r "
                              "(limit %g)" % (UBO_STEPS, dev, UBO_LAST_RTOL))
     ubo_vals = {"step1": ub1, "step%d" % UBO_STEPS: ubl,
-                "rows": len(real_A), "padded_to": EVAL_BATCH}
+                "rows": len(real_A), "padded_to": pad_to}
     return dev, ubo_vals
 
 
@@ -1380,9 +1444,7 @@ def drive_training_cli(torch, K, tmp, device="cuda", width=CLI_WIDTH):
                     direction, sorted(seen[direction].items()),
                     sorted(want[direction].items())))
     expected = {d: {"cluster": 0, "streaming": 0} for d in ("fwd", "bwd")}
-    for direction, arrays in (("fwd", 1), ("bwd", 2)):
-        for shape, count in seen[direction].items():
-            expected[direction][_picked_variant(K, shape, 4, arrays)] += count
+    _tally(K, seen, 4, expected)
     if variants != expected:
         raise AssertionError("training CLI launched the variants %r, the "
                              "plan picks %r" % (variants, expected))
@@ -1544,6 +1606,385 @@ def drive_training_cli(torch, K, tmp, device="cuda", width=CLI_WIDTH):
     return seen, variants, served, figures
 
 
+def sup_sites(batch, n_blocks=3, ngf=32):
+    """Launches per supervised step by (N, HW, C), the same for the forward
+    and the backward kernel: one pass through each generator (the encoder
+    and the latent discriminator have batch norms only)."""
+    sites = dict(gen_sites(batch, "B", ngf, n_blocks))
+    for shape, k in gen_sites(batch, "A", ngf, n_blocks).items():
+        sites[shape] = sites.get(shape, 0) + k
+    return sites
+
+
+# phase 8 (a): (model, compute dtype, batch, steps, step) against the
+# plain-norm twins, with phase 5's limits
+VARIANT_STEPS = (("stoch_cycle_gan", "float32", 32, 3, "main"),
+                 ("stoch_cycle_gan", "bfloat16", 128, 1, "main"),
+                 ("cycle_gan", "float32", 32, 1, "main"),
+                 ("aug_cycle_gan", "float32", 32, 3, "sup"))
+
+
+def drive_variant_steps(torch, K):
+    """Phase 8 (a): the stoch_cycle_gan and cycle_gan steps and the
+    supervised step at full width, each against a twin with the same weights
+    whose norms run the plain version, its launches per step held to the
+    step's structure (the two-phase steps: the sites of the aug_cycle_gan
+    step, whose encoder and latent discriminator have batch norms only; the
+    supervised step: one pass through each generator).  Returns (launches
+    by direction and shape, the same per variant, launches per step by
+    case, the largest deviations)."""
+    from domain_transfer_gan_torch.config import TrainConfig
+    from domain_transfer_gan_torch.models import create_model
+
+    counters = _Counters(K)
+    expected = {d: {"cluster": 0, "streaming": 0} for d in ("fwd", "bwd")}
+    nlatent = TRAIN_CFG["nlatent"]
+    devs, per_step = {}, {}
+    counters.reset()  # phase 8's steps start here
+    for i, (name, dtype, batch, n_steps, kind) in enumerate(VARIANT_STEPS):
+        cfg = dict(TRAIN_CFG, model=name, compute_dtype=dtype)
+        fused, twin = (create_model(TrainConfig(**cfg), testing=True,
+                                    device="cuda") for _ in range(2))
+        A, B, zs = _train_inputs(batch, nlatent, seed=21 + i)
+        width = (TRAIN_CFG["n_blocks"], TRAIN_CFG["ngf"])
+        if kind == "sup":
+            want_sites = sup_sites(batch, *width)
+
+            def call(m, z, eps, plain):
+                out = m.supervised_train_instance(A, B, z, eps,
+                                                  plain_norm=plain)
+                return ({k: v for k, v in out.items() if "gnorm" not in k},
+                        {k: v for k, v in out.items() if "gnorm" in k})
+        else:
+            want_sites = train_sites(batch, *width, TRAIN_CFG["ndf"])
+
+            def call(m, z, eps, plain):
+                losses, visuals, gnorms = m.train_instance(A, B, z,
+                                                           plain_norm=plain)
+                for k, v in visuals.items():
+                    if tuple(v.shape) != A.shape or \
+                            not bool(torch.isfinite(v.float()).all()):
+                        raise AssertionError("%s visual %s" % (name, k))
+                return losses, gnorms
+        tag = "%s%s %s b%d" % (name, " supervised" * (kind == "sup"), dtype,
+                               batch)
+        for it, (z, eps) in enumerate(zs[:n_steps]):
+            before = counters.read()
+            lf, gf = (_floats(d) for d in call(fused, z, eps, False))
+            seen = counters.diff(counters.read(), before)
+            _held_counts(seen, {"fwd": want_sites, "bwd": want_sites},
+                         "%s step %d" % (tag, it + 1))
+            _tally(K, seen, torch.finfo(fused.dtype).bits // 8, expected)
+            before = counters.read()
+            lp, gp = (_floats(d) for d in call(twin, z, eps, True))
+            none = counters.diff(counters.read(), before)
+            if none["fwd"] or none["bwd"]:
+                raise AssertionError("the plain-norm twin launched a kernel")
+            rl, rg = (TRAIN_STEP1_RTOL if it == 0 else TRAIN_STEP3_RTOL)[dtype]
+            what = "%s step %d, fused vs plain-norm twin" % (tag, it + 1)
+            key = tag.replace(" ", "_") + "_step%d_" % (it + 1)
+            devs[key + "losses"] = _held(lf, lp, rl, what)
+            devs[key + "gnorms"] = _held(gf, gp, rg, what)
+        per_step[tag] = {d: sum(seen[d].values()) for d in ("fwd", "bwd")}
+        if kind == "sup" and fused.state.step != 0:
+            raise AssertionError("the supervised step advanced state.step")
+        del fused, twin
+        torch.cuda.empty_cache()
+    total, variants = counters.read(), counters.variants()  # and end here
+    if variants != expected:
+        raise AssertionError("phase 8 steps launched the variants %r, the "
+                             "plan picks %r" % (variants, expected))
+    log("variant steps: launches per step %s, per variant %s"
+        % (json.dumps(per_step), json.dumps(variants)))
+    log("variant steps: largest relative deviations %s" % json.dumps(devs))
+    return total, variants, per_step, devs
+
+
+# phase 8 (b): one epoch each through the training CLI
+VARIANT_RUNS = {"stoch": ["--model", "stoch_cycle_gan"],
+                "cycle": ["--model", "cycle_gan"],
+                "sup": ["--model", "aug_cycle_gan", "--supervised"]}
+
+
+def variant_cli_expected(name, width):
+    """Launches of one epoch of a phase-8 training CLI run by (N, HW, C),
+    from its structure: the train steps (and as many supervised steps at
+    the same batch: the supervised set is 32 images, one batch), eval-A (a
+    dev batch of 100, test batches of 100 and 50), eval-B (the UBO's
+    forward and backward per RMSprop step, 50 steps, 1 for cycle_gan, whose
+    z = 1 takes the generator out of the gradient: no backward), the dev
+    UBO's first grid, and one display (generate_cycle at 25, the multi grid
+    at 250 and, for aug_cycle_gan, the inference grid)."""
+    ngf, nb, batch = width["ngf"], width["n_blocks"], TRAIN_BATCH["float32"]
+    steps = (CLI_DATA["n_train"] - CLI_DATA["dev_size"]) // batch
+    ubo_steps = 1 if name == "cycle" else UBO_STEPS
+    fwd, bwd = {}, {}
+
+    def g(n, fn):
+        return gen_sites(n, fn, ngf, nb)
+
+    for d in (fwd, bwd):
+        _add(d, train_sites(batch, nb, ngf, width["ndf"]), steps)
+        if name == "sup":
+            _add(d, sup_sites(batch, nb, ngf), steps)
+    for d in ((fwd, bwd) if name != "cycle" else (fwd,)):
+        _add(d, g(EVAL_BATCH, "B"), 3 * ubo_steps)
+    for n in (EVAL_BATCH, EVAL_BATCH, CLI_EVAL_TAIL):
+        _add(fwd, g(n, "A"))
+    _add(fwd, g(DEV_VIS_BATCH, "B"), 3)
+    _add(fwd, g(DEV_VIS_BATCH, "A"), 2)
+    _add(fwd, g(DEV_VIS_BATCH * NUM_MULTI, "B"))
+    if name == "sup":
+        _add(fwd, g(NUM_MULTI, "A"))
+        _add(fwd, g(DEV_VIS_BATCH * NUM_MULTI, "B"))
+    return {"fwd": fwd, "bwd": bwd}
+
+
+def test_cli_expected(name, metric, width):
+    """Launches of one evaluation-CLI call by (N, HW, C), from its
+    structure (forward unless said): bpp fits logvar_B on the train subset
+    (both generators at 64), then 500 UBO steps on the test set padded to
+    200 (forward and backward each), the verbose line's decode every 100
+    steps (at 200) and the grids at 0 and every 100 steps (at 25); mse runs
+    netG_B_A on the dev batch (100) and the test batch (150); visual
+    generate_cycle at 10, the multi grid (50), the cycle_B_multi grid (10,
+    50), 4 multi-cycle steps (10) and, for aug_cycle_gan, the inference
+    grid (5, 50); noise_sens 8 noisy cycles at 150; fid one decode at 150;
+    z_div one decode of 32 x 10."""
+    ngf, nb = width["ngf"], width["n_blocks"]
+    fwd, bwd = {}, {}
+
+    def g(n, fn):
+        return gen_sites(n, fn, ngf, nb)
+
+    n_test = CLI_DATA["n_test"]
+    if metric == "bpp":
+        _add(fwd, g(TEST_SUBSET, "A"))
+        _add(fwd, g(TEST_SUBSET, "B"))
+        _add(fwd, g(TEST_BATCH, "B"), BPP_STEPS + BPP_STEPS // 100)
+        _add(bwd, g(TEST_BATCH, "B"), BPP_STEPS)
+        _add(fwd, g(DEV_VIS_BATCH, "B"), 1 + BPP_STEPS // 100)
+    elif metric == "mse":
+        _add(fwd, g(CLI_DATA["dev_size"], "A"))
+        _add(fwd, g(n_test, "A"))
+    elif metric == "visual":
+        v, m = TEST_VIS_BATCH, TEST_VIS_BATCH * TEST_NUM_MULTI
+        _add(fwd, g(v, "B"), 2 + 4)
+        _add(fwd, g(v, "A"), 2 + 1 + 4)
+        _add(fwd, g(m, "B"), 2)
+        if name == "sup":
+            _add(fwd, g(TEST_NUM_MULTI, "A"))
+            _add(fwd, g(m, "B"))
+    elif metric == "noise_sens":
+        _add(fwd, g(n_test, "A"), 8)
+        _add(fwd, g(n_test, "B"), 8)
+    elif metric == "fid":
+        _add(fwd, g(n_test, "B"))
+    elif metric == "z_div":
+        _add(fwd, g(Z_DIV_INPUTS * NUM_MULTI, "B"))
+    return {"fwd": fwd, "bwd": bwd}
+
+
+TEST_METRICS = ("mse", "visual", "noise_sens", "mvgauss", "fid", "z_div")
+TEST_FILES = {"visual": ("cycle_0.png", "multi_0.png", "cycle_B_multi_0.png",
+                         "multi_cycle_0.png"),
+              "noise_sens": ("noise_sens.npy",),
+              "mvgauss": ("mvgauss_bpp.txt",), "fid": ("fid.txt",),
+              "z_div": ("z_diversity.json",)}
+
+
+def drive_variants_cli(torch, K, tmp, device="cuda", width=CLI_WIDTH):
+    """Phase 8 (b) and (c): one epoch each of stoch_cycle_gan, cycle_gan and
+    aug_cycle_gan --supervised through the training CLI on the phase-7 data
+    set (eval-A, eval-B and latest every epoch), an export of the
+    stoch_cycle_gan checkpoint and one served predict_B, then the
+    evaluation CLI on the three checkpoints: every --metric on the
+    supervised one (bpp with --train_logvar 1), all but bpp on the other
+    two.  Launches are read around each run and held to its structure;
+    TEST_MSE_A is held to eval_mse_A of the checkpoint over the same batch
+    of 150; after the runs, the first bpp chunk (the test set padded to 200)
+    through the kernels against the same with plain norms on the same
+    noise.  Returns (launches by direction and shape of all of it, the same
+    by variant, those of the bpp run by direction and shape, the
+    figures)."""
+    import os
+    import re
+
+    from domain_transfer_gan_torch.cli import test as test_cli
+    from domain_transfer_gan_torch.cli.export import main as export_main
+    from domain_transfer_gan_torch.cli.serve import build_server
+    from domain_transfer_gan_torch.cli.train import train_model
+    from domain_transfer_gan_torch.config import \
+        load_train_config_from_expr_dir
+    from domain_transfer_gan_torch.data import AlignedIterator, \
+        UnalignedIterator, load_numpy_data
+    from domain_transfer_gan_torch.eval import eval_mse_A, train_logvar
+    from domain_transfer_gan_torch.models import create_model
+
+    root, ckpt = tmp + "/cli_data", tmp + "/variant_runs"
+    counters = _Counters(K)
+    total = {"fwd": {}, "bwd": {}}
+    expected = {d: {"cluster": 0, "streaming": 0} for d in ("fwd", "bwd")}
+    variants = {d: {"cluster": 0, "streaming": 0} for d in ("fwd", "bwd")}
+    figures = {"train_s": {}, "metric_s": {}}
+    runs = {}
+
+    def counted(what, want, fn):
+        counters.reset()  # each run of phase 8 starts here
+        t = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t
+        seen, by_variant = counters.read(), counters.variants()  # ends here
+        _held_counts(seen, want, what)
+        _tally(K, seen, 4, expected)
+        runs[what] = seen
+        for d in ("fwd", "bwd"):
+            _add(total[d], seen[d])
+            for v, c in by_variant[d].items():
+                variants[d][v] += c
+        return out, dt
+
+    steps = (CLI_DATA["n_train"] - CLI_DATA["dev_size"]) // \
+        TRAIN_BATCH["float32"]
+    for name, flags in VARIANT_RUNS.items():
+        argv = _cli_argv(root, ckpt, device, width,
+                         ["--name", name, "--niter_decay", "0",
+                          "--check_numerics", "1"] + flags)
+        model, figures["train_s"][name] = counted(
+            "training CLI " + name, variant_cli_expected(name, width),
+            lambda: train_model(argv=argv))
+        expr = os.path.join(ckpt, name)
+        for f in CLI_ARTIFACTS:
+            if not os.path.exists(os.path.join(expr, f)):
+                raise AssertionError("training CLI %s: %s missing"
+                                     % (name, f))
+        if os.path.isdir(os.path.join(expr, "vis_inf")) != (name == "sup"):
+            raise AssertionError("training CLI %s: vis_inf" % name)
+        with open(os.path.join(expr, "results.txt")) as f:
+            lines = f.read().splitlines()
+        loss_lines = [i for i, ln in enumerate(lines)
+                      if ln.startswith("(epoch:")]
+        if len(loss_lines) != steps // CLI_PRINT_EVERY:
+            raise AssertionError("training CLI %s: %d loss lines"
+                                 % (name, len(loss_lines)))
+        n_keys = (13, 8, 10) if name == "sup" else (10, 4)
+        for i in loss_lines:
+            for ln, n in zip(lines[i:i + len(n_keys)], n_keys):
+                vals = re.findall(r"\w+: (\S+) ", ln.split(") ", 1)[-1])
+                if len(vals) != n or not all(np.isfinite(float(v))
+                                             for v in vals):
+                    raise AssertionError("training CLI %s: %r" % (name, ln))
+        if (model.epoch, model.state.step) != (1, steps):
+            raise AssertionError("training CLI %s: epoch %d step %d"
+                                 % (name, model.epoch, model.state.step))
+
+    # export the stoch_cycle_gan checkpoint, serve one predict_B
+    latest = os.path.join(ckpt, "stoch", "latest")
+    out = tmp + "/variant_export"
+    export_main(["--chk_path", latest, "--out", out, "--device", device])
+    opt = load_train_config_from_expr_dir(os.path.join(ckpt, "stoch"))
+    loaded = create_model(opt, testing=True, device=device)
+    loaded.load(latest)
+    rng = np.random.RandomState(6)
+    A = rng.uniform(-1, 1, (32, 64, 64, 3)).astype(np.float32)
+    z = rng.randn(32, width["nlatent"]).astype(np.float32)
+    want_B = loaded.predict_B(A, z).cpu().numpy()
+    server = build_server(out, port=0, device=device)
+    thread = threading.Thread(target=server.serve_forever, daemon=True)
+    thread.start()
+    try:
+        got_B, _ = counted(
+            "served stoch_cycle_gan predict_B",
+            {"fwd": gen_sites(32, "B", width["ngf"], width["n_blocks"]),
+             "bwd": {}},
+            lambda: _post("http://127.0.0.1:%d/predict_B"
+                          % server.server_address[1], {"A": A, "z": z}))
+    finally:
+        server.shutdown()
+        server.server_close()
+        thread.join(timeout=30)
+    if thread.is_alive():
+        raise RuntimeError("the server thread did not stop")
+    _check_images(got_B, 32, 64, 3, "served stoch_cycle_gan predict_B")
+    figures["export_max_abs_err"] = float(np.abs(got_B - want_B).max())
+    if figures["export_max_abs_err"] > EXPORT_ATOL:
+        raise AssertionError("exported stoch_cycle_gan predict_B: %r"
+                             % figures["export_max_abs_err"])
+
+    # the evaluation CLI on each checkpoint
+    results = {}
+    for name in VARIANT_RUNS:
+        chk = os.path.join(ckpt, name, "latest")
+        res_dir = os.path.join(ckpt, name, "test_res")
+        for metric in (("bpp",) if name == "sup" else ()) + TEST_METRICS:
+            argv = ["--chk_path", chk, "--dataroot", root, "--metric",
+                    metric, "--device", device, "--train_logvar", "1"]
+            results[name, metric], figures["metric_s"][
+                "%s_%s" % (name, metric)] = counted(
+                "test CLI %s --metric %s" % (name, metric),
+                test_cli_expected(name, metric, width),
+                lambda: test_cli.test_model(argv))
+            files = TEST_FILES.get(metric, ()) + (
+                ("inf_0.png",) if (name, metric) == ("sup", "visual")
+                else ()) + (("test_pred_B_0.png", "test_pred_B_%d.png"
+                             % BPP_STEPS) if metric == "bpp" else ())
+            for f in files:
+                if not os.path.getsize(os.path.join(res_dir, f)):
+                    raise AssertionError("test CLI %s: %s empty" % (name, f))
+            if not all(np.isfinite(v)
+                       for v in results[name, metric].values()):
+                raise AssertionError("test CLI %s --metric %s: %r" % (
+                    name, metric, results[name, metric]))
+        if os.path.exists(os.path.join(res_dir, "inf_0.png")) != \
+                (name == "sup"):
+            raise AssertionError("test CLI %s: inf_0.png" % name)
+        noise = np.load(os.path.join(res_dir, "noise_sens.npy"))
+        if noise.shape != (8, CLI_DATA["n_test"]) or \
+                not np.isfinite(noise).all():
+            raise AssertionError("test CLI %s: noise_sens %r"
+                                 % (name, noise.shape))
+    # cycle_gan decodes every z of an input alike: only float noise of the
+    # batched convs (4e-7 of 0.34 seen on an H100) parts them
+    if results["cycle", "z_div"]["ratio"] > 1e-5:
+        raise AssertionError("cycle_gan z_div: %r" % results["cycle", "z_div"])
+
+    # TEST_MSE_A is eval_mse_A over the same batch; the first bpp chunk
+    # through the kernels vs plain norms, outside the counted runs
+    expr = os.path.join(ckpt, "sup")
+    opt = load_train_config_from_expr_dir(expr, seed=12345)
+    model = create_model(opt, testing=True, device=device)
+    model.load(os.path.join(expr, "latest"))
+    trainA, trainB, _, _, testA, testB = load_numpy_data(
+        root, grid_size=64, dev_size=CLI_DATA["dev_size"])
+    direct = eval_mse_A(AlignedIterator(testA, testB, batch_size=TEST_BATCH),
+                        model)
+    figures["test_mse_A_vs_eval_mse_A"] = abs(
+        results["sup", "mse"]["TEST_MSE_A"] - direct)
+    if figures["test_mse_A_vs_eval_mse_A"] > 1e-6 * direct:
+        raise AssertionError("TEST_MSE_A %r, eval_mse_A %r" % (
+            results["sup", "mse"]["TEST_MSE_A"], direct))
+    logvar_B = train_logvar(UnalignedIterator(
+        trainA[:TEST_SUBSET], trainB[:TEST_SUBSET], batch_size=TEST_BATCH),
+        model, verbose=False)
+    ubo_dev, ubo_vals = check_ubo_against_plain(
+        torch, model, testA, testB, TEST_BATCH, logvar_B)
+    figures.update({
+        "ubo_b200_kernels_vs_plain": ubo_dev, "ubo_b200": ubo_vals,
+        "results": {"%s_%s" % k: v for k, v in results.items()},
+    })
+    log("variants and test CLI: launches by direction and shape %s, per "
+        "variant %s" % (json.dumps({d: {"%dx%dx%d" % sh: c for sh, c in
+                                        sorted(total[d].items())}
+                                    for d in ("fwd", "bwd")}),
+                        json.dumps(variants)))
+    log("variants and test CLI: %s" % json.dumps(figures))
+    if variants != expected:
+        raise AssertionError("phase 8 launched the variants %r, the plan "
+                             "picks %r" % (variants, expected))
+    return total, variants, runs["test CLI sup --metric bpp"], figures
+
+
 def time_train_step(torch):
     """train_step_ms and images/s per dtype at its batch: 3 warm-up steps,
     then wall time around 10 steps that end in one synchronize()."""
@@ -1571,32 +2012,103 @@ def time_train_step(torch):
             torch.cuda.max_memory_allocated() / 2 ** 30
         del m
         torch.cuda.empty_cache()
+    # phase 8's steps, float32 at batch 32
+    batch = TRAIN_BATCH["float32"]
+    A, B, _ = _train_inputs(batch, TRAIN_CFG["nlatent"], seed=14)
+    A, B = torch.from_numpy(A).cuda(), torch.from_numpy(B).cuda()
+    for key, model, method in (
+            ("train_step_ms_stoch_cycle_gan", "stoch_cycle_gan",
+             "train_instance"),
+            ("supervised_step_ms", "aug_cycle_gan",
+             "supervised_train_instance")):
+        m = create_model(TrainConfig(**dict(TRAIN_CFG, model=model)),
+                         testing=True, device="cuda")
+        step = getattr(m, method)
+        for _ in range(3):
+            step(A, B)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(10):
+            step(A, B)
+        torch.cuda.synchronize()
+        out["%s_float32_b%d" % (key, batch)] = \
+            (time.perf_counter() - t0) / 10 * 1e3
+        del m
+        torch.cuda.empty_cache()
+    return out
+
+
+def _ubo_args(torch, n, seed):
+    """A model at full width and the arguments of ``ubo_chunk`` at batch n
+    (float32), from a seed."""
+    from domain_transfer_gan_torch.config import TrainConfig
+    from domain_transfer_gan_torch.models import create_model
+
+    m = create_model(TrainConfig(**TRAIN_CFG), testing=True, device="cuda")
+    nlat = TRAIN_CFG["nlatent"]
+    A, B, _ = _train_inputs(n, nlat, seed=seed)
+    A, B = torch.from_numpy(A).cuda(), torch.from_numpy(B).cuda()
+    B = B + torch.rand_like(B) / 127.5
+    mu = torch.zeros((n, nlat), device="cuda")
+    lv = torch.full((n, nlat), -4.6, device="cuda")
+    return m, (A, B, mu, lv, torch.zeros_like(mu), torch.zeros_like(lv),
+               torch.full((1, 64, 64, 3), -4.6, device="cuda"),
+               torch.ones(n, device="cuda"), 64 * 64 * 3.0)
+
+
+def time_ubo_step(torch):
+    """ms of one UBO RMSprop step (netG_A_B forward + backward to z) at the
+    training CLI's eval batch (100) and the evaluation CLI's (200): wall
+    time around 20 steps that end in one synchronize(), after 3."""
+    from domain_transfer_gan_torch.eval import metrics
+
+    out = {}
+    for n in (EVAL_BATCH, TEST_BATCH):
+        m, args = _ubo_args(torch, n, seed=17)
+        metrics.ubo_chunk(m, *args, 3)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        metrics.ubo_chunk(m, *args, 20)
+        torch.cuda.synchronize()
+        out["ubo_step_ms_b%d" % n] = (time.perf_counter() - t0) / 20 * 1e3
+        del m, args
+        torch.cuda.empty_cache()
     return out
 
 
 def profile_train_step(torch):
-    """Device time of one train step by kernel name (torch.profiler) per
-    dtype at its batch, and the device-busy share of the step's wall time."""
+    """Device time of one train step by kernel name (torch.profiler): the
+    aug_cycle_gan step per dtype at its batch, the stoch_cycle_gan step and
+    the supervised step in float32 at batch 32; and the device-busy share
+    of the step's wall time."""
     from torch.profiler import ProfilerActivity, profile
 
     from domain_transfer_gan_torch.config import TrainConfig
     from domain_transfer_gan_torch.models import create_model
 
+    cases = [("%s_b%d" % (name, batch), "aug_cycle_gan", name, batch,
+              "train_instance") for name, batch in TRAIN_BATCH.items()]
+    cases += [("stoch_cycle_gan_float32_b32", "stoch_cycle_gan", "float32",
+               32, "train_instance"),
+              ("supervised_float32_b32", "aug_cycle_gan", "float32", 32,
+               "supervised_train_instance")]
     out = {}
-    for name, batch in TRAIN_BATCH.items():
-        m = create_model(TrainConfig(**dict(TRAIN_CFG, compute_dtype=name)),
+    for key, model, name, batch, method in cases:
+        m = create_model(TrainConfig(**dict(TRAIN_CFG, model=model,
+                                            compute_dtype=name)),
                          testing=True, device="cuda")
+        step = getattr(m, method)
         A, B, _ = _train_inputs(batch, TRAIN_CFG["nlatent"], seed=15)
         A, B = torch.from_numpy(A).cuda(), torch.from_numpy(B).cuda()
         for _ in range(3):
-            m.train_instance(A, B)
+            step(A, B)
         torch.cuda.synchronize()
         reps = 3
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
             t0 = time.perf_counter()
             for _ in range(reps):
-                m.train_instance(A, B)
+                step(A, B)
             torch.cuda.synchronize()
             wall_ms = (time.perf_counter() - t0) / reps * 1e3
         kernels, count = {}, 0
@@ -1606,7 +2118,7 @@ def profile_train_step(torch):
                 kernels[ev.name] = kernels.get(ev.name, 0.0) + dur / reps
                 count += 1
         busy_ms = sum(kernels.values()) / 1e3
-        out["%s_b%d" % (name, batch)] = {
+        out[key] = {
             "step_wall_ms_under_profiler": wall_ms,
             "device_busy_ms_per_step": busy_ms,
             "device_busy_share": busy_ms / wall_ms,
@@ -1621,27 +2133,15 @@ def profile_train_step(torch):
     return out
 
 
-def profile_ubo_step(torch):
-    """Device time of the UBO's RMSprop steps at the eval batch of 100
-    (float32, full width: one netG_A_B forward and backward to z each) by
-    kernel name (torch.profiler), and the device-busy share of the steps'
-    wall time."""
+def profile_ubo_step(torch, n):
+    """Device time of the UBO's RMSprop steps at batch n (float32, full
+    width: one netG_A_B forward and backward to z each) by kernel name
+    (torch.profiler), and the device-busy share of the steps' wall time."""
     from torch.profiler import ProfilerActivity, profile
 
-    from domain_transfer_gan_torch.config import TrainConfig
     from domain_transfer_gan_torch.eval import metrics
-    from domain_transfer_gan_torch.models import create_model
 
-    m = create_model(TrainConfig(**TRAIN_CFG), testing=True, device="cuda")
-    n, nlat = EVAL_BATCH, TRAIN_CFG["nlatent"]
-    A, B, _ = _train_inputs(n, nlat, seed=16)
-    A, B = torch.from_numpy(A).cuda(), torch.from_numpy(B).cuda()
-    B = B + torch.rand_like(B) / 127.5
-    mu = torch.zeros((n, nlat), device="cuda")
-    lv = torch.full((n, nlat), -4.6, device="cuda")
-    args = (A, B, mu, lv, torch.zeros_like(mu), torch.zeros_like(lv),
-            torch.full((1, 64, 64, 3), -4.6, device="cuda"),
-            torch.ones(n, device="cuda"), 64 * 64 * 3.0)
+    m, args = _ubo_args(torch, n, seed=16)
     metrics.ubo_chunk(m, *args, 3)
     torch.cuda.synchronize()
     reps = 5
@@ -1843,18 +2343,36 @@ def main(argv=None):
         cli_bwd = sum(cli_counts["bwd"].values())
         served_fwd = sum(cli_served["fwd"].values())
 
+        # phase 8: the other variants' steps and the supervised step against
+        # plain-norm twins, then one epoch of each through the training CLI
+        # and the evaluation CLI on their checkpoints (before phase 6 too)
+        t8 = time.perf_counter()
+        p8_steps, p8_step_variants, _, _ = drive_variant_steps(torch, K)
+        p8_cli, p8_cli_variants, bpp_counts, _ = drive_variants_cli(
+            torch, K, tmp)
+        p8 = {d: dict(p8_steps[d]) for d in ("fwd", "bwd")}
+        for d in p8:
+            _add(p8[d], p8_cli[d])
+        p8_variants = {d: {v: p8_step_variants[d][v] + p8_cli_variants[d][v]
+                           for v in p8_cli_variants[d]} for d in p8}
+        p8_fwd, p8_bwd = (sum(p8[d].values()) for d in ("fwd", "bwd"))
+        log("phase 8: %.1f s, launches %d forward, %d backward"
+            % (time.perf_counter() - t8, p8_fwd, p8_bwd))
+
         # phase 6: times
         rows = time_kernel(torch, F, K, site_counts, train_counts,
-                           cli_counts, extra=args.profile)
+                           cli_counts, p8, bpp_counts, extra=args.profile)
         bwd_rows = time_bwd_kernel(torch, F, K, train_counts, cli_counts,
-                                   extra=args.profile)
+                                   p8, bpp_counts, extra=args.profile)
         e2e = time_end_to_end(torch, ctx)
         e2e.update(time_train_step(torch))
+        e2e.update(time_ubo_step(torch))
         prof = None
         if args.profile:
             prof = profile_forward(torch, ctx)
             prof["train_step"] = profile_train_step(torch)
-            prof["ubo_step_b%d" % EVAL_BATCH] = profile_ubo_step(torch)
+            for n in (EVAL_BATCH, TEST_BATCH):
+                prof["ubo_step_b%d" % n] = profile_ubo_step(torch, n)
 
     def head_of(table):
         return next(r for r in table
@@ -1871,13 +2389,15 @@ def main(argv=None):
         "route": "cuda",
         "source": "domain_transfer_gan_torch/csrc/instance_norm.cu",
         "replaces": pallas + ":115",
-        "launches": launches + train_fwd + cli_fwd + served_fwd,
+        "launches": launches + train_fwd + cli_fwd + served_fwd + p8_fwd,
         "launches_serving_path": launches,
         "launches_training_path": train_fwd,
         "launches_training_cli": cli_fwd + served_fwd,
+        "launches_phase8": p8_fwd,
         "launches_by_variant": {
             v: serving_variants[v] + train_variants["fwd"][v]
-            + cli_variants["fwd"][v] for v in serving_variants},
+            + cli_variants["fwd"][v] + p8_variants["fwd"][v]
+            for v in serving_variants},
         "max_abs_err": worst.overall("y_float32"),
         "max_err_bf16_ulps": worst.overall("y_bfloat16_ulps"),
         "check_by_variant": worst.summary(),
@@ -1898,13 +2418,14 @@ def main(argv=None):
         "route": "cuda",
         "source": "domain_transfer_gan_torch/csrc/instance_norm_bwd.cu",
         "replaces": pallas + ":175",
-        "launches": train_bwd + cli_bwd,
+        "launches": train_bwd + cli_bwd + p8_bwd,
         "launches_serving_path": 0,
         "launches_training_path": train_bwd,
         "launches_training_cli": cli_bwd,
+        "launches_phase8": p8_bwd,
         "launches_by_variant": {
             v: train_variants["bwd"][v] + cli_variants["bwd"][v]
-            for v in train_variants["bwd"]},
+            + p8_variants["bwd"][v] for v in train_variants["bwd"]},
         "max_abs_err": bwd_worst.overall("dx_float32"),
         "max_err_bf16_ulps": bwd_worst.overall("dx_bfloat16_ulps"),
         "check_by_variant": bwd_worst.summary(),

@@ -17,10 +17,17 @@ Layout
 - ``csrc``       CUDA C++ sources (``sm_90a``), compiled at first use.
 - ``nn``         instance / conditional-instance / batch norms, residual
                  blocks and the six networks.
-- ``utils``      conversion of JAX parameter trees into ``state_dict``s.
-- ``models``     training state and optimizers (``state``), the two-phase
-                 train step (``steps``) and the model API (``api``).
-- ``cli``        ``export`` (serving artifact) and ``serve`` (HTTP endpoint).
+- ``data``       the npz bundles, their resize, minibatch iterators.
+- ``eval``       the evaluation metrics (MSE, the variational bound, the
+                 test CLI's), proxy-FID, z-diversity and PNG grids.
+- ``utils``      conversion of JAX parameter trees into ``state_dict``s,
+                 checkpoints, the experiment artifacts.
+- ``models``     training state and optimizers (``state``), the train steps
+                 of the three variants and the supervised step (``steps``)
+                 and the model API (``api``).
+- ``cli``        ``train`` and ``test`` (the training and evaluation CLIs),
+                 ``export`` (serving artifact) and ``serve`` (HTTP
+                 endpoint).
 
 Public tensors keep the JAX package's layout: images are NHWC float32 in
 [-1, 1], latent codes are flat ``(N, nlatent)``.  Inside the networks the

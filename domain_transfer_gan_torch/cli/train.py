@@ -1,5 +1,8 @@
 """The training CLI of the port: the JAX package's ``cli/train.py`` on one
-torch device (``--device``, default ``cuda``), npz data path.
+torch device (``--device``, default ``cuda``), npz data path, for every
+``--model`` and with ``--supervised`` (a supervised step on a paired batch
+of the first ``sup_frac`` of the train set after every unsupervised one,
+both on one prior z draw).
 
 The artifact contract is the JAX one, file for file: ``results.{txt,json}``,
 ``history_mse_A.npy`` / ``history_ubo_B.npy``, the ``latest`` / ``best_A`` /
@@ -144,9 +147,18 @@ def _train(opt: TrainConfig, device: torch.device, out_f):
     print_log(out_f, "#dev images = %d" % len(dev_dataset))
     dev_cycle = itertools.cycle(AlignedIterator(devA, devB, batch_size=25))
 
+    if opt.supervised:
+        sup_size = int(len(trainA) * opt.sup_frac)
+        sup_iter = itertools.cycle(AlignedIterator(
+            trainA[:sup_size], trainB[:sup_size], batch_size=opt.batchSize))
+        print_log(out_f, "#supervised images = %d" % sup_size)
+
     # ----- model --------------------------------------------------------
     model = create_model(opt, device=device, image_size=opt.grid_size)
-    create_sub_dirs(opt, ["vis_inf"])
+    # the posterior-z grid needs the encoder
+    vis_inf = opt.model == "aug_cycle_gan"
+    if vis_inf:
+        create_sub_dirs(opt, ["vis_inf"])
     print_log(out_f, "model [%s] was created" % type(model).__name__)
 
     resumed = False
@@ -209,20 +221,34 @@ def _train(opt: TrainConfig, device: torch.device, out_f):
         epoch_iter = 0
 
         for i, data in enumerate(train_dataset):
+            n_batch = len(data["A_idx"] if data_A is not None else data["A"])
+            # the supervised step takes the same prior z draw as the
+            # unsupervised one, so the loop draws it here
+            prior_z = model.sample_prior_z(n_batch) if opt.supervised \
+                else None
             if data_A is not None:
-                idx_A = data["A_idx"]
-                out = model.train_instance_indexed(data_A, data_B, idx_A,
-                                                   data["B_idx"])
+                out = model.train_instance_indexed(
+                    data_A, data_B, data["A_idx"], data["B_idx"], prior_z)
             else:
-                out = model.train_instance(data["A"], data["B"])
+                out = model.train_instance(data["A"], data["B"], prior_z)
             total_steps += opt.batchSize
             epoch_iter += opt.batchSize
             if opt.monitor_gnorm:
                 losses, visuals, gnorms = out
             else:
                 losses, visuals = out
+            if opt.supervised:
+                sup_data = next(sup_iter)
+                # a supervised batch of another size gets a fresh draw
+                sup_z = prior_z
+                if len(sup_data["A"]) != n_batch:
+                    sup_z = model.sample_prior_z(len(sup_data["A"]))
+                sup_losses = model.supervised_train_instance(
+                    sup_data["A"], sup_data["B"], sup_z)
             if opt.check_numerics:
                 check_losses_finite(losses, epoch, i)
+                if opt.supervised:
+                    check_losses_finite(sup_losses, epoch, i)
             timer.tick(opt.batchSize)
 
             if opt.display_freq and total_steps % opt.display_freq == 0:
@@ -234,13 +260,19 @@ def _train(opt: TrainConfig, device: torch.device, out_f):
                 dev_visuals = model.generate_cycle(dev_A, dev_B, dev_z)
                 visualize_cycle(opt, dev_visuals, epoch, uidx, train=False)
                 visualize_multi(opt, dev_A, model, epoch, uidx)
-                visualize_inference(opt, dev_A, dev_B, model, epoch, uidx)
+                if vis_inf:
+                    visualize_inference(opt, dev_A, dev_B, model, epoch,
+                                        uidx)
 
             if opt.print_freq and total_steps % opt.print_freq == 0:
                 sec_per_item, img_per_sec, _, _ = timer.window(
                     sync_tensor=losses["D_A"])
                 print_log(out_f, format_log(epoch, epoch_iter, losses,
                                             sec_per_item))
+                if opt.supervised:
+                    print_log(out_f, format_log(epoch, epoch_iter,
+                                                sup_losses, sec_per_item,
+                                                prefix=False))
                 if opt.monitor_gnorm:
                     print_log(out_f, format_log(epoch, epoch_iter, gnorms,
                                                 sec_per_item, prefix=False)

@@ -14,6 +14,10 @@ nothing, like the TPU runtime's flags.  A flag that asks for something the port 
 yet is refused by :func:`refuse_unported` with an error that names the flag
 and its ROADMAP item; none is ignored silently.  ``README.md`` lists the
 flags that are accepted and have no effect.
+
+:class:`TestOptions` is the evaluation CLI's parser (:class:`TestConfig`):
+the JAX package's flags with ``--device`` in place of ``--host_devices``;
+it refuses ``--use_ema 1`` and ``--fid_extractor`` the same way.
 """
 
 from __future__ import annotations
@@ -235,8 +239,6 @@ def load_train_config_from_expr_dir(expr_dir: str, **overrides) -> TrainConfig:
 # (flag, the field whose value the message shows or None, is it asked for,
 # ROADMAP item): what the training CLI refuses
 _UNPORTED = (
-    ("--model", "model", lambda c: c.model != "aug_cycle_gan", "M6"),
-    ("--supervised", None, lambda c: bool(c.supervised), "M6"),
     ("--numpy_data", "numpy_data", lambda c: not c.numpy_data, "M9"),
     ("--num_devices", "num_devices", lambda c: int(c.num_devices) > 1,
      "M12"),
@@ -394,3 +396,63 @@ class TrainOptions:
             print("%s: %s" % (str(k), str(v)))
         print("-------------- End ----------------")
         return cfg.finalize(sub_dirs=sub_dirs)
+
+
+@dataclass
+class TestConfig:
+    """The evaluation CLI's flags, under the names and defaults of the JAX
+    package's ``TestConfig``; ``--device`` takes the place of the TPU
+    runtime's ``--host_devices``."""
+
+    chk_path: str = ""
+    res_dir: str = "test_res"
+    train_logvar: int = 1
+    dataroot: str = ""
+    metric: str = "mse"  # {bpp, mse, visual, noise_sens, mvgauss, fid, z_div}
+    use_ema: int = 0
+    fid_extractor: str = ""
+    device: str = "cuda"
+
+
+# what the evaluation CLI refuses, as _UNPORTED: --use_ema waits for EMA;
+# an --fid_extractor file is a jax.export (StableHLO) artifact, which
+# nothing without JAX can run
+_UNPORTED_TEST = (
+    ("--use_ema", "use_ema", lambda c: bool(c.use_ema), "M11"),
+    ("--fid_extractor", "fid_extractor", lambda c: bool(c.fid_extractor),
+     "M8: the file is a jax.export StableHLO artifact, which only JAX can "
+     "run"),
+)
+
+
+class TestOptions:
+    """argparse shim with the JAX evaluation CLI's flags, ``--device``
+    instead of ``--host_devices``."""
+
+    def __init__(self):
+        d = TestConfig()
+        p = self.parser = argparse.ArgumentParser()
+        p.add_argument("--chk_path", required=True, type=str,
+                       help="path to checkpoint; expr_dir is its parent")
+        p.add_argument("--res_dir", type=str, default=d.res_dir)
+        p.add_argument("--train_logvar", type=int, default=d.train_logvar)
+        p.add_argument("--dataroot", required=True, type=str)
+        p.add_argument("--metric", required=True, type=str,
+                       choices=["bpp", "mse", "visual", "noise_sens",
+                                "mvgauss", "fid", "z_div"])
+        p.add_argument("--use_ema", type=int, choices=[0, 1],
+                       default=d.use_ema)
+        p.add_argument("--fid_extractor", type=str, default=d.fid_extractor)
+        p.add_argument("--device", type=str, default=d.device,
+                       help="torch device the CLI evaluates on (cpu for "
+                            "tests)")
+
+    def parse(self, args=None) -> TestConfig:
+        """Parse, then refuse what the port does not run yet by name."""
+        cfg = TestConfig(**vars(self.parser.parse_args(args)))
+        for flag, field, asked, item in _UNPORTED_TEST:
+            if asked(cfg):
+                raise UnportedFlagError(
+                    "%s %s is not ported to the PyTorch package yet "
+                    "(ROADMAP %s)" % (flag, getattr(cfg, field), item))
+        return cfg

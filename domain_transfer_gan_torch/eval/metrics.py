@@ -1,7 +1,11 @@
-"""Evaluation metrics of the training CLI: ``eval_mse_A`` and the
-variational upper bound (UBO) on -log p(B | A), the port of the JAX
-package's ``eval/metrics.py`` (``eval_mse_A``, ``variational_ubo``,
-``eval_ubo_B``).
+"""Evaluation metrics, the port of the JAX package's ``eval/metrics.py``:
+``eval_mse_A`` and the variational upper bound (UBO) on -log p(B | A) of
+the training CLI (``variational_ubo``, ``eval_ubo_B``), and the evaluation
+CLI's others: the decoder's pixelwise logvar fitted on train data
+(``train_logvar``), the multivariate-Gaussian BPP baseline
+(``train_mvgauss_B``, ``eval_bpp_mvgauss_B``, ``compute_bpp_mvgauss_B``),
+the sensitivity of the B -> A -> B cycle to noise on A
+(``sensitivity_to_edge_noise``) and ``compute_train_kld``.
 
 The UBO is an RMSprop optimisation of per-sample (mu, logvar) *through* the
 frozen ``netG_A_B``: each step is one generator forward and one backward
@@ -27,9 +31,10 @@ What holds as in the JAX package:
   final update);
 - the host reads results once per chunk of 100 steps, never per step.
 
-The random draws (dequantisation noise, the reparametrisation's eps) come
-from the model's ``torch.Generator``; ``dequant`` and ``eps`` may be passed
-instead, so a test can feed the JAX package's draws.  ``plain_norm=True``
+The random draws (dequantisation noise, the reparametrisation's eps, the
+noise of a noisy cycle) come from the model's ``torch.Generator`` (the
+baseline's from a ``np.random.RandomState(0)``, as the JAX package's); each
+may be passed instead, so a test can feed the JAX package's draws.  ``plain_norm=True``
 runs every norm through its plain version (a check's twin; the CLI never
 asks for it).
 """
@@ -47,6 +52,7 @@ from ..nn.networks import frozen
 from ..ops.numerics import (
     gauss_reparametrize_eps,
     kld_std_gauss,
+    log_prob_gaussian,
     log_prob_laplace,
 )
 from .visualize import visualize_data
@@ -238,3 +244,163 @@ def eval_ubo_B(dataset, model, steps: int = 500, visualize: bool = False,
         bpp_B.append(bpp)
         kld_B.append(kld)
     return float(np.mean(ubo_B)), float(np.mean(bpp_B)), float(np.mean(kld_B))
+
+
+# ---------------------------------------------------------------------------
+# decoder logvar fitted on train data
+# ---------------------------------------------------------------------------
+
+def train_logvar(dataset, model, epochs: int = 1, verbose: bool = True,
+                 draws=None):
+    """Fit the decoder's pixelwise logvar_B (1, H, W, C) on train data: one
+    RMSprop step per batch on the batch's mean UBO, everything else frozen.
+
+    Per batch: dequantise B, decode fake_A = G_B_A(B), take z from the
+    encoder's posterior of (fake_A, B) (mu = 0 without an encoder, logvar =
+    log 0.01 unless ``stoch_enc``), decode fake_B = G_A_B(fake_A, z).  The
+    generators and the encoder run without a graph: only logvar_B gets a
+    gradient.  Prints the per-batch ``UBO/KLD/BPP`` line unless
+    ``verbose=False``.  ``draws`` (an iterable of (dequant, eps) per batch)
+    replaces the model's draws."""
+    draws = iter(draws) if draws is not None else None
+    logvar_B = sq = None
+    for _ in range(epochs):
+        for batch in dataset:
+            real_B = model._tensor(batch["B"])
+            if logvar_B is None:
+                logvar_B = torch.full((1,) + tuple(real_B.shape[1:]),
+                                      math.log(0.01), dtype=real_B.dtype,
+                                      device=real_B.device)
+                sq = torch.zeros_like(logvar_B)
+            npix = _npix(model, real_B)
+            dequant, eps = next(draws) if draws is not None else (None, None)
+            if dequant is None:
+                dequant = torch.rand(real_B.shape, device=real_B.device,
+                                     generator=model._noise) / 127.5
+            rb = real_B + model._tensor(dequant)
+            fake_A = model.predict_A(rb)
+            n = rb.shape[0]
+            if "netE_B" in model.nets:
+                mu, logvar = model._encode(fake_A, rb)
+                if not model.opt.stoch_enc:
+                    logvar = torch.full_like(logvar, math.log(0.01))
+            else:
+                mu = torch.zeros((n, model.opt.nlatent), device=rb.device)
+                logvar = torch.full_like(mu, math.log(0.01))
+            eps = model._randn(mu.shape) if eps is None else model._tensor(eps)
+            fake_B = model.predict_B(
+                fake_A, gauss_reparametrize_eps(mu, logvar, eps))
+            kld = kld_std_gauss(mu, logvar)
+            lv = logvar_B.detach().requires_grad_(True)
+            with torch.enable_grad():
+                lp = log_prob_laplace(rb, fake_B, lv)
+                lp = lp.reshape(n, -1).sum(dim=1)
+                ubo = torch.mean((-lp + kld) + npix * math.log(127.5))
+                (g,) = torch.autograd.grad(ubo, (lv,))
+            with torch.no_grad():
+                sq = RMS_ALPHA * sq + (1 - RMS_ALPHA) * g ** 2
+                logvar_B = logvar_B - RMS_LR * g / (torch.sqrt(sq) + RMS_EPS)
+            if verbose:
+                u, k = torch.stack([ubo.detach(), kld.mean()]).tolist()
+                print("UBO: %.4f, KLD: %.4f, BPP: %.4f"
+                      % (u, k, u / (npix * math.log(2.0))))
+    return logvar_B
+
+
+# ---------------------------------------------------------------------------
+# the multivariate-Gaussian BPP baseline (host-side numpy)
+# ---------------------------------------------------------------------------
+
+def train_mvgauss_B(dataset):
+    """Pixelwise mean and variance of B over the dataset (means of batch
+    means, as upstream)."""
+    b_mean, n = 0.0, 0
+    for batch in dataset:
+        b_mean = b_mean + np.mean(np.asarray(batch["B"]), axis=0,
+                                  keepdims=True)
+        n += 1
+    b_mean = b_mean / n
+    b_var = 0.0
+    for batch in dataset:
+        b_var = b_var + np.mean(
+            (np.asarray(batch["B"]) - b_mean) ** 2, axis=0, keepdims=True)
+    b_var = b_var / n
+    return b_mean, b_var
+
+
+def eval_bpp_mvgauss_B(dataset, mu, logvar, npix=None, rng=None):
+    """Bits per pixel of dequantised B under N(mu, exp(logvar)), the mean
+    over batches; the dequantisation noise comes from ``rng`` (default
+    ``np.random.RandomState(0)``)."""
+    rng = rng or np.random.RandomState(0)
+    mu = torch.from_numpy(np.asarray(mu, np.float32))
+    logvar = torch.from_numpy(np.asarray(logvar, np.float32))
+    bpp = []
+    for batch in dataset:
+        real_B = np.asarray(batch["B"])
+        np_here = npix or float(np.prod(real_B.shape[1:]))
+        real_B = real_B + rng.uniform(0, 1.0 / 127.5,
+                                      real_B.shape).astype(real_B.dtype)
+        nll = -log_prob_gaussian(torch.from_numpy(real_B), mu,
+                                 logvar).numpy()
+        nll = nll.reshape(real_B.shape[0], -1).sum(1) \
+            + np_here * math.log(127.5)
+        bpp.append(nll.mean() / (np_here * math.log(2)))
+    return float(np.mean(bpp))
+
+
+def compute_bpp_mvgauss_B(dataset_train, dataset_test, npix=None):
+    """The baseline fitted on ``dataset_train``, scored on
+    ``dataset_test``."""
+    mvg_mean, mvg_var = train_mvgauss_B(dataset_train)
+    mvg_logvar = np.log(mvg_var + 1e-5)
+    bpp = eval_bpp_mvgauss_B(dataset_test, mvg_mean, mvg_logvar, npix)
+    print("MVGauss BPP: %.4f" % bpp)
+    return bpp
+
+
+# ---------------------------------------------------------------------------
+# noise sensitivity, and the train KL
+# ---------------------------------------------------------------------------
+
+NOISE_STDS = (0, 0.1, 0.2, 0.5, 1, 2, 3, 5)  # grey levels of 255
+
+
+def sensitivity_to_edge_noise(opt, model, data_B, save_path="noise_sens.npy",
+                              draws=None):
+    """Per-sample L1(real_B, rec_B) / npix of the B -> A -> B cycle with
+    Gaussian noise of each of ``NOISE_STDS`` on the intermediate fake_A;
+    the curve (one row per std) is saved to ``save_path`` and returned.
+    ``draws`` (one dict of ``generate_noisy_cycle`` keyword arguments per
+    std) replaces the model's draws."""
+    real_B = model._tensor(data_B)
+    npix = (64 * 64 * 3 if getattr(opt, "legacy_eval_constants", False)
+            else float(np.prod(real_B.shape[1:])))
+    sums = []
+    for i, std in enumerate(NOISE_STDS):
+        rec_B = model.generate_noisy_cycle(
+            real_B, std, **(draws[i] if draws is not None else {}))
+        sums.append(torch.sum(torch.abs(real_B - rec_B), dim=(1, 2, 3))
+                    / npix)
+    res = torch.stack(sums).cpu().numpy().tolist()  # one read
+    np.save(save_path.replace(".npy", ""), res)
+    return res
+
+
+def compute_train_kld(train_dataset, model, max_batches: int = 100):
+    """Mean over batches of the KL of the encoder's posterior mean of
+    (G_B_A(B), B) with the variance of its deterministic case (logvar 0)
+    from N(0, I), on up to ``max_batches`` + 1 batches."""
+    train_kl = []
+    for i, batch in enumerate(train_dataset):
+        real_B = model._tensor(batch["B"])
+        fake_A = model.predict_A(real_B)
+        mu = model.predict_enc_params(fake_A, real_B)[0]
+        train_kl.append(torch.mean(kld_std_gauss(mu, 0.0 * mu)))
+        if i == max_batches:
+            break
+    # one read; averaged in float64 like np.mean of floats
+    kl = float(np.mean(torch.stack(train_kl).cpu().numpy().astype(
+        np.float64)))
+    print("train KL:", kl)
+    return kl

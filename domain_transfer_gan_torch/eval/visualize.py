@@ -134,3 +134,27 @@ def inference_grid(opt, real_A, real_B, model):
         [np.ones((1,) + body.shape[1:], body.dtype),
          one_to_three_channels(to_numpy(real_B)[..., :3])], axis=0)
     return np.concatenate([header, body], axis=0), num
+
+
+def cycle_B_multi_grid(opt, real_B, model) -> np.ndarray:
+    """(real_B | fake_A | ``num_multi`` B's decoded from fake_A over one
+    shared z-set) grid body."""
+    real_B = model._tensor(real_B)
+    n = real_B.shape[0]
+    multi_z = model.sample_prior_z(opt.num_multi).repeat(n, 1)
+    fake_A, multi_fake_B = model.generate_cycle_B_multi(real_B, multi_z)
+    multi_fake_B = to_numpy(multi_fake_B)
+    multi_fake_B = multi_fake_B.reshape((n, opt.num_multi)
+                                        + multi_fake_B.shape[1:])
+    cols = [to_numpy(real_B), to_numpy(fake_A)] + \
+        [multi_fake_B[:, i] for i in range(opt.num_multi)]
+    return interleave_columns([one_to_three_channels(c[..., :3])
+                               for c in cols])
+
+
+def multi_cycle_grid(real_B, model, steps: int = 4) -> np.ndarray:
+    """(B | A1 | B1 | ... | A_steps | B_steps) grid body of
+    ``generate_multi_cycle``."""
+    images = model.generate_multi_cycle(model._tensor(real_B), steps=steps)
+    return interleave_columns([one_to_three_channels(to_numpy(im)[..., :3])
+                               for im in images])

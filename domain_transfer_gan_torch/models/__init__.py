@@ -1,6 +1,6 @@
 from .api import (
     AugmentedCycleGAN,
-    GeneratorPair,
-    build_generators,
+    CycleGANBase,
+    StochCycleGAN,
     create_model,
 )

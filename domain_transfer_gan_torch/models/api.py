@@ -1,35 +1,38 @@
 """Model API of the three variants (``cycle_gan``, ``stoch_cycle_gan``,
 ``aug_cycle_gan``).
 
-``create_model(opt, device=...)`` builds the configured variant:
+``create_model(opt, device=...)`` builds the configured variant, trainable
+in every case:
 
+- ``stoch_cycle_gan`` -> :class:`StochCycleGAN`: the two generators and the
+  two image discriminators, the two-phase step of
+  ``models/steps.py::make_stoch_train_step``;
+- ``cycle_gan`` -> :class:`StochCycleGAN` with ``ignore_noise``: z is
+  replaced by ones, in the step and in every generation call;
 - ``aug_cycle_gan`` -> :class:`AugmentedCycleGAN`: all six networks
   (``netG_A_B``, ``netG_B_A``, ``netD_A``, ``netD_B``, ``netD_z_B``,
-  ``netE_B``), trainable, with ``train_instance`` (the two-phase step of
-  ``models/steps.py``), the learning-rate schedule and the forward-only calls;
-- ``stoch_cycle_gan`` / ``cycle_gan`` -> :class:`GeneratorPair`: the two
-  generators, frozen, and the forward-only calls.  Their train step is not
-  ported yet.
+  ``netE_B``), the two-phase step and the supervised step.
+
+:class:`CycleGANBase` holds what the variants share: the training state
+(networks, one Adam state per network), the noise generator, the forward
+calls, the learning-rate schedule, the device-resident train feed and
+checkpoints (``save`` / ``load`` / ``wait_for_saves``, the port's own
+``torch.save`` format; reading the JAX package's checkpoints is ROADMAP
+M15).  ``testing`` only keeps a model from writing ``nets.txt``.
 
 All tensors are NHWC; latent codes are flat (N, nlatent).  Inputs may be
-numpy arrays or tensors; outputs are tensors on the model's device.
-
-``AugmentedCycleGAN`` also has the generation helpers of the training CLI
-(``generate_cycle``, ``inference_multi``, ``generate_multi``), the
-device-resident train feed (``train_instance_indexed``) and checkpoints
-(``save`` / ``load`` / ``wait_for_saves``, the port's own ``torch.save``
-format).
-
-What still raises ``NotImplementedError``: the train steps of the other two
-variants and the supervised step, with their ``generate_cycle`` and
-checkpoints, and reading the JAX package's checkpoints.
+numpy arrays or tensors; outputs are tensors on the model's device.  Every
+random draw (prior z, posterior and generation noise, dropout masks) comes
+from the model's own ``torch.Generator`` on its device, seeded from
+``opt.seed``; where a test needs the JAX package's draws, the call takes
+them as arguments.
 """
 
 from __future__ import annotations
 
 import os
 from collections import OrderedDict
-from typing import Dict, Optional
+from typing import Optional
 
 import numpy as np
 import torch
@@ -51,75 +54,90 @@ from ..utils.convert import (
     unflatten_params,
 )
 from .state import DTYPES, init_state
-from .steps import make_aug_train_step
+from .steps import (
+    make_aug_supervised_step,
+    make_aug_train_step,
+    make_stoch_train_step,
+)
 
 MODELS = ("cycle_gan", "stoch_cycle_gan", "aug_cycle_gan")
 
-_NOT_PORTED = ("%s is not ported yet: the stoch_cycle_gan / cycle_gan and "
-               "supervised train steps, with the generation helpers and "
-               "checkpoints of those two variants, come with a later slice "
-               "of the PyTorch port (ROADMAP M6)")
-
 CKPT_FORMAT = "domain_transfer_gan_torch checkpoint 1"
 
-
-def build_generators(cfg: TrainConfig,
-                     generator: Optional[torch.Generator] = None
-                     ) -> Dict[str, torch.nn.Module]:
-    """The two generators of the configured variant, on the CPU in fp32,
-    drawn under ``cfg.init_scheme`` from ``generator``."""
-    generator = generator or torch.Generator()
-    return {
-        "netG_A_B": N.define_stochastic_G(
-            nlatent=cfg.nlatent, input_nc=cfg.input_nc,
-            output_nc=cfg.output_nc, ngf=cfg.ngf,
-            use_dropout=cfg.use_dropout, n_blocks=cfg.n_blocks,
-            init_scheme=cfg.init_scheme, generator=generator),
-        "netG_B_A": N.define_G(
-            input_nc=cfg.output_nc, output_nc=cfg.input_nc, ngf=cfg.ngf,
-            norm=cfg.norm, use_dropout=cfg.use_dropout,
-            n_blocks=cfg.n_blocks, init_scheme=cfg.init_scheme,
-            generator=generator),
-    }
+VISUALS = ("real_A", "fake_B", "rec_A", "real_B", "fake_A", "rec_B")
 
 
-class GeneratorPair:
-    """The generators of one model and the forward-only calls on them.
+class CycleGANBase:
+    """What the variants share.
 
-    ``ignore_noise`` makes it the deterministic ``cycle_gan`` variant: z is
-    replaced by ones.
+    Parameters and optimizer moments are float32; with
+    ``compute_dtype="bfloat16"`` the layers cast them per use, and norm
+    statistics, CIN scale/shift and losses stay float32.  Weights are drawn
+    on the CPU from ``generator`` (seeded from ``opt.seed``), so a seed gives
+    the same weights on every device.
     """
 
-    def __init__(self, opt: TrainConfig, ignore_noise: bool = False,
-                 device="cuda", generator: Optional[torch.Generator] = None):
+    net_names = ()
+    ignore_noise = False
+
+    def __init__(self, opt: TrainConfig, testing: bool = False,
+                 device="cuda", generator: Optional[torch.Generator] = None,
+                 image_size: Optional[int] = None):
         self.opt = opt
-        self.ignore_noise = ignore_noise
         self.device = torch.device(device)
         if opt.compute_dtype not in DTYPES:
             raise ValueError("compute_dtype must be one of %r, got %r"
                              % (tuple(DTYPES), opt.compute_dtype))
         self.dtype = DTYPES[opt.compute_dtype]
+        seed = opt.seed if opt.seed is not None else 0
         if generator is None:
             generator = torch.Generator()
-            generator.manual_seed(opt.seed if opt.seed is not None else 0)
-        self.nets = self._build_nets(generator)
+            generator.manual_seed(seed)
+        self.state = init_state(opt, self.device, generator,
+                                image_size=image_size)
+        self.nets = self.state.nets
+        self.old_lr = opt.lr
+        self.old_lr_d = opt.lr / 5.0   # the D optimizers start at lr / 5
+        self.epoch = opt.epoch_count
+        self.training = True
+        self._noise = torch.Generator(device=self.device)
+        self._noise.manual_seed(seed)
+        for name in GENERATOR_NETS:
+            self.nets[name].set_dropout_generator(self._noise)
+        if not testing and opt.expr_dir:
+            with open(os.path.join(opt.expr_dir, "nets.txt"), "w") as f:
+                for name in self.net_names:
+                    N.print_network(name, self.nets[name], f)
 
-    def _build_nets(self, generator: torch.Generator):
-        nets = build_generators(self.opt, generator)
-        for net in nets.values():
-            net.place(self.device, self.dtype).eval().requires_grad_(False)
-        return nets
+    # -- mode toggles -------------------------------------------------------
+    def eval(self):
+        self.training = False
 
-    # a frozen pair runs under inference_mode; the training model overrides
-    # this, because a tensor made under inference_mode can never enter a
-    # graph later
-    _no_grad = staticmethod(torch.inference_mode)
+    def train(self):
+        self.training = True
 
-    # -- inputs -----------------------------------------------------------
+    # -- inputs and draws ---------------------------------------------------
     def _tensor(self, x) -> torch.Tensor:
         if isinstance(x, np.ndarray):
             x = torch.from_numpy(np.ascontiguousarray(x, np.float32))
         return x.to(self.device)
+
+    def _randn(self, shape) -> torch.Tensor:
+        return torch.randn(tuple(shape), device=self.device,
+                           generator=self._noise)
+
+    def sample_prior_z(self, batch: int) -> torch.Tensor:
+        return self._randn((batch, self.opt.nlatent))
+
+    def _prep_prior(self, batch: int, prior_z_B) -> torch.Tensor:
+        """Draw from the prior when the caller passes None, otherwise accept
+        flat (B, nz) or image-layout (B, 1, 1, nz) codes."""
+        if prior_z_B is None:
+            return self.sample_prior_z(batch)
+        prior_z_B = self._tensor(prior_z_B)
+        if prior_z_B.dim() == 4:
+            prior_z_B = prior_z_B.reshape(prior_z_B.shape[0], -1)
+        return prior_z_B
 
     def _prep_z(self, z) -> torch.Tensor:
         z = self._tensor(z)
@@ -127,17 +145,19 @@ class GeneratorPair:
             z = z.reshape(z.shape[0], -1)
         return torch.ones_like(z) if self.ignore_noise else z
 
-    # -- forward ----------------------------------------------------------
+    # -- forward ------------------------------------------------------------
+    # In the model's mode (train-mode batch statistics while training, as
+    # upstream evaluates), and never advancing a running statistic.
     def predict_A(self, real_B, plain_norm: bool = False) -> torch.Tensor:
-        with self._no_grad():
-            return self.nets["netG_B_A"](
-                self._tensor(real_B), plain_norm=plain_norm).float()
+        with frozen(self.nets["netG_B_A"], self.training) as net, \
+                torch.no_grad():
+            return net(self._tensor(real_B), plain_norm=plain_norm).float()
 
     def predict_B(self, real_A, z_B, plain_norm: bool = False) -> torch.Tensor:
-        with self._no_grad():
-            return self.nets["netG_A_B"](
-                self._tensor(real_A), self._prep_z(z_B),
-                plain_norm=plain_norm).float()
+        with frozen(self.nets["netG_A_B"], self.training) as net, \
+                torch.no_grad():
+            return net(self._tensor(real_A), self._prep_z(z_B),
+                       plain_norm=plain_norm).float()
 
     def generate_multi(self, real_A, multi_prior_z_B) -> torch.Tensor:
         """Tile each A over its z's and decode in ONE batched forward."""
@@ -155,7 +175,91 @@ class GeneratorPair:
         multi_fake_B = self.predict_B(fake_A.repeat_interleave(num, dim=0), z)
         return fake_A, multi_fake_B
 
-    # -- weights ----------------------------------------------------------
+    def _noisy(self, fake_A, std, noise):
+        """fake_A plus ``std / 127.5`` times unit normal ``noise`` (drawn
+        here when None), clipped to [-1, 1]."""
+        noise = self._randn(fake_A.shape) if noise is None \
+            else self._tensor(noise)
+        return torch.clamp(fake_A + (std / 127.5) * noise, -1.0, 1.0)
+
+    def _cycle_z(self, A, B, from_prior: bool) -> torch.Tensor:
+        """The z that decodes A back to B in a multi or noisy cycle: a prior
+        draw; a model with an encoder takes the posterior of (A, B) unless
+        ``from_prior``."""
+        return self.sample_prior_z(B.shape[0])
+
+    def generate_multi_cycle(self, real_B, steps: int,
+                             from_prior: bool = True):
+        """[B, A1, B1, ..., A_steps, B_steps]: B -> A, then A -> B with a
+        fresh prior z (or, without ``from_prior``, the posterior z of
+        (A, B) where the model has one), ``steps`` times."""
+        images = [self._tensor(real_B)]
+        B = images[0]
+        for _ in range(steps):
+            A = self.predict_A(B)
+            B = self.predict_B(A, self._cycle_z(A, B, from_prior))
+            images.extend([A, B])
+        return images
+
+    def generate_noisy_cycle(self, real_B, std, noise=None, z=None):
+        """B -> A, plus Gaussian noise of ``std`` grey levels on A, -> B
+        with the z of the clean (A, B): the posterior where the model has
+        one, else a prior draw.  ``noise`` (unit normal, fake_A's shape) and
+        ``z`` replace the model's draws."""
+        real_B = self._tensor(real_B)
+        fake_A = self.predict_A(real_B)
+        noisy = self._noisy(fake_A, std, noise)
+        if z is None:
+            z = self._cycle_z(fake_A, real_B, from_prior=False)
+        return self.predict_B(noisy, z)
+
+    # -- training -----------------------------------------------------------
+    def train_instance_indexed(self, data_A: torch.Tensor,
+                               data_B: torch.Tensor, idx_A, idx_B,
+                               prior_z_B=None, **kw):
+        """``train_instance`` on rows ``idx_A`` / ``idx_B`` of a train set
+        that lives on the model's device: the batch is gathered there
+        (``index_select``), so only the index vectors cross from the host.
+        The same rows as the host feed, so the same step."""
+        idx_A = torch.as_tensor(idx_A, dtype=torch.int64).to(self.device)
+        idx_B = torch.as_tensor(idx_B, dtype=torch.int64).to(self.device)
+        return self.train_instance(data_A.index_select(0, idx_A),
+                                   data_B.index_select(0, idx_B),
+                                   prior_z_B, **kw)
+
+    def _format_train_out(self, losses, visuals, gnorms, loss_keys,
+                          gnorm_keys):
+        losses = OrderedDict((k, losses[k]) for k in loss_keys)
+        visuals = OrderedDict((k, visuals[k]) for k in VISUALS)
+        if self.opt.monitor_gnorm:
+            return losses, visuals, OrderedDict((k, gnorms[k])
+                                                for k in gnorm_keys)
+        return losses, visuals
+
+    # -- lr schedule --------------------------------------------------------
+    def update_learning_rate(self):
+        """Linear decay.  Upstream sets EVERY optimizer, the discriminators'
+        included, to the full decayed lr, so D's initial /5 discount ends
+        when decay starts; ``d_lr_mode="ratio"`` keeps D at lr / 5 of the
+        decayed schedule instead."""
+        lrd = self.opt.lr / self.opt.niter_decay
+        lr = self.old_lr - lrd
+        print("update learning rate: %f -> %f" % (self.old_lr, lr))
+        self.old_lr = lr
+        if self.opt.d_lr_mode == "ratio":
+            self.old_lr_d = lr / 5.0
+        else:
+            self.old_lr_d = lr
+
+    def _derive_lr_d(self):
+        """Recompute ``old_lr_d`` from a restored ``old_lr``: ``old_lr <
+        opt.lr`` iff decay has started."""
+        decayed = self.old_lr < self.opt.lr
+        reference = self.opt.d_lr_mode == "reference"
+        self.old_lr_d = self.old_lr if (reference and decayed) \
+            else self.old_lr / 5.0
+
+    # -- weights from the JAX package ----------------------------------------
     def load_params(self, npz_path: str):
         """Load both generators from a params ``.npz`` with flat keys in the
         JAX package's layout (``netG_A_B/conv0/kernel`` ...); other nets in
@@ -193,225 +297,6 @@ class GeneratorPair:
         return self._load_converted(
             name, jax_batch_stats_to_buffers(name, batch_stats),
             self.nets[name].named_buffers(), "batch_stats")
-
-    # -- what later slices port ---------------------------------------------
-    def _later(self, what):
-        raise NotImplementedError(_NOT_PORTED % what)
-
-    def train_instance(self, *a, **kw):
-        self._later("train_instance of %s" % self.opt.model)
-
-    def supervised_train_instance(self, *a, **kw):
-        self._later("supervised_train_instance")
-
-    def generate_cycle(self, *a, **kw):
-        self._later("generate_cycle of %s" % self.opt.model)
-
-    def update_learning_rate(self):
-        self._later("update_learning_rate of %s" % self.opt.model)
-
-    def save(self, *a, **kw):
-        self._later("save of %s" % self.opt.model)
-
-    def load(self, *a, **kw):
-        self._later("load of %s (use load_params on an .npz)"
-                    % self.opt.model)
-
-
-class AugmentedCycleGAN(GeneratorPair):
-    """Augmented CycleGAN: the generator pair plus the latent encoder E_B,
-    the three discriminators and one Adam state per network.
-
-    Parameters and optimizer moments are float32; with
-    ``compute_dtype="bfloat16"`` the layers cast them per use, and norm
-    statistics, CIN scale/shift and losses stay float32.  Weights are drawn
-    on the CPU from ``generator`` (seeded from ``opt.seed``), so a seed gives
-    the same weights on every device; prior z, posterior noise and dropout
-    masks come from a second generator on the model's device.
-    """
-
-    net_names = ("netG_A_B", "netG_B_A", "netD_A", "netD_B", "netD_z_B",
-                 "netE_B")
-
-    def __init__(self, opt: TrainConfig, testing: bool = False,
-                 device="cuda", generator: Optional[torch.Generator] = None,
-                 image_size: Optional[int] = None):
-        self._image_size = image_size
-        super().__init__(opt, ignore_noise=False, device=device,
-                         generator=generator)
-        self.old_lr = opt.lr
-        self.old_lr_d = opt.lr / 5.0   # the D optimizers start at lr / 5
-        self.epoch = opt.epoch_count
-        self.training = True
-        self._noise = torch.Generator(device=self.device)
-        self._noise.manual_seed(opt.seed if opt.seed is not None else 0)
-        for name in GENERATOR_NETS:
-            self.nets[name].set_dropout_generator(self._noise)
-        self._train_step = make_aug_train_step(opt)
-        if not testing and opt.expr_dir:
-            with open(os.path.join(opt.expr_dir, "nets.txt"), "w") as f:
-                for name in self.net_names:
-                    N.print_network(name, self.nets[name], f)
-
-    def _build_nets(self, generator: torch.Generator):
-        self.state = init_state(self.opt, self.device, generator,
-                                image_size=self._image_size)
-        return self.state.nets
-
-    _no_grad = staticmethod(torch.no_grad)
-
-    # -- mode toggles -------------------------------------------------------
-    def eval(self):
-        self.training = False
-
-    def train(self):
-        self.training = True
-
-    # -- forward ------------------------------------------------------------
-    # In the model's mode (train-mode batch statistics while training, as
-    # upstream evaluates), and never advancing a running statistic.
-    def predict_A(self, real_B, plain_norm: bool = False) -> torch.Tensor:
-        with frozen(self.nets["netG_B_A"], self.training):
-            return super().predict_A(real_B, plain_norm)
-
-    def predict_B(self, real_A, z_B, plain_norm: bool = False) -> torch.Tensor:
-        with frozen(self.nets["netG_A_B"], self.training):
-            return super().predict_B(real_A, z_B, plain_norm)
-
-    def _encode(self, real_A, real_B, plain_norm: bool = False):
-        real_A, real_B = self._tensor(real_A), self._tensor(real_B)
-        enc_in = (torch.cat([real_A, real_B], dim=-1)
-                  if self.opt.enc_A_B else real_B)
-        with frozen(self.nets["netE_B"], self.training) as net, \
-                torch.no_grad():
-            mu, logvar = net(enc_in, plain_norm=plain_norm)
-        return mu.float(), logvar.float()
-
-    def predict_enc_params(self, real_A, real_B, plain_norm: bool = False):
-        """(mu, logvar) of the posterior of z given (A, B) when
-        ``stoch_enc``, else (mu,).  Never advances the encoder's running
-        statistics."""
-        mu, logvar = self._encode(real_A, real_B, plain_norm)
-        if self.opt.stoch_enc:
-            return mu, logvar
-        return (mu,)
-
-    def _posterior_z(self, real_A_ish, real_B) -> torch.Tensor:
-        """A posterior sample of z given (A, B) under ``stoch_enc``, else
-        the posterior mean."""
-        mu, logvar = self._encode(real_A_ish, real_B)
-        if self.opt.stoch_enc:
-            eps = torch.randn(mu.shape, dtype=mu.dtype, device=mu.device,
-                              generator=self._noise)
-            return gauss_reparametrize_eps(mu, logvar, eps)
-        return mu
-
-    # -- generation helpers (the training CLI's visuals) --------------------
-    def generate_cycle(self, real_A, real_B, prior_z_B):
-        """A -> B -> A with ``prior_z_B`` and B -> A -> B with the posterior
-        z of (fake_A, B); the six images in the train step's visuals order."""
-        real_A, real_B = self._tensor(real_A), self._tensor(real_B)
-        prior_z_B = self._prep_prior(real_A.shape[0], prior_z_B)
-        fake_B = self.predict_B(real_A, prior_z_B)
-        fake_A = self.predict_A(real_B)
-        rec_A = self.predict_A(fake_B)
-        post_z = self._posterior_z(fake_A, real_B)
-        rec_B = self.predict_B(fake_A, post_z)
-        return OrderedDict([("real_A", real_A), ("fake_B", fake_B),
-                            ("rec_A", rec_A), ("real_B", real_B),
-                            ("fake_A", fake_A), ("rec_B", rec_B)])
-
-    def inference_multi(self, real_A, real_B):
-        """Every A decoded with every z inferred from the B batch:
-        (len(A) * len(B), H, W, C), A-major."""
-        real_A, real_B = self._tensor(real_A), self._tensor(real_B)
-        num = real_B.shape[0]
-        multi_A = real_A.repeat_interleave(num, dim=0)
-        fake_A = self.predict_A(real_B)
-        post_z = self._posterior_z(fake_A, real_B)
-        multi_z = post_z.repeat(real_A.shape[0], 1)
-        return self.predict_B(multi_A, multi_z)
-
-    # -- training -----------------------------------------------------------
-    def sample_prior_z(self, batch: int) -> torch.Tensor:
-        return torch.randn((batch, self.opt.nlatent), device=self.device,
-                           generator=self._noise)
-
-    def _prep_prior(self, batch: int, prior_z_B) -> torch.Tensor:
-        """Draw from the prior when the caller passes None, otherwise accept
-        flat (B, nz) or image-layout (B, 1, 1, nz) codes."""
-        if prior_z_B is None:
-            return self.sample_prior_z(batch)
-        prior_z_B = self._tensor(prior_z_B)
-        if prior_z_B.dim() == 4:
-            prior_z_B = prior_z_B.reshape(prior_z_B.shape[0], -1)
-        return prior_z_B
-
-    def train_instance(self, real_A, real_B, prior_z_B=None, eps_post=None,
-                       plain_norm: bool = False):
-        """One two-phase train step.  ``eps_post`` is the noise of the
-        reparametrized posterior, (B, nlatent); None draws it here.  (The
-        JAX package draws it inside its step from the step's key; passing it
-        lets the two packages be compared on the same noise.)  Returns
-        (losses, visuals) and, with ``monitor_gnorm``, gnorms: ordered dicts
-        of device tensors; nothing is read back to the host."""
-        real_A, real_B = self._tensor(real_A), self._tensor(real_B)
-        prior_z_B = self._prep_prior(real_A.shape[0], prior_z_B)
-        eps_post = self._prep_prior(real_A.shape[0], eps_post)
-        losses, visuals, gnorms = self._train_step(
-            self.state, real_A, real_B, prior_z_B, eps_post,
-            float(self.old_lr), float(self.old_lr_d), plain_norm)
-        return self._format_train_out(losses, visuals, gnorms)
-
-    def train_instance_indexed(self, data_A: torch.Tensor,
-                               data_B: torch.Tensor, idx_A, idx_B,
-                               prior_z_B=None, eps_post=None):
-        """:meth:`train_instance` on rows ``idx_A`` / ``idx_B`` of a train
-        set that lives on the model's device: the batch is gathered there
-        (``index_select``), so only the index vectors cross from the host.
-        The same rows as the host feed, so the same step."""
-        idx_A = torch.as_tensor(idx_A, dtype=torch.int64).to(self.device)
-        idx_B = torch.as_tensor(idx_B, dtype=torch.int64).to(self.device)
-        return self.train_instance(data_A.index_select(0, idx_A),
-                                   data_B.index_select(0, idx_B),
-                                   prior_z_B, eps_post)
-
-    def _format_train_out(self, losses, visuals, gnorms):
-        order = ["D_A", "G_A", "Cyc_A", "Cyc_z_B", "KLD_z_B", "D_B", "G_B",
-                 "Cyc_B", "D_z_B", "P_t_A", "P_f_A", "P_t_B", "P_f_B"]
-        losses = OrderedDict((k, losses[k]) for k in order)
-        visuals = OrderedDict((k, visuals[k]) for k in (
-            "real_A", "fake_B", "rec_A", "real_B", "fake_A", "rec_B"))
-        if self.opt.monitor_gnorm:
-            g = OrderedDict((k, gnorms[k]) for k in (
-                "gnorm_G_A_B", "gnorm_G_B_A", "gnorm_E_B", "gnorm_D_B",
-                "gnorm_D_z_B", "gnorm_D_A", "mu_min", "mu_max",
-                "logvar_min", "logvar_max"))
-            return losses, visuals, g
-        return losses, visuals
-
-    # -- lr schedule --------------------------------------------------------
-    def update_learning_rate(self):
-        """Linear decay.  Upstream sets EVERY optimizer, the discriminators'
-        included, to the full decayed lr, so D's initial /5 discount ends
-        when decay starts; ``d_lr_mode="ratio"`` keeps D at lr / 5 of the
-        decayed schedule instead."""
-        lrd = self.opt.lr / self.opt.niter_decay
-        lr = self.old_lr - lrd
-        print("update learning rate: %f -> %f" % (self.old_lr, lr))
-        self.old_lr = lr
-        if self.opt.d_lr_mode == "ratio":
-            self.old_lr_d = lr / 5.0
-        else:
-            self.old_lr_d = lr
-
-    def _derive_lr_d(self):
-        """Recompute ``old_lr_d`` from a restored ``old_lr``: ``old_lr <
-        opt.lr`` iff decay has started."""
-        decayed = self.old_lr < self.opt.lr
-        reference = self.opt.d_lr_mode == "reference"
-        self.old_lr_d = self.old_lr if (reference and decayed) \
-            else self.old_lr / 5.0
 
     # -- checkpoints (latest / best_A / best_B) ------------------------------
     def _ckpt_payload(self) -> dict:
@@ -454,7 +339,8 @@ class AugmentedCycleGAN(GeneratorPair):
         """Restore a checkpoint written by :meth:`save`: parameters, buffers
         and Adam moments are copied into this model's tensors (device and
         dtype stay), ``step``, ``old_lr``, ``epoch`` set, ``old_lr_d``
-        derived.  Raises if a net or an entry is missing or extra."""
+        derived.  Raises if a net or an entry is missing or extra (a
+        checkpoint of another variant among them)."""
         self.wait_for_saves()
         payload = read_checkpoint(chk_path)
         if not isinstance(payload, dict) or \
@@ -486,18 +372,164 @@ class AugmentedCycleGAN(GeneratorPair):
         self._derive_lr_d()
 
 
+class StochCycleGAN(CycleGANBase):
+    """Stochastic CycleGAN; with ``ignore_noise`` it is the deterministic
+    ``cycle_gan`` variant (z forced to ones)."""
+
+    net_names = ("netG_A_B", "netG_B_A", "netD_A", "netD_B")
+
+    def __init__(self, opt: TrainConfig, ignore_noise: bool = False, **kw):
+        self.ignore_noise = ignore_noise
+        super().__init__(opt, **kw)
+        self._train_step = make_stoch_train_step(opt, ignore_noise)
+
+    def train_instance(self, real_A, real_B, prior_z_B=None,
+                       plain_norm: bool = False):
+        """One two-phase train step.  Returns (losses, visuals) and, with
+        ``monitor_gnorm``, gnorms: ordered dicts of device tensors."""
+        real_A, real_B = self._tensor(real_A), self._tensor(real_B)
+        prior_z_B = self._prep_prior(real_A.shape[0], prior_z_B)
+        losses, visuals, gnorms = self._train_step(
+            self.state, real_A, real_B, prior_z_B, float(self.old_lr),
+            float(self.old_lr_d), plain_norm)
+        return self._format_train_out(
+            losses, visuals, gnorms,
+            ("D_A", "G_A", "Cyc_A", "D_B", "G_B", "Cyc_B", "P_t_A", "P_f_A",
+             "P_t_B", "P_f_B"),
+            ("gnorm_G_A_B", "gnorm_G_B_A", "gnorm_D_B", "gnorm_D_A"))
+
+    def generate_cycle(self, real_A, real_B, prior_z_B):
+        """A -> B -> A and B -> A -> B, both with ``prior_z_B``; the six
+        images in the train step's visuals order."""
+        real_A, real_B = self._tensor(real_A), self._tensor(real_B)
+        z = self._prep_z(prior_z_B)
+        fake_B = self.predict_B(real_A, z)
+        fake_A = self.predict_A(real_B)
+        rec_A = self.predict_A(fake_B)
+        rec_B = self.predict_B(fake_A, z)
+        return OrderedDict(zip(VISUALS, (real_A, fake_B, rec_A, real_B,
+                                         fake_A, rec_B)))
+
+
+class AugmentedCycleGAN(CycleGANBase):
+    """Augmented CycleGAN: the generator pair plus the latent encoder E_B,
+    the three discriminators and one Adam state per network."""
+
+    net_names = ("netG_A_B", "netG_B_A", "netD_A", "netD_B", "netD_z_B",
+                 "netE_B")
+
+    def __init__(self, opt: TrainConfig, **kw):
+        super().__init__(opt, **kw)
+        self._train_step = make_aug_train_step(opt)
+        self._sup_step = make_aug_supervised_step(opt)
+
+    # -- the posterior ------------------------------------------------------
+    def _encode(self, real_A, real_B, plain_norm: bool = False):
+        real_A, real_B = self._tensor(real_A), self._tensor(real_B)
+        enc_in = (torch.cat([real_A, real_B], dim=-1)
+                  if self.opt.enc_A_B else real_B)
+        with frozen(self.nets["netE_B"], self.training) as net, \
+                torch.no_grad():
+            mu, logvar = net(enc_in, plain_norm=plain_norm)
+        return mu.float(), logvar.float()
+
+    def predict_enc_params(self, real_A, real_B, plain_norm: bool = False):
+        """(mu, logvar) of the posterior of z given (A, B) when
+        ``stoch_enc``, else (mu,).  Never advances the encoder's running
+        statistics."""
+        mu, logvar = self._encode(real_A, real_B, plain_norm)
+        if self.opt.stoch_enc:
+            return mu, logvar
+        return (mu,)
+
+    def _posterior_z(self, real_A_ish, real_B) -> torch.Tensor:
+        """A posterior sample of z given (A, B) under ``stoch_enc``, else
+        the posterior mean."""
+        mu, logvar = self._encode(real_A_ish, real_B)
+        if self.opt.stoch_enc:
+            return gauss_reparametrize_eps(mu, logvar, self._randn(mu.shape))
+        return mu
+
+    # -- generation helpers -------------------------------------------------
+    def generate_cycle(self, real_A, real_B, prior_z_B):
+        """A -> B -> A with ``prior_z_B`` and B -> A -> B with the posterior
+        z of (fake_A, B); the six images in the train step's visuals order."""
+        real_A, real_B = self._tensor(real_A), self._tensor(real_B)
+        prior_z_B = self._prep_prior(real_A.shape[0], prior_z_B)
+        fake_B = self.predict_B(real_A, prior_z_B)
+        fake_A = self.predict_A(real_B)
+        rec_A = self.predict_A(fake_B)
+        post_z = self._posterior_z(fake_A, real_B)
+        rec_B = self.predict_B(fake_A, post_z)
+        return OrderedDict(zip(VISUALS, (real_A, fake_B, rec_A, real_B,
+                                         fake_A, rec_B)))
+
+    def _cycle_z(self, A, B, from_prior: bool) -> torch.Tensor:
+        """The posterior z of (A, B), or a prior draw with ``from_prior``."""
+        if from_prior:
+            return super()._cycle_z(A, B, True)
+        return self._posterior_z(A, B)
+
+    def inference_multi(self, real_A, real_B):
+        """Every A decoded with every z inferred from the B batch:
+        (len(A) * len(B), H, W, C), A-major."""
+        real_A, real_B = self._tensor(real_A), self._tensor(real_B)
+        num = real_B.shape[0]
+        multi_A = real_A.repeat_interleave(num, dim=0)
+        fake_A = self.predict_A(real_B)
+        post_z = self._posterior_z(fake_A, real_B)
+        multi_z = post_z.repeat(real_A.shape[0], 1)
+        return self.predict_B(multi_A, multi_z)
+
+    # -- training -----------------------------------------------------------
+    def train_instance(self, real_A, real_B, prior_z_B=None, eps_post=None,
+                       plain_norm: bool = False):
+        """One two-phase train step.  ``eps_post`` is the noise of the
+        reparametrized posterior, (B, nlatent); None draws it here.  (The
+        JAX package draws it inside its step from the step's key; passing it
+        lets the two packages be compared on the same noise.)  Returns
+        (losses, visuals) and, with ``monitor_gnorm``, gnorms: ordered dicts
+        of device tensors; nothing is read back to the host."""
+        real_A, real_B = self._tensor(real_A), self._tensor(real_B)
+        prior_z_B = self._prep_prior(real_A.shape[0], prior_z_B)
+        eps_post = self._prep_prior(real_A.shape[0], eps_post)
+        losses, visuals, gnorms = self._train_step(
+            self.state, real_A, real_B, prior_z_B, eps_post,
+            float(self.old_lr), float(self.old_lr_d), plain_norm)
+        return self._format_train_out(
+            losses, visuals, gnorms,
+            ("D_A", "G_A", "Cyc_A", "Cyc_z_B", "KLD_z_B", "D_B", "G_B",
+             "Cyc_B", "D_z_B", "P_t_A", "P_f_A", "P_t_B", "P_f_B"),
+            ("gnorm_G_A_B", "gnorm_G_B_A", "gnorm_E_B", "gnorm_D_B",
+             "gnorm_D_z_B", "gnorm_D_A", "mu_min", "mu_max", "logvar_min",
+             "logvar_max"))
+
+    def supervised_train_instance(self, real_A, real_B, prior_z_B=None,
+                                  eps_post=None, plain_norm: bool = False):
+        """One supervised step on the paired batch (real_A, real_B);
+        ``prior_z_B`` and ``eps_post`` as for :meth:`train_instance`.
+        Returns the ordered dict ``S_A S_B KLD_z_B D_z_B gnorm_G_A_B
+        gnorm_G_B_A gnorm_E_B gnorm_D_z_B`` of device tensors."""
+        real_A, real_B = self._tensor(real_A), self._tensor(real_B)
+        prior_z_B = self._prep_prior(real_A.shape[0], prior_z_B)
+        eps_post = self._prep_prior(real_A.shape[0], eps_post)
+        losses = self._sup_step(self.state, real_A, real_B, prior_z_B,
+                                eps_post, float(self.old_lr),
+                                float(self.old_lr_d), plain_norm)
+        return OrderedDict((k, losses[k]) for k in (
+            "S_A", "S_B", "KLD_z_B", "D_z_B", "gnorm_G_A_B", "gnorm_G_B_A",
+            "gnorm_E_B", "gnorm_D_z_B"))
+
+
 def create_model(opt: TrainConfig, testing: bool = False, device="cuda",
                  generator: Optional[torch.Generator] = None, **kw):
-    """Model dispatch on ``opt.model``.  ``testing`` only keeps
-    ``aug_cycle_gan`` from writing ``nets.txt``; for the other two variants
-    only ``testing=True`` (the frozen generator pair) is ported."""
-    if opt.model not in MODELS:
-        raise NotImplementedError("Specified model is not implemented.")
+    """Model dispatch on ``opt.model``; ``testing`` only keeps the model
+    from writing ``nets.txt``."""
+    kw.update(testing=testing, device=device, generator=generator)
+    if opt.model == "stoch_cycle_gan":
+        return StochCycleGAN(opt, **kw)
+    if opt.model == "cycle_gan":
+        return StochCycleGAN(opt, ignore_noise=True, **kw)
     if opt.model == "aug_cycle_gan":
-        return AugmentedCycleGAN(opt, testing=testing, device=device,
-                                 generator=generator, **kw)
-    if not testing:
-        raise NotImplementedError(
-            _NOT_PORTED % ("create_model(testing=False) for %s" % opt.model))
-    return GeneratorPair(opt, ignore_noise=opt.model == "cycle_gan",
-                         device=device, generator=generator)
+        return AugmentedCycleGAN(opt, **kw)
+    raise NotImplementedError("Specified model is not implemented.")

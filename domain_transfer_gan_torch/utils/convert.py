@@ -21,6 +21,9 @@ the layout of each kernel:
 net's ``batch_stats`` subtree: ``bn/mean`` -> ``bn.running_mean``, ``bn/var``
 -> ``bn.running_var``.
 
+``jax_fid_params_to_state_dict(params)`` converts the JAX package's
+random-feature FID extractor (``eval/fid.py``) the same way.
+
 ``flatten_params`` / ``unflatten_params`` move between the nested tree and the
 flat ``netG_A_B/conv0/kernel`` keys of a params ``.npz``.  The inverse
 direction (port -> JAX) comes with the checkpoint slice.
@@ -77,6 +80,10 @@ def jax_params_to_state_dict(net_name: str,
     tensors, keyed as in its ``state_dict``) from the JAX ``params``
     subtree."""
     _check_net(net_name)
+    return _params_to_state_dict(params)
+
+
+def _params_to_state_dict(params: Mapping) -> Dict[str, torch.Tensor]:
     sd = {}
     for path, value in _walk(params):
         value = _convert_leaf(path, np.asarray(value, np.float32))
@@ -100,6 +107,14 @@ def jax_batch_stats_to_buffers(net_name: str,
         sd[".".join(path[:-1] + ("running_" + path[-1],))] = _tensor(
             np.asarray(value, np.float32))
     return sd
+
+
+def jax_fid_params_to_state_dict(params: Mapping
+                                 ) -> Dict[str, torch.Tensor]:
+    """The ``state_dict`` of ``eval.fid.RandomFeatureNet`` from the
+    ``params`` of the JAX package's random-feature extractor
+    (``conv0`` ... ``conv3``, each ``kernel`` and ``bias``)."""
+    return _params_to_state_dict(params)
 
 
 def flatten_params(tree: Mapping) -> Dict[str, np.ndarray]:

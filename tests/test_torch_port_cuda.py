@@ -192,6 +192,71 @@ def test_train_step_fused_vs_plain_on_the_card():
             1.0, abs(float(gp[k]))), k
 
 
+def _fused_vs_plain(cfg, run):
+    """``run(model, plain_norm)`` -> dict of losses and norms, once on a
+    model whose norms run the kernels and once on its plain-norm twin;
+    returns both dicts and the (forward, backward) launches of the first."""
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    fused = create_model(TrainConfig(**cfg), testing=True, device="cuda")
+    plain = create_model(TrainConfig(**cfg), testing=True, device="cuda")
+    f0, b0 = instance_norm_fused.launches, instance_norm_bwd_fused.launches
+    got = run(fused, False)
+    f1, b1 = instance_norm_fused.launches, instance_norm_bwd_fused.launches
+    want = run(plain, True)
+    assert (instance_norm_fused.launches,
+            instance_norm_bwd_fused.launches) == (f1, b1)
+    for k in want:
+        assert np.isfinite(float(got[k])), k
+        # float32, sums in another order through ~20 layers; the norms of
+        # the gradients more loosely
+        tol = 1e-3 if "gnorm" in k else 1e-4
+        assert abs(float(got[k]) - float(want[k])) <= tol * max(
+            1.0, abs(float(want[k]))), k
+    return f1 - f0, b1 - b0
+
+
+def _tiny_batch(seed):
+    rng = np.random.RandomState(seed)
+    A = rng.uniform(-1, 1, (4, 64, 64, 3)).astype(np.float32)
+    B = rng.uniform(-1, 1, (4, 64, 64, 3)).astype(np.float32)
+    return A, B, rng.randn(4, 8).astype(np.float32), \
+        rng.randn(4, 8).astype(np.float32)
+
+
+@pytest.mark.cuda
+def test_stoch_step_fused_vs_plain_on_the_card():
+    """One stoch_cycle_gan step at tiny size, kernels against plain norms;
+    the same norm sites as the aug_cycle_gan step (its encoder and latent
+    discriminator have batch norms only)."""
+    _need_card()
+    cfg = dict(model="stoch_cycle_gan", grid_size=64, ngf=4, ndf=4,
+               nlatent=8, n_blocks=2, init_scheme="sane", seed=3)
+    A, B, z, _ = _tiny_batch(15)
+
+    def run(m, plain_norm):
+        losses, _, gnorms = m.train_instance(A, B, z, plain_norm=plain_norm)
+        return dict(losses, **gnorms)
+
+    assert _fused_vs_plain(cfg, run) == (44, 44)
+
+
+@pytest.mark.cuda
+def test_supervised_step_fused_vs_plain_on_the_card():
+    """One supervised step at tiny size: each generator forward and
+    backward once, 9 + 7 norm sites (n_blocks = 2)."""
+    _need_card()
+    cfg = dict(model="aug_cycle_gan", grid_size=64, ngf=4, nef=4, ndf=4,
+               nlatent=8, n_blocks=2, init_scheme="sane", seed=3)
+    A, B, z, eps = _tiny_batch(16)
+
+    def run(m, plain_norm):
+        return m.supervised_train_instance(A, B, z, eps,
+                                           plain_norm=plain_norm)
+
+    assert _fused_vs_plain(cfg, run) == (16, 16)
+
+
 def _variant_plans(n, hw, c, itemsize, arrays):
     """The streaming plan and every cluster size that holds the slab."""
     plans = [K.STREAMING]

@@ -40,15 +40,19 @@ PATH_BY_ITEMSIZE = {
 PATH = PATH_BY_ITEMSIZE[4] | PATH_BY_ITEMSIZE[2]
 GENERATOR = {s for s in PATH if s[1] >= 1024}
 # the generator sites of the training CLI (float32): the eval batch of 100,
-# its tail of 50, the grids at 10, 25 and 250
+# its tail of 50, the grids at 10, 25 and 250; and those of the evaluation
+# CLI besides: its batch of 200, the test set of 150, the train subset of
+# 64, the inference header of 5 and the z-diversity decode of 320
 CLI = {s for n in CS.CLI_BATCHES for s in CS.gen_sites(n, "B")}
+TEST_CLI = {s for n in CS.TEST_CLI_BATCHES for s in CS.gen_sites(n, "B")}
 
 
 def test_the_shapes_are_the_smoke_tests():
-    assert len(SHAPES) == len(CS.CHECK_SHAPES) == 34 + len(CLI)
+    assert len(SHAPES) == len(CS.CHECK_SHAPES) == 34 + len(CLI | TEST_CLI)
     assert len(GENERATOR) == 6 and len(PATH) == 6 + 4 * 6
     assert len(CLI) == 5 * 3 and not CLI & PATH
-    assert PATH | CLI <= set(SHAPES)
+    assert len(TEST_CLI - CLI) == 5 * 3 and not TEST_CLI & PATH
+    assert PATH | CLI | TEST_CLI <= set(SHAPES)
     assert {s for s, _, _ in STREAMED} <= PATH
 
 
@@ -79,7 +83,7 @@ def test_plan(shape, itemsize, arrays):
         want = "streaming" if (shape, itemsize, arrays) in STREAMED else \
             "cluster"
         assert plan.variant == want
-    elif shape in CLI and itemsize == 4:
+    elif shape in CLI | TEST_CLI and itemsize == 4:
         # at the eval batch of 100 the card measured it 1.19-1.75x faster
         # than the streaming variant (PERF.md)
         assert plan.variant == "cluster"

@@ -298,24 +298,20 @@ def test_generate_multi_and_cycle_B_multi(cin_params, resnet_params):
 
 
 def test_what_waits_for_the_training_slice():
-    """aug_cycle_gan trains now; what still waits raises and says so."""
+    """Every variant trains now; what still waits raises and says so."""
     kw = dict(grid_size=64, ngf=NGF, nef=NGF, ndf=NGF, nlatent=NLATENT,
               n_blocks=1)
-    stoch = TrainConfig(model="stoch_cycle_gan", **kw)
-    with pytest.raises(NotImplementedError, match="not ported yet"):
-        create_model(stoch, testing=False, device="cpu")
-    m = create_model(stoch, testing=True, device="cpu")
-    # aug_cycle_gan's checkpoints and generate_cycle came with the CLI
-    # slice; the other variants' still wait for their train step
-    for call in (m.train_instance, m.save, m.load, m.generate_cycle):
-        with pytest.raises(NotImplementedError, match="not ported yet"):
-            call(None, None)
+    for model in ("stoch_cycle_gan", "cycle_gan"):
+        m = create_model(TrainConfig(model=model, **kw), testing=False,
+                         device="cpu")
+        assert set(m.nets) == {"netG_A_B", "netG_B_A", "netD_A", "netD_B"}
+        assert callable(m.train_instance) and callable(m.generate_cycle)
+        assert not hasattr(m, "supervised_train_instance")
     aug = create_model(TrainConfig(model="aug_cycle_gan", **kw),
                        testing=False, device="cpu")
     assert set(aug.nets) == {"netG_A_B", "netG_B_A", "netD_A", "netD_B",
                              "netD_z_B", "netE_B"}
-    with pytest.raises(NotImplementedError, match="not ported yet"):
-        aug.supervised_train_instance()
+    assert callable(aug.supervised_train_instance)
     for flags in (dict(pool_size=8), dict(ema=0.5), dict(grad_accum=2),
                   dict(remat=True)):
         with pytest.raises(NotImplementedError, match="not ported yet"):
@@ -326,6 +322,8 @@ def test_what_waits_for_the_training_slice():
             kw, grid_size=32)), testing=True, device="cpu")
     with pytest.raises(KeyError, match="unknown network"):
         jax_params_to_state_dict("netD_C", {})
+    with pytest.raises(NotImplementedError, match="not implemented"):
+        create_model(TrainConfig(model="pix2pix", **kw), device="cpu")
 
 
 @pytest.mark.parametrize("scheme", ["reference", "sane"])

@@ -2,7 +2,8 @@
 train 1 + 1 epochs, resume for a third, export from the checkpoint with
 --chk_path and answer a predict_B request over HTTP; the artifact contract
 and the loss-line format are the JAX package's.  Every flag the port does
-not run yet is refused by name.
+not run yet is refused by name (the other variants and the supervised
+step train in tests/test_torch_port_test_cli.py).
 
 The variational UBO evaluates at the CLI's eval batch of 100 (a tiny dev
 set is padded to it), 50 steps of a forward and backward each, which takes
@@ -197,9 +198,6 @@ def test_export_from_checkpoint_serves_the_model(run, tmp_path, capsys):
 
 
 REFUSED = [
-    (["--model", "cycle_gan"], "--model cycle_gan", "M6"),
-    (["--model", "stoch_cycle_gan"], "--model stoch_cycle_gan", "M6"),
-    (["--supervised"], "--supervised", "M6"),
     (["--numpy_data", "0"], "--numpy_data 0", "M9"),
     (["--num_devices", "2"], "--num_devices 2", "M12"),
     (["--coordinator", "127.0.0.1:1234"], "--coordinator", "M12"),
