@@ -79,7 +79,33 @@ It needs one CUDA device, ``nvcc`` and no network.  It
    numbers checked, ``TEST_MSE_A`` held to ``eval_mse_A`` over the same
    batch, and the first ``bpp`` chunk held to the same with plain norms on
    the same noise (after the runs); it prints each run's and each
-   metric's seconds.
+   metric's seconds;
+9. (also before 6) the step extras at the same width: ``--grad_accum 4``
+   steps of ``aug_cycle_gan`` (3 float32 at batch 32, one bfloat16 at 128,
+   one float32 at batch 32 on 256x256 images) and of ``stoch_cycle_gan``
+   (one float32 at 32), 3 float32 ``--pool_size 50 --ema 0.999`` steps at
+   32 (the pool full by step 2, so it replays), each against a plain-norm
+   twin with the same weights, inputs, noise and pool draws under phase 5's
+   limits, with its launches by shape and variant held to its structure
+   (K1 and K2 at the microbatch of 8, the discriminators' concatenated pass
+   at 16, K times per phase, plus the G phase's recomputed phase 0), the
+   EMA shadow against the formula (within its float32 rounding) and the
+   twin's (by its displacement from the start); one ``--remat`` step with
+   dropout and one with ``--norm batch`` against the same step without it
+   (losses and gradient norms at phase 5's step-1 limits, running
+   statistics equal, one more forward launch per generator norm site for
+   each of the four generator calls with a graph); the bfloat16 batch-128
+   step fused, with ``--remat`` and with ``--grad_accum 4``: peak memory
+   and time; the float32 batch-32 step with and without the pool and EMA:
+   time; then one epoch each of ``aug_cycle_gan --pool_size 50 --ema
+   0.999 --remat`` and ``--grad_accum 4 --ema 0.999`` through the training
+   CLI on phase 7's data, one more epoch of the pool run with
+   ``--continue_train`` (its restored pools equal the saved ones bit for
+   bit), ``cli.test --use_ema 1 --metric mse`` (``TEST_MSE_A`` against
+   ``eval_mse_A`` of the loaded and swapped model) and ``cli.export
+   --use_ema 1`` with one served ``predict_B`` against the swapped model's;
+   every run's launches held to its structure.  Phase 3 checks the kernels
+   at phase 9's microbatch shapes too, and phase 6 times them.
 
 Any failed build, launch or check ends the run with a non-zero exit code.
 The last line of standard output is
@@ -153,23 +179,31 @@ TRAIN_STEP3_RTOL = {"float32": (1e-2, 2e-1), "bfloat16": (5e-2, 5e-1)}
 # step 1 losses (1.8e-3 to 9.8e-3 over the same runs, 5.3e-3 from these seeds)
 TRAIN_BF16_VS_FP32_RTOL = 2e-2
 
-def disc_shapes(n, ndf=64):
+def _add(d, sites, k=1):
+    for shape, c in sites.items():
+        d[shape] = d.get(shape, 0) + k * c
+
+
+def disc_shapes(n, ndf=64, hw=64):
     """(N, HW, C) of the three norm sites of D_A (ndf 32, hard-wired) and of
-    D_B (``ndf``) on n 64x64 images."""
-    return ((n, 256, 64), (n, 64, 128), (n, 16, 128),
-            (n, 256, 2 * ndf), (n, 225, 4 * ndf), (n, 196, 4 * ndf))
+    D_B (``ndf``) on n hw x hw images (at 64: 16x16, 8x8, 4x4 and 16x16,
+    15x15, 14x14)."""
+    s = hw // 4
+    return ((n, s * s, 64), (n, s * s // 4, 128), (n, s * s // 16, 128),
+            (n, s * s, 2 * ndf), (n, (s - 1) ** 2, 4 * ndf),
+            (n, (s - 2) ** 2, 4 * ndf))
 
 
-def gen_sites(n, fn, ngf=32, n_blocks=3):
-    """Launches of one forward of a generator on n 64x64 images by (N, HW,
+def gen_sites(n, fn, ngf=32, n_blocks=3, hw=64):
+    """Launches of one forward of a generator on n hw x hw images by (N, HW,
     C): ``fn`` "B" is netG_A_B (two norms per residual block), "A" netG_B_A
     (one); both have 2 + 2 + 1 more in their stem and head."""
     per_block = 2 if fn == "B" else 1
-    return {(n, 4096, ngf): 2, (n, 4096, 2 * ngf): 2,
-            (n, 1024, 4 * ngf): 1 + per_block * n_blocks}
+    return {(n, hw * hw, ngf): 2, (n, hw * hw, 2 * ngf): 2,
+            (n, hw * hw // 4, 4 * ngf): 1 + per_block * n_blocks}
 
 
-def train_sites(batch, n_blocks=3, ngf=32, ndf=64):
+def train_sites(batch, n_blocks=3, ngf=32, ndf=64, hw=64):
     """Launches per train step by (N, HW, C) under norm="instance", the same
     for the forward and the backward kernel.  Forward: two passes through
     each generator (5 + 2 n_blocks and 5 + n_blocks sites), one concatenated
@@ -177,11 +211,50 @@ def train_sites(batch, n_blocks=3, ngf=32, ndf=64):
     in the G phase.  Backward: every one of those sites once."""
     sites = {}
     for fn in ("B", "A"):
-        for shape, k in gen_sites(batch, fn, ngf, n_blocks).items():
+        for shape, k in gen_sites(batch, fn, ngf, n_blocks, hw).items():
             sites[shape] = sites.get(shape, 0) + 2 * k
-    for shape in disc_shapes(2 * batch, ndf) + disc_shapes(batch, ndf):
+    for shape in disc_shapes(2 * batch, ndf, hw) + disc_shapes(batch, ndf,
+                                                               hw):
         sites[shape] = 1
     return sites
+
+
+def accum_sites(batch, k, n_blocks=3, ngf=32, ndf=64, hw=64):
+    """Launches per ``--grad_accum k`` train step by direction and (N, HW,
+    C), instance norms, either variant's step (the encoder and the latent
+    discriminator have batch norms only): per microbatch of m = batch / k,
+    the D phase runs phase 0 (each generator once, no backward) and the
+    concatenated fake|real pass through D_A and D_B (N = 2m), the G phase
+    runs phase 0 again, D_A and D_B on the fakes and the two cycles; the
+    backward covers the D phase's discriminators and everything of the G
+    phase."""
+    m = batch // k
+    fwd, bwd = {}, {}
+    for fn in ("B", "A"):
+        sites = gen_sites(m, fn, ngf, n_blocks, hw)
+        _add(fwd, sites, 3 * k)
+        _add(bwd, sites, 2 * k)
+    for d in (fwd, bwd):
+        for shape in disc_shapes(2 * m, ndf, hw) + disc_shapes(m, ndf, hw):
+            d[shape] = d.get(shape, 0) + k
+    return {"fwd": fwd, "bwd": bwd}
+
+
+def remat_sites(batch, instance=True, n_blocks=3, ngf=32, ndf=64):
+    """Launches of one ``--remat`` train step of aug_cycle_gan: the fused
+    step's, and in the forward one more per generator norm site for each of
+    the four generator calls with a graph (its recompute in the backward).
+    Under norm="batch" only netG_A_B has instance norms."""
+    if instance:
+        step = train_sites(batch, n_blocks, ngf, ndf)
+        fwd = dict(step)
+        for fn in ("B", "A"):
+            _add(fwd, gen_sites(batch, fn, ngf, n_blocks), 2)
+    else:
+        step = {s: 2 * c for s, c in gen_sites(batch, "B", ngf,
+                                                n_blocks).items()}
+        fwd = {s: 2 * c for s, c in step.items()}
+    return {"fwd": fwd, "bwd": dict(step)}
 
 FP32_ATOL = 1e-4   # kernel vs plain version, float32: sums in another order
 SERVE_ATOL = 1e-4  # served answer vs plain-norm generators, float32
@@ -244,6 +317,15 @@ TEST_CLI_BATCHES = tuple(sorted({
     DEV_VIS_BATCH, Z_DIV_INPUTS * NUM_MULTI}))
 TEST_SHAPES = tuple(gen_sites(TEST_BATCH, "B"))
 
+# phase 9: the step extras.  --grad_accum 4 at batch 32 runs both kernels
+# at microbatches of 8 (the discriminators' fake|real pass at 16), at 64x64
+# and at 256x256, the size accumulation exists for; at batch 128 in
+# bfloat16 at 32 (64), shapes of the other phases
+ACCUM_K = 4
+EXTRAS_SHAPES = tuple(dict.fromkeys(
+    s for hw in (64, 256)
+    for s in sorted(accum_sites(32, ACCUM_K, hw=hw)["fwd"], reverse=True)))
+
 # every shape both kernels are checked at, in both dtypes: every site of the
 # serving path, of a train step at batch 32 and at batch 128 (the
 # discriminators' concatenated pass has N = 2 batch; the launch geometry
@@ -254,7 +336,7 @@ CHECK_SHAPES = tuple(dict.fromkeys(
                         for s in train_sites(b))
     + tuple(s for n in CLI_BATCHES + TEST_CLI_BATCHES
             for s in gen_sites(n, "B"))
-    + EDGE_SHAPES + (HW1_SHAPE,)))
+    + EXTRAS_SHAPES + EDGE_SHAPES + (HW1_SHAPE,)))
 BWD_SUM_RTOL = 1e-4  # dscale, dshift: fp32 sums of up to 65536 products
 
 
@@ -562,10 +644,17 @@ def _test_cases():
     return [(shape, "float32") for shape in TEST_SHAPES]
 
 
+def _extras_cases():
+    """The sites of phase 9's --grad_accum steps at batch 32, float32 (the
+    microbatches of 8, at 64x64 and at 256x256)."""
+    return [(shape, "float32") for shape in EXTRAS_SHAPES]
+
+
 def _timed_cases():
     serving = _serving_cases()
-    return serving + [c for c in _train_cases() + _eval_cases()
-                      + _test_cases() if c not in serving]
+    return serving + [c for c in dict.fromkeys(
+        _train_cases() + _eval_cases() + _test_cases() + _extras_cases())
+        if c not in serving]
 
 
 def _plan_row(plan, n):
@@ -613,7 +702,7 @@ def _time_variants(torch, K, launch, shape, itemsize, arrays, sweep):
 
 
 def time_kernel(torch, F, K, site_counts, train_counts, cli_counts,
-                variant_counts, bpp_counts, extra):
+                variant_counts, bpp_counts, extra, extras_counts):
     """Phase 6, forward kernel, per path shape and dtype.  Per-channel
     affine, biased variance, fused ReLU: the case the library call covers
     too.  Times are device times (CUDA-graph replay).  Inputs rotate over
@@ -626,7 +715,8 @@ def time_kernel(torch, F, K, site_counts, train_counts, cli_counts,
     those of one train step, ``cli_counts["fwd"][shape]`` those of the
     whole training CLI phase (float32), ``variant_counts["fwd"][shape]``
     those of phase 8 (float32), ``bpp_counts["fwd"][shape]`` those of its
-    ``--metric bpp`` run (the rows at the evaluation CLI's batch).  Every row has the plain version's
+    ``--metric bpp`` run (the rows at the evaluation CLI's batch),
+    ``extras_counts[dtype]["fwd"][shape]`` those of phase 9.  Every row has the plain version's
     and the library call's times beside the kernel's.  With ``extra`` every
     row also has ``cluster_sweep_ms`` (the cluster variant at each cluster
     size that holds the slab), and the serving shapes gain:
@@ -685,6 +775,7 @@ def time_kernel(torch, F, K, site_counts, train_counts, cli_counts,
                 if name == "float32" else 0,
             "launches_phase8": variant_counts["fwd"].get(shape, 0)
                 if name == "float32" else 0,
+            "launches_phase9": extras_counts[name]["fwd"].get(shape, 0),
         })
         if (shape, name) in _test_cases():
             row["launches_bpp_run"] = bpp_counts["fwd"].get(shape, 0)
@@ -711,7 +802,7 @@ def time_kernel(torch, F, K, site_counts, train_counts, cli_counts,
 
 
 def time_bwd_kernel(torch, F, K, train_counts, cli_counts, variant_counts,
-                    bpp_counts, extra):
+                    bpp_counts, extra, extras_counts):
     """Phase 6, backward kernel, at the serving shapes in both dtypes (the
     bfloat16 batch-32 rows and the 256x256 request are on no training path:
     they complete the table), at every site of the training path in the
@@ -787,6 +878,7 @@ def time_bwd_kernel(torch, F, K, train_counts, cli_counts, variant_counts,
                 if name == "float32" else 0,
             "launches_phase8": variant_counts["bwd"].get(shape, 0)
                 if name == "float32" else 0,
+            "launches_phase9": extras_counts[name]["bwd"].get(shape, 0),
         })
         if (shape, name) in _test_cases():
             row["launches_bpp_run"] = bpp_counts["bwd"].get(shape, 0)
@@ -1092,11 +1184,6 @@ class _Counters:
         return out
 
 
-def _add(d, sites, k=1):
-    for shape, c in sites.items():
-        d[shape] = d.get(shape, 0) + k * c
-
-
 def _tally(K, seen, itemsize, expected):
     """Add the launches ``seen`` by direction and shape to ``expected``, per
     the variant ``cluster_plan`` picks for each shape."""
@@ -1115,10 +1202,10 @@ def _held_counts(seen, want, what):
                                     sorted(want[direction].items())))
 
 
-def _train_inputs(batch, nlatent, seed):
+def _train_inputs(batch, nlatent, seed, hw=64):
     rng = np.random.RandomState(seed)
-    A = rng.uniform(-1, 1, (batch, 64, 64, 3)).astype(np.float32)
-    B = rng.uniform(-1, 1, (batch, 64, 64, 3)).astype(np.float32)
+    A = rng.uniform(-1, 1, (batch, hw, hw, 3)).astype(np.float32)
+    B = rng.uniform(-1, 1, (batch, hw, hw, 3)).astype(np.float32)
     zs = [(rng.randn(batch, nlatent).astype(np.float32),
            rng.randn(batch, nlatent).astype(np.float32)) for _ in range(3)]
     return A, B, zs
@@ -1985,6 +2072,518 @@ def drive_variants_cli(torch, K, tmp, device="cuda", width=CLI_WIDTH):
     return total, variants, runs["test CLI sup --metric bpp"], figures
 
 
+# phase 9 (a): (tag, model, flags, compute dtype, batch, grid, steps) against
+# plain-norm twins with phase 5's limits.  The pool's run: 32 images fill 32
+# of its 50 slots at step 1 and the rest at step 2, so steps 2 and 3 replay
+EXTRAS_STEPS = (
+    ("aug_accum4_f32_b32", "aug_cycle_gan", dict(grad_accum=ACCUM_K),
+     "float32", 32, 64, 3),
+    ("aug_accum4_bf16_b128", "aug_cycle_gan", dict(grad_accum=ACCUM_K),
+     "bfloat16", 128, 64, 1),
+    ("stoch_accum4_f32_b32", "stoch_cycle_gan", dict(grad_accum=ACCUM_K),
+     "float32", 32, 64, 1),
+    ("aug_accum4_f32_b32_256", "aug_cycle_gan", dict(grad_accum=ACCUM_K),
+     "float32", 32, 256, 1),
+    ("aug_pool50_ema_f32_b32", "aug_cycle_gan",
+     dict(pool_size=50, ema=0.999), "float32", 32, 64, 3),
+)
+# --remat against the same model without it, one float32 step at batch 32
+# each (cuDNN's deterministic algorithms on, so that the two runs differ in
+# nothing but the recompute: the running statistics must be equal)
+REMAT_STEPS = (("remat_dropout", dict(use_dropout=1)),
+               ("remat_norm_batch", dict(norm="batch")))
+# An EMA shadow against the formula applied to the parameters after each
+# step, in float64 with the float32 coefficients the update uses.  Each step
+# rounds three times (decay * e, (1 - decay) * p, the sum), each by at most
+# half an ulp of a value no larger than m, the largest of |e_t| and
+# (1 - decay) |p_t| over the steps; so after n steps an entry is within
+# 1.5 n eps32 m of the formula, and twice that is allowed (EMA_ULPS n eps32
+# m).  Most entries must have moved from the start by more than that, or an
+# unchanged shadow would pass (EMA_MOVED_SHARE).
+EMA_ULPS = 3.0
+EMA_MOVED_SHARE = 0.5
+# The shadow against the twin's, per net, by the relative L2 of their
+# displacements from the start: an unchanged shadow reads 1.  The twin's
+# parameters part by Adam's sign flips on entries whose gradient is rounding
+# noise (up to 2 lr a step), which the shadow carries at (1 - decay); the
+# same check of the port against the JAX package reads up to 0.11 at the
+# tests' width 4, where such entries are a larger share
+EMA_TWIN_RTOL = 0.3
+
+
+def ema_formula_start(nets, tracked):
+    """(start, formula, largest) of the shadow check: the tracked nets'
+    parameters in float64, the formula's shadows (a copy) and the running
+    m of the EMA_ULPS bound."""
+    start = {k: [p.detach().double() for p in nets[k].parameters()]
+             for k in tracked}
+    formula = {k: [v.clone() for v in vs] for k, vs in start.items()}
+    return start, formula, {k: [v.abs() for v in vs]
+                            for k, vs in formula.items()}
+
+
+def ema_formula_step(formula, largest, nets, decay):
+    """The formula's shadows after one step, from the parameters."""
+    d32, a32 = float(np.float32(decay)), float(np.float32(1.0 - decay))
+    for k in formula:
+        for e, m, p in zip(formula[k], largest[k], nets[k].parameters()):
+            p = p.detach().double()
+            e.mul_(d32).add_(p, alpha=a32)
+            m.copy_(m.maximum(e.abs()).maximum(a32 * p.abs()))
+
+
+def ema_readings(shadows, twin_shadows, start, formula, largest, n_steps):
+    """(worst gap from the formula over its rounding bound, share of
+    entries moved beyond that bound, relative L2 of the displacement from
+    the twin's by net)."""
+    eps32 = float(np.finfo(np.float32).eps)
+    worst, moved, total, vs_twin = 0.0, 0, 0, {}
+    for k, shadow in shadows.items():
+        gap2 = twin2 = 0.0
+        for s_, t_, f_, m_, e0 in zip(shadow, twin_shadows[k], formula[k],
+                                      largest[k], start[k]):
+            s_, t_ = s_.double(), t_.double()
+            bound = EMA_ULPS * n_steps * eps32 * m_
+            worst = max(worst, float(((s_ - f_).abs()
+                                      / bound.clamp_min(1e-300)).max()))
+            moved += int(((f_ - e0).abs() > bound).sum())
+            total += f_.numel()
+            gap2 += float((s_ - t_).square().sum())
+            twin2 += float((t_ - e0).square().sum())
+        vs_twin[k] = (gap2 / max(twin2, 1e-300)) ** 0.5
+    return worst, moved / total, vs_twin
+
+
+# the bfloat16 batch-128 step three ways, peak memory and time
+MEMORY_WAYS = (("fused", {}), ("remat", dict(remat=True)),
+               ("accum4", dict(grad_accum=ACCUM_K)))
+# the float32 batch-32 step with and without the pool and EMA: time after
+# two warm-up steps (the pools full), of EXTRAS_TIMED steps, twice each way
+# in turns
+EXTRAS_WAYS = (("fused", {}), ("pool50_ema", dict(pool_size=50, ema=0.999)))
+EXTRAS_TIMED = 10
+
+
+def drive_extras_steps(torch, K):
+    """Phase 9 (a): the --grad_accum steps, the pool with EMA and --remat at
+    the published width.  Each step of EXTRAS_STEPS is held against a twin
+    with the same weights, inputs, noise and pool draws whose norms run the
+    plain version (phase 5's limits), its launches by direction and shape
+    against its structure (accum_sites or the fused step's train_sites);
+    the pool's replays and fill, the EMA shadow against the formula and
+    against the twin's (EMA_ULPS, EMA_TWIN_RTOL).  Each case of REMAT_STEPS is held against the same
+    model without --remat: losses and gradient norms at phase 5's step-1
+    limits, running statistics equal, launches per remat_sites.  Then the
+    bfloat16 batch-128 step fused, with --remat and with --grad_accum 4,
+    and the float32 batch-32 --grad_accum 4 step on 256x256 images: peak
+    memory and step time; the float32 batch-32 step with and without the
+    pool and EMA (EXTRAS_WAYS): step time.  Returns (launches by dtype, direction and
+    shape, the same per variant, the figures)."""
+    from domain_transfer_gan_torch.config import TrainConfig
+    from domain_transfer_gan_torch.models import create_model
+
+    counters = _Counters(K)
+    expected = {d: {"cluster": 0, "streaming": 0} for d in ("fwd", "bwd")}
+    by_dtype = {n: {"fwd": {}, "bwd": {}} for n in ("float32", "bfloat16")}
+    nlatent = TRAIN_CFG["nlatent"]
+    width = dict(n_blocks=TRAIN_CFG["n_blocks"], ngf=TRAIN_CFG["ngf"],
+                 ndf=TRAIN_CFG["ndf"])
+    devs, figures = {}, {"counted_step_ms": {}}
+
+    def model(**kw):
+        return create_model(TrainConfig(**dict(TRAIN_CFG, **kw)),
+                            testing=True, device="cuda")
+
+    def counted(m, what, want, fn):
+        before = counters.read()
+        out = fn()
+        torch.cuda.synchronize()
+        seen = counters.diff(counters.read(), before)
+        _held_counts(seen, want, what)
+        name = "float32" if m.dtype == torch.float32 else "bfloat16"
+        _tally(K, seen, torch.finfo(m.dtype).bits // 8, expected)
+        for d in ("fwd", "bwd"):
+            _add(by_dtype[name][d], seen[d])
+        return out
+
+    def train(m, A, B, z, eps, draws, plain=False):
+        kw = dict(plain_norm=plain, pool_draws=draws)
+        if m.opt.model == "aug_cycle_gan":
+            losses, visuals, gnorms = m.train_instance(A, B, z, eps, **kw)
+        else:
+            losses, visuals, gnorms = m.train_instance(A, B, z, **kw)
+        for k, v in visuals.items():
+            if tuple(v.shape) != A.shape or \
+                    not bool(torch.isfinite(v.float()).all()):
+                raise AssertionError("%s visual %s" % (m.opt.model, k))
+        return _floats(losses), _floats(gnorms)
+
+    counters.reset()  # phase 9's steps start here
+    for i, (tag, name, flags, dtype, batch, hw, n_steps) in enumerate(
+            EXTRAS_STEPS):
+        cfg = dict(model=name, compute_dtype=dtype, grid_size=hw,
+                   batchSize=batch, **flags)
+        fused, twin = model(**cfg), model(**cfg)
+        A, B, zs = _train_inputs(batch, nlatent, seed=41 + i, hw=hw)
+        if "grad_accum" in flags:
+            want = accum_sites(batch, flags["grad_accum"], hw=hw, **width)
+        else:
+            sites = train_sites(batch, **width)
+            want = {"fwd": sites, "bwd": sites}
+        rng = np.random.RandomState(51 + i)
+        pool_size = flags.get("pool_size", 0)
+        ema_check = ema_formula_start(fused.nets, fused.state.ema)
+        replays = 0
+        for it, (z, eps) in enumerate(zs[:n_steps]):
+            draws = None
+            if pool_size:
+                draws = {k: (rng.rand(batch) < 0.5,
+                             rng.randint(0, pool_size, batch))
+                         for k in ("fake_A", "fake_B")}
+                first = max(0, pool_size - fused.state.pools["fake_A"].n)
+                replays += int(draws["fake_A"][0][first:].sum())
+            t0 = time.perf_counter()
+            lf, gf = counted(fused, "%s step %d" % (tag, it + 1), want,
+                             lambda: train(fused, A, B, z, eps, draws))
+            # a step with the counters read and its structure checked
+            figures["counted_step_ms"].setdefault(tag, []).append(
+                (time.perf_counter() - t0) * 1e3)
+            before = counters.read()
+            lp, gp = train(twin, A, B, z, eps, draws, plain=True)
+            none = counters.diff(counters.read(), before)
+            if none["fwd"] or none["bwd"]:
+                raise AssertionError("the plain-norm twin launched a kernel")
+            rl, rg = (TRAIN_STEP1_RTOL if it == 0 else TRAIN_STEP3_RTOL)[dtype]
+            what = "%s step %d, fused vs plain-norm twin" % (tag, it + 1)
+            devs[tag + "_step%d_losses" % (it + 1)] = _held(lf, lp, rl, what)
+            devs[tag + "_step%d_gnorms" % (it + 1)] = _held(gf, gp, rg, what)
+            if fused.state.ema:
+                ema_formula_step(*ema_check[1:], fused.nets, fused.opt.ema)
+        if pool_size:
+            if [p.n for p in fused.state.pools.values()] != [pool_size] * 2 \
+                    or replays == 0:
+                raise AssertionError("%s: pools %r, %d replays" % (
+                    tag, [p.n for p in fused.state.pools.values()], replays))
+            figures[tag + "_replays_fake_A"] = replays
+            devs[tag + "_pool_vs_twin"] = max(
+                float((fused.state.pools[k].buf - twin.state.pools[k].buf)
+                      .abs().max()) for k in fused.state.pools)
+        if fused.state.ema:
+            worst, moved, vs_twin = ema_readings(
+                fused.state.ema, twin.state.ema, *ema_check, n_steps)
+            devs[tag + "_ema_vs_formula"] = worst
+            devs[tag + "_ema_moved_share"] = moved
+            for k, v in vs_twin.items():
+                devs["%s_ema_vs_twin_%s" % (tag, k)] = v
+            if worst > 1.0 or moved < EMA_MOVED_SHARE or \
+                    max(vs_twin.values()) > EMA_TWIN_RTOL:
+                raise AssertionError(
+                    "%s: EMA shadow %g of its rounding bound from the "
+                    "formula, %g of its entries moved beyond it, %r "
+                    "(relative L2) from the twin's"
+                    % (tag, worst, moved, vs_twin))
+        del fused, twin
+        torch.cuda.empty_cache()
+
+    # --remat against the same model without it
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        batch = TRAIN_BATCH["float32"]
+        A, B, zs = _train_inputs(batch, nlatent, seed=61)
+        for tag, flags in REMAT_STEPS:
+            base, remat = model(**flags), model(remat=True, **flags)
+            want = remat_sites(batch, flags.get("norm") != "batch", **width)
+            lb, gb = counted(base, tag + " without --remat",
+                             {"fwd": want["bwd"], "bwd": want["bwd"]},
+                             lambda: train(base, A, B, *zs[0], None))
+            lr_, gr_ = counted(remat, tag, want,
+                               lambda: train(remat, A, B, *zs[0], None))
+            rl, rg = TRAIN_STEP1_RTOL["float32"]
+            devs[tag + "_losses"] = _held(lr_, lb, rl, tag + " vs no remat")
+            devs[tag + "_gnorms"] = _held(gr_, gb, rg, tag + " vs no remat")
+            for name in base.nets:
+                for (k, a), b in zip(base.nets[name].named_buffers(),
+                                     remat.nets[name].buffers()):
+                    if not torch.equal(a, b):
+                        raise AssertionError("%s: %s.%s differs from the "
+                                             "step without --remat"
+                                             % (tag, name, k))
+            del base, remat
+            torch.cuda.empty_cache()
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+
+    total, variants = counters.read(), counters.variants()  # and end here
+    if variants != expected:
+        raise AssertionError("phase 9 steps launched the variants %r, the "
+                             "plan picks %r" % (variants, expected))
+
+    # the bfloat16 batch-128 step three ways: peak memory and time (after
+    # one warm-up step; the counters are not read here)
+    batch = TRAIN_BATCH["bfloat16"]
+    A, B, _ = _train_inputs(batch, nlatent, seed=14)
+    A, B = torch.from_numpy(A).cuda(), torch.from_numpy(B).cuda()
+    for way, flags in MEMORY_WAYS:
+        m = model(compute_dtype="bfloat16", batchSize=batch, **flags)
+        m.train_instance(A, B)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        for _ in range(3):
+            m.train_instance(A, B)
+        torch.cuda.synchronize()
+        figures["bf16_b128_%s_step_ms" % way] = \
+            (time.perf_counter() - t0) / 3 * 1e3
+        figures["bf16_b128_%s_peak_memory_gb" % way] = \
+            torch.cuda.max_memory_allocated() / 2 ** 30
+        del m
+        torch.cuda.empty_cache()
+    # the float32 batch-32 step with and without the pool and EMA (the
+    # model draws the pools' coins and slots)
+    batch = TRAIN_BATCH["float32"]
+    A, B, _ = _train_inputs(batch, nlatent, seed=16)
+    A, B = torch.from_numpy(A).cuda(), torch.from_numpy(B).cuda()
+    ways = {way: model(batchSize=batch, **flags) for way, flags in EXTRAS_WAYS}
+    for m in ways.values():
+        for _ in range(2):
+            m.train_instance(A, B)
+    for _ in range(2):
+        for way, m in ways.items():
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(EXTRAS_TIMED):
+                m.train_instance(A, B)
+            torch.cuda.synchronize()
+            figures.setdefault("f32_b32_%s_step_ms" % way, []).append(
+                (time.perf_counter() - t0) / EXTRAS_TIMED * 1e3)
+    del ways, m
+    torch.cuda.empty_cache()
+    # the --grad_accum 4 step on 256x256 images, float32 at batch 32: time
+    # and peak memory (one warm-up step)
+    A, B, _ = _train_inputs(32, nlatent, seed=15, hw=256)
+    A, B = torch.from_numpy(A).cuda(), torch.from_numpy(B).cuda()
+    m = model(grid_size=256, batchSize=32, grad_accum=ACCUM_K)
+    m.train_instance(A, B)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    for _ in range(2):
+        m.train_instance(A, B)
+    torch.cuda.synchronize()
+    figures["f32_b32_256_accum4_step_ms"] = (time.perf_counter() - t0) / 2 \
+        * 1e3
+    figures["f32_b32_256_accum4_peak_memory_gb"] = \
+        torch.cuda.max_memory_allocated() / 2 ** 30
+    del m, A, B
+    torch.cuda.empty_cache()
+    log("extras steps: launches by direction and shape %s, per variant %s"
+        % (json.dumps({d: {"%dx%dx%d" % sh: c for sh, c in
+                           sorted(total[d].items())} for d in ("fwd", "bwd")}),
+           json.dumps(variants)))
+    log("extras steps: largest relative deviations %s" % json.dumps(devs))
+    log("extras steps: %s" % json.dumps(figures))
+    return by_dtype, variants, figures
+
+
+# phase 9 (b): one epoch each through the training CLI on phase 7's data
+EXTRAS_RUNS = {"pool": ["--pool_size", "50", "--ema", "0.999", "--remat"],
+               "accum": ["--grad_accum", str(ACCUM_K), "--ema", "0.999"]}
+
+
+def extras_cli_expected(name, width):
+    """Launches of one epoch of a phase-9 training CLI run (aug_cycle_gan)
+    by direction and (N, HW, C): a phase-8 run's structure (the stoch run's
+    evaluations and grids, and the inference grid of aug_cycle_gan) with
+    this run's step; under --remat the UBO's forward runs twice per RMSprop
+    step (its backward recomputes netG_A_B)."""
+    ngf, nb, batch = width["ngf"], width["n_blocks"], TRAIN_BATCH["float32"]
+    steps = (CLI_DATA["n_train"] - CLI_DATA["dev_size"]) // batch
+    want = variant_cli_expected("stoch", width)
+    fused = train_sites(batch, nb, ngf, width["ndf"])
+    if name == "accum":
+        step = accum_sites(batch, ACCUM_K, nb, ngf, width["ndf"])
+    else:
+        step = remat_sites(batch, True, nb, ngf, width["ndf"])
+    for d in ("fwd", "bwd"):
+        _add(want[d], fused, -steps)
+        _add(want[d], step[d], steps)
+    _add(want["fwd"], gen_sites(NUM_MULTI, "A", ngf, nb))
+    _add(want["fwd"], gen_sites(DEV_VIS_BATCH * NUM_MULTI, "B", ngf, nb))
+    if name == "pool":
+        _add(want["fwd"], gen_sites(EVAL_BATCH, "B", ngf, nb), 3 * UBO_STEPS)
+    return {d: {k: v for k, v in want[d].items() if v} for d in want}
+
+
+def drive_extras_cli(torch, K, tmp, device="cuda", width=CLI_WIDTH):
+    """Phase 9 (b): one epoch each of aug_cycle_gan --pool_size 50 --ema
+    0.999 --remat and --grad_accum 4 --ema 0.999 through the training CLI
+    on phase 7's data, then one more epoch of the pool run with
+    --continue_train; latest is format 2 with pools and shadows, and the
+    resumed run's restored pools equal the saved ones bit for bit; the
+    evaluation CLI with --use_ema 1 --metric mse on the EMA checkpoint
+    (TEST_MSE_A against eval_mse_A of the loaded and swapped model over the
+    same batch), export --use_ema 1 and one served predict_B against the
+    swapped model's.  Launches are read around each run and held to its
+    structure.  Returns (launches by direction and shape, per variant, the
+    figures)."""
+    import os
+
+    from domain_transfer_gan_torch.cli import test as test_cli
+    from domain_transfer_gan_torch.cli.export import main as export_main
+    from domain_transfer_gan_torch.cli.serve import build_server
+    from domain_transfer_gan_torch.cli.train import train_model
+    from domain_transfer_gan_torch.config import \
+        load_train_config_from_expr_dir
+    from domain_transfer_gan_torch.data import AlignedIterator, \
+        load_numpy_data
+    from domain_transfer_gan_torch.eval import eval_mse_A
+    from domain_transfer_gan_torch.models import create_model
+    from domain_transfer_gan_torch.models.api import CKPT_FORMAT, \
+        CycleGANBase
+    from domain_transfer_gan_torch.utils import checkpoint
+
+    root, ckpt = tmp + "/cli_data", tmp + "/extras_runs"
+    counters = _Counters(K)
+    total = {"fwd": {}, "bwd": {}}
+    expected = {d: {"cluster": 0, "streaming": 0} for d in ("fwd", "bwd")}
+    variants = {d: {"cluster": 0, "streaming": 0} for d in ("fwd", "bwd")}
+    figures = {"train_s": {}}
+
+    def counted(what, want, fn):
+        counters.reset()  # each run of phase 9 (b) starts here
+        t = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t
+        seen, by_variant = counters.read(), counters.variants()  # ends here
+        _held_counts(seen, want, what)
+        _tally(K, seen, 4, expected)
+        for d in ("fwd", "bwd"):
+            _add(total[d], seen[d])
+            for v, c in by_variant[d].items():
+                variants[d][v] += c
+        return out, dt
+
+    steps = (CLI_DATA["n_train"] - CLI_DATA["dev_size"]) // \
+        TRAIN_BATCH["float32"]
+    saved = {}
+    for name, flags in EXTRAS_RUNS.items():
+        argv = _cli_argv(root, ckpt, device, width,
+                         ["--name", name, "--niter_decay", "0"] + flags)
+        model, figures["train_s"][name] = counted(
+            "training CLI " + name, extras_cli_expected(name, width),
+            lambda: train_model(argv=argv))
+        if (model.epoch, model.state.step) != (1, steps):
+            raise AssertionError("training CLI %s: epoch %d step %d"
+                                 % (name, model.epoch, model.state.step))
+        payload = checkpoint.read_checkpoint(os.path.join(ckpt, name,
+                                                          "latest"))
+        if payload["format"] != CKPT_FORMAT or \
+                set(payload.get("ema", ())) != {"netG_A_B", "netG_B_A",
+                                                "netE_B"} or \
+                ("pools" in payload) != (name == "pool"):
+            raise AssertionError("training CLI %s: latest holds %s, ema %r"
+                                 % (name, payload["format"],
+                                    sorted(payload.get("ema", ()))))
+        saved[name] = payload
+
+    # one more epoch of the pool run, its pools right after the load kept
+    restored, load = [], CycleGANBase.load
+
+    def recording_load(self, path):
+        load(self, path)
+        restored.append({k: (p.buf.detach().cpu().clone(), p.n)
+                         for k, p in self.state.pools.items()})
+
+    CycleGANBase.load = recording_load
+    try:
+        argv = _cli_argv(root, ckpt, device, width,
+                         ["--name", "pool", "--continue_train",
+                          "--niter_decay", "1"] + EXTRAS_RUNS["pool"])
+        resumed, figures["train_s"]["pool_resumed"] = counted(
+            "training CLI pool, resumed", extras_cli_expected("pool", width),
+            lambda: train_model(argv=argv))
+    finally:
+        CycleGANBase.load = load
+    pools = saved["pool"]["pools"]
+    if len(restored) != 1 or any(
+            not torch.equal(restored[0][k][0], pools[k]["buf"])
+            or restored[0][k][1] != pools[k]["n"] for k in pools):
+        raise AssertionError("the resumed run's pools are not the saved ones")
+    if (resumed.epoch, resumed.state.step) != (2, 2 * steps):
+        raise AssertionError("resumed pool run: epoch %d step %d"
+                             % (resumed.epoch, resumed.state.step))
+
+    # the evaluation CLI on the EMA shadows of the accumulation run
+    expr = os.path.join(ckpt, "accum")
+    latest = os.path.join(expr, "latest")
+    out, figures["test_cli_use_ema_s"] = counted(
+        "test CLI --use_ema 1 --metric mse",
+        test_cli_expected("accum", "mse", width),
+        lambda: test_cli.test_model(
+            ["--chk_path", latest, "--dataroot", root, "--metric", "mse",
+             "--device", device, "--use_ema", "1"]))
+    opt = load_train_config_from_expr_dir(expr, seed=12345)
+    swapped = create_model(opt, testing=True, device=device)
+    swapped.load(latest)
+    swapped.swap_ema()
+    _, _, _, _, testA, testB = load_numpy_data(
+        root, grid_size=64, dev_size=CLI_DATA["dev_size"])
+    direct = eval_mse_A(AlignedIterator(testA, testB, batch_size=TEST_BATCH),
+                        swapped)
+    figures["test_mse_A_use_ema_vs_eval_mse_A"] = abs(out["TEST_MSE_A"]
+                                                      - direct)
+    if figures["test_mse_A_use_ema_vs_eval_mse_A"] > 1e-6 * direct:
+        raise AssertionError("--use_ema TEST_MSE_A %r, eval_mse_A of the "
+                             "swapped model %r" % (out["TEST_MSE_A"], direct))
+
+    # export the shadows of the pool run, serve one predict_B
+    expr = os.path.join(ckpt, "pool")
+    export = tmp + "/extras_export"
+    export_main(["--chk_path", os.path.join(expr, "latest"), "--out", export,
+                 "--device", device, "--use_ema", "1"])
+    loaded = create_model(load_train_config_from_expr_dir(expr),
+                          testing=True, device=device)
+    loaded.load(os.path.join(expr, "latest"))
+    loaded.swap_ema()
+    rng = np.random.RandomState(7)
+    A = rng.uniform(-1, 1, (32, 64, 64, 3)).astype(np.float32)
+    z = rng.randn(32, width["nlatent"]).astype(np.float32)
+    want_B = loaded.predict_B(A, z).cpu().numpy()
+    server = build_server(export, port=0, device=device)
+    thread = threading.Thread(target=server.serve_forever, daemon=True)
+    thread.start()
+    try:
+        got_B, _ = counted(
+            "served EMA predict_B",
+            {"fwd": gen_sites(32, "B", width["ngf"], width["n_blocks"]),
+             "bwd": {}},
+            lambda: _post("http://127.0.0.1:%d/predict_B"
+                          % server.server_address[1], {"A": A, "z": z}))
+    finally:
+        server.shutdown()
+        server.server_close()
+        thread.join(timeout=30)
+    if thread.is_alive():
+        raise RuntimeError("the server thread did not stop")
+    _check_images(got_B, 32, 64, 3, "served EMA predict_B")
+    figures["export_use_ema_max_abs_err"] = float(np.abs(got_B
+                                                         - want_B).max())
+    if figures["export_use_ema_max_abs_err"] > EXPORT_ATOL:
+        raise AssertionError("exported EMA predict_B: %r"
+                             % figures["export_use_ema_max_abs_err"])
+    log("extras CLI: launches by direction and shape %s, per variant %s"
+        % (json.dumps({d: {"%dx%dx%d" % sh: c for sh, c in
+                           sorted(total[d].items())} for d in ("fwd", "bwd")}),
+           json.dumps(variants)))
+    log("extras CLI: %s" % json.dumps(figures))
+    if variants != expected:
+        raise AssertionError("phase 9 CLIs launched the variants %r, the "
+                             "plan picks %r" % (variants, expected))
+    return total, variants, figures
+
+
 def time_train_step(torch):
     """train_step_ms and images/s per dtype at its batch: 3 warm-up steps,
     then wall time around 10 steps that end in one synchronize()."""
@@ -2359,13 +2958,32 @@ def main(argv=None):
         log("phase 8: %.1f s, launches %d forward, %d backward"
             % (time.perf_counter() - t8, p8_fwd, p8_bwd))
 
+        # phase 9: the step extras (gradient accumulation, the pool, EMA,
+        # --remat) against plain-norm twins, then through the CLIs (before
+        # phase 6 too)
+        t9 = time.perf_counter()
+        p9, p9_step_variants, p9_figures = drive_extras_steps(torch, K)
+        p9_cli, p9_cli_variants, _ = drive_extras_cli(torch, K, tmp)
+        for d in ("fwd", "bwd"):
+            _add(p9["float32"][d], p9_cli[d])
+        p9_variants = {d: {v: p9_step_variants[d][v] + p9_cli_variants[d][v]
+                           for v in p9_cli_variants[d]}
+                       for d in ("fwd", "bwd")}
+        p9_fwd, p9_bwd = (sum(sum(p9[n][d].values()) for n in p9)
+                          for d in ("fwd", "bwd"))
+        log("phase 9: %.1f s, launches %d forward, %d backward"
+            % (time.perf_counter() - t9, p9_fwd, p9_bwd))
+
         # phase 6: times
         rows = time_kernel(torch, F, K, site_counts, train_counts,
-                           cli_counts, p8, bpp_counts, extra=args.profile)
+                           cli_counts, p8, bpp_counts, extra=args.profile,
+                           extras_counts=p9)
         bwd_rows = time_bwd_kernel(torch, F, K, train_counts, cli_counts,
-                                   p8, bpp_counts, extra=args.profile)
+                                   p8, bpp_counts, extra=args.profile,
+                                   extras_counts=p9)
         e2e = time_end_to_end(torch, ctx)
         e2e.update(time_train_step(torch))
+        e2e["phase9"] = p9_figures
         e2e.update(time_ubo_step(torch))
         prof = None
         if args.profile:
@@ -2389,15 +3007,17 @@ def main(argv=None):
         "route": "cuda",
         "source": "domain_transfer_gan_torch/csrc/instance_norm.cu",
         "replaces": pallas + ":115",
-        "launches": launches + train_fwd + cli_fwd + served_fwd + p8_fwd,
+        "launches": launches + train_fwd + cli_fwd + served_fwd + p8_fwd
+        + p9_fwd,
         "launches_serving_path": launches,
         "launches_training_path": train_fwd,
         "launches_training_cli": cli_fwd + served_fwd,
         "launches_phase8": p8_fwd,
+        "launches_phase9": p9_fwd,
         "launches_by_variant": {
             v: serving_variants[v] + train_variants["fwd"][v]
             + cli_variants["fwd"][v] + p8_variants["fwd"][v]
-            for v in serving_variants},
+            + p9_variants["fwd"][v] for v in serving_variants},
         "max_abs_err": worst.overall("y_float32"),
         "max_err_bf16_ulps": worst.overall("y_bfloat16_ulps"),
         "check_by_variant": worst.summary(),
@@ -2418,14 +3038,16 @@ def main(argv=None):
         "route": "cuda",
         "source": "domain_transfer_gan_torch/csrc/instance_norm_bwd.cu",
         "replaces": pallas + ":175",
-        "launches": train_bwd + cli_bwd + p8_bwd,
+        "launches": train_bwd + cli_bwd + p8_bwd + p9_bwd,
         "launches_serving_path": 0,
         "launches_training_path": train_bwd,
         "launches_training_cli": cli_bwd,
         "launches_phase8": p8_bwd,
+        "launches_phase9": p9_bwd,
         "launches_by_variant": {
             v: train_variants["bwd"][v] + cli_variants["bwd"][v]
-            + p8_variants["bwd"][v] for v in train_variants["bwd"]},
+            + p8_variants["bwd"][v] + p9_variants["bwd"][v]
+            for v in train_variants["bwd"]},
         "max_abs_err": bwd_worst.overall("dx_float32"),
         "max_err_bf16_ulps": bwd_worst.overall("dx_bfloat16_ulps"),
         "check_by_variant": bwd_worst.summary(),

@@ -23,15 +23,16 @@ and affine stay fp32); the I/O contract stays float32 either way.
 Usage:
   python -m domain_transfer_gan_torch.cli.export \
       --chk_path checkpoints/exp1/latest --out exp1_export \
-      [--batch 32] [--serve_dtype bfloat16] [--device cuda]
+      [--batch 32] [--serve_dtype bfloat16] [--use_ema 1] [--device cuda]
 
 The weights come from exactly one of: ``--chk_path``, a checkpoint that the
 port's training CLI wrote (its directory holds the run's ``opt.json``);
 ``--params``, an ``.npz`` with flat keys in the JAX package's layout
 (``netG_A_B/conv0/kernel`` ...), with ``--expr_dir`` naming the directory of
 ``opt.json``; ``--init_seed N``, weights drawn from seed N (with
-``--expr_dir``).  Reading the JAX package's checkpoints is ROADMAP M15;
-the JAX CLI's ``--use_ema`` waits for EMA (M11) and is not a flag here.
+``--expr_dir``).  Reading the JAX package's checkpoints is ROADMAP M15.
+``--use_ema 1`` exports the EMA shadow weights of a run trained with
+``--ema``.
 
 Round-trip loading: :func:`load_exported`.
 """
@@ -145,6 +146,8 @@ def main(argv=None):
     ap.add_argument("--serve_dtype", choices=["float32", "bfloat16"],
                     default=None, help="compute dtype of the served "
                     "generators (default: the run's compute_dtype)")
+    ap.add_argument("--use_ema", type=int, choices=[0, 1], default=0,
+                    help="export the EMA shadow weights (--ema runs)")
     ap.add_argument("--device", default="cuda",
                     help="where the model is built, and the platform the "
                          "artifact is served on")
@@ -168,6 +171,11 @@ def main(argv=None):
         model.load(args.chk_path)
     elif args.params is not None:
         model.load_params(args.params)
+    if args.use_ema:
+        if not model.state.ema:
+            raise ValueError("--use_ema 1 needs a checkpoint trained with "
+                             "--ema")
+        model.swap_ema()
     manifest = export_model(model, args.out, batch=args.batch,
                             device=args.device)
     print("exported %s -> %s (%s)" % (

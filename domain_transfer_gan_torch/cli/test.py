@@ -3,7 +3,7 @@ torch device (``--device``, default ``cuda``), npz data path.
 
     python -m domain_transfer_gan_torch.cli.test --chk_path RUN/latest \\
         --dataroot DATA --metric {bpp,mse,visual,noise_sens,mvgauss,fid,z_div} \\
-        [--res_dir test_res] [--train_logvar 1] [--device cuda]
+        [--res_dir test_res] [--train_logvar 1] [--use_ema 1] [--device cuda]
 
 The run's options are read back from the checkpoint's directory (its
 ``opt.json``), with ``seed`` set to 12345: ``random``, ``np.random`` and the
@@ -20,12 +20,13 @@ What each metric prints and writes under ``expr_dir/res_dir``:
   ``multi_cycle_0.png`` and, for ``aug_cycle_gan``, ``inf_0.png``;
 - ``noise_sens``: ``noise_sens.npy``;
 - ``mvgauss``: ``MVGauss BPP: ...``, ``mvgauss_bpp.txt``;
-- ``fid``: ``PROXY_FID_B: ...``, ``fid.txt`` (the port's own random-feature
-  extractor, ``eval/fid.py``);
+- ``fid``: ``PROXY_FID_B: ...``, ``fid.txt`` (the JAX package's
+  random-feature extractor, stored with ``eval/fid.py``);
 - ``z_div``: ``Z_DIV_RATIO: ...``, ``z_diversity.json`` (strict JSON, NaN
   written as null).
 
-Refused by name: ``--use_ema 1`` (EMA, ROADMAP M11), ``--fid_extractor``
+``--use_ema 1`` scores the EMA shadows of a run trained with ``--ema`` (and
+refuses a checkpoint without them).  Refused by name: ``--fid_extractor``
 (a ``jax.export`` artifact), a run trained with ``--numpy_data 0`` and a
 dataroot without ``trainA.npz`` (the per-file and paired-jpg loaders,
 ROADMAP M9; the latter needs PIL).
@@ -41,7 +42,7 @@ import time
 import numpy as np
 
 from ..config import TestOptions, UnportedFlagError, \
-    load_train_config_from_expr_dir
+    load_train_config_from_expr_dir, paired_jpg_refusal
 from ..data import AlignedIterator, UnalignedIterator, load_numpy_data
 from ..eval import (
     compute_bpp_mvgauss_B,
@@ -112,10 +113,7 @@ def test_model(argv=None) -> dict:
             "the run was trained with --numpy_data 0: the per-file loader "
             "is not ported to the PyTorch package yet (ROADMAP M9)")
     if not os.path.exists(os.path.join(opt.dataroot, "trainA.npz")):
-        raise UnportedFlagError(
-            "%s holds no trainA.npz: the paired-jpg branch of "
-            "load_edges2shoes (which needs PIL) is not ported to the "
-            "PyTorch package yet (ROADMAP M9)" % opt.dataroot)
+        raise paired_jpg_refusal(opt.dataroot)
     opt.res_dir = os.path.join(expr_dir, topt.res_dir)
     os.makedirs(opt.res_dir, exist_ok=True)
 
@@ -134,6 +132,11 @@ def test_model(argv=None) -> dict:
     model = create_model(opt, testing=True, device=device,
                          image_size=opt.grid_size)
     model.load(topt.chk_path)
+    if topt.use_ema:
+        if not model.state.ema:
+            raise ValueError("--use_ema 1 needs a checkpoint trained with "
+                             "--ema")
+        model.swap_ema()
     out = {}
 
     if topt.metric == "bpp":

@@ -22,8 +22,16 @@ vectors, the same rows in the same order as the host feed.
 
 The instance norms run the hand-written CUDA kernels on a CUDA device
 whatever ``--use_pallas`` says (the flag is accepted and has no effect).
+The step extras train as in the JAX package: ``--pool_size N`` (the
+discriminators score a fake-image pool), ``--ema D`` (EMA shadows of the
+generators and the encoder, in the checkpoints; ``--use_ema 1`` of the
+evaluation and export CLIs scores them), ``--grad_accum K`` (K microbatches
+per step, ``models/accum.py``) and ``--remat`` (the generators recompute
+their activations in the backward).
 
-Flags the port does not run yet are refused by name (``config.refuse_unported``).
+Flags the port does not run yet are refused by name
+(``config.refuse_unported``), before anything is written; so is a dataroot
+that the JAX CLI would read as a paired-jpg folder.
 """
 
 from __future__ import annotations

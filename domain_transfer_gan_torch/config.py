@@ -17,7 +17,7 @@ flags that are accepted and have no effect.
 
 :class:`TestOptions` is the evaluation CLI's parser (:class:`TestConfig`):
 the JAX package's flags with ``--device`` in place of ``--host_devices``;
-it refuses ``--use_ema 1`` and ``--fid_extractor`` the same way.
+it refuses ``--fid_extractor`` the same way.
 """
 
 from __future__ import annotations
@@ -254,11 +254,6 @@ _UNPORTED = (
     ("--ckpt_backend", "ckpt_backend", lambda c: c.ckpt_backend != "flax",
      "M15"),
     ("--profile_dir", "profile_dir", lambda c: bool(c.profile_dir), "M10"),
-    ("--pool_size", "pool_size", lambda c: int(c.pool_size) > 0, "M11"),
-    ("--ema", "ema", lambda c: float(c.ema) > 0.0, "M11"),
-    ("--grad_accum", "grad_accum", lambda c: int(c.grad_accum or 1) > 1,
-     "M11"),
-    ("--remat", None, lambda c: bool(c.remat), "M11"),
 )
 
 
@@ -267,10 +262,21 @@ class UnportedFlagError(NotImplementedError):
     run yet."""
 
 
+def paired_jpg_refusal(dataroot: str) -> UnportedFlagError:
+    """The refusal of a dataroot without ``trainA.npz`` (the paired-jpg
+    branch of the JAX CLIs), shared by both CLIs."""
+    return UnportedFlagError(
+        "%s holds no trainA.npz: the paired-jpg branch of "
+        "load_edges2shoes (which needs PIL) is not ported to the "
+        "PyTorch package yet (ROADMAP M9)" % dataroot)
+
+
 def refuse_unported(cfg: TrainConfig) -> None:
     """Raise :class:`UnportedFlagError` naming the first flag of ``cfg``
     that asks for something the port's training CLI does not run, and the
-    ROADMAP item that ports it."""
+    ROADMAP item that ports it; also a dataroot that the JAX CLI would read
+    as a paired-jpg folder (a ``train/`` directory and no ``trainA.npz``).
+    Nothing is written before this check."""
     for flag, field, asked, item in _UNPORTED:
         if asked(cfg):
             if field is not None:
@@ -278,6 +284,9 @@ def refuse_unported(cfg: TrainConfig) -> None:
             raise UnportedFlagError(
                 "%s is not ported to the PyTorch package yet (ROADMAP %s)"
                 % (flag, item))
+    if (not os.path.exists(os.path.join(cfg.dataroot, "trainA.npz"))
+            and os.path.isdir(os.path.join(cfg.dataroot, "train"))):
+        raise paired_jpg_refusal(cfg.dataroot)
 
 
 class TrainOptions:
@@ -414,11 +423,9 @@ class TestConfig:
     device: str = "cuda"
 
 
-# what the evaluation CLI refuses, as _UNPORTED: --use_ema waits for EMA;
-# an --fid_extractor file is a jax.export (StableHLO) artifact, which
-# nothing without JAX can run
+# what the evaluation CLI refuses, as _UNPORTED: an --fid_extractor file
+# is a jax.export (StableHLO) artifact, which nothing without JAX can run
 _UNPORTED_TEST = (
-    ("--use_ema", "use_ema", lambda c: bool(c.use_ema), "M11"),
     ("--fid_extractor", "fid_extractor", lambda c: bool(c.fid_extractor),
      "M8: the file is a jax.export StableHLO artifact, which only JAX can "
      "run"),

@@ -1,8 +1,8 @@
 """Evaluation of the port: ``eval_mse_A``, the variational UBO
 (``variational_ubo`` / ``eval_ubo_B``), the evaluation CLI's metrics
 (``train_logvar``, the MVGauss baseline, noise sensitivity, the train KL,
-proxy-FID, z-diversity) and the PNG image grids.  ``eval/moments.py`` of
-the JAX package is not ported yet."""
+proxy-FID, z-diversity), the extractor-free distribution distances
+(``moments.py``) and the PNG image grids."""
 
 from .diversity import eval_z_diversity, z_diversity_stats
 from .fid import compute_fid, eval_fid_B, frechet_distance, \
@@ -18,6 +18,11 @@ from .metrics import (
     train_mvgauss_B,
     variational_ubo,
 )
+from .moments import (
+    channel_moment_distance,
+    distribution_distances,
+    radial_spectrum_distance,
+)
 from .visualize import one_to_three_channels, save_image_grid, visualize_data
 
 __all__ = ["eval_mse_A", "eval_ubo_B", "variational_ubo", "train_logvar",
@@ -25,4 +30,6 @@ __all__ = ["eval_mse_A", "eval_ubo_B", "variational_ubo", "train_logvar",
            "sensitivity_to_edge_noise", "compute_train_kld", "compute_fid",
            "eval_fid_B", "frechet_distance", "random_feature_extractor",
            "eval_z_diversity", "z_diversity_stats",
+           "channel_moment_distance", "radial_spectrum_distance",
+           "distribution_distances",
            "one_to_three_channels", "save_image_grid", "visualize_data"]

@@ -1,21 +1,24 @@
-"""Fréchet distance between feature distributions, with a fixed-seed random
+"""Fréchet distance between feature distributions, with a fixed random
 convolutional feature extractor: the port of the JAX package's
 ``eval/fid.py``.
 
 There are no pretrained vision weights here, so the default extractor is a
-**fixed-seed random conv net** (4 x conv3x3 stride 2 + LeakyReLU(0.2), then
-the mean over space), a documented proxy ("random-feature FID"): comparable
+**fixed random conv net** (4 x conv3x3 stride 2 + LeakyReLU(0.2), then the
+mean over space), a documented proxy ("random-feature FID"): comparable
 across models and checkpoints scored with the same extractor, not with
 published Inception FID numbers.
 
-The weights are drawn as flax's default ``nn.Conv`` init draws them (LeCun
-normal kernels, zero biases), but from a ``torch.Generator`` seeded with
-1234: the JAX package draws from ``jax.random.PRNGKey(1234)``, which cannot
-be reproduced here, so the port's proxy-FID numbers are its own.  Loading
-the JAX extractor's parameters (``utils.convert.jax_fid_params_to_state_dict``)
-gives the JAX features.  The JAX package's ``--fid_extractor`` files are
-``jax.export`` artifacts, which only JAX can run; the evaluation CLI refuses
-the flag.
+Its weights are the JAX package's own: ``net.init(jax.random.PRNGKey(1234),
+...)`` at width 64, stored as data in ``fid_weights.npz`` beside this file
+(flax layout; ``conv1`` .. ``conv3`` once, ``conv0`` for every input channel
+count C from 1 to 16, the most the repo's data has: ``data/climate.py``'s
+rasters; flax draws ``conv1`` .. ``conv3`` the same whatever C is).  So a
+checkpoint scores the same ``PROXY_FID_B`` in both packages.  The port draws
+no extractor weights of its own: another width or seed, or C > 16, is a
+``ValueError``.  The file is written from the JAX package by
+``tests/test_torch_port_fid.py::write_fid_weights``.  The JAX package's
+``--fid_extractor`` files are ``jax.export`` artifacts, which only JAX can
+run; the evaluation CLI refuses the flag.
 
 The convolutions are cuDNN's (the JAX package computes them outside any
 Pallas kernel).  Images are NHWC numpy arrays or tensors in [-1, 1];
@@ -24,7 +27,9 @@ features come back as numpy arrays.
 
 from __future__ import annotations
 
-from typing import Callable, Optional
+import functools
+import os
+from typing import Callable, Dict, Optional
 
 import numpy as np
 import torch
@@ -32,22 +37,26 @@ from scipy import linalg
 from torch import nn
 from torch.nn import functional as F
 
-from ..nn.init import lecun_normal_
+from ..utils.convert import jax_fid_params_to_state_dict
+
+FID_WEIGHTS = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                           "fid_weights.npz")
+FID_WIDTH, FID_SEED, FID_MAX_CHANNELS = 64, 1234, 16
 
 
 class RandomFeatureNet(nn.Module):
     """4 x (conv3x3 stride 2, padding 1 + LeakyReLU(0.2)), global mean:
-    (N, H, W, 3) -> (N, 4 * width)."""
+    (N, H, W, in_ch) -> (N, 4 * width).  Its weights are zeros until a
+    state is loaded (:func:`stored_extractor_state`)."""
 
-    def __init__(self, width: int = 64, in_ch: int = 3,
-                 generator: Optional[torch.Generator] = None):
+    def __init__(self, width: int = 64, in_ch: int = 3):
         super().__init__()
         chans = (in_ch, width, 2 * width, 4 * width, 4 * width)
         for i in range(4):
             conv = nn.Conv2d(chans[i], chans[i + 1], 3, stride=2, padding=1)
-            lecun_normal_(conv.weight.data, 9 * chans[i],
-                          generator or torch.Generator())
-            conv.bias.data.zero_()
+            with torch.no_grad():
+                conv.weight.zero_()
+                conv.bias.zero_()
             setattr(self, "conv%d" % i, conv)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
@@ -57,23 +66,59 @@ class RandomFeatureNet(nn.Module):
         return x.mean(dim=(2, 3))
 
 
-def random_feature_extractor(width: int = 64, seed: int = 1234,
+@functools.lru_cache(maxsize=None)
+def _stored() -> Dict[str, np.ndarray]:
+    with np.load(FID_WEIGHTS) as f:
+        return {k: f[k] for k in f.files}
+
+
+def stored_extractor_state(in_ch: int) -> Dict[str, torch.Tensor]:
+    """The ``state_dict`` of :class:`RandomFeatureNet` (width 64) holding
+    the JAX package's default extractor for ``in_ch`` input channels."""
+    if not 1 <= in_ch <= FID_MAX_CHANNELS:
+        raise ValueError(
+            "the stored proxy-FID extractor covers 1 to %d input channels, "
+            "got %d (the port draws no extractor weights of its own)"
+            % (FID_MAX_CHANNELS, in_ch))
+    w = _stored()
+    params = {"conv0": {"kernel": w["conv0/kernel/c%d" % in_ch],
+                        "bias": w["conv0/bias"]}}
+    for i in (1, 2, 3):
+        params["conv%d" % i] = {"kernel": w["conv%d/kernel" % i],
+                                "bias": w["conv%d/bias" % i]}
+    return jax_fid_params_to_state_dict(params)
+
+
+def random_feature_extractor(width: int = FID_WIDTH, seed: int = FID_SEED,
                              batch: int = 64, device="cuda",
                              state_dict=None) -> Callable:
-    """Deterministic random-conv feature extractor (N, H, W, 3) -> (N, 4 *
-    width), fed in batches of ``batch`` on ``device``; ``state_dict``
-    replaces the seeded weights."""
-    generator = torch.Generator()
-    generator.manual_seed(seed)
-    net = RandomFeatureNet(width, generator=generator)
-    if state_dict is not None:
-        net.load_state_dict(state_dict, strict=True)
-    net = net.to(device).eval().requires_grad_(False)
+    """The JAX package's random-conv feature extractor (N, H, W, C) -> (N,
+    4 * width), fed in batches of ``batch`` on ``device``: its stored
+    weights for the images' C, or ``state_dict`` (any width).  Only the
+    stored width 64 and seed 1234 exist without a ``state_dict``."""
+    if state_dict is None and (width, seed) != (FID_WIDTH, FID_SEED):
+        raise ValueError(
+            "only the JAX extractor of width %d and seed %d is stored, got "
+            "width %d seed %d; pass its state_dict for another"
+            % (FID_WIDTH, FID_SEED, width, seed))
+    nets = {}
+
+    def net_for(in_ch):
+        if in_ch not in nets:
+            sd = state_dict
+            if sd is None:
+                sd = stored_extractor_state(in_ch)
+            net = RandomFeatureNet(sd["conv0.weight"].shape[0],
+                                   sd["conv0.weight"].shape[1])
+            net.load_state_dict(sd, strict=True)
+            nets[in_ch] = net.to(device).eval().requires_grad_(False)
+        return nets[in_ch]
 
     def extract(images) -> np.ndarray:
         if not isinstance(images, torch.Tensor):
             images = torch.from_numpy(np.ascontiguousarray(images,
                                                            np.float32))
+        net = net_for(int(images.shape[-1]))
         outs = []
         with torch.no_grad():
             for i in range(0, len(images), batch):
@@ -115,14 +160,27 @@ def compute_fid(real_images, fake_images,
 
 
 def eval_fid_B(dataset, model, n_max: int = 2048,
-               extractor: Optional[Callable] = None) -> float:
-    """Proxy-FID of generated B (from A with the model's prior z draws)
-    against real B, over up to ``n_max`` images, the extractor on the
-    model's device."""
+               extractor: Optional[Callable] = None,
+               rng_seed: Optional[int] = None) -> float:
+    """Proxy-FID of generated B (from A with prior z) against real B, over
+    up to ``n_max`` images, the extractor on the model's device.  The z
+    draws consume the model's noise stream, or with ``rng_seed`` a
+    ``torch.Generator`` of their own on the model's device, seeded with it,
+    so the score does not depend on the model's state.  Those draws are the
+    port's: they match the JAX package's (a ``jax.random`` key of the same
+    seed) only where the same z is fed to both."""
+    gen = None
+    if rng_seed is not None:
+        gen = torch.Generator(device=model.device)
+        gen.manual_seed(rng_seed)
     reals, fakes, n = [], [], 0
     for batch in dataset:
         real_A = model._tensor(batch["A"])
-        z = model.sample_prior_z(real_A.shape[0])
+        if gen is None:
+            z = model.sample_prior_z(real_A.shape[0])
+        else:
+            z = torch.randn((real_A.shape[0], model.opt.nlatent),
+                            device=model.device, generator=gen)
         reals.append(model._tensor(batch["B"]))
         fakes.append(model.predict_B(real_A, z))
         n += real_A.shape[0]

@@ -18,7 +18,8 @@ in every case:
 calls, the learning-rate schedule, the device-resident train feed and
 checkpoints (``save`` / ``load`` / ``wait_for_saves``, the port's own
 ``torch.save`` format; reading the JAX package's checkpoints is ROADMAP
-M15).  ``testing`` only keeps a model from writing ``nets.txt``.
+M15) and the EMA swap.  ``testing`` only keeps a model from writing
+``nets.txt``.  ``--grad_accum K`` picks the steps of ``models/accum.py``.
 
 All tensors are NHWC; latent codes are flat (N, nlatent).  Inputs may be
 numpy arrays or tensors; outputs are tensors on the model's device.  Every
@@ -51,8 +52,11 @@ from ..utils.convert import (
     GENERATOR_NETS,
     jax_batch_stats_to_buffers,
     jax_params_to_state_dict,
+    jax_pool_to_port,
     unflatten_params,
 )
+from .accum import make_aug_accum_step, make_stoch_accum_step
+from .pool import PoolState, draw_pool
 from .state import DTYPES, init_state
 from .steps import (
     make_aug_supervised_step,
@@ -62,7 +66,19 @@ from .steps import (
 
 MODELS = ("cycle_gan", "stoch_cycle_gan", "aug_cycle_gan")
 
-CKPT_FORMAT = "domain_transfer_gan_torch checkpoint 1"
+# format 2 adds the pools and the EMA shadows; format 1 files still load
+CKPT_FORMAT = "domain_transfer_gan_torch checkpoint 2"
+CKPT_FORMATS = ("domain_transfer_gan_torch checkpoint 1", CKPT_FORMAT)
+
+
+def _accum_k(opt: TrainConfig) -> int:
+    """--grad_accum microbatch count (1 = the fused single-batch step)."""
+    k = int(opt.grad_accum or 1)
+    if k > 1 and opt.supervised:
+        raise ValueError("--grad_accum does not support --supervised runs "
+                         "(the supervised step is single-batch; drop one "
+                         "of the two flags)")
+    return k
 
 VISUALS = ("real_A", "fake_B", "rec_A", "real_B", "fake_A", "rec_B")
 
@@ -115,6 +131,18 @@ class CycleGANBase:
 
     def train(self):
         self.training = True
+
+    @torch.no_grad()
+    def swap_ema(self):
+        """Swap the live generator/encoder parameters with their EMA
+        shadows (--ema), in place.  Call once before scoring or exporting
+        the averaged weights, and once after to train on the live ones
+        again.  A no-op when EMA is off."""
+        for name, shadow in self.state.ema.items():
+            params = list(self.nets[name].parameters())
+            live = [p.clone() for p in params]
+            torch._foreach_copy_(params, shadow)
+            torch._foreach_copy_(shadow, live)
 
     # -- inputs and draws ---------------------------------------------------
     def _tensor(self, x) -> torch.Tensor:
@@ -227,6 +255,21 @@ class CycleGANBase:
                                    data_B.index_select(0, idx_B),
                                    prior_z_B, **kw)
 
+    def _pool_draws(self, batch: int, pool_draws):
+        """The (coin, slot) draws of both pools for one step: from the
+        model's noise generator unless the caller passes them (for tests,
+        ``{"fake_A": (coin, slot), "fake_B": (coin, slot)}``); None without
+        pools."""
+        if not self.state.pools:
+            return None
+        if pool_draws is None:
+            return {name: draw_pool(batch, pool.buf.shape[0], self._noise,
+                                    self.device)
+                    for name, pool in self.state.pools.items()}
+        return {name: (torch.as_tensor(coin).to(self.device, torch.bool),
+                       torch.as_tensor(slot).to(self.device, torch.int64))
+                for name, (coin, slot) in pool_draws.items()}
+
     def _format_train_out(self, losses, visuals, gnorms, loss_keys,
                           gnorm_keys):
         losses = OrderedDict((k, losses[k]) for k in loss_keys)
@@ -298,13 +341,41 @@ class CycleGANBase:
             name, jax_batch_stats_to_buffers(name, batch_stats),
             self.nets[name].named_buffers(), "batch_stats")
 
+    def load_jax_ema(self, name: str, params):
+        """Set one network's EMA shadow from a JAX ``ema`` subtree (a params
+        tree); the model must track EMA."""
+        sd = jax_params_to_state_dict(name, params)
+        names = [n for n, _ in self.nets[name].named_parameters()]
+        if set(sd) != set(names):
+            raise KeyError("%s: ema and the module disagree on %s"
+                           % (name, sorted(set(sd) ^ set(names))))
+        with torch.no_grad():
+            for t, n in zip(self.state.ema[name], names):
+                t.copy_(sd[n])
+        return self
+
+    def load_jax_pools(self, pools):
+        """Set the pools from the JAX ``pools`` (per name a buffer
+        ``(P, H, W, C)`` and a fill count ``n``) of the same sizes."""
+        for name, pool in pools.items():
+            buf, n = jax_pool_to_port(pool)
+            mine = self.state.pools[name]
+            if tuple(buf.shape) != tuple(mine.buf.shape):
+                raise ValueError("pool %s: %r, the model's is %r" % (
+                    name, tuple(buf.shape), tuple(mine.buf.shape)))
+            self.state.pools[name] = PoolState(
+                buf=buf.to(mine.buf.device, mine.buf.dtype), n=n)
+        return self
+
     # -- checkpoints (latest / best_A / best_B) ------------------------------
     def _ckpt_payload(self) -> dict:
         """The JAX package's payload in torch form: every net's
         ``state_dict`` (parameters and batch-norm buffers), one Adam state
-        per net, ``step``, ``old_lr`` and ``epoch``.  Device tensors; the
-        writer copies them to the CPU."""
-        return {
+        per net, ``step``, ``old_lr``, ``epoch`` and, where the model has
+        them, the pools (buffer and fill count each) and the EMA shadows
+        (per net by parameter name).  Device tensors; the writer copies
+        them to the CPU."""
+        payload = {
             "format": CKPT_FORMAT,
             "nets": {name: dict(net.state_dict())
                      for name, net in self.nets.items()},
@@ -315,6 +386,15 @@ class CycleGANBase:
             "old_lr": float(self.old_lr),
             "epoch": int(self.epoch),
         }
+        if self.state.pools:
+            payload["pools"] = {name: {"buf": pool.buf, "n": int(pool.n)}
+                                for name, pool in self.state.pools.items()}
+        if self.state.ema:
+            payload["ema"] = {
+                name: dict(zip((n for n, _ in
+                                self.nets[name].named_parameters()), shadow))
+                for name, shadow in self.state.ema.items()}
+        return payload
 
     def save(self, chk_name: str, async_save: bool = False):
         """Write ``expr_dir/chk_name``.  With ``async_save`` the payload is
@@ -336,15 +416,20 @@ class CycleGANBase:
             self._async_ckpt.wait()
 
     def load(self, chk_path: str):
-        """Restore a checkpoint written by :meth:`save`: parameters, buffers
-        and Adam moments are copied into this model's tensors (device and
-        dtype stay), ``step``, ``old_lr``, ``epoch`` set, ``old_lr_d``
-        derived.  Raises if a net or an entry is missing or extra (a
-        checkpoint of another variant among them)."""
+        """Restore a checkpoint written by :meth:`save` (format 1 or 2):
+        parameters, buffers and Adam moments are copied into this model's
+        tensors (device and dtype stay), ``step``, ``old_lr``, ``epoch`` set,
+        ``old_lr_d`` derived.  Raises if a net or an entry is missing or
+        extra (a checkpoint of another variant among them).  As the JAX
+        package's ``load``: pools of other sizes than this config's (or none,
+        in a format-1 file) are replaced by fresh ones, with a warning; the
+        checkpoint's EMA shadows are restored where it has them, and where
+        this config tracks EMA and the checkpoint predates it the shadows
+        are seeded from the loaded parameters."""
         self.wait_for_saves()
         payload = read_checkpoint(chk_path)
         if not isinstance(payload, dict) or \
-                payload.get("format") != CKPT_FORMAT:
+                payload.get("format") not in CKPT_FORMATS:
             raise ValueError(
                 "%s is not a checkpoint of this package (reading the JAX "
                 "package's checkpoints is ROADMAP M15)" % chk_path)
@@ -366,10 +451,45 @@ class CycleGANBase:
                     for t, v in zip(mine, theirs):
                         t.copy_(v)
                 state.count = int(saved["count"])
+        self._load_pools(payload.get("pools", {}))
+        self._load_ema(payload.get("ema", {}))
         self.state.step = int(payload["step"])
         self.old_lr = float(payload["old_lr"])
         self.epoch = int(payload["epoch"])
         self._derive_lr_d()
+
+
+    def _load_pools(self, saved: dict):
+        cur = self.state.pools
+        if set(saved) != set(cur) or any(
+                tuple(saved[k]["buf"].shape) != tuple(cur[k].buf.shape)
+                for k in saved):
+            print("warning: checkpoint pool buffers do not match this "
+                  "config's --pool_size; starting with fresh pools")
+            return
+        for name, pool in saved.items():
+            cur[name] = PoolState(
+                buf=pool["buf"].to(cur[name].buf.device, cur[name].buf.dtype),
+                n=int(pool["n"]))
+
+    @torch.no_grad()
+    def _load_ema(self, saved: dict):
+        if not saved:
+            # a config that tracks EMA, a checkpoint from before it: the
+            # shadow starts at the LOADED parameters, so --use_ema scores
+            # trained weights
+            saved = {name: dict(self.nets[name].named_parameters())
+                     for name in self.state.ema}
+        ema = {}
+        for name, shadow in saved.items():
+            params = dict(self.nets[name].named_parameters())
+            if set(shadow) != set(params):
+                raise KeyError("ema of %s: the checkpoint and the module "
+                               "disagree on %s" % (
+                                   name, sorted(set(shadow) ^ set(params))))
+            ema[name] = [shadow[n].detach().to(p.device, p.dtype).clone()
+                         for n, p in params.items()]
+        self.state.ema = ema
 
 
 class StochCycleGAN(CycleGANBase):
@@ -381,17 +501,21 @@ class StochCycleGAN(CycleGANBase):
     def __init__(self, opt: TrainConfig, ignore_noise: bool = False, **kw):
         self.ignore_noise = ignore_noise
         super().__init__(opt, **kw)
-        self._train_step = make_stoch_train_step(opt, ignore_noise)
+        self._train_step = (
+            make_stoch_accum_step(opt, ignore_noise) if _accum_k(opt) > 1
+            else make_stoch_train_step(opt, ignore_noise))
 
     def train_instance(self, real_A, real_B, prior_z_B=None,
-                       plain_norm: bool = False):
-        """One two-phase train step.  Returns (losses, visuals) and, with
-        ``monitor_gnorm``, gnorms: ordered dicts of device tensors."""
+                       plain_norm: bool = False, pool_draws=None):
+        """One two-phase train step.  ``pool_draws`` replaces the pools'
+        draws (see :meth:`_pool_draws`).  Returns (losses, visuals) and,
+        with ``monitor_gnorm``, gnorms: ordered dicts of device tensors."""
         real_A, real_B = self._tensor(real_A), self._tensor(real_B)
         prior_z_B = self._prep_prior(real_A.shape[0], prior_z_B)
         losses, visuals, gnorms = self._train_step(
             self.state, real_A, real_B, prior_z_B, float(self.old_lr),
-            float(self.old_lr_d), plain_norm)
+            float(self.old_lr_d), plain_norm,
+            self._pool_draws(real_A.shape[0], pool_draws))
         return self._format_train_out(
             losses, visuals, gnorms,
             ("D_A", "G_A", "Cyc_A", "D_B", "G_B", "Cyc_B", "P_t_A", "P_f_A",
@@ -420,7 +544,8 @@ class AugmentedCycleGAN(CycleGANBase):
 
     def __init__(self, opt: TrainConfig, **kw):
         super().__init__(opt, **kw)
-        self._train_step = make_aug_train_step(opt)
+        self._train_step = (make_aug_accum_step(opt) if _accum_k(opt) > 1
+                            else make_aug_train_step(opt))
         self._sup_step = make_aug_supervised_step(opt)
 
     # -- the posterior ------------------------------------------------------
@@ -483,11 +608,12 @@ class AugmentedCycleGAN(CycleGANBase):
 
     # -- training -----------------------------------------------------------
     def train_instance(self, real_A, real_B, prior_z_B=None, eps_post=None,
-                       plain_norm: bool = False):
+                       plain_norm: bool = False, pool_draws=None):
         """One two-phase train step.  ``eps_post`` is the noise of the
         reparametrized posterior, (B, nlatent); None draws it here.  (The
         JAX package draws it inside its step from the step's key; passing it
-        lets the two packages be compared on the same noise.)  Returns
+        lets the two packages be compared on the same noise.)
+        ``pool_draws`` replaces the pools' draws likewise.  Returns
         (losses, visuals) and, with ``monitor_gnorm``, gnorms: ordered dicts
         of device tensors; nothing is read back to the host."""
         real_A, real_B = self._tensor(real_A), self._tensor(real_B)
@@ -495,7 +621,8 @@ class AugmentedCycleGAN(CycleGANBase):
         eps_post = self._prep_prior(real_A.shape[0], eps_post)
         losses, visuals, gnorms = self._train_step(
             self.state, real_A, real_B, prior_z_B, eps_post,
-            float(self.old_lr), float(self.old_lr_d), plain_norm)
+            float(self.old_lr), float(self.old_lr_d), plain_norm,
+            self._pool_draws(real_A.shape[0], pool_draws))
         return self._format_train_out(
             losses, visuals, gnorms,
             ("D_A", "G_A", "Cyc_A", "Cyc_z_B", "KLD_z_B", "D_B", "G_B",

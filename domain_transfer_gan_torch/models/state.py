@@ -13,11 +13,17 @@ Optimizer semantics follow the JAX package's ``models/state.py``:
 Unlike the JAX package, whose state is an immutable pytree, the port updates
 parameters and moments in place: ``apply_net_update`` mutates its arguments.
 Parameters and moments are float32 whatever the compute dtype.
+
+The opt-in extras live here too: the fake-image pools (``--pool_size``,
+``models/pool.py``), the EMA shadows of the generators and the encoder
+(``--ema``, :func:`ema_update`) and ``--remat``, which runs the two
+generators under ``torch.utils.checkpoint`` while grad is enabled
+(``nn.networks._Net._maybe_remat``).
 """
 
 from __future__ import annotations
 
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 from typing import Dict, List, Optional, Sequence
 
 import torch
@@ -26,12 +32,11 @@ from torch import nn
 from ..config import TrainConfig
 from ..nn import networks as N
 from ..ops.numerics import clip_grads_torchlike
+from .pool import PoolState, init_pool
 
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
-
-_LATER = ("%s is not ported yet: the image pool, EMA shadows, gradient "
-          "accumulation and --remat come with the slice that ports "
-          "models/pool.py, models/accum.py and the step extras")
+# the nets an EMA shadow tracks, where the model has them
+EMA_NETS = ("netG_A_B", "netG_B_A", "netE_B")
 
 
 @dataclass
@@ -47,13 +52,32 @@ class AdamState:
 @dataclass
 class TrainState:
     """Networks by name ('netG_A_B', 'netG_B_A', 'netD_A', 'netD_B' and, for
-    aug_cycle_gan, 'netE_B', 'netD_z_B'), one :class:`AdamState` each, and
-    the number of train steps taken.  Batch-norm running statistics are
-    buffers of the networks."""
+    aug_cycle_gan, 'netE_B', 'netD_z_B'), one :class:`AdamState` each, the
+    number of train steps taken, the fake-image pools ('fake_A', 'fake_B';
+    empty without ``--pool_size``) and the EMA shadows (per tracked net its
+    parameters' shadows in ``net.parameters()`` order; empty without
+    ``--ema``).  Batch-norm running statistics are buffers of the
+    networks."""
 
     nets: Dict[str, nn.Module]
     opt_state: Dict[str, AdamState]
     step: int = 0
+    pools: Dict[str, PoolState] = field(default_factory=dict)
+    ema: Dict[str, List[torch.Tensor]] = field(default_factory=dict)
+
+
+@torch.no_grad()
+def ema_update(ema: Dict[str, List[torch.Tensor]], nets: Dict[str, nn.Module],
+               decay: float) -> None:
+    """One EMA step over the tracked nets, in place and in float32:
+    ``e = decay * e + (1 - decay) * p`` for every parameter (not the
+    buffers).  A no-op when EMA is off (empty ``ema`` or ``decay <= 0``)."""
+    if not ema or decay <= 0.0:
+        return
+    for name, shadow in ema.items():
+        torch._foreach_mul_(shadow, decay)
+        torch._foreach_add_(shadow, list(nets[name].parameters()),
+                            alpha=1.0 - decay)
 
 
 def adam_init(params: Sequence[torch.Tensor]) -> AdamState:
@@ -126,7 +150,8 @@ def init_state(cfg: TrainConfig, device="cuda",
                generator: Optional[torch.Generator] = None,
                image_size: Optional[int] = None) -> TrainState:
     """Networks on ``device`` (float32 parameters, computing in
-    ``cfg.compute_dtype``) and fresh optimizer states."""
+    ``cfg.compute_dtype``), fresh optimizer states and, where the config
+    asks for them, empty pools and EMA shadows equal to the parameters."""
     hw = image_size or cfg.grid_size
     if hw < 64:
         raise ValueError(
@@ -134,12 +159,6 @@ def init_state(cfg: TrainConfig, device="cuda",
             "edges-discriminator and latent-encoder heads collapse a 4x"
             "stride-2 stack into a valid 4x4 conv, which is empty below "
             "64px" % hw)
-    for flag, on in (("--pool_size", cfg.pool_size > 0),
-                     ("--ema", cfg.ema > 0.0),
-                     ("--grad_accum", int(cfg.grad_accum or 1) > 1),
-                     ("--remat", bool(cfg.remat))):
-        if on:
-            raise NotImplementedError(_LATER % flag)
     if cfg.compute_dtype not in DTYPES:
         raise ValueError("compute_dtype must be one of %r, got %r"
                          % (tuple(DTYPES), cfg.compute_dtype))
@@ -147,6 +166,21 @@ def init_state(cfg: TrainConfig, device="cuda",
     for net in nets.values():
         net.place(torch.device(device), DTYPES[cfg.compute_dtype],
                   cast_weights=False)
+    if cfg.remat:
+        for name in ("netG_A_B", "netG_B_A"):
+            nets[name].remat = True
     opt_state = {name: adam_init(list(net.parameters()))
                  for name, net in nets.items()}
-    return TrainState(nets=nets, opt_state=opt_state)
+    pools = {}
+    if cfg.pool_size > 0:
+        pools = {
+            "fake_A": init_pool(cfg.pool_size, (hw, hw, cfg.input_nc),
+                                device=device),
+            "fake_B": init_pool(cfg.pool_size, (hw, hw, cfg.output_nc),
+                                device=device),
+        }
+    ema = {}
+    if cfg.ema > 0.0:
+        ema = {name: [p.detach().clone() for p in nets[name].parameters()]
+               for name in EMA_NETS if name in nets}
+    return TrainState(nets=nets, opt_state=opt_state, pools=pools, ema=ema)

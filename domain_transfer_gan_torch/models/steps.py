@@ -23,8 +23,15 @@ step has no encoder and no latent discriminator):
 - losses, visuals and gnorms carry the JAX step's keys and come back as
   device tensors.
 
-All config switches (stoch_enc / z_gan / enc_A_B / use_sigmoid / norm /
-ignore_noise) are read once when the step is made.  The supervised step is
+With ``--pool_size`` the D phase scores the pools' answers
+(:func:`models.pool.pool_query` on the detached fakes, with the draws the
+model hands in) in place of the fresh fakes; the G phase still scores the
+fresh fakes.  With ``--ema`` every step ends with
+:func:`models.state.ema_update`.
+
+The loss assembly of the two phases (:func:`encode`, :func:`d_losses`,
+:func:`g_losses`) is shared with the ``--grad_accum`` steps of
+``models/accum.py``, which run it per microbatch.  The supervised step is
 described where it is made.
 """
 
@@ -43,7 +50,8 @@ from ..ops.numerics import (
     l1_loss,
     log_prob_gaussian,
 )
-from .state import TrainState, apply_net_update
+from .pool import pool_query
+from .state import TrainState, apply_net_update, ema_update
 
 D_NAMES = ("netD_A", "netD_B", "netD_z_B")
 G_NAMES = ("netG_A_B", "netG_B_A", "netE_B")
@@ -89,16 +97,139 @@ def _grads(loss, params: Dict[str, List[torch.Tensor]]):
     return out
 
 
+def _apply(state: TrainState, grads: Dict[str, List[torch.Tensor]],
+           lr: float, cfg: TrainConfig,
+           gnorms: Dict[str, torch.Tensor]) -> None:
+    """Per-net clip + Adam at ``lr`` with ``grads`` (by net name); each
+    net's pre-clip norm goes to ``gnorms["gnorm_" + short]``."""
+    for k, g in grads.items():
+        gnorms["gnorm_" + k[3:]] = apply_net_update(
+            list(state.nets[k].parameters()), state.opt_state[k], g, lr,
+            cfg.max_gnorm, cfg.beta1)
+
+
 def _update(state: TrainState, names, loss, lr: float, cfg: TrainConfig,
             gnorms: Dict[str, torch.Tensor]) -> None:
-    """d loss / d params of the nets ``names``, then per-net clip + Adam at
-    ``lr``; each net's pre-clip norm goes to ``gnorms["gnorm_" + short]``."""
-    params = _params(state.nets, names)
-    grads = _grads(loss, params)
-    for k in names:
-        gnorms["gnorm_" + k[3:]] = apply_net_update(
-            params[k], state.opt_state[k], grads[k], lr, cfg.max_gnorm,
-            cfg.beta1)
+    """d loss / d params of the nets ``names``, then :func:`_apply`."""
+    _apply(state, _grads(loss, _params(state.nets, names)), lr, cfg, gnorms)
+
+
+def _d_fakes(state: TrainState, fake_A, fake_B, pool_draws):
+    """What the D phase scores as fakes: the detached fakes, or with pools
+    the pools' answers to them (the pools advance in place)."""
+    fake_A, fake_B = fake_A.detach(), fake_B.detach()
+    if not state.pools:
+        return fake_A, fake_B
+    out = []
+    for name, fake in (("fake_A", fake_A), ("fake_B", fake_B)):
+        state.pools[name], d_fake = pool_query(state.pools[name], fake,
+                                               *pool_draws[name])
+        out.append(d_fake)
+    return tuple(out)
+
+
+def _detached(d: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+    return {k: v.detach() for k, v in d.items()}
+
+
+def encode(cfg: TrainConfig, nets, fake_A, real_B, eps_post,
+           plain_norm: bool = False):
+    """The encoder's posterior of (fake_A, real_B): (post_z, mu,
+    logvar_eff), float32; without ``stoch_enc`` post_z is mu and
+    logvar_eff is zeros."""
+    enc_in = torch.cat([fake_A, real_B], dim=-1) if cfg.enc_A_B else real_B
+    mu, logvar = nets["netE_B"](enc_in, plain_norm=plain_norm)
+    mu, logvar = mu.float(), logvar.float()
+    if cfg.stoch_enc:
+        return gauss_reparametrize_eps(mu, logvar, eps_post), mu, logvar
+    return mu, mu, logvar * 0.0
+
+
+def d_losses(cfg: TrainConfig, nets, score_pair, fakes, reals,
+             latent=None, plain_norm: bool = False):
+    """The D phase's loss: the image discriminators on ``fakes`` = (fake_A,
+    fake_B) against ``reals`` = (real_A, real_B) and, given ``latent`` =
+    (post_z, prior_z), the latent discriminator on the detached posterior
+    against the prior.  Returns (loss, logged losses, detached)."""
+    gan = functools.partial(criterion_gan, use_sigmoid=cfg.use_sigmoid)
+    (fake_A, fake_B), (real_A, real_B) = fakes, reals
+    pf_A, pt_A = score_pair("netD_A", fake_A, real_A)
+    pf_B, pt_B = score_pair("netD_B", fake_B, real_B)
+    loss_D_A = 0.5 * (gan(pf_A, False) + gan(pt_A, True))
+    loss_D_B = 0.5 * (gan(pf_B, False) + gan(pt_B, True))
+    loss = loss_D_A + loss_D_B
+    logged = {"D_A": loss_D_A, "D_B": loss_D_B,
+              "P_t_A": pt_A.float().mean(), "P_t_B": pt_B.float().mean()}
+    if latent is not None:
+        post_z, prior_z = latent
+        pz_post = nets["netD_z_B"](post_z.detach(), plain_norm=plain_norm)
+        pz_prior = nets["netD_z_B"](prior_z, plain_norm=plain_norm)
+        loss_D_z_B = 0.5 * (gan(pz_post, False) + gan(pz_prior, True))
+        if cfg.z_gan and not cfg.stoch_enc:
+            loss = loss + loss_D_z_B
+        logged["D_z_B"] = loss_D_z_B
+    return loss, _detached(logged)
+
+
+def g_losses(cfg: TrainConfig, nets, fakes, reals, prior_z, post=None,
+             plain_norm: bool = False):
+    """The G phase's loss: the phase-0 ``fakes`` = (fake_A, fake_B) scored
+    by the (updated) image discriminators, and the A and B cycles against
+    ``reals``.  Given ``post`` = (post_z, mu, logvar_eff) of :func:`encode`,
+    also the latent GAN term, the z-cycle (the encoder recovering
+    ``prior_z`` from fake_B) and the KLD, and rec_B decodes fake_A with
+    post_z; else with ``prior_z``.  The nets run in the JAX step's order.
+    Returns (loss, logged losses detached, (rec_A, rec_B))."""
+    gan = functools.partial(criterion_gan, use_sigmoid=cfg.use_sigmoid)
+    kw = dict(plain_norm=plain_norm)
+    (fake_A, fake_B), (real_A, real_B) = fakes, reals
+    pf_A = nets["netD_A"](fake_A, **kw)
+    loss_G_A = gan(flat2d(pf_A), True)
+    pf_B = nets["netD_B"](fake_B, **kw)
+    loss_G_B = gan(flat2d(pf_B), True)
+    logged = {"G_A": loss_G_A, "G_B": loss_G_B,
+              "P_f_A": pf_A.float().mean(), "P_f_B": pf_B.float().mean()}
+    if post is not None:
+        post_z, mu_r, logvar_r_eff = post
+        loss_G_z_B = gan(nets["netD_z_B"](post_z, **kw), True)
+
+    rec_A = nets["netG_B_A"](fake_B, **kw)
+    loss_cycle_A = l1_loss(rec_A, real_A)
+    if post is None:
+        rec_B = nets["netG_A_B"](fake_A, prior_z, **kw)
+    else:
+        # z-cycle: recover the prior z from (A, fake_B)
+        enc_in2 = (torch.cat([real_A, fake_B], dim=-1) if cfg.enc_A_B
+                   else fake_B)
+        mu_f, logvar_f = nets["netE_B"](enc_in2, **kw)
+        mu_f, logvar_f = mu_f.float(), logvar_f.float()
+        if cfg.stoch_enc:
+            loss_cycle_z_B = -1.0 * torch.mean(
+                log_prob_gaussian(prior_z, mu_f, logvar_f))
+        else:
+            loss_cycle_z_B = l1_loss(mu_f, prior_z)
+        kld_z_B = torch.mean(kld_std_gauss(mu_r, logvar_r_eff))
+        rec_B = nets["netG_A_B"](fake_A, post_z, **kw)
+    loss_cycle_B = l1_loss(rec_B, real_B)
+
+    loss = (loss_G_A + loss_G_B + loss_cycle_A * cfg.lambda_A
+            + loss_cycle_B * cfg.lambda_B)
+    logged.update({"Cyc_A": loss_cycle_A, "Cyc_B": loss_cycle_B})
+    if post is not None:
+        loss = loss + loss_cycle_z_B * cfg.lambda_z_B
+        if cfg.stoch_enc:
+            loss = loss + kld_z_B * cfg.lambda_z_B
+        if cfg.z_gan and not cfg.stoch_enc:
+            loss = loss + loss_G_z_B
+        logged.update({"Cyc_z_B": loss_cycle_z_B, "KLD_z_B": kld_z_B})
+    return loss, _detached(logged), (rec_A, rec_B)
+
+
+def _visuals(real_A, real_B, fakes, recs):
+    (fake_A, fake_B), (rec_A, rec_B) = fakes, recs
+    return {"real_A": real_A, "fake_B": fake_B.detach(),
+            "rec_A": rec_A.detach(), "real_B": real_B,
+            "fake_A": fake_A.detach(), "rec_B": rec_B.detach()}
 
 
 def make_stoch_train_step(cfg: TrainConfig, ignore_noise: bool):
@@ -107,11 +238,10 @@ def make_stoch_train_step(cfg: TrainConfig, ignore_noise: bool):
     shared forward once, the two image discriminators on the detached fakes,
     then the generators against the updated discriminators with the A and B
     cycles (rec_B decodes fake_A with the prior z)."""
-    gan = functools.partial(criterion_gan, use_sigmoid=cfg.use_sigmoid)
     concat_d = cfg.norm != "batch"
 
     def step(state: TrainState, real_A, real_B, prior_z, lr: float,
-             lr_d: float, plain_norm: bool = False):
+             lr_d: float, plain_norm: bool = False, pool_draws=None):
         """One iteration, in place on ``state``; arguments as for the
         ``aug_cycle_gan`` step, without ``eps_post``.  Returns (losses,
         visuals, gnorms), dicts of device tensors."""
@@ -121,159 +251,83 @@ def make_stoch_train_step(cfg: TrainConfig, ignore_noise: bool):
             net.train()
         if ignore_noise:
             prior_z = torch.ones_like(prior_z)
+        reals = real_A, real_B
 
         # ----- shared forward (phase 0), its graph kept for the G phase ---
         fake_B = nets["netG_A_B"](real_A, prior_z, **kw)
         fake_A = nets["netG_B_A"](real_B, **kw)
+        fakes = fake_A, fake_B
 
         # ----- phase 1: discriminators on detached fakes ------------------
-        score_pair = make_score_pair(nets, concat_d, plain_norm)
-        pf_A, pt_A = score_pair("netD_A", fake_A.detach(), real_A)
-        pf_B, pt_B = score_pair("netD_B", fake_B.detach(), real_B)
-        loss_D_A = 0.5 * (gan(pf_A, False) + gan(pt_A, True))
-        loss_D_B = 0.5 * (gan(pf_B, False) + gan(pt_B, True))
-        P_t_A, P_t_B = pt_A.float().mean(), pt_B.float().mean()
+        loss_D, d_logged = d_losses(
+            cfg, nets, make_score_pair(nets, concat_d, plain_norm),
+            _d_fakes(state, fake_A, fake_B, pool_draws), reals,
+            plain_norm=plain_norm)
         gnorms = {}
-        _update(state, ("netD_A", "netD_B"), loss_D_A + loss_D_B, lr_d, cfg,
-                gnorms)
+        _update(state, ("netD_A", "netD_B"), loss_D, lr_d, cfg, gnorms)
 
         # ----- phase 2: generators vs the UPDATED discriminators ----------
-        pf_A = nets["netD_A"](fake_A, **kw)
-        loss_G_A = gan(flat2d(pf_A), True)
-        pf_B = nets["netD_B"](fake_B, **kw)
-        loss_G_B = gan(flat2d(pf_B), True)
-        rec_A = nets["netG_B_A"](fake_B, **kw)
-        loss_cycle_A = l1_loss(rec_A, real_A)
-        rec_B = nets["netG_A_B"](fake_A, prior_z, **kw)
-        loss_cycle_B = l1_loss(rec_B, real_B)
-        loss_G = (loss_G_A + loss_G_B + loss_cycle_A * cfg.lambda_A
-                  + loss_cycle_B * cfg.lambda_B)
+        loss_G, g_logged, recs = g_losses(cfg, nets, fakes, reals, prior_z,
+                                          plain_norm=plain_norm)
         _update(state, ("netG_A_B", "netG_B_A"), loss_G, lr, cfg, gnorms)
         state.step += 1
-
-        with torch.no_grad():
-            losses = {
-                "D_A": loss_D_A, "G_A": loss_G_A, "Cyc_A": loss_cycle_A,
-                "D_B": loss_D_B, "G_B": loss_G_B, "Cyc_B": loss_cycle_B,
-                "P_t_A": P_t_A, "P_f_A": pf_A.float().mean(),
-                "P_t_B": P_t_B, "P_f_B": pf_B.float().mean(),
-            }
-            losses = {k: v.detach() for k, v in losses.items()}
-            visuals = {"real_A": real_A, "fake_B": fake_B.detach(),
-                       "rec_A": rec_A.detach(), "real_B": real_B,
-                       "fake_A": fake_A.detach(), "rec_B": rec_B.detach()}
-        return losses, visuals, gnorms
+        ema_update(state.ema, nets, cfg.ema)
+        return (dict(d_logged, **g_logged),
+                _visuals(real_A, real_B, fakes, recs), gnorms)
 
     return step
 
 
 def make_aug_train_step(cfg: TrainConfig):
-    gan = functools.partial(criterion_gan, use_sigmoid=cfg.use_sigmoid)
-    stoch_enc = bool(cfg.stoch_enc)
-    z_gan = bool(cfg.z_gan)
-    enc_A_B = bool(cfg.enc_A_B)
     # netD_z_B uses BatchNorm1d: always separate forwards
     concat_d = cfg.norm != "batch"
 
     def step(state: TrainState, real_A, real_B, prior_z, eps_post,
-             lr: float, lr_d: float, plain_norm: bool = False):
+             lr: float, lr_d: float, plain_norm: bool = False,
+             pool_draws=None):
         """One iteration, in place on ``state``.  real_A/real_B: NHWC float32
         on the nets' device; prior_z, eps_post: (B, nlatent); lr, lr_d:
         Python floats.  ``plain_norm`` sends every instance norm through its
-        plain version (the twin the kernels are held against).  Returns
-        (losses, visuals, gnorms), dicts of device tensors."""
+        plain version (the twin the kernels are held against).
+        ``pool_draws`` (with pools): ``{"fake_A": (coin, slot), "fake_B":
+        (coin, slot)}``.  Returns (losses, visuals, gnorms), dicts of device
+        tensors."""
         nets = state.nets
         kw = dict(plain_norm=plain_norm)
         for net in nets.values():
             net.train()
-
-        def posterior(a_img, b_img):
-            enc_in = torch.cat([a_img, b_img], dim=-1) if enc_A_B else b_img
-            mu, logvar = nets["netE_B"](enc_in, **kw)
-            mu, logvar = mu.float(), logvar.float()
-            if stoch_enc:
-                return (gauss_reparametrize_eps(mu, logvar, eps_post), mu,
-                        logvar)
-            return mu, mu, logvar * 0.0
+        reals = real_A, real_B
 
         # ----- shared forward (phase 0), its graph kept for the G phase ---
         fake_B = nets["netG_A_B"](real_A, prior_z, **kw)
         fake_A = nets["netG_B_A"](real_B, **kw)
-        post_z, mu_r, logvar_r_eff = posterior(fake_A, real_B)
+        post = encode(cfg, nets, fake_A, real_B, eps_post, plain_norm)
+        fakes = fake_A, fake_B
 
         # ----- phase 1: discriminators on detached inputs -----------------
-        score_pair = make_score_pair(nets, concat_d, plain_norm)
-        pf_A, pt_A = score_pair("netD_A", fake_A.detach(), real_A)
-        pf_B, pt_B = score_pair("netD_B", fake_B.detach(), real_B)
-        pz_post = nets["netD_z_B"](post_z.detach(), **kw)
-        pz_prior = nets["netD_z_B"](prior_z, **kw)
-        loss_D_A = 0.5 * (gan(pf_A, False) + gan(pt_A, True))
-        loss_D_B = 0.5 * (gan(pf_B, False) + gan(pt_B, True))
-        loss_D_z_B = 0.5 * (gan(pz_post, False) + gan(pz_prior, True))
-        loss_D = loss_D_A + loss_D_B
-        if z_gan and not stoch_enc:
-            loss_D = loss_D + loss_D_z_B
-        P_t_A, P_t_B = pt_A.float().mean(), pt_B.float().mean()
-
+        loss_D, d_logged = d_losses(
+            cfg, nets, make_score_pair(nets, concat_d, plain_norm),
+            _d_fakes(state, fake_A, fake_B, pool_draws), reals,
+            latent=(post[0], prior_z), plain_norm=plain_norm)
         gnorms = {}
         _update(state, D_NAMES, loss_D, lr_d, cfg, gnorms)
 
         # ----- phase 2: generators/encoder vs the UPDATED discriminators --
-        pf_A = nets["netD_A"](fake_A, **kw)
-        loss_G_A = gan(flat2d(pf_A), True)
-        pf_B = nets["netD_B"](fake_B, **kw)
-        loss_G_B = gan(flat2d(pf_B), True)
-        loss_G_z_B = gan(nets["netD_z_B"](post_z, **kw), True)
-
-        rec_A = nets["netG_B_A"](fake_B, **kw)
-        loss_cycle_A = l1_loss(rec_A, real_A)
-
-        # z-cycle: recover the prior z from (A, fake_B)
-        enc_in2 = torch.cat([real_A, fake_B], dim=-1) if enc_A_B else fake_B
-        mu_f, logvar_f = nets["netE_B"](enc_in2, **kw)
-        mu_f, logvar_f = mu_f.float(), logvar_f.float()
-        if stoch_enc:
-            loss_cycle_z_B = -1.0 * torch.mean(
-                log_prob_gaussian(prior_z, mu_f, logvar_f))
-        else:
-            loss_cycle_z_B = l1_loss(mu_f, prior_z)
-
-        kld_z_B = torch.mean(kld_std_gauss(mu_r, logvar_r_eff))
-
-        rec_B = nets["netG_A_B"](fake_A, post_z, **kw)
-        loss_cycle_B = l1_loss(rec_B, real_B)
-
-        loss_G = (loss_G_A + loss_G_B
-                  + loss_cycle_A * cfg.lambda_A
-                  + loss_cycle_B * cfg.lambda_B
-                  + loss_cycle_z_B * cfg.lambda_z_B)
-        if stoch_enc:
-            loss_G = loss_G + kld_z_B * cfg.lambda_z_B
-        if z_gan and not stoch_enc:
-            loss_G = loss_G + loss_G_z_B
-
+        loss_G, g_logged, recs = g_losses(cfg, nets, fakes, reals, prior_z,
+                                          post=post, plain_norm=plain_norm)
         _update(state, G_NAMES, loss_G, lr, cfg, gnorms)
         state.step += 1
+        ema_update(state.ema, nets, cfg.ema)
 
         with torch.no_grad():
+            _, mu_r, logvar_r_eff = post
             gnorms.update({
                 "mu_min": mu_r.min(), "mu_max": mu_r.max(),
                 "logvar_min": logvar_r_eff.min(),
                 "logvar_max": logvar_r_eff.max(),
             })
-            losses = {
-                "D_A": loss_D_A, "G_A": loss_G_A, "Cyc_A": loss_cycle_A,
-                "Cyc_z_B": loss_cycle_z_B, "KLD_z_B": kld_z_B,
-                "D_B": loss_D_B, "G_B": loss_G_B, "Cyc_B": loss_cycle_B,
-                "D_z_B": loss_D_z_B,
-                "P_t_A": P_t_A, "P_f_A": pf_A.float().mean(),
-                "P_t_B": P_t_B, "P_f_B": pf_B.float().mean(),
-            }
-            losses = {k: v.detach() for k, v in losses.items()}
-            visuals = {"real_A": real_A, "fake_B": fake_B.detach(),
-                       "rec_A": rec_A.detach(), "real_B": real_B,
-                       "fake_A": fake_A.detach(), "rec_B": rec_B.detach()}
-        return losses, visuals, gnorms
+        return (dict(d_logged, **g_logged),
+                _visuals(real_A, real_B, fakes, recs), gnorms)
 
     return step
 
@@ -297,7 +351,6 @@ def make_aug_supervised_step(cfg: TrainConfig):
     gan = functools.partial(criterion_gan, use_sigmoid=cfg.use_sigmoid)
     stoch_enc = bool(cfg.stoch_enc)
     z_gan = bool(cfg.z_gan)
-    enc_A_B = bool(cfg.enc_A_B)
 
     def step(state: TrainState, real_A, real_B, prior_z, eps_post,
              lr: float, lr_d: float, plain_norm: bool = False):
@@ -309,14 +362,8 @@ def make_aug_supervised_step(cfg: TrainConfig):
         for net in nets.values():
             net.train()
 
-        enc_in = torch.cat([real_A, real_B], dim=-1) if enc_A_B else real_B
-        mu, logvar = nets["netE_B"](enc_in, **kw)
-        mu, logvar = mu.float(), logvar.float()
-        if stoch_enc:
-            post_z, logvar_eff = gauss_reparametrize_eps(mu, logvar,
-                                                         eps_post), logvar
-        else:
-            post_z, logvar_eff = mu, logvar * 0.0
+        post_z, mu, logvar_eff = encode(cfg, nets, real_A, real_B, eps_post,
+                                        plain_norm)
 
         # ----- the latent discriminator on the detached posterior ---------
         pz_post = nets["netD_z_B"](post_z.detach(), **kw)
@@ -342,10 +389,10 @@ def make_aug_supervised_step(cfg: TrainConfig):
         if z_gan and not stoch_enc:
             loss_G = loss_G + loss_G_z_B
         _update(state, G_NAMES, loss_G, lr, cfg, gnorms)
+        ema_update(state.ema, nets, cfg.ema)
 
-        losses = {"S_A": loss_sup_A, "S_B": loss_sup_B, "KLD_z_B": kld_z_B,
-                  "D_z_B": loss_D_z_B}
-        losses = {k: v.detach() for k, v in losses.items()}
+        losses = _detached({"S_A": loss_sup_A, "S_B": loss_sup_B,
+                            "KLD_z_B": kld_z_B, "D_z_B": loss_D_z_B})
         losses.update(gnorms)
         return losses
 

@@ -31,6 +31,7 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from ..ops.convs import conv_transpose2d_torch, reflect_pad2d
 from .blocks import CINResnetBlock, ResnetBlock
@@ -42,6 +43,7 @@ from .norms import (
     CondInstanceNorm,
     InstanceNorm,
     make_norm,
+    running_stats_held,
 )
 
 
@@ -95,9 +97,14 @@ class _NormLRelu(nn.Module):
 
 
 class _Net(nn.Module):
-    """What the networks share: init, placement, layout at the edges."""
+    """What the networks share: init, placement, layout at the edges, and
+    ``--remat`` for the generators."""
 
     compute_dtype = torch.float32
+    # --remat: the generators' forward runs under torch.utils.checkpoint
+    # while grad is enabled (models.state sets it)
+    remat = False
+    dropout_generator: Optional[torch.Generator] = None
 
     def reset_parameters(self, scheme: str, generator: torch.Generator):
         """Draw every parameter anew under ``scheme`` from ``generator``,
@@ -135,10 +142,43 @@ class _Net(nn.Module):
 
     def set_dropout_generator(self, generator: Optional[torch.Generator]):
         """Draw every dropout mask of this net from ``generator``."""
+        self.dropout_generator = generator
         for m in self.modules():
             if isinstance(m, Dropout):
                 m.generator = generator
         return self
+
+    def _maybe_remat(self, fn, *args):
+        """``fn(*args)``, under ``torch.utils.checkpoint`` (non-reentrant)
+        when ``remat`` is set and grad is enabled: the activations are not
+        kept, the backward runs ``fn`` again.  That recompute must be the
+        same function: it replays the dropout masks of the first run (the
+        state of ``dropout_generator``, which the checkpoint's own RNG
+        handling does not cover, is saved before it and restored around the
+        recompute, then put back where the stream had got to), and its batch
+        norms do not advance their running statistics a second time."""
+        if not (self.remat and torch.is_grad_enabled()):
+            return fn(*args)
+        gen = self.dropout_generator
+        start = gen.get_state() if gen is not None else None
+        runs = []
+
+        def run(*a):
+            if not runs:
+                runs.append(1)
+                return fn(*a)
+            now = gen.get_state() if gen is not None else None
+            if gen is not None:
+                gen.set_state(start)
+            try:
+                with running_stats_held(self):
+                    return fn(*a)
+            finally:
+                if gen is not None:
+                    gen.set_state(now)
+
+        return checkpoint(run, *args, use_reentrant=False,
+                          preserve_rng_state=gen is None)
 
     def _enter(self, x: torch.Tensor) -> torch.Tensor:
         if x.dim() != 4:
@@ -191,7 +231,10 @@ class CINResnetGenerator(_Net):
         if z.shape != (x.shape[0], self.nlatent):
             raise ValueError("z must be (%d, %d), got %r"
                              % (x.shape[0], self.nlatent, tuple(z.shape)))
-        z = z.to(self.compute_dtype)
+        return self._maybe_remat(self._body, x, z.to(self.compute_dtype),
+                                 plain_norm)
+
+    def _body(self, x, z, plain_norm):
         h = self.conv0(reflect_pad2d(self._enter(x), 3))
         h = self.cin0(h, z, plain_norm)
         h = self.cin1(self.conv1(h), z, plain_norm)
@@ -229,6 +272,9 @@ class ResnetGenerator(_Net):
 
     def forward(self, x: torch.Tensor,
                 plain_norm: bool = False) -> torch.Tensor:
+        return self._maybe_remat(self._body, x, plain_norm)
+
+    def _body(self, x, plain_norm):
         h = self.conv0(reflect_pad2d(self._enter(x), 3))
         h = self.nr0(h, plain_norm)
         h = self.nr1(self.conv1(h), plain_norm)

@@ -24,6 +24,7 @@ parity tests; it differs from the kernel's centered form by rounding only.
 
 from __future__ import annotations
 
+import contextlib
 from typing import Optional
 
 import torch
@@ -150,10 +151,12 @@ class _BatchNormCore(nn.Module):
     statistics in fp32 whatever the input's dtype, variance as
     E[x^2] - mean^2 clamped at 0, and a running average that stores the
     *biased* batch variance (``torch.nn.BatchNorm`` stores the unbiased one).
-    In train mode the running statistics advance once per call, in place."""
+    In train mode the running statistics advance once per call, in place,
+    unless ``advance`` is off (:func:`running_stats_held`)."""
 
     momentum = 0.9
     eps = 1e-5
+    advance = True
 
     def __init__(self, features: int):
         super().__init__()
@@ -170,17 +173,34 @@ class _BatchNormCore(nn.Module):
             mean = x32.mean(dim=dims)
             var = torch.clamp_min((x32 * x32).mean(dim=dims) - mean * mean,
                                   0.0)
-            with torch.no_grad():
-                self.running_mean.mul_(self.momentum).add_(
-                    mean, alpha=1.0 - self.momentum)
-                self.running_var.mul_(self.momentum).add_(
-                    var, alpha=1.0 - self.momentum)
+            if self.advance:
+                with torch.no_grad():
+                    self.running_mean.mul_(self.momentum).add_(
+                        mean, alpha=1.0 - self.momentum)
+                    self.running_var.mul_(self.momentum).add_(
+                        var, alpha=1.0 - self.momentum)
         else:
             mean, var = self.running_mean, self.running_var
         mul = torch.rsqrt(var + self.eps) * self.weight
         y = (x32 - mean.reshape(shape)) * mul.reshape(shape) \
             + self.bias.reshape(shape)
         return y.to(x.dtype)
+
+
+@contextlib.contextmanager
+def running_stats_held(module: nn.Module):
+    """Train-mode batch norms anywhere in ``module`` normalize with their
+    batch statistics as always but do not advance their running
+    statistics: a forward that is run again (a ``--remat`` recompute) or
+    whose update is to be discarded leaves no trace."""
+    cores = [m for m in module.modules() if isinstance(m, _BatchNormCore)]
+    for m in cores:
+        m.advance = False
+    try:
+        yield module
+    finally:
+        for m in cores:
+            m.advance = True
 
 
 class BatchNorm2d(nn.Module):

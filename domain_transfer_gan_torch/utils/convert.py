@@ -24,6 +24,13 @@ net's ``batch_stats`` subtree: ``bn/mean`` -> ``bn.running_mean``, ``bn/var``
 ``jax_fid_params_to_state_dict(params)`` converts the JAX package's
 random-feature FID extractor (``eval/fid.py``) the same way.
 
+The opt-in training state comes across too: an EMA shadow is a params tree
+(``jax_params_to_state_dict`` of it gives the shadow per parameter name;
+``models.api.CycleGANBase.load_jax_ema``), and ``jax_pool_to_port`` turns a
+JAX fake-image pool (``PoolState`` or a dict with ``buf`` NHWC
+``(P, H, W, C)`` and ``n``) into the port's buffer, in the same NHWC
+layout, and fill count (``CycleGANBase.load_jax_pools``).
+
 ``flatten_params`` / ``unflatten_params`` move between the nested tree and the
 flat ``netG_A_B/conv0/kernel`` keys of a params ``.npz``.  The inverse
 direction (port -> JAX) comes with the checkpoint slice.
@@ -31,7 +38,7 @@ direction (port -> JAX) comes with the checkpoint slice.
 
 from __future__ import annotations
 
-from typing import Dict, Mapping
+from typing import Dict, Mapping, Tuple
 
 import numpy as np
 import torch
@@ -115,6 +122,20 @@ def jax_fid_params_to_state_dict(params: Mapping
     ``params`` of the JAX package's random-feature extractor
     (``conv0`` ... ``conv3``, each ``kernel`` and ``bias``)."""
     return _params_to_state_dict(params)
+
+
+def jax_pool_to_port(pool) -> Tuple[torch.Tensor, int]:
+    """(buffer, fill count) of the port's ``models.pool.PoolState`` from a
+    JAX pool: the buffer stays NHWC ``(P, H, W, C)`` float32."""
+    if isinstance(pool, Mapping):
+        buf, n = pool["buf"], pool["n"]
+    else:
+        buf, n = pool.buf, pool.n
+    buf = np.asarray(buf, np.float32)
+    if buf.ndim != 4:
+        raise ValueError("a pool buffer is (P, H, W, C), got %r"
+                         % (buf.shape,))
+    return _tensor(buf), int(np.asarray(n))
 
 
 def flatten_params(tree: Mapping) -> Dict[str, np.ndarray]:

@@ -257,6 +257,87 @@ def test_supervised_step_fused_vs_plain_on_the_card():
     assert _fused_vs_plain(cfg, run) == (16, 16)
 
 
+@pytest.mark.cuda
+def test_accumulation_step_fused_vs_plain_on_the_card():
+    """One aug_cycle_gan --grad_accum 2 step at batch 8, tiny width,
+    kernels against plain norms; per microbatch of 4 (batch norm over 2
+    samples is ill-conditioned; n_blocks = 2: 9 + 7 generator sites) the D
+    phase's phase 0 (16, forward only) and D_A + D_B at 8 (6), the G phase's
+    phase 0 again, the cycles (32) and D_A + D_B at 4 (6)."""
+    _need_card()
+    cfg = dict(model="aug_cycle_gan", grid_size=64, ngf=4, nef=4, ndf=4,
+               nlatent=8, n_blocks=2, init_scheme="sane", seed=3,
+               grad_accum=2, batchSize=8)
+    rng = np.random.RandomState(17)
+    A, B = (rng.uniform(-1, 1, (8, 64, 64, 3)).astype(np.float32)
+            for _ in range(2))
+    z, eps = (rng.randn(8, 8).astype(np.float32) for _ in range(2))
+
+    def run(m, plain_norm):
+        losses, _, gnorms = m.train_instance(A, B, z, eps,
+                                             plain_norm=plain_norm)
+        return dict(losses, **gnorms)
+
+    assert _fused_vs_plain(cfg, run) == (2 * (48 + 12), 2 * (32 + 12))
+
+
+@pytest.mark.cuda
+def test_remat_step_on_the_card():
+    """--remat against the same step without it (cuDNN deterministic):
+    the same losses, gradient norms and running statistics, with dropout;
+    the recompute adds one forward launch per generator site of the four
+    generator calls with a graph."""
+    _need_card()
+    torch.backends.cudnn.allow_tf32 = False
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        cfg = dict(model="aug_cycle_gan", grid_size=64, ngf=4, nef=4, ndf=4,
+                   nlatent=8, n_blocks=2, init_scheme="sane", seed=3,
+                   use_dropout=1)
+        A, B, z, eps = _tiny_batch(18)
+        out, launches = {}, {}
+        for remat in (False, True):
+            m = create_model(TrainConfig(remat=remat, **cfg), testing=True,
+                             device="cuda")
+            f0 = instance_norm_fused.launches
+            losses, _, gnorms = m.train_instance(A, B, z, eps)
+            torch.cuda.synchronize()
+            launches[remat] = instance_norm_fused.launches - f0
+            out[remat] = (dict(losses, **gnorms),
+                          [b.clone() for net in m.nets.values()
+                           for b in net.buffers()])
+        assert launches[True] - launches[False] == 2 * (9 + 7)
+        for k, v in out[False][0].items():
+            assert abs(float(out[True][0][k]) - float(v)) <= 1e-6 * max(
+                1.0, abs(float(v))), k
+        assert all(torch.equal(a, b) for a, b in zip(out[False][1],
+                                                     out[True][1]))
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+
+
+@pytest.mark.cuda
+def test_pool_query_on_the_card_is_the_cpu_one():
+    """Replays that pick the same slot resolve to the later element on the
+    card as on the CPU: buffer and answer bit for bit."""
+    _need_card()
+    from domain_transfer_gan_torch.models import pool
+
+    rng = np.random.RandomState(19)
+    cpu, card = pool.init_pool(5, (4, 4, 3)), pool.init_pool(
+        5, (4, 4, 3), device="cuda")
+    for _ in range(6):
+        imgs = torch.from_numpy(rng.randn(8, 4, 4, 3).astype(np.float32))
+        coin = torch.from_numpy(rng.rand(8) < 0.7)
+        slot = torch.from_numpy(rng.randint(0, 5, 8))
+        cpu, want = pool.pool_query(cpu, imgs, coin, slot)
+        card, got = pool.pool_query(card, imgs.cuda(), coin.cuda(),
+                                    slot.cuda())
+        assert torch.equal(got.cpu(), want)
+        assert torch.equal(card.buf.cpu(), cpu.buf) and card.n == cpu.n
+
+
 def _variant_plans(n, hw, c, itemsize, arrays):
     """The streaming plan and every cluster size that holds the slab."""
     plans = [K.STREAMING]

@@ -312,11 +312,6 @@ def test_what_waits_for_the_training_slice():
     assert set(aug.nets) == {"netG_A_B", "netG_B_A", "netD_A", "netD_B",
                              "netD_z_B", "netE_B"}
     assert callable(aug.supervised_train_instance)
-    for flags in (dict(pool_size=8), dict(ema=0.5), dict(grad_accum=2),
-                  dict(remat=True)):
-        with pytest.raises(NotImplementedError, match="not ported yet"):
-            create_model(TrainConfig(model="aug_cycle_gan", **kw, **flags),
-                         testing=True, device="cpu")
     with pytest.raises(ValueError, match="must be >= 64"):
         create_model(TrainConfig(model="aug_cycle_gan", **dict(
             kw, grid_size=32)), testing=True, device="cpu")

@@ -206,7 +206,6 @@ def test_export_from_a_checkpoint_of_the_other_variants(runs, name,
 
 
 REFUSED = [
-    (["--use_ema", "1"], "--use_ema 1", "M11"),
     (["--fid_extractor", "inception.bin"], "--fid_extractor inception.bin",
      "M8"),
     ("numpy_data", "--numpy_data 0", "M9"),
@@ -236,3 +235,13 @@ def test_unported_evaluations_are_refused_by_name(runs, tmp_path, how,
         test_cli.test_model(["--chk_path", chk, "--dataroot", root,
                              "--metric", "mse", "--device", "cpu", *extra])
     assert named in str(e.value) and ("ROADMAP %s" % item) in str(e.value)
+
+
+def test_use_ema_without_a_shadow_is_refused(runs):
+    """--use_ema 1 scores the EMA shadows; a run trained without --ema has
+    none (the runs with them are in tests/test_torch_port_extras_cli.py)."""
+    with pytest.raises(ValueError, match="--use_ema 1 needs a checkpoint "
+                       "trained with --ema"):
+        test_cli.test_model(["--chk_path", runs["stoch"]["latest"],
+                             "--dataroot", runs["root"], "--metric", "mse",
+                             "--device", "cpu", "--use_ema", "1"])

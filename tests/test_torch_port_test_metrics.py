@@ -190,14 +190,14 @@ def test_z_diversity_stats_match_jax(extractors):
 
 
 def test_the_ports_own_extractor_is_seeded_lecun_normal():
-    """The default extractor: weights from a torch.Generator seeded 1234
-    with flax's default conv init (LeCun normal, zero bias), the same
-    features on every call; a z-ignoring decode scores intra_z = 0."""
-    net = fid.RandomFeatureNet(64, generator=torch.Generator().manual_seed(
-        1234))
-    w = net.conv1.weight.detach().numpy()
+    """The default extractor holds the JAX package's draw from seed 1234
+    (stored, tests/test_torch_port_fid.py), flax's default conv init:
+    LeCun normal, zero bias; it gives the same features on every call; a
+    z-ignoring decode scores intra_z = 0."""
+    sd = fid.stored_extractor_state(3)
+    w = sd["conv1.weight"].numpy()
     assert abs(w.std() * math.sqrt(9 * 64) - 1.0) < 0.05
-    assert float(net.conv1.bias.detach().abs().max()) == 0.0
+    assert float(sd["conv1.bias"].abs().max()) == 0.0
     a = fid.random_feature_extractor(device="cpu")
     b = fid.random_feature_extractor(device="cpu")
     x = images(73, 5)

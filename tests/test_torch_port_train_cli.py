@@ -157,7 +157,7 @@ def test_log_lines_are_the_jax_format(run):
     assert "DEV_MSE_A" in "\n".join(lines)
 
 
-def test_export_from_checkpoint_serves_the_model(run, tmp_path, capsys):
+def test_export_from_checkpoint_serves_the_model(run, tmp_path):
     """export --chk_path -> HTTP server -> predict_B equals the checkpoint's
     model's predict_B."""
     latest = os.path.join(run["expr"], "latest")
@@ -190,11 +190,11 @@ def test_export_from_checkpoint_serves_the_model(run, tmp_path, capsys):
     # the server pads the request to the artifact's batch of 4; the CPU
     # convs sum in another blocking at another batch (1.2e-6 seen)
     np.testing.assert_allclose(got, want, rtol=0, atol=1e-5)
-    # EMA is not ported (M11): argparse refuses the flag by name
-    with pytest.raises(SystemExit):
+    # the run kept no EMA shadows: --use_ema 1 has nothing to export
+    with pytest.raises(ValueError, match="--use_ema 1 needs a checkpoint "
+                       "trained with --ema"):
         export_main(["--chk_path", latest, "--out", out, "--use_ema", "1",
                      "--device", "cpu"])
-    assert "--use_ema" in capsys.readouterr().err
 
 
 REFUSED = [
@@ -209,10 +209,6 @@ REFUSED = [
     (["--microbatches", "2"], "--microbatches 2", "M13"),
     (["--ckpt_backend", "orbax"], "--ckpt_backend orbax", "M15"),
     (["--profile_dir", "prof"], "--profile_dir prof", "M10"),
-    (["--pool_size", "50"], "--pool_size 50", "M11"),
-    (["--ema", "0.999"], "--ema 0.999", "M11"),
-    (["--grad_accum", "2"], "--grad_accum 2", "M11"),
-    (["--remat"], "--remat", "M11"),
 ]
 
 
@@ -228,8 +224,47 @@ def test_unported_flags_are_refused_by_name(tmp_path, flags, named, item):
 
 
 def test_a_config_passed_in_is_refused_too():
-    with pytest.raises(UnportedFlagError, match="--ema 0.5"):
-        train_model(opt=TrainConfig(ema=0.5, device="cpu"))
+    with pytest.raises(UnportedFlagError, match="--profile_dir prof"):
+        train_model(opt=TrainConfig(profile_dir="prof", device="cpu"))
+
+
+def test_a_paired_jpg_dataroot_is_refused_before_anything_is_written(
+        tmp_path):
+    """A dataroot with a train/ directory and no trainA.npz is what the JAX
+    CLI reads as a paired-jpg folder: refused by name, nothing written."""
+    root = tmp_path / "edges2shoes"
+    (root / "train").mkdir(parents=True)
+    argv = ["--dataroot", str(root), "--name", "r", "--checkpoints_dir",
+            str(tmp_path / "ck"), "--device", "cpu"]
+    with pytest.raises(UnportedFlagError,
+                       match="holds no trainA.npz: the paired-jpg branch"):
+        train_model(argv=argv)
+    assert not os.path.exists(str(tmp_path / "ck"))
+    with pytest.raises(UnportedFlagError, match="ROADMAP M9"):
+        train_model(opt=TrainConfig(dataroot=str(root), device="cpu"))
+    assert sorted(os.listdir(str(tmp_path))) == ["edges2shoes"]
+
+
+# the combinations the accumulation steps refuse, as the JAX package's
+# models/accum.py::_check_cfg and models/api.py::_accum_k do, when the
+# model is built
+ACCUM_REFUSED = [
+    (["--pool_size", "4"], "--grad_accum does not compose with --pool_size"),
+    (["--norm", "batch"], "--grad_accum with --norm batch"),
+    (["--supervised"], "--grad_accum does not support --supervised"),
+    (["--batchSize", "3"], "batch 3 not divisible by --grad_accum 2"),
+]
+
+
+@pytest.mark.parametrize("flags,named", ACCUM_REFUSED,
+                         ids=[r[0][0] for r in ACCUM_REFUSED])
+def test_accumulation_combinations_are_refused(tmp_path, flags, named):
+    root = str(tmp_path / "ds")
+    write_synthetic_dataset(root, n_train=10, n_test=2, size=64)
+    argv = _argv(root, str(tmp_path / "ck"), "acc", 0,
+                 ["--grad_accum", "2", "--dev_size", "2", *flags])
+    with pytest.raises(ValueError, match=named):
+        train_model(argv=argv)
 
 
 def test_tpu_only_flags_are_accepted(tmp_path):

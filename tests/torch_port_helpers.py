@@ -96,12 +96,14 @@ def jax_nets_and_weights(jcfg, seed):
 @contextlib.contextmanager
 def recording_grads(model, params):
     """Record the gradient each package hands its per-net clip + Adam
-    (``apply_net_update`` of either package's ``models/steps.py``), before
+    (``apply_net_update`` of either package's ``models/steps.py``, and of
+    the JAX package's ``models/accum.py``), before
     clipping, as ``{net: [state_dict of the gradient, one per call]}`` under
     "jax" and "port".  The JAX step reports through a debug callback from
     inside ``jit`` (so the patch must be in place when the step is traced),
     and its net is known by its leaves' shapes, which differ between the
     nets of one step; the port's by parameter identity."""
+    from domain_transfer_gan_tpu.models import accum as jax_accum
     from domain_transfer_gan_tpu.models import steps as jax_steps
     from domain_transfer_gan_torch.models import steps as port_steps
     from domain_transfer_gan_torch.utils.convert import \
@@ -139,13 +141,13 @@ def recording_grads(model, params):
             {n: g.detach().numpy().copy() for n, g in zip(names[k], grads)})
         return port_orig(p, opt, grads, *rest)
 
-    jax_steps.apply_net_update = jax_update
+    jax_steps.apply_net_update = jax_accum.apply_net_update = jax_update
     port_steps.apply_net_update = port_update
     try:
         yield out
     finally:
         jax.effects_barrier()
-        jax_steps.apply_net_update = jax_orig
+        jax_steps.apply_net_update = jax_accum.apply_net_update = jax_orig
         port_steps.apply_net_update = port_orig
 
 
@@ -157,19 +159,27 @@ def run_both_train_steps(flags, n_steps=2, batch=4, seed=0, kind="main",
     key; the same draw is handed to the port).  ``kind`` "main" is the
     two-phase step of ``flags["model"]`` (``make_aug_train_step`` or, for
     ``stoch_cycle_gan`` / ``cycle_gan``, ``make_stoch_train_step``), "sup"
-    the supervised step of ``aug_cycle_gan``.  With ``d_B_moments`` both
+    the supervised step of ``aug_cycle_gan``.  With ``grad_accum`` > 1 in
+    ``flags`` the JAX side runs ``models/accum.py``'s step.  With
+    ``pool_size`` / ``ema`` both packages start from the same (JAX) pools
+    and shadows, and the port is handed the pool draws of the JAX key as it
+    splits it (``pool_query``'s coin and slot).  With ``d_B_moments`` both
     packages start netD_B's Adam state from the same nonzero moments and a
     count of 3 (so that a zero-gradient step moves it).  With ``grads``
     the run also holds under "grads" what :func:`recording_grads` saw.
 
     Returns per step the two packages' losses and gnorms as dicts of floats,
     and at the end every net's parameters and running statistics, the JAX
-    side converted to the port's ``state_dict`` keys."""
+    side converted to the port's ``state_dict`` keys, and the pools
+    (``"pools"`` / ``"jax_pools"``: buffer and fill count) and EMA shadows
+    (``"ema"`` / ``"jax_ema"``, by parameter name)."""
     import jax.numpy as jnp
     import optax
 
     from domain_transfer_gan_tpu.config import TrainConfig as JaxConfig
+    from domain_transfer_gan_tpu.models import accum as jax_accum
     from domain_transfer_gan_tpu.models import steps as jax_steps
+    from domain_transfer_gan_tpu.models.pool import init_pool
     from domain_transfer_gan_tpu.models.state import TrainState, adam_tx
 
     from domain_transfer_gan_torch.config import TrainConfig
@@ -206,20 +216,51 @@ def run_both_train_steps(flags, n_steps=2, batch=4, seed=0, kind="main",
             for t, n in zip(dst, names):
                 t.copy_(sd[n])
         mine.count = 3
+    pool_size = int(cfg.get("pool_size", 0))
+    pools = {}
+    if pool_size:
+        pools = {k: init_pool(pool_size, (64, 64, 3))
+                 for k in ("fake_A", "fake_B")}
+        model.load_jax_pools(pools)
+    ema = {}
+    if cfg.get("ema", 0.0) > 0.0:
+        ema = {k: jparams[k] for k in ("netG_A_B", "netG_B_A", "netE_B")
+               if k in jparams}
+        for k in ema:
+            model.load_jax_ema(k, params[k])
     state = TrainState(
         params=jparams, batch_stats=jax.tree_util.tree_map(jnp.asarray, stats),
-        opt_state=opt_state, step=jnp.zeros((), jnp.int32))
+        opt_state=opt_state, step=jnp.zeros((), jnp.int32), pools=pools,
+        ema=ema)
+    accum = int(cfg.get("grad_accum", 1)) > 1
     if kind == "sup":
         raw = jax_steps.make_aug_supervised_step(nets, jcfg)
         n_keys = 2
     elif cfg["model"] == "aug_cycle_gan":
-        raw = jax_steps.make_aug_train_step(nets, jcfg)
+        raw = (jax_accum.make_aug_accum_step if accum
+               else jax_steps.make_aug_train_step)(nets, jcfg)
         n_keys = 5
     else:
-        raw = jax_steps.make_stoch_train_step(
+        raw = (jax_accum.make_stoch_accum_step if accum
+               else jax_steps.make_stoch_train_step)(
             nets, jcfg, ignore_noise=cfg["model"] == "cycle_gan")
         n_keys = None
     jstep = jax.jit(raw, compiler_options=FAST_COMPILE)
+
+    def pool_draws(key, n_split):
+        """pool_query's (coin, slot) of the JAX step's pool keys (the last
+        two of its split)."""
+        if not pool_size:
+            return None
+        out = {}
+        for name, k in zip(("fake_A", "fake_B"),
+                           jax.random.split(key, n_split)[-2:]):
+            k_coin, k_slot = jax.random.split(k)
+            out[name] = (np.asarray(jax.random.bernoulli(k_coin, 0.5,
+                                                         (batch,))),
+                         np.asarray(jax.random.randint(k_slot, (batch,), 0,
+                                                       pool_size)))
+        return out
 
     A, B = images(seed + 10, batch), images(seed + 11, batch)
     steps = []
@@ -233,7 +274,8 @@ def run_both_train_steps(flags, n_steps=2, batch=4, seed=0, kind="main",
             if n_keys is None:
                 state, jl, _, jg = jstep(state, jnp.asarray(A), jnp.asarray(B),
                                          jnp.asarray(z), *lr)
-                tl, tv, tg = model.train_instance(A, B, z)
+                tl, tv, tg = model.train_instance(
+                    A, B, z, pool_draws=pool_draws(key, 4))
             else:
                 # the eps_post draw of the JAX step, as it splits its key
                 k_eps = jax.random.split(key, n_keys)[0]
@@ -252,7 +294,8 @@ def run_both_train_steps(flags, n_steps=2, batch=4, seed=0, kind="main",
                     state, jl, _, jg = jstep(
                         state, jnp.asarray(A), jnp.asarray(B),
                         jnp.asarray(z), *lr)
-                    tl, tv, tg = model.train_instance(A, B, z, eps)
+                    tl, tv, tg = model.train_instance(
+                        A, B, z, eps, pool_draws=pool_draws(key, n_keys))
             steps.append({
                 "jax_losses": {k: float(v) for k, v in jl.items()},
                 "jax_gnorms": {k: float(v) for k, v in jg.items()},
@@ -269,7 +312,17 @@ def run_both_train_steps(flags, n_steps=2, batch=4, seed=0, kind="main",
         want[k] = {n: v.numpy() for n, v in sd.items()}
         got[k] = {n: v.detach().numpy().copy()
                   for n, v in model.nets[k].state_dict().items()}
+    names = {k: [n for n, _ in model.nets[k].named_parameters()]
+             for k in model.nets}
     return {"steps": steps, "jax_state": want, "state": got, "model": model,
+            "pools": {k: (v.buf.numpy().copy(), v.n)
+                      for k, v in model.state.pools.items()},
+            "jax_pools": {k: (np.asarray(v.buf), int(v.n))
+                          for k, v in state.pools.items()},
+            "ema": {k: dict(zip(names[k], (t.numpy().copy() for t in v)))
+                    for k, v in model.state.ema.items()},
+            "jax_ema": {k: {n: t.numpy() for n, t in jax_params_to_state_dict(
+                k, np_tree(v)).items()} for k, v in state.ema.items()},
             "grads": seen, "jax_step": int(state.step),
             "jax_counts": {k: int(v.count) for k, v in
                            state.opt_state.items()},
