@@ -105,7 +105,28 @@ It needs one CUDA device, ``nvcc`` and no network.  It
    ``eval_mse_A`` of the loaded and swapped model) and ``cli.export
    --use_ema 1`` with one served ``predict_B`` against the swapped model's;
    every run's launches held to its structure.  Phase 3 checks the kernels
-   at phase 9's microbatch shapes too, and phase 6 times them.
+   at phase 9's microbatch shapes too, and phase 6 times them;
+10. (also before 6) the per-file data path, the host feed, the Livneh ETL
+   and upstream-checkpoint interop at the same width, in float32: (a) a
+   Livneh-shaped NetCDF-3 pair (500 days of Prec, Tmax, Tmin, wind and SWE
+   over one NaN land mask) through ``data.prep_livneh``, its bundles and
+   per-sample files and 80/20 chronological split checked, one epoch of
+   ``--input_nc 3 --output_nc 1`` on the bundles; (b) one epoch of
+   ``--numpy_data 0 --device_data 0 --nThreads 4`` on 567 per-sample
+   files (a train tail batch of 19, an eval tail of 30 padded to 200) with
+   eval-A, eval-B, a display and ``--profile_dir``, then ``cli.test
+   --metric mse`` (``TEST_MSE_A`` against ``eval_mse_A`` over the same
+   DataLoader) and ``--metric visual``; (c) the prefetching feed's batches
+   against a synchronous copy bit for bit, the native reader against
+   numpy (ms per batch), and the same epoch's images/s three ways in turns
+   (npz bundles on the card, the per-file set through the feed, and
+   through a synchronous copy: the CLI with its feed swapped for a
+   pass-through); (d) ``--supervised --device_data 1``;
+   (e) the trace of (b) names K1 and K2; (f) ``export_torch_checkpoint``
+   -> ``cli.import_torch`` -> ``predict_B`` within 1e-6 and one resumed
+   epoch; (g) a paired-jpg folder where PIL is present, its refusal where
+   it is not.  Every run's launches are held to its structure, phase 3
+   checks the kernels at phase 10's new shapes, and phase 6 times them.
 
 Any failed build, launch or check ends the run with a non-zero exit code.
 The last line of standard output is
@@ -326,17 +347,67 @@ EXTRAS_SHAPES = tuple(dict.fromkeys(
     s for hw in (64, 256)
     for s in sorted(accum_sites(32, ACCUM_K, hw=hw)["fwd"], reverse=True)))
 
+# phase 10: the per-file data path, the host feed, the Livneh ETL and
+# upstream-checkpoint interop, at the published width in float32.  Sizes
+# are cut in scale only:
+# (a) a Livneh-shaped NetCDF-3 pair of 500 daily 64x64 rasters over one
+#     land mask: 400 train days (100 of them dev: 10 steps of 32, the last
+#     one backed off) and 100 test days, eval-A at batch 100;
+# (b) 567 per-sample train files (100 of them dev): 14 steps of 32 and a
+#     tail of 19 that is trained on, so that --profile_dir's window (steps
+#     10-14) holds the tail; 230 test files: eval batches of 200 and a tail
+#     of 30, which the UBO pads to 200;
+# (c)-(g) the same set (and its npz bundles) for the feed's three ways, the
+#     supervised set on the card, the upstream round trip and a paired-jpg
+#     folder.
+P10 = dict(batch=32, livneh_days=500, livneh_dev=100, n_train=567,
+           n_test=230, dev_size=100, n_threads=4, jpg_dev=8,
+           feed_turns=("npz", "prefetch", "sync", "sync", "prefetch",
+                       "npz"))
+P10_EVAL, P10_UBO_STEPS, P10_TEST_VIS, P10_TEST_MULTI = 200, 50, 10, 5
+P10_TAIL = (P10["n_train"] - P10["dev_size"]) % P10["batch"]
+P10_EVAL_TAIL = P10["n_test"] % P10_EVAL
+# the shapes phase 10 adds to the others': the tail step's and the eval
+# tail's
+P10_SHAPES = tuple(dict.fromkeys(
+    tuple(sorted(train_sites(P10_TAIL), reverse=True))
+    + tuple(gen_sites(P10_EVAL_TAIL, "B"))))
+P10_PREDICT_ATOL = 1e-6  # predict_B after the upstream round trip
+# the feed's three ways: "sync" is the per-file run with the CLI's feed
+# replaced by a pass-through, so that each step copies its host batch
+# synchronously (train_instance on numpy arrays)
+P10_FEED = {"npz": ["--numpy_data", "1", "--device_data", "1"],
+            "prefetch": ["--numpy_data", "0", "--device_data", "0"],
+            "sync": ["--numpy_data", "0", "--device_data", "0"]}
+
+
+def synchronous_feed(train_cli):
+    """A context that replaces ``train_cli``'s prefetching feed by a
+    pass-through for its duration."""
+    import contextlib
+
+    @contextlib.contextmanager
+    def swapped():
+        feed = train_cli.prefetch_to_device
+        train_cli.prefetch_to_device = lambda it, device, size=2: it
+        try:
+            yield
+        finally:
+            train_cli.prefetch_to_device = feed
+    return swapped()
+
+
 # every shape both kernels are checked at, in both dtypes: every site of the
 # serving path, of a train step at batch 32 and at batch 128 (the
 # discriminators' concatenated pass has N = 2 batch; the launch geometry
-# differs with N) and of the training CLI's evaluations and visuals, and
-# edge shapes
+# differs with N), of the training CLI's evaluations and visuals, of phase
+# 9's microbatches and phase 10's tails, and edge shapes
 CHECK_SHAPES = tuple(dict.fromkeys(
     PATH_SHAPES + tuple(s for b in sorted(set(TRAIN_BATCH.values()))
                         for s in train_sites(b))
     + tuple(s for n in CLI_BATCHES + TEST_CLI_BATCHES
             for s in gen_sites(n, "B"))
-    + EXTRAS_SHAPES + EDGE_SHAPES + (HW1_SHAPE,)))
+    + EXTRAS_SHAPES + P10_SHAPES + EDGE_SHAPES + (HW1_SHAPE,)))
 BWD_SUM_RTOL = 1e-4  # dscale, dshift: fp32 sums of up to 65536 products
 
 
@@ -650,11 +721,17 @@ def _extras_cases():
     return [(shape, "float32") for shape in EXTRAS_SHAPES]
 
 
+def _phase10_cases():
+    """The shapes phase 10 adds, float32: its per-file tail step at 19 (the
+    discriminators' pass at 38) and its eval tail at 30."""
+    return [(shape, "float32") for shape in P10_SHAPES]
+
+
 def _timed_cases():
     serving = _serving_cases()
     return serving + [c for c in dict.fromkeys(
-        _train_cases() + _eval_cases() + _test_cases() + _extras_cases())
-        if c not in serving]
+        _train_cases() + _eval_cases() + _test_cases() + _extras_cases()
+        + _phase10_cases()) if c not in serving]
 
 
 def _plan_row(plan, n):
@@ -702,7 +779,8 @@ def _time_variants(torch, K, launch, shape, itemsize, arrays, sweep):
 
 
 def time_kernel(torch, F, K, site_counts, train_counts, cli_counts,
-                variant_counts, bpp_counts, extra, extras_counts):
+                variant_counts, bpp_counts, extra, extras_counts,
+                p10_counts):
     """Phase 6, forward kernel, per path shape and dtype.  Per-channel
     affine, biased variance, fused ReLU: the case the library call covers
     too.  Times are device times (CUDA-graph replay).  Inputs rotate over
@@ -716,7 +794,8 @@ def time_kernel(torch, F, K, site_counts, train_counts, cli_counts,
     whole training CLI phase (float32), ``variant_counts["fwd"][shape]``
     those of phase 8 (float32), ``bpp_counts["fwd"][shape]`` those of its
     ``--metric bpp`` run (the rows at the evaluation CLI's batch),
-    ``extras_counts[dtype]["fwd"][shape]`` those of phase 9.  Every row has the plain version's
+    ``extras_counts[dtype]["fwd"][shape]`` those of phase 9,
+    ``p10_counts["fwd"][shape]`` those of phase 10 (float32).  Every row has the plain version's
     and the library call's times beside the kernel's.  With ``extra`` every
     row also has ``cluster_sweep_ms`` (the cluster variant at each cluster
     size that holds the slab), and the serving shapes gain:
@@ -776,6 +855,8 @@ def time_kernel(torch, F, K, site_counts, train_counts, cli_counts,
             "launches_phase8": variant_counts["fwd"].get(shape, 0)
                 if name == "float32" else 0,
             "launches_phase9": extras_counts[name]["fwd"].get(shape, 0),
+            "launches_phase10": p10_counts["fwd"].get(shape, 0)
+                if name == "float32" else 0,
         })
         if (shape, name) in _test_cases():
             row["launches_bpp_run"] = bpp_counts["fwd"].get(shape, 0)
@@ -802,7 +883,7 @@ def time_kernel(torch, F, K, site_counts, train_counts, cli_counts,
 
 
 def time_bwd_kernel(torch, F, K, train_counts, cli_counts, variant_counts,
-                    bpp_counts, extra, extras_counts):
+                    bpp_counts, extra, extras_counts, p10_counts):
     """Phase 6, backward kernel, at the serving shapes in both dtypes (the
     bfloat16 batch-32 rows and the 256x256 request are on no training path:
     they complete the table), at every site of the training path in the
@@ -879,6 +960,8 @@ def time_bwd_kernel(torch, F, K, train_counts, cli_counts, variant_counts,
             "launches_phase8": variant_counts["bwd"].get(shape, 0)
                 if name == "float32" else 0,
             "launches_phase9": extras_counts[name]["bwd"].get(shape, 0),
+            "launches_phase10": p10_counts["bwd"].get(shape, 0)
+                if name == "float32" else 0,
         })
         if (shape, name) in _test_cases():
             row["launches_bpp_run"] = bpp_counts["bwd"].get(shape, 0)
@@ -2868,6 +2951,486 @@ def profile_forward(torch, ctx):
     return out
 
 
+def _p10_argv(root, ckpt, name, device, width, p, extra=()):
+    """One epoch at the published width, every cadence off unless
+    ``extra`` turns it on."""
+    argv = ["--dataroot", root, "--name", name, "--checkpoints_dir", ckpt,
+            "--grid_size", "64", "--batchSize", str(p["batch"]),
+            "--niter", "1", "--niter_decay", "0", "--save_epoch_freq", "0",
+            "--eval_A_freq", "0", "--eval_B_freq", "0",
+            "--print_freq", str(CLI_PRINT_EVERY * p["batch"]),
+            "--display_freq", "0", "--dev_size", str(p["dev_size"]),
+            "--nThreads", str(p["n_threads"]), "--init_scheme", "sane",
+            "--seed", "2027", "--device", device]
+    for k, v in width.items():
+        argv += ["--" + k, str(v)]
+    return argv + list(extra)
+
+
+def _batch_sizes(n, batch):
+    return [min(batch, n - lo) for lo in range(0, n, batch)]
+
+
+def p10_train_expected(width, batch, sizes, sup=0):
+    """Launches of train steps on batches of ``sizes`` (with ``sup``
+    supervised steps at ``batch``)."""
+    ngf, nb, ndf = width["ngf"], width["n_blocks"], width["ndf"]
+    want = {"fwd": {}, "bwd": {}}
+    for d in want.values():
+        for n in sizes:
+            _add(d, train_sites(n, nb, ngf, ndf))
+        _add(d, sup_sites(batch, nb, ngf), sup)
+    return want
+
+
+def p10_perfile_expected(width, p, ubo=True, display=True):
+    """Launches of phase 10 (b)'s training CLI run by direction and (N, HW,
+    C): the steps (the tail's included), eval-A (netG_B_A on each dev and
+    test batch of 200 as it is), eval-B (the UBO's forward and backward per
+    RMSprop step on every batch padded to 200, and the dev batches' first
+    grid at up to 25), and one display on the epoch's last step
+    (generate_cycle, the multi grid and the inference grid on a dev batch of
+    up to 25)."""
+    ngf, nb = width["ngf"], width["n_blocks"]
+    n_tr = p["n_train"] - p["dev_size"]
+    want = p10_train_expected(width, p["batch"],
+                              _batch_sizes(n_tr, p["batch"]))
+    fwd, bwd = want["fwd"], want["bwd"]
+
+    def g(n, fn):
+        return gen_sites(n, fn, ngf, nb)
+
+    dev = _batch_sizes(p["dev_size"], P10_EVAL)
+    test = _batch_sizes(p["n_test"], P10_EVAL)
+    for n in dev + test:
+        _add(fwd, g(n, "A"))
+    if ubo:
+        for d in (fwd, bwd):
+            _add(d, g(P10_EVAL, "B"), (len(dev) + len(test)) * P10_UBO_STEPS)
+        for n in dev:
+            _add(fwd, g(min(DEV_VIS_BATCH, n), "B"))
+    if display:
+        v = min(DEV_VIS_BATCH, p["dev_size"])
+        h = min(NUM_MULTI, v)
+        _add(fwd, g(v, "B"), 2)
+        _add(fwd, g(v, "A"), 2)
+        _add(fwd, g(v * NUM_MULTI, "B"))
+        _add(fwd, g(h, "A"))
+        _add(fwd, g(v * h, "B"))
+    return want
+
+
+def p10_test_expected(width, p, metric):
+    """Launches of cli.test on the per-file run: mse decodes each dev and
+    test batch of 200 through netG_B_A; visual decodes one dev batch of up
+    to 10 as phase 8 does (with the inference grid of aug_cycle_gan)."""
+    ngf, nb = width["ngf"], width["n_blocks"]
+    fwd = {}
+
+    def g(n, fn):
+        return gen_sites(n, fn, ngf, nb)
+
+    if metric == "mse":
+        for n in (_batch_sizes(p["dev_size"], P10_EVAL)
+                  + _batch_sizes(p["n_test"], P10_EVAL)):
+            _add(fwd, g(n, "A"))
+    else:
+        v = min(P10_TEST_VIS, p["dev_size"])
+        m, h = v * P10_TEST_MULTI, min(P10_TEST_MULTI, v)
+        _add(fwd, g(v, "B"), 2 + 4)
+        _add(fwd, g(v, "A"), 2 + 1 + 4)
+        _add(fwd, g(m, "B"), 2)
+        _add(fwd, g(h, "A"))
+        _add(fwd, g(v * h, "B"))
+    return {"fwd": fwd, "bwd": {}}
+
+
+def write_livneh_netcdf(root, days, size, seed):
+    """A Livneh-shaped NetCDF-3 pair under ``root`` (``forcings.nc``:
+    Prec, Tmax, Tmin, wind; ``swe.nc``: SWE; each (time, lat, lon) float32
+    with lat/lon/time) over one land mask that is NaN in every variable and
+    day.  Returns (A, B): the forcings stacked in that order and SWE, as
+    the ETL should stack them."""
+    import os
+
+    from scipy.io import netcdf_file
+
+    from domain_transfer_gan_torch.data.synthetic import \
+        make_synthetic_livneh_pair
+
+    A, B = make_synthetic_livneh_pair(days, size, seed, nan_frac=0.0)
+    A = A[..., [0, 2, 1, 3]]  # (prec, tmin, tmax, wind) -> the file's order
+    rng = np.random.RandomState(seed)
+    field = rng.rand(size, size)
+    mask = field > np.quantile(field, 0.9)
+    A[:, mask] = np.nan
+    B[:, mask] = np.nan
+    os.makedirs(root, exist_ok=True)
+    for fname, names, arr in (("forcings.nc", ["Prec", "Tmax", "Tmin",
+                                               "wind"], A),
+                              ("swe.nc", ["SWE"], B)):
+        with netcdf_file(os.path.join(root, fname), "w") as ds:
+            for dim, n in (("time", days), ("lat", size), ("lon", size)):
+                ds.createDimension(dim, n)
+                v = ds.createVariable(dim, "f4", (dim,))
+                v[:] = np.arange(n, dtype=np.float32)
+            for i, name in enumerate(names):
+                v = ds.createVariable(name, "f4", ("time", "lat", "lon"))
+                v[:] = arr[..., i]
+    return A, B
+
+
+def _finite_loss_lines(log, what):
+    import re
+    lines = [ln for ln in log.splitlines() if ln.startswith("(epoch:")]
+    if not lines:
+        raise AssertionError("%s: no loss line" % what)
+    for ln in lines:
+        vals = re.findall(r"\w+: (\S+) ", ln.split(") ", 1)[-1] + " ")
+        if len(vals) < 10 or not all(np.isfinite(float(v)) for v in vals):
+            raise AssertionError("%s: %r" % (what, ln))
+    return len(lines)
+
+
+def _steady(ips):
+    """The CLI's throughput windows less the first (its warm-up)."""
+    import statistics
+    steady = ips[1:]
+    return statistics.median(steady) if steady else None
+
+
+def drive_phase10(torch, K, tmp, smi, device="cuda", width=CLI_WIDTH,
+                  p=P10, counters=None):
+    """Phase 10: (a) the Livneh ETL and one epoch on its bundles; (b) one
+    epoch of the per-file path with eval-A, eval-B, a display and
+    --profile_dir, then cli.test --metric mse and visual on its latest
+    (TEST_MSE_A against eval_mse_A over the same DataLoader); (c) the feed:
+    its batches against a synchronous copy bit for bit, the native reader
+    against numpy, the same epoch's images/s three ways in turns; (d)
+    --supervised --device_data 1; (e) the trace of (b) names K1 and K2; (f)
+    export_torch_checkpoint -> cli.import_torch -> predict_B and one
+    resumed epoch; (g) a paired-jpg folder where PIL is present.  Every
+    run's launches are read from 0 around it and held to its structure
+    (and, on the card, to the variants the plan picks).  Returns (launches
+    by direction and shape, per variant, the figures)."""
+    import json as _json
+    import os
+    import types
+
+    import contextlib
+
+    from domain_transfer_gan_torch.cli import test as test_cli
+    from domain_transfer_gan_torch.cli import train as train_cli
+    from domain_transfer_gan_torch.cli.import_torch import \
+        main as import_main
+    from domain_transfer_gan_torch.cli.train import train_model
+    from domain_transfer_gan_torch.config import \
+        load_train_config_from_expr_dir
+    from domain_transfer_gan_torch.data import DataLoader, PILMissingError, \
+        load_edges2shoes, load_numpy_data, native, prep_livneh
+    from domain_transfer_gan_torch.data.feed import prefetch_to_device
+    from domain_transfer_gan_torch.data.synthetic import (
+        write_synthetic_dataset,
+        write_synthetic_perfile_dataset,
+    )
+    from domain_transfer_gan_torch.eval import eval_mse_A
+    from domain_transfer_gan_torch.models import create_model
+    from domain_transfer_gan_torch.utils.torch_interop import \
+        export_torch_checkpoint
+
+    log("phase 10 on %s" % smi)
+    counters = counters or _Counters(K)
+    on_card = device == "cuda"
+    total = {"fwd": {}, "bwd": {}}
+    expected = {d: {"cluster": 0, "streaming": 0} for d in ("fwd", "bwd")}
+    variants = {d: {"cluster": 0, "streaming": 0} for d in ("fwd", "bwd")}
+    fig = {"run_s": {}, "native_reader": native.reader_name(),
+           "zlib_h": os.path.exists("/usr/include/zlib.h")}
+    log("phase 10: host reader %s; /usr/include/zlib.h %s"
+        % (fig["native_reader"], "present" if fig["zlib_h"] else "absent"))
+    batch = p["batch"]
+
+    def sync():
+        if on_card:
+            torch.cuda.synchronize()
+
+    def counted(what, want, fn):
+        counters.reset()  # each run of phase 10 starts here
+        t = time.perf_counter()
+        out = fn()
+        sync()
+        fig["run_s"][what] = time.perf_counter() - t
+        seen = counters.read()  # and ends here
+        _held_counts(seen, want, what)
+        for d in ("fwd", "bwd"):
+            _add(total[d], seen[d])
+        if on_card:
+            _tally(K, seen, 4, expected)
+            for d, by in counters.variants().items():
+                for v, c in by.items():
+                    variants[d][v] += c
+        return out
+
+    def read_log(expr):
+        with open(os.path.join(expr, "results.txt")) as f:
+            return f.read()
+
+    ckpt = os.path.join(tmp, "p10_runs")
+
+    # (a) the ETL and the science configuration
+    nc = os.path.join(tmp, "p10_nc")
+    A_src, B_src = write_livneh_netcdf(nc, p["livneh_days"], 64, seed=10)
+    livneh = os.path.join(tmp, "p10_livneh")
+    t = time.perf_counter()
+    prep_livneh.prepare(os.path.join(nc, "forcings.nc"),
+                        os.path.join(nc, "swe.nc"), livneh)
+    fig["prep_livneh_s"] = time.perf_counter() - t
+    n_days_tr = int(p["livneh_days"] * prep_livneh.TRAIN_FRACTION)
+    for fname, want in (("trainA.npz", A_src[:n_days_tr]),
+                        ("testA.npz", A_src[n_days_tr:]),
+                        ("trainB.npz", B_src[:n_days_tr]),
+                        ("testB.npz", B_src[n_days_tr:])):
+        with np.load(os.path.join(livneh, fname)) as f:
+            if f["data"].shape != want.shape or not np.array_equal(
+                    f["data"], want, equal_nan=True) \
+                    or sorted(f.files) != ["data", "lat", "lon", "time"]:
+                raise AssertionError("prep_livneh: %s holds %r" % (
+                    fname, f["data"].shape))
+    for sub, n in (("trainA", n_days_tr), ("testB",
+                                           p["livneh_days"] - n_days_tr)):
+        if len(os.listdir(os.path.join(livneh, sub))) != n:
+            raise AssertionError("prep_livneh: %s holds %d files"
+                                 % (sub, len(os.listdir(os.path.join(
+                                     livneh, sub)))))
+    trA, trB, *_ = load_numpy_data(livneh, grid_size=64,
+                                   dev_size=p["livneh_dev"])
+    if trA.shape[-1] != 3 or trB.shape[-1] != 1 or not (
+            np.isfinite(trA).all() and np.abs(trA).max() <= 1.0):
+        raise AssertionError("Livneh bundles load as %r / %r"
+                             % (trA.shape, trB.shape))
+    n_tr = n_days_tr - p["livneh_dev"]
+    want = p10_train_expected(width, batch, [batch] * -(-n_tr // batch))
+    ev = _batch_sizes(p["livneh_dev"], 100) + _batch_sizes(
+        p["livneh_days"] - n_days_tr, 100)
+    for n in ev:
+        _add(want["fwd"], gen_sites(n, "A", width["ngf"], width["n_blocks"]))
+    model = counted("livneh", want, lambda: train_model(argv=_p10_argv(
+        livneh, ckpt, "livneh", device, width,
+        dict(p, dev_size=p["livneh_dev"]),
+        ["--input_nc", "3", "--output_nc", "1", "--eval_A_freq", "1"])))
+    text = read_log(os.path.join(ckpt, "livneh"))
+    _finite_loss_lines(text, "Livneh run")
+    if "DEV_MSE_A" not in text or model.state.step != -(-n_tr // batch):
+        raise AssertionError("Livneh run: step %d" % model.state.step)
+
+    # (b) the per-file path, and cli.test on its checkpoint
+    perfile = os.path.join(tmp, "p10_perfile")
+    write_synthetic_perfile_dataset(perfile, n_train=p["n_train"],
+                                    n_test=p["n_test"], size=64, seed=11)
+    npz = os.path.join(tmp, "p10_npz")
+    write_synthetic_dataset(npz, n_train=p["n_train"], n_test=p["n_test"],
+                            size=64, seed=11)
+    prof = os.path.join(tmp, "p10_prof")
+    n_tr = p["n_train"] - p["dev_size"]
+    steps = -(-n_tr // batch)
+    model = counted("per-file", p10_perfile_expected(width, p),
+                    lambda: train_model(argv=_p10_argv(
+                        perfile, ckpt, "perfile", device, width, p,
+                        P10_FEED["prefetch"] + [
+                            "--eval_A_freq", "1", "--eval_B_freq", "1",
+                            "--save_epoch_freq", "1",
+                            "--display_freq", str(steps * batch),
+                            "--profile_dir", prof])))
+    expr = os.path.join(ckpt, "perfile")
+    text = read_log(expr)
+    _finite_loss_lines(text, "per-file run")
+    if model.state.step != steps or "DEV_BPP_B" not in text \
+            or "host reader: " not in text \
+            or "#training images = %d" % n_tr not in text:
+        raise AssertionError("per-file run: step %d\n%s"
+                             % (model.state.step, text[-2000:]))
+    for f in ("latest", "best_A", "best_B", "history_ubo_B.npy"):
+        if not os.path.exists(os.path.join(expr, f)):
+            raise AssertionError("per-file run: %s missing" % f)
+    latest = os.path.join(expr, "latest")
+    out = counted("cli.test mse", p10_test_expected(width, p, "mse"),
+                  lambda: test_cli.test_model(
+                      ["--chk_path", latest, "--dataroot", perfile,
+                       "--metric", "mse", "--device", device]))
+    counted("cli.test visual", p10_test_expected(width, p, "visual"),
+            lambda: test_cli.test_model(
+                ["--chk_path", latest, "--dataroot", perfile, "--metric",
+                 "visual", "--device", device]))
+    if not os.path.getsize(os.path.join(expr, "test_res", "inf_0.png")):
+        raise AssertionError("cli.test visual: no inf_0.png")
+    opt = load_train_config_from_expr_dir(expr, seed=12345, device=device)
+    loaded = create_model(opt, testing=True, device=device)
+    loaded.load(latest)
+    direct = eval_mse_A(DataLoader(opt, "val", False, P10_EVAL,
+                                   load_in_mem=False), loaded)
+    fig["test_mse_A_vs_eval_mse_A"] = abs(out["TEST_MSE_A"] - direct) / \
+        abs(direct)
+    if fig["test_mse_A_vs_eval_mse_A"] > 1e-6:
+        raise AssertionError("per-file TEST_MSE_A %r, eval_mse_A %r"
+                             % (out["TEST_MSE_A"], direct))
+
+    # (e) the trace of (b)'s steps 10-14
+    trace = os.path.join(prof, "trace.json")
+    with open(trace) as f:
+        names = {e.get("name", "") for e in _json.load(f)["traceEvents"]}
+    fig["trace_k1"] = sorted(n for n in names if "instance_norm_fwd" in n)
+    fig["trace_k2"] = sorted(n for n in names if "instance_norm_bwd" in n)
+    if on_card and not (fig["trace_k1"] and fig["trace_k2"]):
+        raise AssertionError("the --profile_dir trace names K1 %r, K2 %r"
+                             % (fig["trace_k1"], fig["trace_k2"]))
+    if "profiler trace written to %s" % prof not in text:
+        raise AssertionError("per-file run: no profiler line")
+
+    # (c) the feed: bit-equal batches, the readers, then images/s
+    dopt = types.SimpleNamespace(dataroot=perfile, grid_size=64,
+                                 dev_size=p["dev_size"], resize_antialias=1,
+                                 nThreads=p["n_threads"])
+    host = list(DataLoader(dopt, "train", True, batch, seed=5))
+    fed = list(prefetch_to_device(iter(host), device, size=2))
+    if len(fed) != len(host) or not all(
+            torch.equal(torch.as_tensor(f[k]),
+                        torch.from_numpy(h[k]).to(device))
+            for f, h in zip(fed, host) for k in ("A", "B")):
+        raise AssertionError("the feed's batches are not the synchronous "
+                             "copy's")
+    fig["feed_batches_bit_equal"] = len(fed)
+    del fed
+    reader = DataLoader(dopt, "train", False, batch, load_in_mem=False)
+    times, got = {}, {}
+    saved = (native._LIB, native._TRIED, native._ERROR)
+    for way in ("native", "numpy", "numpy", "native"):
+        if way == "numpy":
+            native._LIB, native._TRIED, native._ERROR = None, True, "off"
+        t = time.perf_counter()
+        got[way] = list(reader)
+        times.setdefault(way, []).append(
+            (time.perf_counter() - t) * 1e3 / len(got[way]))
+        native._LIB, native._TRIED, native._ERROR = saved
+    if not all(np.array_equal(a[k], b[k]) for a, b in
+               zip(got["native"], got["numpy"]) for k in ("A", "B")):
+        raise AssertionError("the native and numpy readers differ")
+    fig["reader_ms_per_batch"] = times
+    del got
+    fig["feed_images_per_s"] = {}
+    for i, way in enumerate(p["feed_turns"]):
+        root = npz if way == "npz" else perfile
+        name = "feed_%s_%d" % (way, i)
+        with (synchronous_feed(train_cli) if way == "sync"
+              else contextlib.nullcontext()):
+            counted(name, p10_train_expected(
+                width, batch, [batch] * steps if way == "npz"
+                else _batch_sizes(n_tr, batch)),
+                lambda: train_model(argv=_p10_argv(
+                    root, ckpt, name, device, width, p, P10_FEED[way])))
+        ips, _ = _log_figures(read_log(os.path.join(ckpt, name)))
+        fig["feed_images_per_s"].setdefault(way, []).append(_steady(ips))
+    log("phase 10 (c): %s" % _json.dumps(
+        {k: fig[k] for k in ("feed_images_per_s", "reader_ms_per_batch",
+                             "native_reader")}))
+
+    # (d) --supervised --device_data 1
+    sup_frac = (batch + 0.5) / n_tr  # one supervised batch
+    counted("supervised", p10_train_expected(width, batch, [batch] * steps,
+                                             sup=steps),
+            lambda: train_model(argv=_p10_argv(
+                npz, ckpt, "sup", device, width, p,
+                ["--supervised", "--sup_frac", repr(sup_frac),
+                 "--device_data", "1"])))
+    text = read_log(os.path.join(ckpt, "sup"))
+    if "supervised set on %s" % device not in text:
+        raise AssertionError("--supervised --device_data 1: %s"
+                             % text[:1000])
+    _finite_loss_lines(text, "supervised run")
+
+    # (f) upstream interop: export, import by the CLI, predict_B, resume
+    upstream = os.path.join(tmp, "p10_upstream.pt")
+    t = time.perf_counter()
+    export_torch_checkpoint(loaded, upstream)
+    fig["export_torch_s"] = time.perf_counter() - t
+    imported_expr = os.path.join(ckpt, "imported")
+    t = time.perf_counter()
+    import_main(["--torch_chk", upstream, "--opt", expr, "--out",
+                 os.path.join(imported_expr, "latest"), "--device", device])
+    sync()
+    fig["import_torch_s"] = time.perf_counter() - t
+    imported = create_model(opt, testing=True, device=device)
+    imported.load(os.path.join(imported_expr, "latest"))
+    for name, net in loaded.nets.items():
+        theirs = imported.nets[name].state_dict()
+        a, b = loaded.state.opt_state[name], imported.state.opt_state[name]
+        if not all(torch.equal(v, theirs[k])
+                   for k, v in net.state_dict().items()) \
+                or a.count != b.count or not all(
+                    torch.equal(x, y) for x, y in zip(a.mu + a.nu,
+                                                      b.mu + b.nu)):
+            raise AssertionError("the upstream round trip changed %s" % name)
+    rng = np.random.RandomState(12)
+    A = rng.uniform(-1, 1, (batch, 64, 64, 3)).astype(np.float32)
+    z = rng.randn(batch, width["nlatent"]).astype(np.float32)
+    # cuDNN may pick another algorithm for the same conv from one call to
+    # the next (1.1e-6 apart seen): the comparison pins its choice
+    with torch.backends.cudnn.flags(enabled=True, benchmark=False,
+                                    deterministic=True):
+        fig["upstream_round_trip_max_abs_err"] = float(
+            (imported.predict_B(A, z) - loaded.predict_B(A, z)).abs().max())
+    fig["predict_B_run_to_run_max_abs_diff"] = float(
+        (loaded.predict_B(A, z) - loaded.predict_B(A, z)).abs().max())
+    if fig["upstream_round_trip_max_abs_err"] > P10_PREDICT_ATOL:
+        raise AssertionError("predict_B after the upstream round trip: %r"
+                             % fig["upstream_round_trip_max_abs_err"])
+    resumed = counted("imported, resumed", p10_train_expected(
+        width, batch, [batch] * steps), lambda: train_model(argv=_p10_argv(
+            npz, ckpt, "imported", device, width, p,
+            ["--continue_train"])))
+    text = read_log(imported_expr)
+    if "(epoch 0, step 0)" not in text or resumed.epoch != 1:
+        raise AssertionError("the imported checkpoint did not resume: %s"
+                             % text[:1000])
+    _finite_loss_lines(text, "resumed run")
+
+    # (g) a paired-jpg folder, where PIL is
+    jpg = os.path.join(tmp, "p10_jpg")
+    try:
+        from PIL import Image
+    except ImportError:
+        os.makedirs(os.path.join(jpg, "train"))
+        try:
+            load_edges2shoes(jpg)
+        except PILMissingError as e:
+            fig["pil"] = "absent: %s" % e
+            log("phase 10 (g): %s" % e)
+        else:
+            raise AssertionError("a paired-jpg folder loaded without PIL")
+    else:
+        rng = np.random.RandomState(13)
+        for sub, n in (("train", p["jpg_dev"] + batch), ("val", 4)):
+            os.makedirs(os.path.join(jpg, sub))
+            for i in range(n):
+                Image.fromarray((rng.rand(64, 128, 3) * 255).astype(
+                    np.uint8)).save(os.path.join(jpg, sub, "%d.jpg" % i))
+        counted("paired jpg", p10_train_expected(width, batch, [batch]),
+                lambda: train_model(argv=_p10_argv(
+                    jpg, ckpt, "jpg", device, width,
+                    dict(p, dev_size=p["jpg_dev"]))))
+        fig["pil"] = "present: one epoch trained on a paired-jpg folder"
+        log("phase 10 (g): PIL present, paired-jpg folder trained")
+
+    if on_card and variants != expected:
+        raise AssertionError("phase 10 launched the variants %r, the plan "
+                             "picks %r" % (variants, expected))
+    log("phase 10: launches by direction and shape %s, per variant %s"
+        % (_json.dumps({d: {"%dx%dx%d" % sh: c for sh, c in
+                            sorted(total[d].items())}
+                        for d in ("fwd", "bwd")}), _json.dumps(variants)))
+    log("phase 10: %s" % _json.dumps(fig))
+    return total, variants, fig
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--profile", action="store_true",
@@ -2974,16 +3537,25 @@ def main(argv=None):
         log("phase 9: %.1f s, launches %d forward, %d backward"
             % (time.perf_counter() - t9, p9_fwd, p9_bwd))
 
+        # phase 10: the per-file data path, the host feed, the Livneh ETL,
+        # upstream-checkpoint interop (before phase 6 too)
+        t10 = time.perf_counter()
+        p10, p10_variants, p10_figures = drive_phase10(torch, K, tmp, smi)
+        p10_fwd, p10_bwd = (sum(p10[d].values()) for d in ("fwd", "bwd"))
+        log("phase 10: %.1f s, launches %d forward, %d backward"
+            % (time.perf_counter() - t10, p10_fwd, p10_bwd))
+
         # phase 6: times
         rows = time_kernel(torch, F, K, site_counts, train_counts,
                            cli_counts, p8, bpp_counts, extra=args.profile,
-                           extras_counts=p9)
+                           extras_counts=p9, p10_counts=p10)
         bwd_rows = time_bwd_kernel(torch, F, K, train_counts, cli_counts,
                                    p8, bpp_counts, extra=args.profile,
-                                   extras_counts=p9)
+                                   extras_counts=p9, p10_counts=p10)
         e2e = time_end_to_end(torch, ctx)
         e2e.update(time_train_step(torch))
         e2e["phase9"] = p9_figures
+        e2e["phase10"] = p10_figures
         e2e.update(time_ubo_step(torch))
         prof = None
         if args.profile:
@@ -3008,16 +3580,18 @@ def main(argv=None):
         "source": "domain_transfer_gan_torch/csrc/instance_norm.cu",
         "replaces": pallas + ":115",
         "launches": launches + train_fwd + cli_fwd + served_fwd + p8_fwd
-        + p9_fwd,
+        + p9_fwd + p10_fwd,
         "launches_serving_path": launches,
         "launches_training_path": train_fwd,
         "launches_training_cli": cli_fwd + served_fwd,
         "launches_phase8": p8_fwd,
         "launches_phase9": p9_fwd,
+        "launches_phase10": p10_fwd,
         "launches_by_variant": {
             v: serving_variants[v] + train_variants["fwd"][v]
             + cli_variants["fwd"][v] + p8_variants["fwd"][v]
-            + p9_variants["fwd"][v] for v in serving_variants},
+            + p9_variants["fwd"][v] + p10_variants["fwd"][v]
+            for v in serving_variants},
         "max_abs_err": worst.overall("y_float32"),
         "max_err_bf16_ulps": worst.overall("y_bfloat16_ulps"),
         "check_by_variant": worst.summary(),
@@ -3038,16 +3612,17 @@ def main(argv=None):
         "route": "cuda",
         "source": "domain_transfer_gan_torch/csrc/instance_norm_bwd.cu",
         "replaces": pallas + ":175",
-        "launches": train_bwd + cli_bwd + p8_bwd + p9_bwd,
+        "launches": train_bwd + cli_bwd + p8_bwd + p9_bwd + p10_bwd,
         "launches_serving_path": 0,
         "launches_training_path": train_bwd,
         "launches_training_cli": cli_bwd,
         "launches_phase8": p8_bwd,
         "launches_phase9": p9_bwd,
+        "launches_phase10": p10_bwd,
         "launches_by_variant": {
             v: train_variants["bwd"][v] + cli_variants["bwd"][v]
             + p8_variants["bwd"][v] + p9_variants["bwd"][v]
-            for v in train_variants["bwd"]},
+            + p10_variants["bwd"][v] for v in train_variants["bwd"]},
         "max_abs_err": bwd_worst.overall("dx_float32"),
         "max_err_bf16_ulps": bwd_worst.overall("dx_bfloat16_ulps"),
         "check_by_variant": bwd_worst.summary(),

@@ -1,5 +1,9 @@
 """The evaluation CLI of the port: the JAX package's ``cli/test.py`` on one
-torch device (``--device``, default ``cuda``), npz data path.
+torch device (``--device``, default ``cuda``), on the data the run was
+trained on: npz bundles, a paired-jpg folder (needs PIL) or, for a run
+trained with ``--numpy_data 0``, the per-file set through
+``data/folder.py::DataLoader`` (items read and transformed as batches are
+drawn).
 
     python -m domain_transfer_gan_torch.cli.test --chk_path RUN/latest \\
         --dataroot DATA --metric {bpp,mse,visual,noise_sens,mvgauss,fid,z_div} \\
@@ -8,8 +12,8 @@ torch device (``--device``, default ``cuda``), npz data path.
 The run's options are read back from the checkpoint's directory (its
 ``opt.json``), with ``seed`` set to 12345: ``random``, ``np.random`` and the
 model's ``torch.Generator`` are seeded from it, so repeated runs draw the
-same batches and noise.  Data: the training CLI's npz set, a 20 % train
-subset at batch 200 (for ``--train_logvar``), test and dev at batch 200.
+same batches and noise.  Data: a 20 % train subset at batch 200 (for
+``--train_logvar``), test and dev at batch 200.
 What each metric prints and writes under ``expr_dir/res_dir``:
 
 - ``bpp``: fits logvar_B on the train subset (``--train_logvar 1``), then
@@ -27,9 +31,8 @@ What each metric prints and writes under ``expr_dir/res_dir``:
 
 ``--use_ema 1`` scores the EMA shadows of a run trained with ``--ema`` (and
 refuses a checkpoint without them).  Refused by name: ``--fid_extractor``
-(a ``jax.export`` artifact), a run trained with ``--numpy_data 0`` and a
-dataroot without ``trainA.npz`` (the per-file and paired-jpg loaders,
-ROADMAP M9; the latter needs PIL).
+(a ``jax.export`` artifact), and a paired-jpg dataroot where PIL cannot be
+imported (``PILMissingError``).
 """
 
 from __future__ import annotations
@@ -41,9 +44,10 @@ import time
 
 import numpy as np
 
-from ..config import TestOptions, UnportedFlagError, \
-    load_train_config_from_expr_dir, paired_jpg_refusal
-from ..data import AlignedIterator, UnalignedIterator, load_numpy_data
+from ..config import TestOptions, load_train_config_from_expr_dir
+from ..data import AlignedIterator, DataLoader, UnalignedIterator, \
+    load_edges2shoes
+from ..data.edges2shoes import require_pil_for
 from ..eval import (
     compute_bpp_mvgauss_B,
     eval_fid_B,
@@ -108,23 +112,33 @@ def test_model(argv=None) -> dict:
     expr_dir = os.path.dirname(topt.chk_path)
     opt = load_train_config_from_expr_dir(expr_dir, dataroot=topt.dataroot,
                                           seed=SEED, device=topt.device)
-    if not opt.numpy_data:
-        raise UnportedFlagError(
-            "the run was trained with --numpy_data 0: the per-file loader "
-            "is not ported to the PyTorch package yet (ROADMAP M9)")
-    if not os.path.exists(os.path.join(opt.dataroot, "trainA.npz")):
-        raise paired_jpg_refusal(opt.dataroot)
+    if opt.numpy_data:
+        require_pil_for(opt.dataroot)
     opt.res_dir = os.path.join(expr_dir, topt.res_dir)
     os.makedirs(opt.res_dir, exist_ok=True)
 
-    trainA, trainB, devA, devB, testA, testB = load_numpy_data(
-        opt.dataroot, grid_size=opt.grid_size, dev_size=opt.dev_size,
-        antialias=bool(opt.resize_antialias))
-    sub = int(len(trainA) * 0.2)  # upstream scores on a 20 % subset
-    train_dataset = UnalignedIterator(trainA[:sub], trainB[:sub],
-                                      batch_size=200)
-    test_dataset = AlignedIterator(testA, testB, batch_size=200)
-    dev_dataset = AlignedIterator(devA, devB, batch_size=200)
+    if opt.numpy_data:
+        trainA, trainB, devA, devB, testA, testB = load_edges2shoes(
+            opt.dataroot, size=opt.grid_size, dev_size=opt.dev_size,
+            antialias=bool(opt.resize_antialias))
+        sub = int(len(trainA) * 0.2)  # upstream scores on a 20 % subset
+        train_dataset = UnalignedIterator(trainA[:sub], trainB[:sub],
+                                          batch_size=200)
+        test_dataset = AlignedIterator(testA, testB, batch_size=200)
+        dev_dataset = AlignedIterator(devA, devB, batch_size=200)
+        dev_vis = AlignedIterator(devA, devB, batch_size=10)
+    else:
+        # load_in_mem=False: each split reads and transforms its files only
+        # when a metric iterates it
+        train_dataset = DataLoader(opt, subset="train", unaligned=True,
+                                   batchSize=200, fraction=0.2,
+                                   load_in_mem=False)
+        test_dataset = DataLoader(opt, subset="val", unaligned=False,
+                                  batchSize=200, load_in_mem=False)
+        dev_dataset = DataLoader(opt, subset="dev", unaligned=False,
+                                 batchSize=200, load_in_mem=False)
+        dev_vis = DataLoader(opt, subset="dev", unaligned=False,
+                             batchSize=10, load_in_mem=False)
     print("#training images = %d" % len(train_dataset))
     print("#test images = %d" % len(test_dataset))
     print("#dev images = %d" % len(dev_dataset))
@@ -162,7 +176,7 @@ def test_model(argv=None) -> dict:
     elif topt.metric == "visual":
         opt.num_multi = 5
         # upstream also stops after the first batch
-        vis_data = next(iter(AlignedIterator(devA, devB, batch_size=10)))
+        vis_data = next(iter(dev_vis))
         real_A, real_B = vis_data["A"], vis_data["B"]
         # the dev split may be smaller than 10: size z to the batch
         prior_z_B = model.sample_prior_z(real_A.shape[0])

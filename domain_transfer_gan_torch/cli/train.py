@@ -1,8 +1,16 @@
 """The training CLI of the port: the JAX package's ``cli/train.py`` on one
-torch device (``--device``, default ``cuda``), npz data path, for every
-``--model`` and with ``--supervised`` (a supervised step on a paired batch
-of the first ``sup_frac`` of the train set after every unsupervised one,
-both on one prior z draw).
+torch device (``--device``, default ``cuda``), for every ``--model`` and with
+``--supervised`` (a supervised step on a paired batch of the first
+``sup_frac`` of the train set after every unsupervised one, both on one
+prior z draw).
+
+Data, as the JAX CLI reads it: the npz bundles (``--numpy_data 1``, the
+default), a paired-jpg edges2shoes folder (a ``train/`` directory and no
+``trainA.npz``; needs PIL) or, with ``--numpy_data 0``, one file per sample
+through the threaded ``data/folder.py::DataLoader`` (train at
+``--batchSize`` with its short tail batch trained on, test and dev at 200,
+the display's dev batches at 25, ``--nThreads`` workers).  The log names the
+host reader (the native C++ one, or numpy and why).
 
 The artifact contract is the JAX one, file for file: ``results.{txt,json}``,
 ``history_mse_A.npy`` / ``history_ubo_B.npy``, the ``latest`` / ``best_A`` /
@@ -12,10 +20,17 @@ The artifact contract is the JAX one, file for file: ``results.{txt,json}``,
 snapshot.  Resume is real: ``--continue_train`` reloads ``which_epoch``,
 continues at its epoch + 1 and keeps ``results.json`` and the histories.
 
-The train set lives on the device when ``--device_data`` says so (1, or -1
-with the set under ``--device_data_max_gb``): it is copied there once and
-each step gathers its batch with ``index_select`` from the iterator's index
-vectors, the same rows in the same order as the host feed.
+The npz train set (and the supervised set) lives on the device when
+``--device_data`` says so (1, or -1 with the set under
+``--device_data_max_gb``): it is copied there once and each step gathers
+its batch with ``index_select`` from the iterator's index vectors, the same
+rows in the same order as the host feed.  Batches that come from the host
+(``--device_data 0``, the per-file path) go through the prefetching feed
+(``data/feed.py``: pinned buffers, a side stream, two batches ahead).
+
+``--profile_dir DIR`` traces steps 10-14 of the first epoch with
+``torch.profiler`` and writes a Chrome trace (``DIR/trace.json``; the JAX
+CLI writes a TensorBoard trace instead).
 
     python -m domain_transfer_gan_torch.cli.train --dataroot DATA --name RUN \\
         --grid_size 64 [--device cuda]
@@ -30,8 +45,8 @@ per step, ``models/accum.py``) and ``--remat`` (the generators recompute
 their activations in the backward).
 
 Flags the port does not run yet are refused by name
-(``config.refuse_unported``), before anything is written; so is a dataroot
-that the JAX CLI would read as a paired-jpg folder.
+(``config.refuse_unported``), before anything is written; so is a
+paired-jpg dataroot where PIL cannot be imported.
 """
 
 from __future__ import annotations
@@ -48,7 +63,10 @@ import torch
 
 from ..config import TrainConfig, TrainOptions, create_sub_dirs, \
     refuse_unported
-from ..data import AlignedIterator, UnalignedIterator, load_numpy_data
+from ..data import AlignedIterator, DataLoader, UnalignedIterator, \
+    load_edges2shoes, native
+from ..data.edges2shoes import is_paired_jpg_root
+from ..data.feed import prefetch_to_device
 from ..eval import eval_mse_A, eval_ubo_B, one_to_three_channels
 from ..eval.visualize import (
     inference_grid,
@@ -110,6 +128,45 @@ def check_losses_finite(losses, epoch, step) -> None:
             % (epoch, step, bad, {k: vals[k] for k in bad}))
 
 
+def _cycle(loader):
+    """Endless passes over a loader, each a fresh iteration."""
+    while True:
+        yield from loader
+
+
+def full_batches(it):
+    """The batches of ``it`` whose A and B agree in size (on one device the
+    JAX CLI drops only those; a short tail batch is trained on)."""
+    for d in it:
+        if len(d["A"]) == len(d["B"]):
+            yield d
+
+
+def start_profiler(device: torch.device):
+    """A started ``torch.profiler`` over the host and, on a CUDA device, the
+    card."""
+    from torch.profiler import ProfilerActivity, profile
+
+    acts = [ProfilerActivity.CPU]
+    if device.type == "cuda":
+        acts.append(ProfilerActivity.CUDA)
+    prof = profile(activities=acts)
+    prof.start()
+    return prof
+
+
+def stop_profiler(prof, device: torch.device, out_dir: str) -> str:
+    """Wait for the device, stop ``prof`` and write its Chrome trace to
+    ``out_dir/trace.json``; returns the file's path."""
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+    prof.stop()
+    os.makedirs(out_dir, exist_ok=True)
+    path = os.path.join(out_dir, "trace.json")
+    prof.export_chrome_trace(path)
+    return path
+
+
 def _device(opt) -> torch.device:
     """The run's device.  A CUDA device that is not there is an error: the
     CLI never falls back to the CPU."""
@@ -143,22 +200,45 @@ def _train(opt: TrainConfig, device: torch.device, out_f):
         np.random.seed(opt.seed)
 
     # ----- data ---------------------------------------------------------
-    trainA, trainB, devA, devB, testA, testB = load_numpy_data(
-        opt.dataroot, grid_size=opt.grid_size, dev_size=opt.dev_size,
-        antialias=bool(opt.resize_antialias))
-    train_dataset = UnalignedIterator(trainA, trainB,
-                                      batch_size=opt.batchSize)
+    trainA = None
+    if opt.numpy_data:
+        # load_edges2shoes reads the npz bundles, or a paired-jpg folder
+        trainA, trainB, devA, devB, testA, testB = load_edges2shoes(
+            opt.dataroot, size=opt.grid_size, dev_size=opt.dev_size,
+            antialias=bool(opt.resize_antialias))
+        if is_paired_jpg_root(opt.dataroot):
+            print_log(out_f, "paired-jpg folder %s (PIL)" % opt.dataroot)
+        train_dataset = UnalignedIterator(trainA, trainB,
+                                          batch_size=opt.batchSize)
+        test_dataset = AlignedIterator(testA, testB, batch_size=100)
+        dev_dataset = AlignedIterator(devA, devB, batch_size=100)
+        dev_cycle = itertools.cycle(AlignedIterator(devA, devB,
+                                                    batch_size=25))
+    else:
+        train_dataset = DataLoader(opt, subset="train", unaligned=True,
+                                   batchSize=opt.batchSize)
+        test_dataset = DataLoader(opt, subset="val", unaligned=False,
+                                  batchSize=200)
+        dev_dataset = DataLoader(opt, subset="dev", unaligned=False,
+                                 batchSize=200)
+        dev_cycle = _cycle(DataLoader(opt, subset="dev", unaligned=False,
+                                      batchSize=25))
+    print_log(out_f, "host reader: %s" % native.reader_name())
     print_log(out_f, "#training images = %d" % len(train_dataset))
-    test_dataset = AlignedIterator(testA, testB, batch_size=100)
     print_log(out_f, "#test images = %d" % len(test_dataset))
-    dev_dataset = AlignedIterator(devA, devB, batch_size=100)
     print_log(out_f, "#dev images = %d" % len(dev_dataset))
-    dev_cycle = itertools.cycle(AlignedIterator(devA, devB, batch_size=25))
 
     if opt.supervised:
-        sup_size = int(len(trainA) * opt.sup_frac)
-        sup_iter = itertools.cycle(AlignedIterator(
-            trainA[:sup_size], trainB[:sup_size], batch_size=opt.batchSize))
+        if trainA is not None:
+            sup_size = int(len(trainA) * opt.sup_frac)
+            sup_dataset = AlignedIterator(trainA[:sup_size],
+                                          trainB[:sup_size],
+                                          batch_size=opt.batchSize)
+        else:
+            sup_dataset = DataLoader(opt, subset="train", unaligned=False,
+                                     batchSize=opt.batchSize,
+                                     fraction=opt.sup_frac)
+            sup_size = len(sup_dataset)
         print_log(out_f, "#supervised images = %d" % sup_size)
 
     # ----- model --------------------------------------------------------
@@ -212,24 +292,42 @@ def _train(opt: TrainConfig, device: torch.device, out_f):
 
     # ----- device-resident train set ------------------------------------
     data_A = data_B = None
-    if opt.device_data:
+    if trainA is not None and opt.device_data:
         ds_bytes = trainA.nbytes + trainB.nbytes
         if opt.device_data == 1 or \
                 ds_bytes <= opt.device_data_max_gb * (1 << 30):
             data_A = torch.from_numpy(trainA).to(device)
             data_B = torch.from_numpy(trainB).to(device)
             train_dataset.yield_indices = True
-            print_log(out_f, "train set on %s (%.1f MB): on-device batch "
-                      "gather" % (device, ds_bytes / 2 ** 20))
+            where = "train set on %s (%.1f MB): on-device batch gather" % (
+                device, ds_bytes / 2 ** 20)
+            if opt.supervised:
+                sup_dataset.data_A = torch.from_numpy(
+                    sup_dataset.data_A).to(device)
+                sup_dataset.data_B = torch.from_numpy(
+                    sup_dataset.data_B).to(device)
+                where += "; supervised set on %s (%.1f MB)" % (
+                    device, 2 * sup_dataset.data_A.nbytes / 2 ** 20)
+            print_log(out_f, where)
+    if opt.supervised:
+        sup_iter = itertools.cycle(iter(sup_dataset))
 
     losses = None
+    profiler = None
     for epoch in range(start_epoch, opt.niter + opt.niter_decay + 1):
         model.epoch = epoch
         epoch_start_time = time.time()
         epoch_iter = 0
 
-        for i, data in enumerate(train_dataset):
+        if data_A is not None:
+            feed = iter(train_dataset)  # index vectors only
+        else:
+            feed = prefetch_to_device(full_batches(train_dataset), device)
+        for i, data in enumerate(feed):
             n_batch = len(data["A_idx"] if data_A is not None else data["A"])
+            # a steady-state window of the first epoch under --profile_dir
+            if opt.profile_dir and epoch == start_epoch and i == 10:
+                profiler = start_profiler(device)
             # the supervised step takes the same prior z draw as the
             # unsupervised one, so the loop draws it here
             prior_z = model.sample_prior_z(n_batch) if opt.supervised \
@@ -245,6 +343,11 @@ def _train(opt: TrainConfig, device: torch.device, out_f):
                 losses, visuals, gnorms = out
             else:
                 losses, visuals = out
+            if profiler is not None and i == 14:
+                stop_profiler(profiler, device, opt.profile_dir)
+                profiler = None
+                print_log(out_f, "profiler trace written to %s"
+                          % opt.profile_dir)
             if opt.supervised:
                 sup_data = next(sup_iter)
                 # a supervised batch of another size gets a fresh draw
@@ -286,6 +389,12 @@ def _train(opt: TrainConfig, device: torch.device, out_f):
                                                 sec_per_item, prefix=False)
                               + "\n")
                 print_log(out_f, "  throughput: %.1f images/sec" % img_per_sec)
+
+        if profiler is not None:  # an epoch of under 15 steps
+            stop_profiler(profiler, device, opt.profile_dir)
+            profiler = None
+            print_log(out_f, "profiler trace written to %s"
+                      % opt.profile_dir)
 
         if opt.save_epoch_freq and epoch % opt.save_epoch_freq == 0:
             print_log(out_f, "saving the model at the end of epoch %d, "

@@ -239,7 +239,6 @@ def load_train_config_from_expr_dir(expr_dir: str, **overrides) -> TrainConfig:
 # (flag, the field whose value the message shows or None, is it asked for,
 # ROADMAP item): what the training CLI refuses
 _UNPORTED = (
-    ("--numpy_data", "numpy_data", lambda c: not c.numpy_data, "M9"),
     ("--num_devices", "num_devices", lambda c: int(c.num_devices) > 1,
      "M12"),
     ("--coordinator", "coordinator", lambda c: bool(c.coordinator), "M12"),
@@ -252,8 +251,8 @@ _UNPORTED = (
     ("--microbatches", "microbatches", lambda c: int(c.microbatches) > 0,
      "M13"),
     ("--ckpt_backend", "ckpt_backend", lambda c: c.ckpt_backend != "flax",
-     "M15"),
-    ("--profile_dir", "profile_dir", lambda c: bool(c.profile_dir), "M10"),
+     "M15: an orbax checkpoint directory needs orbax and tensorstore, "
+     "which the port does not use"),
 )
 
 
@@ -262,21 +261,13 @@ class UnportedFlagError(NotImplementedError):
     run yet."""
 
 
-def paired_jpg_refusal(dataroot: str) -> UnportedFlagError:
-    """The refusal of a dataroot without ``trainA.npz`` (the paired-jpg
-    branch of the JAX CLIs), shared by both CLIs."""
-    return UnportedFlagError(
-        "%s holds no trainA.npz: the paired-jpg branch of "
-        "load_edges2shoes (which needs PIL) is not ported to the "
-        "PyTorch package yet (ROADMAP M9)" % dataroot)
-
-
 def refuse_unported(cfg: TrainConfig) -> None:
     """Raise :class:`UnportedFlagError` naming the first flag of ``cfg``
     that asks for something the port's training CLI does not run, and the
-    ROADMAP item that ports it; also a dataroot that the JAX CLI would read
-    as a paired-jpg folder (a ``train/`` directory and no ``trainA.npz``).
-    Nothing is written before this check."""
+    ROADMAP item that ports it.  A paired-jpg dataroot (a ``train/``
+    directory and no ``trainA.npz``) without PIL raises
+    ``data.edges2shoes.PILMissingError``.  Nothing is written before this
+    check."""
     for flag, field, asked, item in _UNPORTED:
         if asked(cfg):
             if field is not None:
@@ -284,9 +275,9 @@ def refuse_unported(cfg: TrainConfig) -> None:
             raise UnportedFlagError(
                 "%s is not ported to the PyTorch package yet (ROADMAP %s)"
                 % (flag, item))
-    if (not os.path.exists(os.path.join(cfg.dataroot, "trainA.npz"))
-            and os.path.isdir(os.path.join(cfg.dataroot, "train"))):
-        raise paired_jpg_refusal(cfg.dataroot)
+    if cfg.numpy_data:
+        from .data.edges2shoes import require_pil_for
+        require_pil_for(cfg.dataroot)
 
 
 class TrainOptions:

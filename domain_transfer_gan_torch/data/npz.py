@@ -8,8 +8,9 @@
 - the first ``dev_size`` samples become the dev split.
 
 Arrays are NHWC float32, bit for bit those of the JAX package's
-``data/npz.py`` numpy path.  Its native C++ loader (bit-exact with that
-path) is not ported yet.
+``data/npz.py``.  As there, the normalization runs in the native C++ reader
+(``data/native.py``, bit-exact with the numpy path) when its library builds,
+and in numpy otherwise.
 """
 
 from __future__ import annotations
@@ -38,9 +39,16 @@ def py2_seed123_permutation(n: int, seed: int = 123) -> np.ndarray:
     return np.asarray(idx, dtype=np.int64)
 
 
-def normalize_bundle(arr: np.ndarray) -> np.ndarray:
+def normalize_bundle(arr: np.ndarray, use_native: bool = True) -> np.ndarray:
     """NaN->0, per-sample-per-channel min-max to [-1, 1], inf scrubbed, in
-    float32.  A 3-D (N, H, W) input gains its channel axis last."""
+    float32.  A 3-D (N, H, W) input gains its channel axis last.  A 4-D one
+    goes through the native reader's threaded normalization when
+    ``use_native`` and the library is built."""
+    if use_native and arr.ndim == 4:
+        from . import native
+        out = np.array(arr, dtype=np.float32, order="C")
+        if native.normalize_batch_inplace(out):
+            return out
     arr = np.nan_to_num(arr.astype(np.float32, copy=True))
     if arr.ndim == 3:
         arr = np.expand_dims(arr, axis=3)

@@ -427,3 +427,40 @@ def test_path_shapes_take_the_cluster_variant():
         fwd, cluster=fwd["cluster"] + 1)
     assert instance_norm_bwd_fused.launches_by_variant == dict(
         bwd, cluster=bwd["cluster"] + 1)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("size", [1, 2, 3])
+def test_prefetch_feed_on_the_card_is_the_synchronous_copy(size):
+    """data/feed.py on the card: the batches (a short tail among them) come
+    out in order, bit-equal to a synchronous copy, while the step's stream
+    is kept busy and the host overwrites the arrays it handed over; each
+    tensor is readable on the step's stream once handed out."""
+    _need_card()
+    from domain_transfer_gan_torch.data.feed import prefetch_to_device
+
+    rng = np.random.RandomState(size)
+    host = [{"A": rng.rand(k, 64, 64, 3).astype(np.float32),
+             "B": rng.rand(k, 64, 64, 1).astype(np.float32)}
+            for k in (8, 8, 8, 8, 8, 3)]
+    want = [{k: torch.from_numpy(v.copy()).cuda() for k, v in b.items()}
+            for b in host]
+    busy = torch.randn(2048, 2048, device="cuda")
+
+    def batches():
+        for b in host:
+            yield b
+            for v in b.values():
+                v.fill(-1.0)
+
+    got = []
+    for out in prefetch_to_device(batches(), "cuda", size=size):
+        for _ in range(3):  # queue device work ahead of the next copies
+            busy = busy @ busy / 2048.0
+        got.append({k: v.clone() for k, v in out.items()})
+    torch.cuda.synchronize()
+    assert len(got) == len(want)
+    for g, w in zip(got, want):
+        for k in w:
+            assert g[k].device.type == "cuda"
+            assert torch.equal(g[k], w[k]), k

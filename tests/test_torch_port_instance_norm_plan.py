@@ -50,11 +50,16 @@ EXTRAS = set(CS.EXTRAS_SHAPES)
 # samples too large for any cluster at some dtype and kernel: the 256x256
 # request and phase 9's 256x256 sites (ROADMAP K-a); each is streamed
 HUGE = {(4, 65536, 32)} | set(CS.accum_sites(32, CS.ACCUM_K, hw=256)["fwd"])
+# phase 10's tails: the per-file train step's tail of 19 (its
+# discriminators' pass at 38) and the per-file eval tail of 30
+P10 = set(CS.P10_SHAPES)
 
 
 def test_the_shapes_are_the_smoke_tests():
     assert len(SHAPES) == len(CS.CHECK_SHAPES) == \
-        34 + len(CLI | TEST_CLI) + len(EXTRAS)
+        34 + len(CLI | TEST_CLI) + len(EXTRAS) + len(P10)
+    assert len(P10) == 3 + 12 + 3
+    assert not P10 & (PATH | CLI | TEST_CLI | EXTRAS)
     # microbatches of 8 at 64x64 and 256x256 (discriminators at 16 and 8),
     # a few sites shared between the two grids
     assert len(EXTRAS) == 2 * (3 + 12) - 4

@@ -208,32 +208,16 @@ def test_export_from_a_checkpoint_of_the_other_variants(runs, name,
 REFUSED = [
     (["--fid_extractor", "inception.bin"], "--fid_extractor inception.bin",
      "M8"),
-    ("numpy_data", "--numpy_data 0", "M9"),
-    ("jpg", "paired-jpg branch", "M9"),
 ]
 
 
-@pytest.mark.parametrize("how,named,item", REFUSED,
+@pytest.mark.parametrize("flags,named,item", REFUSED,
                          ids=[r[1].split()[0] for r in REFUSED])
-def test_unported_evaluations_are_refused_by_name(runs, tmp_path, how,
-                                                  named, item):
-    root, chk = runs["root"], runs["stoch"]["latest"]
-    extra = []
-    if how == "numpy_data":
-        expr = str(tmp_path / "run")
-        os.makedirs(expr)
-        with open(os.path.join(runs["stoch"]["expr"], "opt.json")) as f:
-            opt = json.load(f)
-        with open(os.path.join(expr, "opt.json"), "w") as f:
-            json.dump(dict(opt, numpy_data=0), f)
-        chk = os.path.join(expr, "latest")
-    elif how == "jpg":
-        root = str(tmp_path)  # no trainA.npz
-    else:
-        extra = how
+def test_unported_evaluations_are_refused_by_name(runs, flags, named, item):
     with pytest.raises(UnportedFlagError) as e:
-        test_cli.test_model(["--chk_path", chk, "--dataroot", root,
-                             "--metric", "mse", "--device", "cpu", *extra])
+        test_cli.test_model(["--chk_path", runs["stoch"]["latest"],
+                             "--dataroot", runs["root"], "--metric", "mse",
+                             "--device", "cpu", *flags])
     assert named in str(e.value) and ("ROADMAP %s" % item) in str(e.value)
 
 

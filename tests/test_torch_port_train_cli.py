@@ -17,6 +17,7 @@ import io
 import json
 import os
 import re
+import sys
 import threading
 import urllib.request
 
@@ -33,6 +34,7 @@ from domain_transfer_gan_torch.config import (
     UnportedFlagError,
     load_train_config_from_expr_dir,
 )
+from domain_transfer_gan_torch.data import PILMissingError
 from domain_transfer_gan_torch.data.synthetic import write_synthetic_dataset
 from domain_transfer_gan_torch.models import create_model
 from domain_transfer_gan_torch.utils.artifacts import format_log
@@ -198,7 +200,6 @@ def test_export_from_checkpoint_serves_the_model(run, tmp_path):
 
 
 REFUSED = [
-    (["--numpy_data", "0"], "--numpy_data 0", "M9"),
     (["--num_devices", "2"], "--num_devices 2", "M12"),
     (["--coordinator", "127.0.0.1:1234"], "--coordinator", "M12"),
     (["--num_processes", "2"], "--num_processes 2", "M12"),
@@ -208,7 +209,6 @@ REFUSED = [
     (["--pipeline", "2"], "--pipeline 2", "M13"),
     (["--microbatches", "2"], "--microbatches 2", "M13"),
     (["--ckpt_backend", "orbax"], "--ckpt_backend orbax", "M15"),
-    (["--profile_dir", "prof"], "--profile_dir prof", "M10"),
 ]
 
 
@@ -224,23 +224,27 @@ def test_unported_flags_are_refused_by_name(tmp_path, flags, named, item):
 
 
 def test_a_config_passed_in_is_refused_too():
-    with pytest.raises(UnportedFlagError, match="--profile_dir prof"):
-        train_model(opt=TrainConfig(profile_dir="prof", device="cpu"))
+    with pytest.raises(UnportedFlagError, match="--spatial 2"):
+        train_model(opt=TrainConfig(spatial=2, device="cpu"))
 
 
 def test_a_paired_jpg_dataroot_is_refused_before_anything_is_written(
-        tmp_path):
-    """A dataroot with a train/ directory and no trainA.npz is what the JAX
-    CLI reads as a paired-jpg folder: refused by name, nothing written."""
+        tmp_path, monkeypatch):
+    """A dataroot with a train/ directory and no trainA.npz is a paired-jpg
+    folder, which trains where PIL exists
+    (tests/test_torch_port_perfile_cli.py); without PIL it is refused by
+    the module's name and nothing is written."""
+    monkeypatch.setitem(sys.modules, "PIL", None)
     root = tmp_path / "edges2shoes"
     (root / "train").mkdir(parents=True)
     argv = ["--dataroot", str(root), "--name", "r", "--checkpoints_dir",
             str(tmp_path / "ck"), "--device", "cpu"]
-    with pytest.raises(UnportedFlagError,
-                       match="holds no trainA.npz: the paired-jpg branch"):
+    with pytest.raises(PILMissingError,
+                       match="the paired-jpg branch of load_edges2shoes "
+                             "needs the PIL module"):
         train_model(argv=argv)
     assert not os.path.exists(str(tmp_path / "ck"))
-    with pytest.raises(UnportedFlagError, match="ROADMAP M9"):
+    with pytest.raises(PILMissingError, match="PIL"):
         train_model(opt=TrainConfig(dataroot=str(root), device="cpu"))
     assert sorted(os.listdir(str(tmp_path))) == ["edges2shoes"]
 

@@ -2,6 +2,8 @@
 inputs and weights handed to both the JAX package and the PyTorch port."""
 
 import contextlib
+import importlib.util
+import os
 
 import numpy as np
 import pytest
@@ -19,6 +21,17 @@ def one_torch_thread():
     torch.set_num_threads(1)
     yield
     torch.set_num_threads(n)
+
+
+def load_chip_smoke():
+    """``chip_smoke.py`` at the repository root, imported as a module (it
+    imports torch only inside its functions)."""
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke", os.path.join(root, "chip_smoke.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
 
 
 def np_tree(tree):
