@@ -126,7 +126,25 @@ It needs one CUDA device, ``nvcc`` and no network.  It
    -> ``cli.import_torch`` -> ``predict_B`` within 1e-6 and one resumed
    epoch; (g) a paired-jpg folder where PIL is present, its refusal where
    it is not.  Every run's launches are held to its structure, phase 3
-   checks the kernels at phase 10's new shapes, and phase 6 times them.
+   checks the kernels at phase 10's new shapes, and phase 6 times them;
+11. (also before 6) a run moved between packages and trained over ranks, at
+   the same width: (a) phase 7's ``latest`` through ``cli.export_jax``
+   (the JAX package's flax msgpack format) and back through the port's
+   ``load``, every tensor, count and number equal and ``predict_B`` bit for
+   bit, then one ``--continue_train`` epoch from the flax file (where
+   ``msgpack`` is missing, its refusal by name instead); (c) the training
+   CLI as two processes on the card (``--coordinator --num_processes 2
+   --process_id``), one epoch with eval-A and eval-B: rank 0's artifacts
+   phase 7's, rank 1's under ``.worker1/``, equal losses on both, the run's
+   ``TEST_MSE_A`` that of one process and ``cli.test --metric mse`` held to
+   ``eval_mse_A``; (b) two ranks on the card over gloo, each a process on
+   half the batch, against one process on the full batch
+   (``parallel/selfcheck.py``): ``aug_cycle_gan`` float32 at 32 and
+   bfloat16 at 128, ``--norm batch``, ``--pool_size 50`` (3 steps each, phase
+   5's limits), a batch-norm pass at float32 rounding and the sharded
+   eval-A and UBO of (c)'s checkpoint; each rank's launches held to the
+   structure of its half batch; over NCCL as well where there are two
+   cards.  Phase 3 checks and phase 6 times the ranks' generator shapes.
 
 Any failed build, launch or check ends the run with a non-zero exit code.
 The last line of standard output is
@@ -373,6 +391,22 @@ P10_SHAPES = tuple(dict.fromkeys(
     tuple(sorted(train_sites(P10_TAIL), reverse=True))
     + tuple(gen_sites(P10_EVAL_TAIL, "B"))))
 P10_PREDICT_ATOL = 1e-6  # predict_B after the upstream round trip
+
+# phase 11: a run moved between packages, and the step over two ranks on
+# the card (gloo: they share it), each on half the batch: the generators at
+# N = 16 (float32 batch 32) and 64 (bfloat16 batch 128); the
+# discriminators' passes land on shapes of the other phases
+P11_RANKS, P11_STEPS = 2, 3
+P11_JOBS = (  # (label, parallel/selfcheck.py job, dtype, batch, flags)
+    ("aug_float32", "aug", "float32", 32, {}),
+    ("aug_bfloat16", "aug", "bfloat16", 128, {}),
+    ("norm_batch", "norm_batch", "float32", 32, {}),
+    ("pool50", "pool", "float32", 32, {"pool_size": 50, "ema": 0.0}),
+    ("batch_norm_pass", "batch_norm", "float32", 32, {}),
+)
+P11_SHAPES = tuple(dict.fromkeys(
+    tuple(gen_sites(16, "B")) + tuple(gen_sites(64, "B"))))
+P11_TIMEOUT = 600  # seconds a pair of ranks may take before it is killed
 # the feed's three ways: "sync" is the per-file run with the CLI's feed
 # replaced by a pass-through, so that each step copies its host batch
 # synchronously (train_instance on numpy arrays)
@@ -407,7 +441,8 @@ CHECK_SHAPES = tuple(dict.fromkeys(
                         for s in train_sites(b))
     + tuple(s for n in CLI_BATCHES + TEST_CLI_BATCHES
             for s in gen_sites(n, "B"))
-    + EXTRAS_SHAPES + P10_SHAPES + EDGE_SHAPES + (HW1_SHAPE,)))
+    + EXTRAS_SHAPES + P10_SHAPES + P11_SHAPES + EDGE_SHAPES
+    + (HW1_SHAPE,)))
 BWD_SUM_RTOL = 1e-4  # dscale, dshift: fp32 sums of up to 65536 products
 
 
@@ -727,11 +762,18 @@ def _phase10_cases():
     return [(shape, "float32") for shape in P10_SHAPES]
 
 
+def _phase11_cases():
+    """The generator sites of a rank of phase 11: half the float32 batch of
+    32 and half the bfloat16 batch of 128."""
+    return ([(shape, "float32") for shape in gen_sites(16, "B")]
+            + [(shape, "bfloat16") for shape in gen_sites(64, "B")])
+
+
 def _timed_cases():
     serving = _serving_cases()
     return serving + [c for c in dict.fromkeys(
         _train_cases() + _eval_cases() + _test_cases() + _extras_cases()
-        + _phase10_cases()) if c not in serving]
+        + _phase10_cases() + _phase11_cases()) if c not in serving]
 
 
 def _plan_row(plan, n):
@@ -780,7 +822,7 @@ def _time_variants(torch, K, launch, shape, itemsize, arrays, sweep):
 
 def time_kernel(torch, F, K, site_counts, train_counts, cli_counts,
                 variant_counts, bpp_counts, extra, extras_counts,
-                p10_counts):
+                p10_counts, p11_counts):
     """Phase 6, forward kernel, per path shape and dtype.  Per-channel
     affine, biased variance, fused ReLU: the case the library call covers
     too.  Times are device times (CUDA-graph replay).  Inputs rotate over
@@ -795,7 +837,9 @@ def time_kernel(torch, F, K, site_counts, train_counts, cli_counts,
     those of phase 8 (float32), ``bpp_counts["fwd"][shape]`` those of its
     ``--metric bpp`` run (the rows at the evaluation CLI's batch),
     ``extras_counts[dtype]["fwd"][shape]`` those of phase 9,
-    ``p10_counts["fwd"][shape]`` those of phase 10 (float32).  Every row has the plain version's
+    ``p10_counts["fwd"][shape]`` those of phase 10 (float32),
+    ``p11_counts[dtype]["fwd"][shape]`` those of phase 11 (both ranks).
+    Every row has the plain version's
     and the library call's times beside the kernel's.  With ``extra`` every
     row also has ``cluster_sweep_ms`` (the cluster variant at each cluster
     size that holds the slab), and the serving shapes gain:
@@ -857,6 +901,7 @@ def time_kernel(torch, F, K, site_counts, train_counts, cli_counts,
             "launches_phase9": extras_counts[name]["fwd"].get(shape, 0),
             "launches_phase10": p10_counts["fwd"].get(shape, 0)
                 if name == "float32" else 0,
+            "launches_phase11": p11_counts[name]["fwd"].get(shape, 0),
         })
         if (shape, name) in _test_cases():
             row["launches_bpp_run"] = bpp_counts["fwd"].get(shape, 0)
@@ -883,7 +928,8 @@ def time_kernel(torch, F, K, site_counts, train_counts, cli_counts,
 
 
 def time_bwd_kernel(torch, F, K, train_counts, cli_counts, variant_counts,
-                    bpp_counts, extra, extras_counts, p10_counts):
+                    bpp_counts, extra, extras_counts, p10_counts,
+                    p11_counts):
     """Phase 6, backward kernel, at the serving shapes in both dtypes (the
     bfloat16 batch-32 rows and the 256x256 request are on no training path:
     they complete the table), at every site of the training path in the
@@ -962,6 +1008,7 @@ def time_bwd_kernel(torch, F, K, train_counts, cli_counts, variant_counts,
             "launches_phase9": extras_counts[name]["bwd"].get(shape, 0),
             "launches_phase10": p10_counts["bwd"].get(shape, 0)
                 if name == "float32" else 0,
+            "launches_phase11": p11_counts[name]["bwd"].get(shape, 0),
         })
         if (shape, name) in _test_cases():
             row["launches_bpp_run"] = bpp_counts["bwd"].get(shape, 0)
@@ -1480,13 +1527,13 @@ def _cli_argv(root, ckpt, device, width, extra=()):
             "--display_freq", "320",
             "--dev_size", str(CLI_DATA["dev_size"]), "--device_data", "1",
             "--use_pallas", "1", "--init_scheme", "sane", "--seed", "2026",
-            "--device", device]
+            "--device", device, "--num_devices", "1"]
     for k, v in width.items():
         argv += ["--" + k, str(v)]
     return argv + list(extra)
 
 
-def cli_expected(width, epochs):
+def cli_expected(width, epochs, ubo=True):
     """Launches of the training CLI phase by (N, HW, C), forward and
     backward, from its structure: per epoch the train steps, eval_mse_A
     (netG_B_A, a short tail batch at its size) and the UBO (netG_A_B forward
@@ -1494,7 +1541,7 @@ def cli_expected(width, epochs):
     first grid (netG_A_B at 25), and one
     display: generate_cycle at 25 (two passes through each generator), the
     multi grid (netG_A_B at 250) and the inference grid (netG_B_A at 10,
-    netG_A_B at 250)."""
+    netG_A_B at 250).  ``ubo=False``: a run with ``--eval_B_freq 0``."""
     ngf, nb, batch = width["ngf"], width["n_blocks"], TRAIN_BATCH["float32"]
     steps = (CLI_DATA["n_train"] - CLI_DATA["dev_size"]) // batch
     sizes = [min(EVAL_BATCH, n - lo) for n in (CLI_DATA["dev_size"],
@@ -1508,10 +1555,10 @@ def cli_expected(width, epochs):
 
     for d in (fwd, bwd):
         _add(d, train_sites(batch, nb, ngf, width["ndf"]), epochs * steps)
-        _add(d, g(EVAL_BATCH, "B"), epochs * eval_batches * UBO_STEPS)
+        _add(d, g(EVAL_BATCH, "B"), ubo * epochs * eval_batches * UBO_STEPS)
     for n in sizes:
         _add(fwd, g(n, "A"), epochs)
-    _add(fwd, g(DEV_VIS_BATCH, "B"), epochs * 3)
+    _add(fwd, g(DEV_VIS_BATCH, "B"), epochs * (2 + ubo))
     _add(fwd, g(DEV_VIS_BATCH, "A"), epochs * 2)
     _add(fwd, g(DEV_VIS_BATCH * NUM_MULTI, "B"), epochs * 2)
     _add(fwd, g(NUM_MULTI, "A"), epochs)
@@ -2961,7 +3008,7 @@ def _p10_argv(root, ckpt, name, device, width, p, extra=()):
             "--print_freq", str(CLI_PRINT_EVERY * p["batch"]),
             "--display_freq", "0", "--dev_size", str(p["dev_size"]),
             "--nThreads", str(p["n_threads"]), "--init_scheme", "sane",
-            "--seed", "2027", "--device", device]
+            "--seed", "2027", "--device", device, "--num_devices", "1"]
     for k, v in width.items():
         argv += ["--" + k, str(v)]
     return argv + list(extra)
@@ -3431,6 +3478,369 @@ def drive_phase10(torch, K, tmp, smi, device="cuda", width=CLI_WIDTH,
     return total, variants, fig
 
 
+def p11_rank_expected(job, batch, steps=P11_STEPS, width=CLI_WIDTH):
+    """Launches of one rank of a phase-11 job by direction and (N, HW, C):
+    the step at half the batch, ``steps`` times (under norm="batch" only
+    netG_A_B's conditional norms, twice per step; the batch-norm pass has
+    none)."""
+    half, ngf, nb = batch // P11_RANKS, width["ngf"], width["n_blocks"]
+    if job == "batch_norm":
+        return {"fwd": {}, "bwd": {}}
+    if job == "norm_batch":
+        step = {s: 2 * c for s, c in gen_sites(half, "B", ngf, nb).items()}
+    else:
+        step = train_sites(half, nb, ngf, width["ndf"])
+    return {d: {s: steps * c for s, c in step.items()} for d in ("fwd",
+                                                                "bwd")}
+
+
+def p11_eval_expected(batch, ubo_steps, width=CLI_WIDTH):
+    """One rank of the sharded evaluation job: eval_mse_A (netG_B_A at half
+    the batch) and the UBO's 1 + ``ubo_steps`` RMSprop steps (netG_A_B
+    forward and backward at half the batch; the encoder has batch norms
+    only)."""
+    half, ngf, nb = batch // P11_RANKS, width["ngf"], width["n_blocks"]
+    fwd, bwd = {}, {}
+    _add(fwd, gen_sites(half, "A", ngf, nb))
+    _add(fwd, gen_sites(half, "B", ngf, nb), 1 + ubo_steps)
+    _add(bwd, gen_sites(half, "B", ngf, nb), 1 + ubo_steps)
+    return {"fwd": fwd, "bwd": bwd}
+
+
+def _loss_lines(text):
+    """The loss and gnorm lines of a results.txt without their timings."""
+    import re
+
+    return [re.sub(r"time: [0-9.]+", "", ln) for ln in text.splitlines()
+            if ln.startswith("(epoch:") or "gnorm_" in ln]
+
+
+def _flax_round_trip(torch, fig, counters, account, sync, root, ckpt,
+                     latest7, jax_latest, expr7, device, width):
+    """Phase 11 (a) where msgpack is: the export's bytes open a msgpack
+    map, the port's load of it equals the source tensor for tensor,
+    ``predict_B`` bit for bit, and one resumed epoch from it."""
+    import os
+
+    from domain_transfer_gan_torch.cli.export_jax import \
+        main as export_jax_main
+    from domain_transfer_gan_torch.cli.train import train_model
+    from domain_transfer_gan_torch.config import \
+        load_train_config_from_expr_dir
+    from domain_transfer_gan_torch.models import create_model
+    from domain_transfer_gan_torch.utils.flax_msgpack import is_flax_bytes
+
+    t0 = time.perf_counter()
+    export_jax_main(["--chk_path", latest7, "--out", jax_latest,
+                     "--device", device])
+    fig["export_jax_s"] = time.perf_counter() - t0
+    with open(jax_latest, "rb") as f:
+        if not is_flax_bytes(f.read(4)):
+            raise AssertionError("export_jax wrote no msgpack map")
+    opt = load_train_config_from_expr_dir(expr7)
+    src = create_model(opt, testing=True, device=device)
+    src.load(latest7)
+    dst = create_model(opt, testing=True, device=device)
+    sync()
+    t0 = time.perf_counter()
+    dst.load(jax_latest)
+    sync()
+    fig["load_jax_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    for name, net in src.nets.items():
+        theirs = dst.nets[name].state_dict()
+        a, b = src.state.opt_state[name], dst.state.opt_state[name]
+        if not all(torch.equal(v, theirs[k])
+                   for k, v in net.state_dict().items()) \
+                or a.count != b.count or not all(
+                    torch.equal(x, y) for x, y in zip(a.mu + a.nu,
+                                                      b.mu + b.nu)):
+            raise AssertionError("the flax round trip changed %s" % name)
+    if set(src.state.pools) != set(dst.state.pools) or any(
+            not torch.equal(p.buf, dst.state.pools[k].buf)
+            or p.n != dst.state.pools[k].n
+            for k, p in src.state.pools.items()) or \
+            (src.state.step, src.old_lr, src.epoch) != \
+            (dst.state.step, dst.old_lr, dst.epoch):
+        raise AssertionError("the flax round trip changed the pools or "
+                             "step / old_lr / epoch")
+    rng = np.random.RandomState(14)
+    A = rng.uniform(-1, 1, (32, 64, 64, 3)).astype(np.float32)
+    z = rng.randn(32, width["nlatent"]).astype(np.float32)
+    with torch.backends.cudnn.flags(enabled=True, benchmark=False,
+                                    deterministic=True):
+        fig["flax_round_trip_max_abs_err"] = float(
+            (dst.predict_B(A, z) - src.predict_B(A, z)).abs().max())
+    if fig["flax_round_trip_max_abs_err"] != 0.0:
+        raise AssertionError("predict_B after the flax round trip: %r"
+                             % fig["flax_round_trip_max_abs_err"])
+    epoch, step = src.epoch, src.state.step
+    del src, dst
+    counters.reset()  # the resumed run of (a) starts here
+    resumed = train_model(argv=_cli_argv(
+        root, ckpt, device, width,
+        ["--name", "from_jax", "--continue_train", "--niter_decay",
+         str(epoch), "--eval_B_freq", "0"]))
+    sync()
+    account(counters.read(), getattr(counters, "variants", dict)(),
+            "float32", cli_expected(width, 1, ubo=False),
+            "flax resume")  # ends here
+    with open(os.path.join(ckpt, "from_jax", "results.txt")) as f:
+        text = f.read()
+    steps = cli_expected(width, 1)["steps_per_epoch"]
+    if "(epoch %d, step %d)" % (epoch, step) not in text or \
+            (resumed.epoch, resumed.state.step) != (epoch + 1, step + steps):
+        raise AssertionError("the flax latest did not resume: %s"
+                             % text[:1000])
+    _finite_loss_lines(text, "flax resumed run")
+    fig["flax_resume_s"] = time.perf_counter() - t0
+    del resumed
+
+
+def drive_phase11(torch, K, tmp, smi, device="cuda", width=CLI_WIDTH,
+                  counters=None):
+    """Phase 11.  (a) Phase 7's ``latest`` through ``cli.export_jax`` (the
+    JAX package's flax format) and back through the port's ``load``: every
+    parameter, buffer, Adam moment and count, ``step``, ``old_lr`` and
+    ``epoch`` equal, ``predict_B`` bit for bit (cuDNN pinned); then one
+    ``--continue_train`` epoch from an expr_dir whose ``latest`` is the flax
+    file.  (c) The training CLI as two processes
+    (``--coordinator/--num_processes/--process_id``) on phase 7's data, one
+    epoch with eval-A and eval-B: rank 0's artifacts are phase 7's, rank
+    1's are under ``.worker1/``, the logged losses are equal on both ranks,
+    the run's TEST_MSE_A is ``eval_mse_A`` of its ``latest`` in one process
+    over the same batches and ``cli.test --metric mse`` is ``eval_mse_A`` at
+    its batch.  (b) The data-parallel step: two ranks on the card over gloo
+    (they share it), each a process on half the batch
+    (``parallel/selfcheck.py``), against one process on the full batch with
+    the same weights, data and noise, at phase 5's limits:
+    ``aug_cycle_gan`` float32 at 32 and bfloat16 at 128, ``--norm batch``,
+    ``--pool_size 50``, 3 steps each; one batch-norm pass at float32
+    rounding; the sharded eval-A and UBO of (c)'s ``latest`` at the eval
+    batch against one process (the UBO after one step within 1e-5, after
+    50 within 1e-3).  Each rank's launches are held to the structure of the
+    step at its half batch, and to the plan's variants.  With two or more
+    cards the aug float32 job runs again over NCCL, one card per rank.
+    (The ranks' wrappers count launches on the card only: on the CPU, where
+    ``counters`` counts the plain versions in this process, the ranks'
+    counts are not held.)  Returns (launches by dtype, direction and
+    shape, per variant, the figures)."""
+    import os
+    import statistics
+
+    from domain_transfer_gan_torch.cli import test as test_cli
+    from domain_transfer_gan_torch.cli.export_jax import \
+        main as export_jax_main
+    from domain_transfer_gan_torch.config import \
+        load_train_config_from_expr_dir
+    from domain_transfer_gan_torch.data import AlignedIterator, \
+        load_numpy_data
+    from domain_transfer_gan_torch.eval import eval_mse_A
+    from domain_transfer_gan_torch.models import create_model
+    from domain_transfer_gan_torch.parallel import multihost, selfcheck
+    from domain_transfer_gan_torch.utils.flax_msgpack import \
+        MsgpackMissingError
+
+    log("phase 11 on %s" % smi)
+    on_card = device == "cuda"
+    counters = counters or _Counters(K)
+    totals = {n: {"fwd": {}, "bwd": {}} for n in ("float32", "bfloat16")}
+    variants = {d: {"cluster": 0, "streaming": 0} for d in ("fwd", "bwd")}
+    expected = {d: {"cluster": 0, "streaming": 0} for d in ("fwd", "bwd")}
+    fig = {"card": smi}
+
+    def sync():
+        if on_card:
+            torch.cuda.synchronize()
+
+    def account(seen, by_variant, dtype, want, what, held=True):
+        if held:
+            _held_counts(seen, want, what)
+        for d in ("fwd", "bwd"):
+            _add(totals[dtype][d], seen[d])
+        if on_card:
+            _tally(K, seen, 4 if dtype == "float32" else 2, expected)
+            for d, by in by_variant.items():
+                for v, c in by.items():
+                    variants[d][v] += c
+
+    root = tmp + "/cli_data"
+    expr7 = os.path.join(tmp, "cli_runs", "cli")
+    latest7 = os.path.join(expr7, "latest")
+    ckpt = os.path.join(tmp, "p11_runs")
+
+    # (a) the port's latest -> the JAX package's format -> the port; where
+    # msgpack is missing, the refusal by name instead
+    jax_latest = os.path.join(ckpt, "from_jax", "latest")
+    try:
+        import msgpack
+    except ImportError:
+        try:
+            export_jax_main(["--chk_path", latest7, "--out", jax_latest,
+                             "--device", device])
+        except MsgpackMissingError as e:
+            fig["msgpack"] = "absent: %s" % e
+        else:
+            raise AssertionError("export_jax wrote a flax file without "
+                                 "msgpack")
+    else:
+        fig["msgpack"] = "present: %s" % ".".join(map(str, msgpack.version))
+    log("phase 11 (a): msgpack %s" % fig["msgpack"])
+    if fig["msgpack"].startswith("present"):
+        _flax_round_trip(torch, fig, counters, account, sync, root, ckpt,
+                         latest7, jax_latest, expr7, device, width)
+
+
+    # (c) the training CLI as two processes on the card
+    port = multihost.free_port()
+    here = os.path.dirname(os.path.abspath(__file__))
+    # TF32 off in the ranks too, as in this process: the CLI keeps
+    # PyTorch's default (cuDNN TF32 on), which the variable overrides
+    env = dict(os.environ, PYTHONPATH=here, NVIDIA_TF32_OVERRIDE="0")
+    argv = _cli_argv(root, ckpt, device, width, [
+        "--name", "mp", "--niter", "1", "--niter_decay", "0",
+        "--coordinator", "127.0.0.1:%d" % port,
+        "--num_processes", str(P11_RANKS)])
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen(
+        [sys.executable, "-m", "domain_transfer_gan_torch.cli.train", *argv,
+         "--process_id", str(r)], cwd=here, env=env,
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        for r in range(P11_RANKS)]
+    outs = []
+    try:
+        for p in procs:
+            outs.append(p.communicate(timeout=P11_TIMEOUT)[0])
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    fig["two_process_cli_s"] = time.perf_counter() - t0
+    if [p.returncode for p in procs] != [0] * P11_RANKS:
+        raise AssertionError("two-process CLI: exit codes %r\n%s" % (
+            [p.returncode for p in procs],
+            "\n".join(o[-3000:] for o in outs)))
+    expr = os.path.join(ckpt, "mp")
+    worker = os.path.join(expr, ".worker1")
+    mine = set(os.listdir(expr)) - {".worker1"}
+    if mine != set(os.listdir(expr7)):
+        raise AssertionError("two-process CLI: rank 0 wrote %r, phase 7 %r"
+                             % (sorted(mine), sorted(os.listdir(expr7))))
+    for d in CLI_VIS:
+        if not [f for f in os.listdir(os.path.join(expr, d))
+                if f.endswith(".png")]:
+            raise AssertionError("two-process CLI: %s holds no PNG" % d)
+    logs = []
+    for d in (expr, worker):
+        with open(os.path.join(d, "results.txt")) as f:
+            logs.append(f.read())
+    if "SPMD over 2 devices (data-parallel)" not in logs[0] or \
+            "backend gloo" not in outs[0]:
+        raise AssertionError("two-process CLI: %s" % logs[0][:1000])
+    if _loss_lines(logs[0]) != _loss_lines(logs[1]) or \
+            not _loss_lines(logs[0]):
+        raise AssertionError("two-process CLI: the ranks logged other "
+                             "losses")
+    _finite_loss_lines(logs[0], "two-process run")
+    mp_latest = os.path.join(expr, "latest")
+    opt = load_train_config_from_expr_dir(expr)
+    one = create_model(opt, testing=True, device=device)
+    one.load(mp_latest)
+    _, _, _, _, testA, testB = load_numpy_data(
+        root, grid_size=64, dev_size=CLI_DATA["dev_size"])
+    logged = float(np.load(os.path.join(expr, "history_mse_A.npy"))[-1][1])
+    direct = eval_mse_A(AlignedIterator(testA, testB, batch_size=EVAL_BATCH),
+                        one)
+    fig["two_process_test_mse_A_vs_one_process"] = abs(logged - direct) / \
+        direct
+    out = test_cli.test_model(["--chk_path", mp_latest, "--dataroot", root,
+                               "--metric", "mse", "--device", device])
+    direct200 = eval_mse_A(
+        AlignedIterator(testA, testB, batch_size=TEST_BATCH), one)
+    fig["cli_test_mse_vs_eval_mse_A"] = abs(out["TEST_MSE_A"] - direct200) \
+        / direct200
+    if fig["two_process_test_mse_A_vs_one_process"] > 1e-6 or \
+            fig["cli_test_mse_vs_eval_mse_A"] > 1e-6:
+        raise AssertionError("two-process CLI: TEST_MSE_A %r vs %r; "
+                             "cli.test %r vs %r" % (
+                                 logged, direct, out["TEST_MSE_A"],
+                                 direct200))
+    del one
+
+    # (b) the step over two ranks against one process on the full batch
+    jobs = [dict(name=job, width=dict(width), batch=batch,
+                 steps=P11_STEPS, compute_dtype=dtype, seed=2025, **flags)
+            for _, job, dtype, batch, flags in P11_JOBS]
+    jobs.append(dict(name="eval", width=dict(width), batch=EVAL_BATCH,
+                     ubo_steps=UBO_STEPS, ckpt=mp_latest, seed=2025))
+    labels = [j[0] for j in P11_JOBS] + ["eval_B"]
+    t0 = time.perf_counter()
+    singles = [selfcheck.run_job(device=device, **j) for j in jobs]
+    fig["one_process_jobs_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    ranks = selfcheck.run_ranks(jobs, P11_RANKS, device,
+                                timeout=P11_TIMEOUT)
+    fig["two_rank_jobs_s"] = time.perf_counter() - t0
+    fig["steps"], failed = {}, []
+    for i, (label, job) in enumerate(zip(labels, jobs)):
+        dtype = job.get("compute_dtype", "float32")
+        limits = selfcheck.LIMITS[dtype]
+        try:
+            worst = selfcheck.compare(singles[i], [r[i] for r in ranks],
+                                      limits, params=False)
+        except AssertionError as e:  # every job runs; all failures reported
+            failed.append("%s: %s" % (label, e))
+            worst = {"failed": str(e)}
+        want = (p11_eval_expected(EVAL_BATCH, UBO_STEPS, width)
+                if label == "eval_B"
+                else p11_rank_expected(job["name"], job["batch"],
+                                       width=width))
+        for r, res in enumerate(ranks):
+            account(res[i]["launches"], res[i]["launches_by_variant"], dtype,
+                    want, "phase 11 %s rank %d" % (label, r), held=on_card)
+        row = {"max_rel_dev": worst}
+        if singles[i]["ms"]:
+            later = slice(1, None)
+            row["one_process_step_ms"] = statistics.median(
+                singles[i]["ms"][later])
+            row["rank_step_ms"] = [statistics.median(r[i]["ms"][later])
+                                   for r in ranks]
+            row["reduction_share"] = [
+                r[i]["collective_s"] / (sum(r[i]["ms"]) / 1e3)
+                for r in ranks]
+        fig["steps"][label] = row
+        log("phase 11 (b) %s: %s" % (label, json.dumps(row)))
+    if failed:
+        raise AssertionError("phase 11 (b): %s" % "; ".join(failed))
+    if torch.cuda.device_count() >= 2 and on_card:
+        nccl = selfcheck.run_ranks(jobs[:1], P11_RANKS, device,
+                                   backend="nccl", timeout=P11_TIMEOUT)
+        fig["nccl_aug_float32"] = selfcheck.compare(
+            singles[0], [r[0] for r in nccl], selfcheck.LIMITS["float32"],
+            params=False)
+        fig["nccl_rank_step_ms"] = [statistics.median(r[0]["ms"][1:])
+                                    for r in nccl]
+        log("phase 11 (b): NCCL over %d cards: %s" % (
+            P11_RANKS, json.dumps(fig["nccl_aug_float32"])))
+    else:
+        fig["nccl"] = ("not run: %d CUDA card(s) visible; NCCL refuses two "
+                       "ranks on one device" % torch.cuda.device_count())
+        log("phase 11 (b): NCCL %s" % fig["nccl"])
+    log("phase 11: two ranks on one card over gloo are a correctness run, "
+        "not a scaling figure (%s)" % smi)
+    if on_card and variants != expected:
+        raise AssertionError("phase 11 launched the variants %r, the plan "
+                             "picks %r" % (variants, expected))
+    log("phase 11: launches by dtype, direction and shape %s, per variant "
+        "%s" % (json.dumps({n: {d: {"%dx%dx%d" % sh: c for sh, c in
+                                    sorted(totals[n][d].items())}
+                                for d in ("fwd", "bwd")}
+                            for n in totals}), json.dumps(variants)))
+    log("phase 11: %s" % json.dumps(fig))
+    return totals, variants, fig
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--profile", action="store_true",
@@ -3545,17 +3955,29 @@ def main(argv=None):
         log("phase 10: %.1f s, launches %d forward, %d backward"
             % (time.perf_counter() - t10, p10_fwd, p10_bwd))
 
+        # phase 11: a run moved between packages (the JAX package's flax
+        # checkpoints) and trained over two ranks (before phase 6 too)
+        t11 = time.perf_counter()
+        p11, p11_variants, p11_figures = drive_phase11(torch, K, tmp, smi)
+        p11_fwd, p11_bwd = (sum(sum(p11[n][d].values()) for n in p11)
+                            for d in ("fwd", "bwd"))
+        log("phase 11: %.1f s, launches %d forward, %d backward"
+            % (time.perf_counter() - t11, p11_fwd, p11_bwd))
+
         # phase 6: times
         rows = time_kernel(torch, F, K, site_counts, train_counts,
                            cli_counts, p8, bpp_counts, extra=args.profile,
-                           extras_counts=p9, p10_counts=p10)
+                           extras_counts=p9, p10_counts=p10,
+                           p11_counts=p11)
         bwd_rows = time_bwd_kernel(torch, F, K, train_counts, cli_counts,
                                    p8, bpp_counts, extra=args.profile,
-                                   extras_counts=p9, p10_counts=p10)
+                                   extras_counts=p9, p10_counts=p10,
+                                   p11_counts=p11)
         e2e = time_end_to_end(torch, ctx)
         e2e.update(time_train_step(torch))
         e2e["phase9"] = p9_figures
         e2e["phase10"] = p10_figures
+        e2e["phase11"] = p11_figures
         e2e.update(time_ubo_step(torch))
         prof = None
         if args.profile:
@@ -3580,18 +4002,19 @@ def main(argv=None):
         "source": "domain_transfer_gan_torch/csrc/instance_norm.cu",
         "replaces": pallas + ":115",
         "launches": launches + train_fwd + cli_fwd + served_fwd + p8_fwd
-        + p9_fwd + p10_fwd,
+        + p9_fwd + p10_fwd + p11_fwd,
         "launches_serving_path": launches,
         "launches_training_path": train_fwd,
         "launches_training_cli": cli_fwd + served_fwd,
         "launches_phase8": p8_fwd,
         "launches_phase9": p9_fwd,
         "launches_phase10": p10_fwd,
+        "launches_phase11": p11_fwd,
         "launches_by_variant": {
             v: serving_variants[v] + train_variants["fwd"][v]
             + cli_variants["fwd"][v] + p8_variants["fwd"][v]
             + p9_variants["fwd"][v] + p10_variants["fwd"][v]
-            for v in serving_variants},
+            + p11_variants["fwd"][v] for v in serving_variants},
         "max_abs_err": worst.overall("y_float32"),
         "max_err_bf16_ulps": worst.overall("y_bfloat16_ulps"),
         "check_by_variant": worst.summary(),
@@ -3612,17 +4035,20 @@ def main(argv=None):
         "route": "cuda",
         "source": "domain_transfer_gan_torch/csrc/instance_norm_bwd.cu",
         "replaces": pallas + ":175",
-        "launches": train_bwd + cli_bwd + p8_bwd + p9_bwd + p10_bwd,
+        "launches": train_bwd + cli_bwd + p8_bwd + p9_bwd + p10_bwd
+        + p11_bwd,
         "launches_serving_path": 0,
         "launches_training_path": train_bwd,
         "launches_training_cli": cli_bwd,
         "launches_phase8": p8_bwd,
         "launches_phase9": p9_bwd,
         "launches_phase10": p10_bwd,
+        "launches_phase11": p11_bwd,
         "launches_by_variant": {
             v: train_variants["bwd"][v] + cli_variants["bwd"][v]
             + p8_variants["bwd"][v] + p9_variants["bwd"][v]
-            + p10_variants["bwd"][v] for v in train_variants["bwd"]},
+            + p10_variants["bwd"][v] + p11_variants["bwd"][v]
+            for v in train_variants["bwd"]},
         "max_abs_err": bwd_worst.overall("dx_float32"),
         "max_err_bf16_ulps": bwd_worst.overall("dx_bfloat16_ulps"),
         "check_by_variant": bwd_worst.summary(),

@@ -44,6 +44,22 @@ evaluation and export CLIs scores them), ``--grad_accum K`` (K microbatches
 per step, ``models/accum.py``) and ``--remat`` (the generators recompute
 their activations in the backward).
 
+Data parallelism over ranks, as the JAX CLI's mesh (``parallel/``): each
+rank is a process with the whole model, computing on its slice of every
+batch, the step over all of them the single-process step on the full
+batch.  ``--num_devices N`` starts N local ranks (``spawn``), one card
+each, over NCCL (0, the default, means every visible card, as in JAX; more
+than are visible is refused); ``--device cpu --num_devices N`` runs N gloo
+ranks on the CPU.  ``--coordinator host:port --num_processes P
+--process_id R`` (or ``--coordinator auto`` under torchrun) runs this
+process as rank R of P; ranks that share a card talk over gloo.  Rank 0
+writes ``expr_dir``, rank R > 0 ``expr_dir/.workerR/`` (its own
+checkpoints included, which its ``--continue_train`` reads).  Every rank
+reads the same data with the same seeds (without ``--seed``, rank 0's
+random one); with ``--device_data`` every rank's card holds the whole set
+and gathers its own rows.  A batch that does not divide over the ranks is
+computed whole on every rank (logged as JAX logs it).
+
 Flags the port does not run yet are refused by name
 (``config.refuse_unported``), before anything is written; so is a
 paired-jpg dataroot where PIL cannot be imported.
@@ -51,6 +67,7 @@ paired-jpg dataroot where PIL cannot be imported.
 
 from __future__ import annotations
 
+import dataclasses
 import itertools
 import json
 import os
@@ -76,6 +93,7 @@ from ..eval.visualize import (
     to_numpy,
 )
 from ..models import create_model
+from ..parallel import DataParallel, multihost
 from ..utils.artifacts import (
     copy_scripts_to_folder,
     format_log,
@@ -178,16 +196,98 @@ def _device(opt) -> torch.device:
     return device
 
 
+def local_ranks(opt) -> int:
+    """How many local ranks ``--num_devices`` asks this process to start:
+    on CUDA 0 means every visible card, and more than are visible is
+    refused; on the CPU 0 means one."""
+    n = int(opt.num_devices or 0)
+    if torch.device(opt.device).type != "cuda":
+        return max(n, 1)
+    cards = torch.cuda.device_count()
+    if n > cards:
+        raise ValueError("--num_devices %d asks for %d CUDA cards, but %d "
+                         "are visible" % (n, n, cards))
+    return max(n or cards, 1)
+
+
 def train_model(opt: TrainConfig = None, argv=None):
+    """Train as ``opt`` (or the flags ``argv``) says.  Returns the trained
+    model, or None where this process only started the local ranks of
+    ``--num_devices`` and waited for them."""
     if opt is None:
         opt = TrainOptions().parse(sub_dirs=SUB_DIRS, args=argv)
     else:
         refuse_unported(opt)
+    if multihost.check_spec(opt.coordinator, opt.num_processes,
+                            opt.process_id):
+        if int(opt.num_devices or 0) > 1:
+            raise ValueError("--num_devices %d with --num_processes: each "
+                             "process runs one rank" % opt.num_devices)
+        return _run_rank(opt, opt.process_id, opt.num_processes,
+                         opt.coordinator, multihost.ranks_per_host(
+                             opt.coordinator, opt.num_processes))
+    n = local_ranks(opt)
+    if n == 1:
+        return _run_single(opt, _device(opt))
+    import torch.multiprocessing as mp
+
+    # spawn, not fork: no rank inherits this process's CUDA state
+    mp.start_processes(_spawned_rank, args=(opt, n, "127.0.0.1:%d"
+                                            % multihost.free_port()),
+                       nprocs=n, start_method="spawn")
+    return None
+
+
+def _spawned_rank(rank: int, opt: TrainConfig, world: int, coordinator: str):
+    _run_rank(opt, rank, world, coordinator, ranks_here=world)
+
+
+def _rank_dir(opt: TrainConfig, rank: int) -> None:
+    """Rank 0 writes ``expr_dir``, rank r > 0 ``expr_dir/.worker<r>/``."""
+    if rank > 0 and not opt.expr_dir.endswith(".worker%d" % rank):
+        opt.expr_dir = os.path.join(opt.expr_dir, ".worker%d" % rank)
+    os.makedirs(opt.expr_dir, exist_ok=True)
+    create_sub_dirs(opt, SUB_DIRS)
+
+
+def _run_rank(opt: TrainConfig, rank: int, world: int, coordinator: str,
+              ranks_here: int):
+    """One rank: pick its device and the backend from the layout, join the
+    group, train, leave."""
+    opt = dataclasses.replace(opt)
+    _rank_dir(opt, rank)
+    device = torch.device(opt.device)
+    cards = torch.cuda.device_count() if device.type == "cuda" else 0
+    if device.type == "cuda":
+        device = torch.device("cuda", multihost.local_rank(rank, cards))
+        opt.device = str(device)
+    backend = multihost.choose_backend(device.type, ranks_here, cards)
     device = _device(opt)
+    if backend == "nccl":
+        torch.cuda.set_device(device)
+    print("rank %d of %d on %s, backend %s" % (rank, world, device, backend))
+    multihost.initialize(coordinator, world, rank, backend=backend)
+    try:
+        if opt.seed is None:
+            # the ranks must draw the same batches and noise: rank 0's
+            # random seed, shared
+            seed = torch.tensor([np.random.randint(2 ** 31) if rank == 0
+                                 else 0], device=device)
+            opt.seed = int(multihost.all_reduce_(seed))
+        return _run_single(opt, device, backend=backend)
+    finally:
+        multihost.shutdown()
+
+
+def _run_single(opt: TrainConfig, device: torch.device, backend=None):
     # resume appends to the prior run's log instead of truncating it
     out_f = open(os.path.join(opt.expr_dir, "results.txt"),
                  "a" if opt.continue_train else "w")
     try:
+        if backend is not None:
+            print_log(out_f, "rank %d of %d on %s (%s)" % (
+                multihost.process_index(), multihost.process_count(),
+                device, backend))
         return _train(opt, device, out_f)
     finally:
         out_f.close()
@@ -261,6 +361,19 @@ def _train(opt: TrainConfig, device: torch.device, out_f):
             print_log(out_f, "WARNING: --continue_train set but %s missing"
                       % chk)
 
+    # data parallelism over the ranks of the process group
+    n_dev = multihost.process_count()
+    if n_dev > 1 and opt.batchSize % n_dev != 0:
+        print_log(out_f, "WARNING: %d devices visible but batchSize %d does "
+                  "not divide the batch-sharding axes (%d) — running "
+                  "UNSHARDED on one device; --spatial/--tensor/--pipeline "
+                  "are ignored" % (n_dev, opt.batchSize, n_dev))
+    elif n_dev > 1:
+        model = DataParallel(model)
+        print_log(out_f, "SPMD over %d devices (data-parallel)"
+                  % model.n_devices)
+    dp = isinstance(model, DataParallel)
+
     total_steps = 0
     timer = StepTimer()
     results = {
@@ -322,7 +435,11 @@ def _train(opt: TrainConfig, device: torch.device, out_f):
         if data_A is not None:
             feed = iter(train_dataset)  # index vectors only
         else:
-            feed = prefetch_to_device(full_batches(train_dataset), device)
+            batches = full_batches(train_dataset)
+            if dp:  # over ranks only whole batches, as the JAX mesh
+                batches = (d for d in batches
+                           if len(d["A"]) == opt.batchSize)
+            feed = prefetch_to_device(batches, device)
         for i, data in enumerate(feed):
             n_batch = len(data["A_idx"] if data_A is not None else data["A"])
             # a steady-state window of the first epoch under --profile_dir
@@ -364,6 +481,8 @@ def _train(opt: TrainConfig, device: torch.device, out_f):
 
             if opt.display_freq and total_steps % opt.display_freq == 0:
                 uidx = epoch_iter // opt.batchSize
+                if dp:
+                    visuals = model.gather_visuals(visuals)
                 visualize_cycle(opt, visuals, epoch, uidx, train=True)
                 dev_data = next(dev_cycle)
                 dev_A, dev_B = dev_data["A"], dev_data["B"]

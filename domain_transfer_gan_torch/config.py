@@ -113,7 +113,7 @@ class TrainConfig:
     #                                the fused kernel on a CUDA tensor
     compute_dtype: str = "float32"  # {float32, bfloat16} conv compute dtype
     data_axis: str = "data"        # inert (TPU mesh)
-    num_devices: int = 0           # inert (TPU mesh)
+    num_devices: int = 0           # local ranks; 0 = every visible card
     spatial: int = 0               # inert (TPU mesh)
     tensor: int = 0                # inert (TPU mesh)
     pipeline: int = 0              # inert (TPU mesh)
@@ -132,9 +132,9 @@ class TrainConfig:
     grad_accum: int = 1
     device_data: int = -1
     device_data_max_gb: float = 2.0
-    coordinator: str = ""          # inert (multi-host)
-    num_processes: int = 0         # inert (multi-host)
-    process_id: int = -1           # inert (multi-host)
+    coordinator: str = ""          # multi-process: host:port or "auto"
+    num_processes: int = 0         # multi-process: ranks in all
+    process_id: int = -1           # multi-process: this process's rank
     device: str = "cuda"           # the port's own: where the CLI runs
 
     # derived (filled by finalize / the loaders)
@@ -154,9 +154,14 @@ class TrainConfig:
         return out
 
     def finalize(self, sub_dirs=None):
-        """Create expr_dir, dump opt.txt/opt.json/opt.pkl, make vis dirs."""
+        """Create expr_dir, dump opt.txt/opt.json/opt.pkl, make vis dirs.
+        Rank r > 0 of a multi-process run (``--process_id``) writes under
+        ``expr_dir/.worker<r>/`` only."""
         self.use_sigmoid = self.no_lsgan
         self.expr_dir = os.path.join(self.checkpoints_dir, self.name)
+        if int(self.process_id) > 0:
+            self.expr_dir = os.path.join(self.expr_dir,
+                                         ".worker%d" % self.process_id)
         os.makedirs(self.expr_dir, exist_ok=True)
 
         args = dict(vars(self))
@@ -176,18 +181,29 @@ class TrainConfig:
         return self
 
 
+class _PlainUnpickler(pickle.Unpickler):
+    """Unpickles builtin values only: a class or function named in the file
+    (the JAX package's own, for one) is refused, never imported."""
+
+    def find_class(self, module, name):
+        raise pickle.UnpicklingError(
+            "%s.%s in an option dump: only plain values are read (use the "
+            "opt.json beside it)" % (module, name))
+
+
 def parse_opt_file(opt_path: str) -> dict:
     """Read a saved option dump (opt.json / opt.pkl / opt.txt).
 
-    Only load an ``opt.pkl`` that this program or the JAX package wrote:
-    unpickling can run code.
+    An ``opt.pkl`` is read with an unpickler that imports nothing, so a
+    dump that names a class (the JAX package's, say) raises instead of
+    running its code.
     """
     if opt_path.endswith(".json"):
         with open(opt_path) as f:
             return json.load(f)
     if opt_path.endswith(".pkl"):
         with open(opt_path, "rb") as f:
-            return pickle.load(f)
+            return _PlainUnpickler(f).load()
 
     def parse_val(s):
         if s == "None":
@@ -239,12 +255,6 @@ def load_train_config_from_expr_dir(expr_dir: str, **overrides) -> TrainConfig:
 # (flag, the field whose value the message shows or None, is it asked for,
 # ROADMAP item): what the training CLI refuses
 _UNPORTED = (
-    ("--num_devices", "num_devices", lambda c: int(c.num_devices) > 1,
-     "M12"),
-    ("--coordinator", "coordinator", lambda c: bool(c.coordinator), "M12"),
-    ("--num_processes", "num_processes", lambda c: int(c.num_processes) > 1,
-     "M12"),
-    ("--process_id", "process_id", lambda c: int(c.process_id) >= 0, "M12"),
     ("--spatial", "spatial", lambda c: int(c.spatial) > 1, "M13"),
     ("--tensor", "tensor", lambda c: int(c.tensor) > 1, "M13"),
     ("--pipeline", "pipeline", lambda c: int(c.pipeline) > 1, "M13"),

@@ -29,7 +29,12 @@ What holds as in the JAX package:
   unpadded run's (the dequantisation noise is drawn at the padded shape);
 - the metrics returned are those of the last iterate (the values before the
   final update);
-- the host reads results once per chunk of 100 steps, never per step.
+- the host reads results once per chunk of 100 steps, never per step;
+- over ranks (a ``parallel.DataParallel`` model) ``eval_mse_A`` and the UBO
+  compute on each rank's slice of a batch, as the JAX package's mesh does:
+  the UBO pads to a multiple of the ranks, draws its noise for the whole
+  batch and slices it, and sums its masked means over the ranks; the
+  visuals are decoded from the gathered (mu, logvar).
 
 The random draws (dequantisation noise, the reparametrisation's eps, the
 noise of a noisy cycle) come from the model's ``torch.Generator`` (the
@@ -49,6 +54,7 @@ import numpy as np
 import torch
 
 from ..nn.networks import frozen
+from ..parallel.multihost import all_reduce_, local_rows
 from ..ops.numerics import (
     gauss_reparametrize_eps,
     kld_std_gauss,
@@ -73,14 +79,30 @@ def _npix(model, real_B) -> float:
 # MSE_A
 # ---------------------------------------------------------------------------
 
+def _ranks(model):
+    """The ``parallel.DataParallel`` wrapper when the model is one over
+    several ranks, else None."""
+    return model if getattr(model, "world", 1) > 1 else None
+
+
 def eval_mse_A(dataset, model) -> float:
-    """Mean over batches of mean((netG_B_A(B) - A)^2)."""
+    """Mean over batches of mean((netG_B_A(B) - A)^2).  Over ranks
+    (``parallel.DataParallel``) a batch that divides is computed as slices
+    and its mean taken over the ranks."""
+    dp = _ranks(model)
     vals = []
     with frozen(model.nets["netG_B_A"], bool(model.training)) as net, \
             torch.no_grad():
         for batch in dataset:
-            pred_A = net(model._tensor(batch["B"])).float()
-            vals.append(torch.mean((pred_A - model._tensor(batch["A"])) ** 2))
+            B, A = model._tensor(batch["B"]), model._tensor(batch["A"])
+            if dp is not None and dp.divides(B.shape[0]):
+                with dp.sharded():
+                    pred_A = net(dp.local_rows(B)).float()
+                    v = torch.mean((pred_A - dp.local_rows(A)) ** 2)
+                vals.append(dp.mean_over_ranks({"v": v})["v"])
+                continue
+            pred_A = net(B).float()
+            vals.append(torch.mean((pred_A - A) ** 2))
     # one read for the whole dataset; averaged in float64 like np.mean
     return float(np.mean(torch.stack(vals).cpu().numpy().astype(np.float64)))
 
@@ -91,22 +113,32 @@ def eval_mse_A(dataset, model) -> float:
 
 def ubo_chunk(model, real_A, real_B_deq, mu, logvar, sq_mu, sq_lv,
               logvar_B, mask, npix: float, steps: int, eps=None,
-              plain_norm: bool = False):
+              plain_norm: bool = False, denom=None, shard=None):
     """``steps`` RMSprop steps on (mu, logvar) from the given state.
 
     ``eps``: None (drawn per step from the model's generator) or a
-    (steps, n, nlatent) tensor.  Returns the new (mu, logvar, sq_mu, sq_lv)
-    and the masked-mean UBO and KLD of the last step's iterate, all device
-    tensors."""
+    (steps, n, nlatent) tensor of these rows.  Returns the new (mu, logvar,
+    sq_mu, sq_lv) and the masked-mean UBO and KLD of the last step's
+    iterate, all device tensors.  ``shard`` = (rank, world): the rows are
+    this rank's slice of a global batch whose mask sums to ``denom``; each
+    step's noise is drawn for the global batch and sliced, and the returned
+    means are summed over the ranks (each sample's gradient is its own, so
+    the steps need no collective)."""
     net = model.nets["netG_A_B"]
     ignore_noise = getattr(model, "ignore_noise", False)
-    denom = mask.sum()
+    denom = mask.sum() if denom is None else denom
+    world = shard[1] if shard is not None else 1
     ubo_m = kld_m = None
     with frozen(net, bool(model.training)), torch.enable_grad():
         for s in range(steps):
-            e = eps[s] if eps is not None else torch.randn(
-                mu.shape, dtype=mu.dtype, device=mu.device,
-                generator=model._noise)
+            if eps is not None:
+                e = eps[s]
+            else:
+                e = torch.randn((world * mu.shape[0],) + tuple(mu.shape[1:]),
+                                dtype=mu.dtype, device=mu.device,
+                                generator=model._noise)
+                if shard is not None:
+                    e = local_rows(e, *shard)
             mu_ = mu.detach().requires_grad_(True)
             lv_ = logvar.detach().requires_grad_(True)
             z = gauss_reparametrize_eps(mu_, lv_, e)
@@ -126,7 +158,10 @@ def ubo_chunk(model, real_A, real_B_deq, mu, logvar, sq_mu, sq_lv,
                 mu = mu - RMS_LR * g_mu / (torch.sqrt(sq_mu) + RMS_EPS)
                 logvar = logvar - RMS_LR * g_lv / (torch.sqrt(sq_lv)
                                                    + RMS_EPS)
-    return mu, logvar, sq_mu, sq_lv, ubo_m.detach(), kld_m.detach()
+    ubo_m, kld_m = ubo_m.detach(), kld_m.detach()
+    if shard is not None:
+        ubo_m, kld_m = all_reduce_(torch.stack([ubo_m, kld_m])).unbind()
+    return mu, logvar, sq_mu, sq_lv, ubo_m, kld_m
 
 
 def variational_ubo(model, real_A, real_B, steps: int,
@@ -142,6 +177,11 @@ def variational_ubo(model, real_A, real_B, steps: int,
         raise ValueError("visualize needs vis_name and vis_path")
     real_A, real_B = model._tensor(real_A), model._tensor(real_B)
     n_real = real_A.shape[0]
+    dp = _ranks(model)
+    if dp is not None:
+        # over ranks: the pad target rounded up to a multiple of the ranks,
+        # so that the zero-weight rows absorb the remainder
+        pad_to = -(-max(pad_to or n_real, n_real) // dp.world) * dp.world
     if pad_to is not None and n_real < pad_to:
         pad = pad_to - n_real
         real_A = torch.cat([real_A, real_A[:1].expand(pad, *real_A.shape[1:])])
@@ -179,13 +219,27 @@ def variational_ubo(model, real_A, real_B, steps: int,
     sq_lv = torch.zeros_like(logvar)
     if eps is not None:
         eps = model._tensor(eps)
+    # over ranks every rank steps its slice of the rows; the slices of
+    # (mu, logvar) are gathered where the whole batch is read
+    shard, chunk_in, denom = None, (real_A, real_B_deq, mask), None
+    if dp is not None:
+        shard, denom = (dp.rank, dp.world), mask.sum()
+        chunk_in = tuple(dp.local_rows(t) for t in chunk_in)
+        mu, logvar = dp.local_rows(mu), dp.local_rows(logvar)
+        sq_mu, sq_lv = dp.local_rows(sq_mu), dp.local_rows(sq_lv)
+        if eps is not None:
+            eps = torch.stack([dp.local_rows(e) for e in eps])
+
+    def whole(t):
+        return dp.gather(t) if dp is not None else t
 
     def posterior_sample():
         if not model.opt.stoch_enc:
-            return mu
-        e = torch.randn(mu.shape, dtype=mu.dtype, device=dev,
+            return whole(mu)
+        mu_all, logvar_all = whole(mu), whole(logvar)
+        e = torch.randn(mu_all.shape, dtype=mu_all.dtype, device=dev,
                         generator=model._noise)
-        return gauss_reparametrize_eps(mu, logvar, e)
+        return gauss_reparametrize_eps(mu_all, logvar_all, e)
 
     def vis_dump(tag):
         z_vis = posterior_sample()[:vis_batch]
@@ -204,8 +258,9 @@ def variational_ubo(model, real_A, real_B, steps: int,
         todo = min(CHUNK, steps - done)
         chunk_eps = None if eps is None else eps[done:done + todo]
         mu, logvar, sq_mu, sq_lv, ubo_dev, kld_dev = ubo_chunk(
-            model, real_A, real_B_deq, mu, logvar, sq_mu, sq_lv, logvar_B,
-            mask, npix, todo, chunk_eps, plain_norm)
+            model, chunk_in[0], chunk_in[1], mu, logvar, sq_mu, sq_lv,
+            logvar_B, chunk_in[2], npix, todo, chunk_eps, plain_norm,
+            denom=denom, shard=shard)
         done += todo
         ubo_val, kld_val = torch.stack([ubo_dev, kld_dev]).tolist()
         bpp = ubo_val / (npix * math.log(2.0))

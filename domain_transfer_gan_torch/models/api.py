@@ -16,10 +16,11 @@ in every case:
 :class:`CycleGANBase` holds what the variants share: the training state
 (networks, one Adam state per network), the noise generator, the forward
 calls, the learning-rate schedule, the device-resident train feed and
-checkpoints (``save`` / ``load`` / ``wait_for_saves``, the port's own
-``torch.save`` format; reading the JAX package's checkpoints is ROADMAP
-M15) and the EMA swap.  ``testing`` only keeps a model from writing
-``nets.txt``.  ``--grad_accum K`` picks the steps of ``models/accum.py``.
+checkpoints (``save`` / ``load`` / ``wait_for_saves`` in the port's own
+``torch.save`` format; ``load`` also reads the JAX package's flax files and
+``save_jax`` writes them, ``utils/flax_msgpack.py``) and the EMA swap.
+``testing`` only keeps a model from writing ``nets.txt``.  ``--grad_accum
+K`` picks the steps of ``models/accum.py``.
 
 All tensors are NHWC; latent codes are flat (N, nlatent).  Inputs may be
 numpy arrays or tensors; outputs are tensors on the model's device.  Every
@@ -50,11 +51,15 @@ from ..utils.checkpoint import (
 )
 from ..utils.convert import (
     GENERATOR_NETS,
+    buffers_to_jax_batch_stats,
     jax_batch_stats_to_buffers,
     jax_params_to_state_dict,
     jax_pool_to_port,
+    port_pool_to_jax,
+    state_dict_to_jax_params,
     unflatten_params,
 )
+from ..utils.flax_msgpack import is_flax_bytes, read_flax, write_flax
 from .accum import make_aug_accum_step, make_stoch_accum_step
 from .pool import PoolState, draw_pool
 from .state import DTYPES, init_state
@@ -415,8 +420,61 @@ class CycleGANBase:
         if hasattr(self, "_async_ckpt"):
             self._async_ckpt.wait()
 
+    def _jax_payload(self) -> dict:
+        """The tree the JAX package's ``_ckpt_payload()`` serialises, in its
+        layouts and dtypes: ``params``, ``batch_stats`` (an entry per net,
+        empty without batch norm), ``opt_state`` (per net ``count`` int32
+        0-d, ``mu`` / ``nu`` params trees), ``pools`` (``{}`` without),
+        ``step`` int32 0-d, ``old_lr`` float64, ``epoch`` int64 and, where
+        the model has them, the ``ema`` shadows."""
+        params, stats, opt = {}, {}, {}
+        for name, net in self.nets.items():
+            names = [n for n, _ in net.named_parameters()]
+            params[name] = state_dict_to_jax_params(
+                name, dict(net.named_parameters()))
+            stats[name] = buffers_to_jax_batch_stats(name, net.state_dict())
+            s = self.state.opt_state[name]
+            opt[name] = {
+                "count": np.asarray(s.count, np.int32),
+                "mu": state_dict_to_jax_params(name, dict(zip(names, s.mu))),
+                "nu": state_dict_to_jax_params(name, dict(zip(names, s.nu)))}
+        payload = {
+            "params": params, "batch_stats": stats, "opt_state": opt,
+            "pools": {name: port_pool_to_jax(pool.buf, pool.n)
+                      for name, pool in self.state.pools.items()},
+            "step": np.asarray(self.state.step, np.int32),
+            # 0-d arrays, as the JAX save writes them (through device_get)
+            "old_lr": np.asarray(self.old_lr, np.float64),
+            "epoch": np.asarray(self.epoch, np.int64),
+        }
+        if self.state.ema:
+            payload["ema"] = {
+                name: state_dict_to_jax_params(name, dict(zip(
+                    (n for n, _ in self.nets[name].named_parameters()),
+                    shadow)))
+                for name, shadow in self.state.ema.items()}
+        return payload
+
+    def save_jax(self, path: str):
+        """Write this model's state as a JAX-package checkpoint (flax
+        msgpack) at ``path``, published by an atomic rename; the JAX
+        package's ``load`` restores it."""
+        self.wait_for_saves()
+        data = write_flax(self._jax_payload())
+        tmp = path + ".tmp"
+        try:
+            with open(tmp, "wb") as f:
+                f.write(data)
+            os.replace(tmp, path)
+        except BaseException:
+            if os.path.exists(tmp):
+                os.remove(tmp)
+            raise
+
     def load(self, chk_path: str):
-        """Restore a checkpoint written by :meth:`save` (format 1 or 2):
+        """Restore a checkpoint written by :meth:`save` (format 1 or 2) or
+        by the JAX package (a flax msgpack file, told apart by its first
+        bytes before anything is unpickled; :meth:`_load_jax`):
         parameters, buffers and Adam moments are copied into this model's
         tensors (device and dtype stay), ``step``, ``old_lr``, ``epoch`` set,
         ``old_lr_d`` derived.  Raises if a net or an entry is missing or
@@ -427,12 +485,21 @@ class CycleGANBase:
         this config tracks EMA and the checkpoint predates it the shadows
         are seeded from the loaded parameters."""
         self.wait_for_saves()
+        with open(chk_path, "rb") as f:
+            head = f.read(4)
+        if not head.startswith(b"PK"):
+            if is_flax_bytes(head):
+                with open(chk_path, "rb") as f:
+                    return self._load_jax(chk_path, f.read())
+            raise ValueError(
+                "%s is neither a checkpoint of this package (a torch.save "
+                "zip) nor one of the JAX package (flax msgpack)" % chk_path)
         payload = read_checkpoint(chk_path)
         if not isinstance(payload, dict) or \
                 payload.get("format") not in CKPT_FORMATS:
             raise ValueError(
-                "%s is not a checkpoint of this package (reading the JAX "
-                "package's checkpoints is ROADMAP M15)" % chk_path)
+                "%s is not a checkpoint of this package (a torch.save file "
+                "without its format tag)" % chk_path)
         if set(payload["nets"]) != set(self.nets):
             raise KeyError("%s holds nets %s, the model has %s" % (
                 chk_path, sorted(payload["nets"]), sorted(self.nets)))
@@ -458,6 +525,61 @@ class CycleGANBase:
         self.epoch = int(payload["epoch"])
         self._derive_lr_d()
 
+
+    def _load_jax(self, chk_path: str, data: bytes):
+        """Restore a JAX-package checkpoint by the JAX ``load``'s rules:
+        every net's parameters and running statistics, the Adam moments
+        (through the parameters' layout maps) and counts, ``step``,
+        ``old_lr``, ``epoch``; pools of other sizes are replaced by fresh
+        ones with the JAX warning; the file's EMA shadows are taken where
+        this config tracks EMA, and seeded from the loaded parameters where
+        the file has none."""
+        try:
+            raw = read_flax(data)
+        except (ValueError, ImportError):
+            raise
+        except Exception as e:  # malformed msgpack: name the file
+            raise ValueError("%s is neither a checkpoint of this package nor "
+                             "a readable JAX package flax checkpoint (%s)"
+                             % (chk_path, e)) from e
+        if not isinstance(raw, dict) or "params" not in raw:
+            raise ValueError("%s is a msgpack file but not a JAX package "
+                             "checkpoint (no params)" % chk_path)
+        if set(raw["params"]) != set(self.nets):
+            raise KeyError("%s holds nets %s, the model has %s" % (
+                chk_path, sorted(raw["params"]), sorted(self.nets)))
+        stats = raw.get("batch_stats") or {}
+        with torch.no_grad():
+            for name, net in self.nets.items():
+                sd = jax_params_to_state_dict(name, raw["params"][name])
+                sd.update(jax_batch_stats_to_buffers(name,
+                                                     stats.get(name) or {}))
+                net.load_state_dict(sd, strict=True)
+                saved, state = raw["opt_state"][name], \
+                    self.state.opt_state[name]
+                names = [n for n, _ in net.named_parameters()]
+                for mine, tree in ((state.mu, saved["mu"]),
+                                   (state.nu, saved["nu"])):
+                    moment = jax_params_to_state_dict(name, tree)
+                    if set(moment) != set(names):
+                        raise KeyError(
+                            "%s: Adam state of %s disagrees with the module "
+                            "on %s" % (chk_path, name,
+                                       sorted(set(moment) ^ set(names))))
+                    for t, n in zip(mine, names):
+                        t.copy_(moment[n])
+                state.count = int(saved["count"])
+        self._load_pools({name: dict(zip(("buf", "n"),
+                                         jax_pool_to_port(pool)))
+                          for name, pool in (raw.get("pools") or {}).items()})
+        # as the JAX load: a config without EMA drops the file's shadows
+        ema = (raw.get("ema") or {}) if self.state.ema else {}
+        self._load_ema({name: jax_params_to_state_dict(name, tree)
+                        for name, tree in ema.items()})
+        self.state.step = int(raw["step"])
+        self.old_lr = float(raw["old_lr"])
+        self.epoch = int(raw["epoch"])
+        self._derive_lr_d()
 
     def _load_pools(self, saved: dict):
         cur = self.state.pools

@@ -43,6 +43,7 @@ from typing import Dict, List
 import torch
 
 from ..config import TrainConfig
+from ..parallel import multihost
 from ..ops.numerics import (
     criterion_gan,
     gauss_reparametrize_eps,
@@ -101,8 +102,14 @@ def _apply(state: TrainState, grads: Dict[str, List[torch.Tensor]],
            lr: float, cfg: TrainConfig,
            gnorms: Dict[str, torch.Tensor]) -> None:
     """Per-net clip + Adam at ``lr`` with ``grads`` (by net name); each
-    net's pre-clip norm goes to ``gnorms["gnorm_" + short]``."""
+    net's pre-clip norm goes to ``gnorms["gnorm_" + short]``.  On a rank's
+    slice of a global batch (``multihost.sharded``) each net's gradients
+    are first averaged over the ranks, in one flat all-reduce, so the clip
+    sees the global gradient and its norm."""
+    reduce = multihost.shard_info() is not None
     for k, g in grads.items():
+        if reduce:
+            g = multihost.all_reduce_mean_list(g)
         gnorms["gnorm_" + k[3:]] = apply_net_update(
             list(state.nets[k].parameters()), state.opt_state[k], g, lr,
             cfg.max_gnorm, cfg.beta1)
@@ -116,14 +123,22 @@ def _update(state: TrainState, names, loss, lr: float, cfg: TrainConfig,
 
 def _d_fakes(state: TrainState, fake_A, fake_B, pool_draws):
     """What the D phase scores as fakes: the detached fakes, or with pools
-    the pools' answers to them (the pools advance in place)."""
+    the pools' answers to them (the pools advance in place).  On a rank's
+    slice the pools answer the all-gathered fakes with the full batch's
+    draws and the rank takes its slice, so every rank's pools stay the
+    single process's."""
     fake_A, fake_B = fake_A.detach(), fake_B.detach()
     if not state.pools:
         return fake_A, fake_B
+    shard = multihost.shard_info()
     out = []
     for name, fake in (("fake_A", fake_A), ("fake_B", fake_B)):
+        if shard is not None:
+            fake = multihost.all_gather_cat(fake)
         state.pools[name], d_fake = pool_query(state.pools[name], fake,
                                                *pool_draws[name])
+        if shard is not None:
+            d_fake = multihost.local_rows(d_fake, *shard)
         out.append(d_fake)
     return tuple(out)
 

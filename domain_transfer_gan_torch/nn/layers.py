@@ -15,6 +15,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..parallel import multihost
+
 
 def _as(t: Optional[torch.Tensor], dtype: torch.dtype):
     return None if t is None else t.to(dtype)
@@ -35,7 +37,10 @@ class Dropout(nn.Dropout):
     """Dropout with keep probability ``1 - p`` whose masks come from an
     explicit ``torch.Generator`` (``self.generator``, on the activation's
     device; None means the global one).  Every call draws anew from that
-    stream, so two networks that share a generator never share a mask."""
+    stream, so two networks that share a generator never share a mask.  On
+    a rank's slice of a global batch (``parallel.multihost.sharded``) the
+    mask is drawn for the full batch and the rank keeps its rows, so the
+    ranks draw what one process draws."""
 
     def __init__(self, p: float = 0.5):
         super().__init__(p)
@@ -44,6 +49,12 @@ class Dropout(nn.Dropout):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if not self.training or self.p == 0.0:
             return x
-        keep = torch.empty(x.shape, dtype=torch.float32, device=x.device)
+        shard = multihost.shard_info()
+        world = shard[1] if shard is not None else 1
+        # on a rank's slice: the full batch's mask, of which the rank's rows
+        keep = torch.empty((world * x.shape[0],) + tuple(x.shape[1:]),
+                           dtype=torch.float32, device=x.device)
         keep.bernoulli_(1.0 - self.p, generator=self.generator)
+        if shard is not None:
+            keep = multihost.local_rows(keep, *shard)
         return x * (keep / (1.0 - self.p)).to(x.dtype)

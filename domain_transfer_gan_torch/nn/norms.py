@@ -31,6 +31,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..parallel import multihost
 from ..ops.kernels.instance_norm import (
     instance_norm_fused,
     instance_norm_plain,
@@ -145,6 +146,19 @@ class CondInstanceNorm(nn.Module):
                           plain_norm)
 
 
+def _global_moments(x32: torch.Tensor, dims):
+    """Mean and E[x^2] - mean^2 (clamped at 0) per channel over the global
+    batch: the per-channel sums of x and x^2 are summed over the ranks in
+    one differentiable all-reduce, whose backward sums the two per-channel
+    gradient sums over the ranks likewise."""
+    c = x32.shape[1]
+    count = x32.numel() // c * multihost.process_count()
+    sums = multihost.all_reduce_sum(torch.cat([x32.sum(dim=dims),
+                                               (x32 * x32).sum(dim=dims)]))
+    mean = sums[:c] / count
+    return mean, torch.clamp_min(sums[c:] / count - mean * mean, 0.0)
+
+
 class _BatchNormCore(nn.Module):
     """Batch norm over every axis but the channel axis 1, as
     ``flax.linen.BatchNorm(momentum=0.9, epsilon=1e-5)`` computes it:
@@ -152,7 +166,10 @@ class _BatchNormCore(nn.Module):
     E[x^2] - mean^2 clamped at 0, and a running average that stores the
     *biased* batch variance (``torch.nn.BatchNorm`` stores the unbiased one).
     In train mode the running statistics advance once per call, in place,
-    unless ``advance`` is off (:func:`running_stats_held`)."""
+    unless ``advance`` is off (:func:`running_stats_held`).  On a rank's
+    slice of a global batch (``parallel.multihost.sharded``) the statistics
+    are the global batch's, as the JAX package's mesh computes them, and
+    the running averages advance from those."""
 
     momentum = 0.9
     eps = 1e-5
@@ -170,9 +187,12 @@ class _BatchNormCore(nn.Module):
         shape = [1, -1] + [1] * (x.dim() - 2)
         x32 = x.to(torch.float32)
         if self.training:
-            mean = x32.mean(dim=dims)
-            var = torch.clamp_min((x32 * x32).mean(dim=dims) - mean * mean,
-                                  0.0)
+            if multihost.shard_info() is not None:
+                mean, var = _global_moments(x32, dims)
+            else:
+                mean = x32.mean(dim=dims)
+                var = torch.clamp_min(
+                    (x32 * x32).mean(dim=dims) - mean * mean, 0.0)
             if self.advance:
                 with torch.no_grad():
                     self.running_mean.mul_(self.momentum).add_(

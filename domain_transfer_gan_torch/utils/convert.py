@@ -32,8 +32,14 @@ JAX fake-image pool (``PoolState`` or a dict with ``buf`` NHWC
 layout, and fill count (``CycleGANBase.load_jax_pools``).
 
 ``flatten_params`` / ``unflatten_params`` move between the nested tree and the
-flat ``netG_A_B/conv0/kernel`` keys of a params ``.npz``.  The inverse
-direction (port -> JAX) comes with the checkpoint slice.
+flat ``netG_A_B/conv0/kernel`` keys of a params ``.npz``.
+
+The inverse direction (port -> JAX), for writing the JAX package's
+checkpoints (``models.api.CycleGANBase.save_jax``):
+``state_dict_to_jax_params`` (parameters, or an Adam moment or EMA shadow
+keyed by parameter name: the same layout maps, ``up0``'s flip included),
+``buffers_to_jax_batch_stats`` and ``port_pool_to_jax``.  Each is the exact
+inverse of its forward map: a layout change moves bytes, never rounds.
 """
 
 from __future__ import annotations
@@ -153,3 +159,75 @@ def unflatten_params(flat: Mapping[str, np.ndarray]) -> dict:
             node = node.setdefault(p, {})
         node[parts[-1]] = np.asarray(flat[key])
     return tree
+
+
+def _unconvert_leaf(path, value: np.ndarray) -> np.ndarray:
+    """The inverse of :func:`_convert_leaf` (``path`` ends in the JAX leaf
+    name)."""
+    if path[-1] != "kernel":
+        return value
+    if value.ndim == 2:       # Linear (out, in) -> Dense (in, out)
+        return value.T
+    if path[-2].startswith("up"):  # (I, O, kh, kw) flipped -> (kh, kw, I, O)
+        return np.transpose(value[:, :, ::-1, ::-1], (2, 3, 0, 1))
+    return np.transpose(value, (2, 3, 1, 0))
+
+
+def _nest(flat: Mapping[tuple, np.ndarray]) -> dict:
+    tree: dict = {}
+    for path, value in flat.items():
+        node = tree
+        for p in path[:-1]:
+            node = node.setdefault(p, {})
+        node[path[-1]] = value
+    return tree
+
+
+def _numpy(value) -> np.ndarray:
+    if isinstance(value, torch.Tensor):
+        value = value.detach().to("cpu", torch.float32).numpy()
+    return np.asarray(value, np.float32)
+
+
+def state_dict_to_jax_params(net_name: str, sd: Mapping) -> dict:
+    """The JAX ``params`` subtree of ``net_name`` (nested dicts of C-ordered
+    float32 numpy arrays) from the port's parameters keyed as in its
+    ``state_dict``; also takes an Adam moment or an EMA shadow keyed so."""
+    _check_net(net_name)
+    flat = {}
+    for key, value in sd.items():
+        *mods, leaf = key.split(".")
+        value = _numpy(value)
+        if leaf == "weight":
+            if value.ndim >= 2:
+                leaf = "kernel"
+            elif mods and mods[-1] == "bn":
+                leaf = "scale"
+            else:
+                raise ValueError("%s: a 1-d weight outside a batch norm (%s)"
+                                 % (net_name, key))
+        path = tuple(mods) + (leaf,)
+        flat[path] = np.ascontiguousarray(_unconvert_leaf(path, value))
+    return _nest(flat)
+
+
+def buffers_to_jax_batch_stats(net_name: str, sd: Mapping) -> dict:
+    """The JAX ``batch_stats`` subtree of ``net_name`` from the port's
+    running statistics (``...bn.running_mean`` / ``running_var``; other
+    keys are skipped); empty for a net without batch norm."""
+    _check_net(net_name)
+    flat = {}
+    for key, value in sd.items():
+        *mods, leaf = key.split(".")
+        if leaf not in ("running_mean", "running_var"):
+            continue
+        flat[tuple(mods) + (leaf[len("running_"):],)] = np.ascontiguousarray(
+            _numpy(value))
+    return _nest(flat)
+
+
+def port_pool_to_jax(buf, n: int) -> dict:
+    """A JAX ``PoolState``-shaped ``{"buf": (P, H, W, C) float32, "n":
+    int32 0-d}`` from the port's pool buffer and fill count."""
+    return {"buf": np.ascontiguousarray(_numpy(buf)),
+            "n": np.asarray(n, np.int32)}

@@ -53,13 +53,19 @@ HUGE = {(4, 65536, 32)} | set(CS.accum_sites(32, CS.ACCUM_K, hw=256)["fwd"])
 # phase 10's tails: the per-file train step's tail of 19 (its
 # discriminators' pass at 38) and the per-file eval tail of 30
 P10 = set(CS.P10_SHAPES)
+# phase 11's ranks: the generator sites at half the float32 batch of 32 and
+# half the bfloat16 batch of 128 (all but one are sites of other phases)
+P11 = set(CS.P11_SHAPES)
+P11_NEW = P11 - (PATH | CLI | TEST_CLI | EXTRAS | P10)
 
 
 def test_the_shapes_are_the_smoke_tests():
     assert len(SHAPES) == len(CS.CHECK_SHAPES) == \
-        34 + len(CLI | TEST_CLI) + len(EXTRAS) + len(P10)
+        34 + len(CLI | TEST_CLI) + len(EXTRAS) + len(P10) + len(P11_NEW)
     assert len(P10) == 3 + 12 + 3
     assert not P10 & (PATH | CLI | TEST_CLI | EXTRAS)
+    assert len(P11) == 2 * 3 and P11_NEW == {(16, 4096, 32)}
+    assert P11 <= set(SHAPES)
     # microbatches of 8 at 64x64 and 256x256 (discriminators at 16 and 8),
     # a few sites shared between the two grids
     assert len(EXTRAS) == 2 * (3 + 12) - 4

@@ -200,10 +200,6 @@ def test_export_from_checkpoint_serves_the_model(run, tmp_path):
 
 
 REFUSED = [
-    (["--num_devices", "2"], "--num_devices 2", "M12"),
-    (["--coordinator", "127.0.0.1:1234"], "--coordinator", "M12"),
-    (["--num_processes", "2"], "--num_processes 2", "M12"),
-    (["--process_id", "0"], "--process_id 0", "M12"),
     (["--spatial", "2"], "--spatial 2", "M13"),
     (["--tensor", "2"], "--tensor 2", "M13"),
     (["--pipeline", "2"], "--pipeline 2", "M13"),
