@@ -144,7 +144,24 @@ It needs one CUDA device, ``nvcc`` and no network.  It
    5's limits), a batch-norm pass at float32 rounding and the sharded
    eval-A and UBO of (c)'s checkpoint; each rank's launches held to the
    structure of its half batch; over NCCL as well where there are two
-   cards.  Phase 3 checks and phase 6 times the ranks' generator shapes.
+   cards.  Phase 3 checks and phase 6 times the ranks' generator shapes;
+12. (also before 6) the space, model and pipe axes over ranks at the same
+   width: K1-split and K2-split (the four launches of the instance norm
+   for rows spread over a space axis) each against its plain twin and,
+   gathered, against unsplit K1 / K2, at every rank shape phase 12 gives
+   them (its step's generator and discriminator sites, its CLI's
+   evaluation and visual sites) and at 256x256 at batch 8, both dtypes;
+   two ranks on the card over gloo against one process on the full batch,
+   3 float32 steps each at phase 5's limits: ``--pipeline 2 --n_blocks 4``
+   at M = 2 and M = 4, ``--spatial 2`` (every split kernel launched, at
+   the shapes ``split_sites`` gives), ``--tensor 2`` (each rank's bytes of
+   parameters and moments below one process's); one epoch of the training
+   CLI as two processes with ``--pipeline 2`` and with ``--spatial 2``
+   (their split launches counted, at checked shapes only), each run's
+   ``latest`` loaded and scored by one process to its ``TEST_MSE_A``.
+   Phase 6 times the split kernels, without and with the ReLU, beside
+   their twins, the library calls and their bound, and the ``kernels``
+   line carries them.
 
 Any failed build, launch or check ends the run with a non-zero exit code.
 The last line of standard output is
@@ -3841,6 +3858,539 @@ def drive_phase11(torch, K, tmp, smi, device="cuda", width=CLI_WIDTH,
     return totals, variants, fig
 
 
+# ---------------------------------------------------------------------------
+# phase 12: the space, model and pipe axes over ranks on the card, and the
+# split forms of K1 and K2
+# ---------------------------------------------------------------------------
+
+P12_RANKS, P12_STEPS, P12_BATCH, P12_TIMEOUT = 2, 3, 32, 600
+
+
+def half_rows(sites, spatial=2):
+    """``sites`` by (N, HW, C) as a rank of a space axis of ``spatial``
+    holds them: its 1 / ``spatial`` of every sample's rows."""
+    out = {}
+    _add(out, {(n, hw // spatial, c): k for (n, hw, c), k in sites.items()})
+    return out
+
+
+def split_sites(batch, n_blocks=3, ngf=32, ndf=64, hw=64, spatial=2):
+    """Split norms per ``aug_cycle_gan`` train step on a rank of a space
+    axis of ``spatial`` (no data axis: every rank has the whole batch), by
+    (N, HW, C) of the rank's rows; each launches K1-split's two kernels and
+    K2-split's two.  The generators' sites (two calls of each generator),
+    and in the D phase's fake|real pass (N = 2 batch) and the G phase's
+    (N = batch) D_A's three sites and D_B's first; D_B's second and third
+    (15 and 14 rows at 64x64) gather all of H and run unsplit K1 / K2."""
+    sites = {}
+    for fn in ("B", "A"):
+        _add(sites, half_rows(gen_sites(batch, fn, ngf, n_blocks, hw),
+                              spatial), 2)
+    for n in (2 * batch, batch):
+        _add(sites, half_rows({s: 1 for s in disc_shapes(n, ndf, hw)[:4]},
+                              spatial))
+    return sites
+
+
+def p12_split_shapes(width=CLI_WIDTH):
+    """(N, HW, C) of a rank's rows at every split norm phase 12 runs at
+    ``width`` under --spatial 2: its step's (64x64 at batch 32: the
+    generator and discriminator sites) and its training CLI's evaluations'
+    and visuals' (the generator sites at CLI_BATCHES)."""
+    w = width
+    step = split_sites(P12_BATCH, w["n_blocks"], w["ngf"], w["ndf"])
+    return tuple(dict.fromkeys(
+        tuple(sorted(step, reverse=True))
+        + tuple(s for n in CLI_BATCHES for s in half_rows(
+            gen_sites(n, "B", w["ngf"], w["n_blocks"])))))
+
+
+# every shape a split kernel is checked and timed at: phase 12's, and a
+# rank's rows of 256x256 at batch 8 (phase 9's 256x256 generator sites, H
+# halved)
+SPLIT_SHAPES = tuple(dict.fromkeys(
+    p12_split_shapes() + tuple(half_rows(gen_sites(8, "B", hw=256)))))
+SPLIT_HEADLINE = ((32, 512, 128), "float32")  # the trunk's sites
+SPLIT_ULPS = 2.0  # bfloat16 outputs against the twin / the unsplit kernel
+P12_JOBS = (  # (label, flags of parallel/selfcheck.py's run_job)
+    ("pipeline_m2", dict(n_blocks=4, pipeline=2)),
+    ("pipeline_m4", dict(n_blocks=4, pipeline=2, microbatches=4)),
+    ("spatial", dict(spatial=2)),
+    ("tensor", dict(tensor=2)),
+)
+P12_LABELS = tuple(label for label, _ in P12_JOBS)
+P12_CLI = (("pp", ["--pipeline", "2", "--n_blocks", "4"]),
+           ("sp", ["--spatial", "2"]))
+# the training CLI as phase 12 (d) runs each rank: ``python -c P12_CLI_MAIN
+# OUT.json ARGS...`` runs ``cli/train.py`` on ARGS and, at exit, writes the
+# process's split norms and split-kernel launches by (N, HW, C) to OUT.json
+P12_CLI_MAIN = """
+import json, runpy, sys
+from domain_transfer_gan_torch.ops.kernels import instance_norm as K
+out = sys.argv.pop(1)
+try:
+    runpy.run_module("domain_transfer_gan_torch.cli.train",
+                     run_name="__main__", alter_sys=True)
+finally:
+    by = {w.__name__: w.launches_by_shape for w in K.SPLIT_WRAPPERS}
+    by["split_norms"] = K.instance_norm_split.calls_by_shape
+    with open(out, "w") as f:
+        json.dump({k: [[list(s), c] for s, c in v.items()]
+                   for k, v in by.items()}, f)
+"""
+
+
+def _split_cases():
+    for shape in SPLIT_SHAPES:
+        for dtype in ("float32", "bfloat16"):
+            for affine in ("none", "channel", "sample"):
+                for relu in (False, True):
+                    # CIN's (N, C) maps take the unbiased variance
+                    yield shape, dtype, affine == "sample", relu, affine
+
+
+def check_split_kernels(torch, K):
+    """Phase 12's check of K1-split and K2-split: at every rank shape of
+    ``SPLIT_SHAPES`` (a sample's rows cut in two halves, as two space ranks
+    hold them) each of the four launches against its plain twin on the same
+    inputs, and the halves' y and dx, gathered, against unsplit K1 / K2 on
+    the whole rows (K2 on the split's mean and rstd; the mean and rstd
+    against K1's).  float32 within FP32_ATOL (dx and the sums relative to
+    their largest value), bfloat16 within SPLIT_ULPS.  Returns the largest
+    errors."""
+    worst = {"y_float32": 0.0, "dx_float32": 0.0, "sums": 0.0,
+             "y_bfloat16_ulps": 0.0, "dx_bfloat16_ulps": 0.0}
+    t0 = time.perf_counter()
+    for case, (shape, name, unbiased, relu, affine) in enumerate(
+            _split_cases()):
+        n, hw, c = shape
+        dtype = getattr(torch, name)
+        x, scale, shift = _make_inputs(torch, (n, 2 * hw, c), dtype, affine,
+                                       seed=5000 + case)
+        g = torch.Generator(device="cuda").manual_seed(case)
+        dy = torch.randn(x.shape, generator=g, device="cuda").to(dtype)
+        halves = [t.contiguous() for t in x.chunk(2, dim=1)]
+        dys = [t.contiguous() for t in dy.chunk(2, dim=1)]
+        what = "%r %s unbiased=%s relu=%s affine=%s" % (
+            shape, name, unbiased, relu, affine)
+        errs, stats = [], []
+        for h in halves:
+            got = K.instance_norm_partial_stats(h)
+            want = K.instance_norm_partial_stats_plain(h)
+            errs += [_rel_err(a, b) for a, b in zip(got, want)]
+            stats.append(got)
+        mean, m2, rows = K.combine_stats([t[0] for t in stats],
+                                         [t[1] for t in stats], [hw, hw])
+        corr = rows / (rows - 1) if unbiased else 1.0
+        rstd = torch.rsqrt(m2 / rows * corr + 1e-5)
+        ys = [K.instance_norm_apply(h, mean, rstd, scale, shift, relu=relu)
+              for h in halves]
+        yps = [K.instance_norm_apply_plain(h, mean, rstd, scale, shift,
+                                           relu=relu) for h in halves]
+        y_ref, mean_ref, rstd_ref = K._launch(x, scale, shift, 1e-5,
+                                              unbiased, relu)
+        y = torch.cat(ys, dim=1)
+        sums = [K.instance_norm_bwd_partial_sums(
+            h, d, mean, rstd, scale, shift, relu=relu)
+            for h, d in zip(halves, dys)]
+        sums_p = [K.instance_norm_bwd_partial_sums_plain(
+            h, d, mean, rstd, scale, shift, relu=relu)
+            for h, d in zip(halves, dys)]
+        for a, b in zip(sums, sums_p):
+            errs += [_rel_err(a[0], b[0]), _rel_err(a[1], b[1])]
+        tot_g = sums[0][0] + sums[1][0]
+        tot_gx = sums[0][1] + sums[1][1]
+        dxs = [K.instance_norm_bwd_apply_dx(
+            h, d, mean, rstd, scale, shift, tot_g, tot_gx, rows,
+            unbiased=unbiased, relu=relu) for h, d in zip(halves, dys)]
+        dxps = [K.instance_norm_bwd_apply_dx_plain(
+            h, d, mean, rstd, scale, shift, tot_g, tot_gx, rows,
+            unbiased=unbiased, relu=relu) for h, d in zip(halves, dys)]
+        # on the split's statistics: the ReLU mask of dx is discontinuous
+        # in them, and they differ from the unsplit kernel's by rounding
+        dx_ref = K._launch_bwd(x, dy, mean.contiguous(), rstd.contiguous(),
+                               scale, shift, unbiased, relu)[0]
+        dx = torch.cat(dxs, dim=1)
+        scale_dx = dx_ref.float().abs().max().clamp_min(1e-30)
+        checks = [
+            torch.isfinite(y.float()).all() & torch.isfinite(dx.float()).all(),
+            torch.stack(errs).max(),
+            _rel_err(mean, mean_ref), _rel_err(rstd, rstd_ref),
+            torch.stack([(a.float() - b.float()).abs().max()
+                         for a, b in zip(ys, yps)]).max(),
+            (y.float() - y_ref.float()).abs().max(),
+            torch.stack([(a.float() - b.float()).abs().max()
+                         for a, b in zip(dxs, dxps)]).max() / scale_dx,
+            (dx.float() - dx_ref.float()).abs().max() / scale_dx,
+            torch.stack([_bf16_ulps_apart(torch, a, b)[0]
+                         for a, b in zip(ys, yps)]).max(),
+            _bf16_ulps_apart(torch, y, y_ref)[0],
+            torch.stack([_bf16_ulps_apart(torch, a, b)[0]
+                         for a, b in zip(dxs, dxps)]).max(),
+            _bf16_ulps_apart(torch, dx, dx_ref)[0]]
+        (finite, e_sums, e_mean, e_rstd, e_y_twin, e_y_ref, e_dx_twin,
+         e_dx_ref, u_y_twin, u_y_ref, u_dx_twin, u_dx_ref) = _read(
+             torch, *checks)
+        if not finite:
+            raise AssertionError("split kernels: non-finite output for "
+                                 + what)
+        worst["sums"] = max(worst["sums"], e_sums, e_mean, e_rstd)
+        if max(e_sums, e_mean, e_rstd) > BWD_SUM_RTOL:
+            raise AssertionError("split kernels: partial sums / statistics "
+                                 "off by %g, %g, %g for %s" % (
+                                     e_sums, e_mean, e_rstd, what))
+        if name == "float32":
+            worst["y_float32"] = max(worst["y_float32"], e_y_twin, e_y_ref)
+            worst["dx_float32"] = max(worst["dx_float32"], e_dx_twin,
+                                      e_dx_ref)
+            if max(e_y_twin, e_y_ref, e_dx_twin, e_dx_ref) > FP32_ATOL:
+                raise AssertionError(
+                    "split kernels: y %g / %g, dx %g / %g (twin / unsplit) "
+                    "for %s" % (e_y_twin, e_y_ref, e_dx_twin, e_dx_ref,
+                                what))
+        else:
+            worst["y_bfloat16_ulps"] = max(worst["y_bfloat16_ulps"],
+                                           u_y_twin, u_y_ref)
+            worst["dx_bfloat16_ulps"] = max(worst["dx_bfloat16_ulps"],
+                                            u_dx_twin, u_dx_ref)
+            if max(u_y_twin, u_y_ref, u_dx_twin, u_dx_ref) > SPLIT_ULPS:
+                raise AssertionError(
+                    "split kernels: y %.2f / %.2f, dx %.2f / %.2f bfloat16 "
+                    "ulp (twin / unsplit) for %s" % (
+                        u_y_twin, u_y_ref, u_dx_twin, u_dx_ref, what))
+    worst["cases"] = case + 1
+    log("phase 12: split kernel check, %d cases at %d shapes in %.1f s: %s"
+        % (case + 1, len(SPLIT_SHAPES), time.perf_counter() - t0,
+           json.dumps(worst)))
+    return worst
+
+
+def _split_bytes(shape, itemsize, arrays):
+    n, hw, c = shape
+    return arrays * n * hw * c * itemsize + 4 * n * c * 4
+
+
+def _library_split_calls(torch, x, dy, mean, rstd, scale, shift, sum_g,
+                         sum_gx, rows):
+    """PyTorch's SyncBatchNorm primitives computing the split launches'
+    functions (no ReLU; dx with the biased variance) on an NHWC slice, one
+    call each, on the (1, N*C, HW) layout they take: each with the copies
+    into that layout and, for an output of x's size, back to NHWC.  Returns
+    {wrapper name: fn()} for the apply, the partial sums and dx."""
+    n, h, w, c = x.shape
+
+    def flat(t):  # (N, H, W, C) -> (1, N*C, HW), a copy
+        return t.reshape(n, h * w, c).transpose(1, 2).reshape(1, n * c,
+                                                               h * w)
+
+    def back(t):  # the inverse, to NHWC
+        return t.reshape(n, c, h * w).transpose(1, 2).reshape(n, h, w, c)
+
+    def per_nc(t):  # an (N, C) or (C,) per-(sample, channel) value
+        return t.expand(n, c).reshape(n * c)
+
+    m, r, s_, t_ = per_nc(mean), per_nc(rstd), per_nc(scale), per_nc(shift)
+    sum_dy = per_nc(sum_g)
+    sum_dy_xmu = per_nc(sum_gx) / r  # sum dy * (x - mean)
+    count = torch.tensor([rows], dtype=torch.int32, device=x.device)
+    return {
+        "instance_norm_apply": lambda: back(torch.batch_norm_elemt(
+            flat(x), s_, t_, m, r, 1e-5)),
+        "instance_norm_bwd_partial_sums":
+            lambda: torch.batch_norm_backward_reduce(
+                flat(dy), flat(x), m, r, s_, True, False, False)[:2],
+        "instance_norm_bwd_apply_dx": lambda: back(
+            torch.batch_norm_backward_elemt(flat(dy), flat(x), m, r, s_,
+                                            sum_dy, sum_dy_xmu, count)),
+    }
+
+
+def time_split_kernels(torch, K, launches):
+    """Per ``SPLIT_SHAPES`` shape, float32, (N, C) affine: each split
+    launch's device time (a CUDA graph of calls rotating over buffers
+    larger than L2) without the ReLU (dx with the biased variance) and with
+    it (dx unbiased, as CIN's sites take it), its plain twin's without, the
+    library call's without where one computes the same function
+    (``torch.var_mean`` for the partial statistics, the SyncBatchNorm
+    primitives of :func:`_library_split_calls` for the others, their layout
+    copies included; each held first to the twin on the same inputs), and
+    the byte bound.  ``launches``: phase 12's counts by name and shape."""
+    rows = {w.__name__: [] for w in K.SPLIT_WRAPPERS}
+    lib_err = 0.0
+    for shape in SPLIT_SHAPES:
+        n, hw, c = shape
+        nbuf = _n_buffers(n * hw * c * 4 * 3)
+        ins = [_make_inputs(torch, shape, torch.float32, "sample", 77 + i)
+               for i in range(nbuf)]
+        dys = [torch.randn_like(t[0]) for t in ins]
+        # statistics and sums of the first input's rows (taken as a rank's
+        # of 2 hw), so that the library calls can be held to the twins
+        mean, m2 = K.instance_norm_partial_stats_plain(ins[0][0])
+        rstd = torch.rsqrt(m2 / hw + 1e-5)
+        sg, sgx = K.instance_norm_bwd_partial_sums_plain(
+            ins[0][0], dys[0], mean, rstd, *ins[0][1:])
+        x4 = [t[0].reshape(n, hw, c) for t in ins]
+        libs = [_library_split_calls(torch, ins[i][0], dys[i], mean, rstd,
+                                     *ins[i][1:], sg, sgx, 2 * hw)
+                for i in range(nbuf)]
+        twins = {
+            "instance_norm_apply": K.instance_norm_apply_plain(
+                ins[0][0], mean, rstd, *ins[0][1:]),
+            "instance_norm_bwd_partial_sums": (sg, sgx),
+            "instance_norm_bwd_apply_dx": K.instance_norm_bwd_apply_dx_plain(
+                ins[0][0], dys[0], mean, rstd, *ins[0][1:], sg, sgx,
+                2 * hw)}
+        for name, want in twins.items():
+            got = libs[0][name]()
+            if name == "instance_norm_bwd_partial_sums":
+                # the library's second sum is over dy * (x - mean)
+                got = (got[0].reshape(n, c), got[1].reshape(n, c) * rstd)
+                err = max(_read(torch, _rel_err(got[0], want[0]),
+                                _rel_err(got[1], want[1])))
+            else:
+                err = _read(torch, _rel_err(got, want))[0]
+            lib_err = max(lib_err, err)
+            if err > BWD_SUM_RTOL:
+                raise AssertionError("split kernels: the library call for "
+                                     "%s is %g off the twin at %r"
+                                     % (name, err, shape))
+
+        def each(fn):
+            return lambda i: fn(i % nbuf)
+
+        calls = {  # name: (kernel(i, relu), plain(i), library(i), arrays)
+            "instance_norm_partial_stats": (
+                lambda i, relu: K.instance_norm_partial_stats(ins[i][0]),
+                lambda i: K.instance_norm_partial_stats_plain(ins[i][0]),
+                lambda i: torch.var_mean(x4[i], dim=1, correction=0), 1),
+            "instance_norm_apply": (
+                lambda i, relu: K.instance_norm_apply(
+                    ins[i][0], mean, rstd, *ins[i][1:], relu=relu),
+                lambda i: K.instance_norm_apply_plain(
+                    ins[i][0], mean, rstd, *ins[i][1:]),
+                lambda i: libs[i]["instance_norm_apply"](), 2),
+            "instance_norm_bwd_partial_sums": (
+                lambda i, relu: K.instance_norm_bwd_partial_sums(
+                    ins[i][0], dys[i], mean, rstd, *ins[i][1:], relu=relu),
+                lambda i: K.instance_norm_bwd_partial_sums_plain(
+                    ins[i][0], dys[i], mean, rstd, *ins[i][1:]),
+                lambda i: libs[i]["instance_norm_bwd_partial_sums"](), 2),
+            "instance_norm_bwd_apply_dx": (
+                lambda i, relu: K.instance_norm_bwd_apply_dx(
+                    ins[i][0], dys[i], mean, rstd, *ins[i][1:], sg, sgx,
+                    2 * hw, unbiased=relu, relu=relu),
+                lambda i: K.instance_norm_bwd_apply_dx_plain(
+                    ins[i][0], dys[i], mean, rstd, *ins[i][1:], sg, sgx,
+                    2 * hw),
+                lambda i: libs[i]["instance_norm_bwd_apply_dx"](), 3),
+        }
+        for name, (fn, plain, lib, arrays) in calls.items():
+            bound = _split_bytes(shape, 4, arrays) / HBM_BYTES_PER_S * 1e3
+            rows[name].append({
+                "shape": list(shape), "dtype": "float32",
+                "kernel_ms": _time_device(torch, each(
+                    lambda i, fn=fn: fn(i, False))),
+                "kernel_relu_ms": _time_device(torch, each(
+                    lambda i, fn=fn: fn(i, True))),
+                "plain_ms": _time_device(torch, each(plain)),
+                "library_ms": _time_device(torch, each(lib)),
+                "bound_ms": bound, "bound_by": "bytes",
+                "launches": launches.get(name, {}).get(shape, 0)})
+        del ins, dys, x4, libs, twins
+    log("phase 6: the split kernels' library calls agree with the twins "
+        "within %g" % lib_err)
+    return rows
+
+
+def p12_test_mse(torch, root, expr, device):
+    """One process loads the run's ``latest`` and scores it: its
+    ``TEST_MSE_A`` against ``eval_mse_A`` over the same batches."""
+    import os
+
+    from domain_transfer_gan_torch.config import \
+        load_train_config_from_expr_dir
+    from domain_transfer_gan_torch.data import AlignedIterator, \
+        load_numpy_data
+    from domain_transfer_gan_torch.eval import eval_mse_A
+    from domain_transfer_gan_torch.models import create_model
+
+    opt = load_train_config_from_expr_dir(expr)
+    opt.spatial = opt.tensor = opt.pipeline = opt.microbatches = 0
+    one = create_model(opt, testing=True, device=device)
+    one.load(os.path.join(expr, "latest"))
+    _, _, _, _, testA, testB = load_numpy_data(
+        root, grid_size=64, dev_size=CLI_DATA["dev_size"])
+    logged = float(np.load(os.path.join(expr, "history_mse_A.npy"))[-1][1])
+    direct = eval_mse_A(AlignedIterator(testA, testB, batch_size=EVAL_BATCH),
+                        one)
+    return logged, direct
+
+
+def drive_phase12(torch, K, tmp, smi, device="cuda", width=CLI_WIDTH):
+    """Phase 12.  (a)-(c) Two ranks on the card over gloo
+    (``parallel/selfcheck.py``), each a process, against one process on the
+    full batch with the same weights, data and noise, 3 ``aug_cycle_gan``
+    float32 steps at 32 each, at phase 5's limits: ``--pipeline 2
+    --n_blocks 4`` with M = 2 and M = 4, ``--spatial 2`` (the split
+    kernels on the main path), ``--tensor 2`` (each rank's bytes of
+    parameters, Adam moments and shadows against one process's).  (d) The
+    training CLI as two processes on phase 7's data, one epoch with
+    ``--pipeline 2 --n_blocks 4`` and one with ``--spatial 2`` (eval-A on,
+    eval-B off): both ranks log the same losses, and one process loads
+    each run's ``latest`` and scores it to its ``TEST_MSE_A`` (≤ 1e-6).
+    Returns (K1 / K2 launches by direction and shape, per variant, the
+    split launches by name and shape, the figures)."""
+    import os
+    import statistics
+
+    from domain_transfer_gan_torch.parallel import multihost, selfcheck
+
+    log("phase 12 on %s" % smi)
+    fig = {"card": smi}
+    totals = {"fwd": {}, "bwd": {}}
+    variants = {d: {"cluster": 0, "streaming": 0} for d in ("fwd", "bwd")}
+    split = {w.__name__: {} for w in K.SPLIT_WRAPPERS}
+    jobs = [dict(name="aug", width=dict(width), batch=P12_BATCH,
+                 steps=P12_STEPS, seed=2027, **flags)
+            for _, flags in P12_JOBS]
+    t0 = time.perf_counter()
+    singles = [selfcheck.run_job(device=device, **j) for j in jobs]
+    fig["one_process_jobs_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    ranks = selfcheck.run_ranks(jobs, P12_RANKS, device, timeout=P12_TIMEOUT)
+    fig["rank_jobs_s"] = time.perf_counter() - t0
+    failed = []
+    fig["steps"] = {}
+    for i, (label, _) in enumerate(P12_JOBS):
+        try:
+            worst = selfcheck.compare(singles[i], [r[i] for r in ranks],
+                                      selfcheck.LIMITS["float32"],
+                                      params=False)
+        except AssertionError as e:
+            failed.append("%s: %s" % (label, e))
+            worst = {"failed": str(e)}
+        row = {"max_rel_dev": worst,
+               "one_process_step_ms": statistics.median(singles[i]["ms"][1:]),
+               "rank_step_ms": [statistics.median(r[i]["ms"][1:])
+                                for r in ranks],
+               "one_process_bytes": singles[i]["bytes_held"],
+               "rank_bytes": [r[i]["bytes_held"] for r in ranks]}
+        for r in ranks:
+            for d in ("fwd", "bwd"):
+                _add(totals[d], r[i]["launches"][d])
+                for v, c in r[i]["launches_by_variant"][d].items():
+                    variants[d][v] += c
+            for name, by in r[i]["split_launches"].items():
+                _add(split[name], by)
+        row["split_norms"] = [r[i]["split_norms"] for r in ranks]
+        row["trunk_runs"] = [r[i]["trunk_runs"] for r in ranks]
+        fig["steps"][label] = row
+        log("phase 12 %s: %s" % (label, json.dumps(row)))
+    if failed:
+        raise AssertionError("phase 12: %s" % "; ".join(failed))
+    # every rank's split norms by shape are split_sites' (either device),
+    # and on the card each split kernel launched once per split norm (the
+    # wrappers count launches on the card only)
+    want = {s: P12_STEPS * k for s, k in split_sites(
+        P12_BATCH, width["n_blocks"], width["ngf"], width["ndf"]).items()}
+    got = [r[P12_LABELS.index("spatial")]["split_shapes"] for r in ranks]
+    if any(g != want for g in got):
+        raise AssertionError("phase 12: --spatial 2 split norms by shape %r,"
+                             " expected %r on each rank" % (got, want))
+    if device == "cuda" and any(
+            split[name] != {s: P12_RANKS * k for s, k in want.items()}
+            for name in split):
+        raise AssertionError("phase 12: --spatial 2 split launches %r"
+                             % split)
+    if not all(fig["steps"]["spatial"]["split_norms"]) or not all(
+            n == 4 * P12_STEPS for label in ("pipeline_m2", "pipeline_m4")
+            for n in fig["steps"][label]["trunk_runs"]):
+        raise AssertionError("phase 12: a rank did not run its axis: %r"
+                             % fig["steps"])
+    tp_rows = fig["steps"]["tensor"]
+    if max(tp_rows["rank_bytes"]) >= tp_rows["one_process_bytes"]:
+        raise AssertionError("phase 12 (c): a rank holds %r bytes, one "
+                             "process %d" % (tp_rows["rank_bytes"],
+                                             tp_rows["one_process_bytes"]))
+    log("phase 12 (c): bytes of parameters, Adam moments and shadows per "
+        "rank %r against one process's %d" % (tp_rows["rank_bytes"],
+                                             tp_rows["one_process_bytes"]))
+
+    # (d) the training CLI as two processes per axis
+    root = tmp + "/cli_data"
+    ckpt = os.path.join(tmp, "p12_runs")
+    here = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ, PYTHONPATH=here, NVIDIA_TF32_OVERRIDE="0")
+    fig["cli"] = {}
+    for name, flags in P12_CLI:
+        port = multihost.free_port()
+        argv = _cli_argv(root, ckpt, device, width, [
+            "--name", name, "--niter", "1", "--niter_decay", "0",
+            "--eval_B_freq", "0", "--coordinator", "127.0.0.1:%d" % port,
+            "--num_processes", str(P12_RANKS), *flags])
+        t0 = time.perf_counter()
+        counts = [os.path.join(tmp, "p12_%s_rank%d.json" % (name, r))
+                  for r in range(P12_RANKS)]
+        procs = [subprocess.Popen(
+            [sys.executable, "-c", P12_CLI_MAIN, counts[r], *argv,
+             "--process_id", str(r)], cwd=here, env=env,
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+            for r in range(P12_RANKS)]
+        outs = []
+        try:
+            for p in procs:
+                outs.append(p.communicate(timeout=P12_TIMEOUT)[0])
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+        secs = time.perf_counter() - t0
+        if [p.returncode for p in procs] != [0] * P12_RANKS:
+            raise AssertionError("phase 12 (d) %s: exit codes %r\n%s" % (
+                name, [p.returncode for p in procs],
+                "\n".join(o[-3000:] for o in outs)))
+        # the CLI's split launches count as the main path's; every shape
+        # a split norm ran at is one the split check held
+        norms = {}
+        for path in counts:
+            with open(path) as f:
+                by = {k: {tuple(sh): c for sh, c in v}
+                      for k, v in json.load(f).items()}
+            _add(norms, by.pop("split_norms"))
+            for k, v in by.items():
+                _add(split[k], v)
+        shapes = p12_split_shapes(width)
+        if set(norms) - set(shapes) or bool(norms) != (name == "sp"):
+            raise AssertionError("phase 12 (d) %s: split norms at %r, "
+                                 "expected at %r" % (name, sorted(norms),
+                                                     shapes))
+        fig["cli_split_norms_%s" % name] = sum(norms.values())
+        expr = os.path.join(ckpt, name)
+        logs = []
+        for d in (expr, os.path.join(expr, ".worker1")):
+            with open(os.path.join(d, "results.txt")) as f:
+                logs.append(f.read())
+        if "SPMD over 2 devices (data x space x model x pipe" not in logs[0]:
+            raise AssertionError("phase 12 (d) %s: %s" % (name,
+                                                          logs[0][:1000]))
+        if _loss_lines(logs[0]) != _loss_lines(logs[1]) or \
+                not _loss_lines(logs[0]):
+            raise AssertionError("phase 12 (d) %s: the ranks logged other "
+                                 "losses" % name)
+        _finite_loss_lines(logs[0], "phase 12 (d) %s" % name)
+        logged, direct = p12_test_mse(torch, root, expr, device)
+        rel = abs(logged - direct) / direct
+        fig["cli"][name] = {"s": secs, "test_mse_A_vs_one_process": rel}
+        if rel > 1e-6:
+            raise AssertionError("phase 12 (d) %s: TEST_MSE_A %r, one "
+                                 "process %r" % (name, logged, direct))
+        log("phase 12 (d) %s: %s" % (name, json.dumps(fig["cli"][name])))
+    log("phase 12: ranks sharing one card over gloo are a correctness run, "
+        "not a scaling figure")
+    return totals, variants, split, fig
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--profile", action="store_true",
@@ -3888,6 +4438,7 @@ def main(argv=None):
     # phase 3: kernels against their plain versions
     worst = check_kernel(torch, K)
     bwd_worst = check_bwd_kernel(torch, K)
+    split_worst = check_split_kernels(torch, K)
 
     # phase 4: the serving path
     with tempfile.TemporaryDirectory() as tmp:
@@ -3964,6 +4515,19 @@ def main(argv=None):
         log("phase 11: %.1f s, launches %d forward, %d backward"
             % (time.perf_counter() - t11, p11_fwd, p11_bwd))
 
+        # phase 12: the space, model and pipe axes over ranks, the split
+        # kernels on the main path (the counts read from 0 in the ranks)
+        t12 = time.perf_counter()
+        p12, p12_variants, p12_split, p12_figures = drive_phase12(
+            torch, K, tmp, smi)
+        p12_fwd, p12_bwd = (sum(p12[d].values()) for d in ("fwd", "bwd"))
+        p12_figures["s"] = time.perf_counter() - t12
+        log("phase 12: %.1f s, launches %d forward, %d backward; split "
+            "launches by shape %s" % (
+                p12_figures["s"], p12_fwd, p12_bwd, json.dumps(
+                    {k: {str(s): v for s, v in by.items()}
+                     for k, by in p12_split.items()})))
+
         # phase 6: times
         rows = time_kernel(torch, F, K, site_counts, train_counts,
                            cli_counts, p8, bpp_counts, extra=args.profile,
@@ -3978,6 +4542,10 @@ def main(argv=None):
         e2e["phase9"] = p9_figures
         e2e["phase10"] = p10_figures
         e2e["phase11"] = p11_figures
+        e2e["phase12"] = p12_figures
+        split_rows = time_split_kernels(torch, K, p12_split)
+        log("phase 6: split kernels (ms, twin, library, bound, phase 12 "
+            "launches) %s" % json.dumps({"card": smi, "rows": split_rows}))
         e2e.update(time_ubo_step(torch))
         prof = None
         if args.profile:
@@ -4002,7 +4570,7 @@ def main(argv=None):
         "source": "domain_transfer_gan_torch/csrc/instance_norm.cu",
         "replaces": pallas + ":115",
         "launches": launches + train_fwd + cli_fwd + served_fwd + p8_fwd
-        + p9_fwd + p10_fwd + p11_fwd,
+        + p9_fwd + p10_fwd + p11_fwd + p12_fwd,
         "launches_serving_path": launches,
         "launches_training_path": train_fwd,
         "launches_training_cli": cli_fwd + served_fwd,
@@ -4010,11 +4578,13 @@ def main(argv=None):
         "launches_phase9": p9_fwd,
         "launches_phase10": p10_fwd,
         "launches_phase11": p11_fwd,
+        "launches_phase12": p12_fwd,
         "launches_by_variant": {
             v: serving_variants[v] + train_variants["fwd"][v]
             + cli_variants["fwd"][v] + p8_variants["fwd"][v]
             + p9_variants["fwd"][v] + p10_variants["fwd"][v]
-            + p11_variants["fwd"][v] for v in serving_variants},
+            + p11_variants["fwd"][v] + p12_variants["fwd"][v]
+            for v in serving_variants},
         "max_abs_err": worst.overall("y_float32"),
         "max_err_bf16_ulps": worst.overall("y_bfloat16_ulps"),
         "check_by_variant": worst.summary(),
@@ -4036,7 +4606,7 @@ def main(argv=None):
         "source": "domain_transfer_gan_torch/csrc/instance_norm_bwd.cu",
         "replaces": pallas + ":175",
         "launches": train_bwd + cli_bwd + p8_bwd + p9_bwd + p10_bwd
-        + p11_bwd,
+        + p11_bwd + p12_bwd,
         "launches_serving_path": 0,
         "launches_training_path": train_bwd,
         "launches_training_cli": cli_bwd,
@@ -4044,11 +4614,12 @@ def main(argv=None):
         "launches_phase9": p9_bwd,
         "launches_phase10": p10_bwd,
         "launches_phase11": p11_bwd,
+        "launches_phase12": p12_bwd,
         "launches_by_variant": {
             v: train_variants["bwd"][v] + cli_variants["bwd"][v]
             + p8_variants["bwd"][v] + p9_variants["bwd"][v]
             + p10_variants["bwd"][v] + p11_variants["bwd"][v]
-            for v in train_variants["bwd"]},
+            + p12_variants["bwd"][v] for v in train_variants["bwd"]},
         "max_abs_err": bwd_worst.overall("dx_float32"),
         "max_err_bf16_ulps": bwd_worst.overall("dx_bfloat16_ulps"),
         "check_by_variant": bwd_worst.summary(),
@@ -4061,6 +4632,37 @@ def main(argv=None):
         "launches_per_train_step": per_step("bwd"),
         "shapes": bwd_rows,
     }]}
+    split_src = {"instance_norm_partial_stats": ("instance_norm.cu", ":115"),
+                 "instance_norm_apply": ("instance_norm.cu", ":115"),
+                 "instance_norm_bwd_partial_sums": ("instance_norm_bwd.cu",
+                                                    ":175"),
+                 "instance_norm_bwd_apply_dx": ("instance_norm_bwd.cu",
+                                                ":175")}
+    for name, (src, line) in split_src.items():
+        head_row = next(r for r in split_rows[name]
+                        if (tuple(r["shape"]), r["dtype"]) == SPLIT_HEADLINE)
+        kernels["kernels"].append({
+            "name": name, "route": "cuda",
+            "source": "domain_transfer_gan_torch/csrc/" + src,
+            "replaces": pallas + line,
+            "launches": sum(p12_split[name].values()),
+            "launches_phase12": sum(p12_split[name].values()),
+            "launches_by_shape": {str(k): v
+                                  for k, v in p12_split[name].items()},
+            "max_abs_err": split_worst[
+                "y_float32" if "apply" in name and "dx" not in name
+                else "dx_float32" if "dx" in name else "sums"],
+            "max_err_bf16_ulps": max(split_worst["y_bfloat16_ulps"],
+                                     split_worst["dx_bfloat16_ulps"]),
+            "check": split_worst,
+            "shape": list(SPLIT_HEADLINE[0]), "dtype": SPLIT_HEADLINE[1],
+            # without the ReLU: the function the library call computes
+            "ms": head_row["kernel_ms"], "plain_ms": head_row["plain_ms"],
+            "ms_relu": head_row["kernel_relu_ms"],
+            "bound_ms": head_row["bound_ms"],
+            "bound_by": head_row["bound_by"],
+            "library_ms": head_row["library_ms"],
+            "shapes": split_rows[name]})
     log(json.dumps({"end_to_end": e2e, "card": smi}))
     if prof is not None:
         log(json.dumps({"profile": prof, "card": smi}))

@@ -58,7 +58,12 @@ checkpoints included, which its ``--continue_train`` reads).  Every rank
 reads the same data with the same seeds (without ``--seed``, rank 0's
 random one); with ``--device_data`` every rank's card holds the whole set
 and gathers its own rows.  A batch that does not divide over the ranks is
-computed whole on every rank (logged as JAX logs it).
+computed whole on every rank (logged as JAX logs it).  ``--spatial S``,
+``--tensor T`` and ``--pipeline P`` (with ``--microbatches M``) lay the
+ranks out as the JAX CLI's ``data x space x model x pipe`` mesh
+(``parallel/mesh.py``): images sliced by rows over S ranks, the large
+weights by output channels over T, the residual trunks pipelined over P
+stages; the batch divides over the data axis, or over ``(data, pipe)``.
 
 Flags the port does not run yet are refused by name
 (``config.refuse_unported``), before anything is written; so is a
@@ -361,17 +366,26 @@ def _train(opt: TrainConfig, device: torch.device, out_f):
             print_log(out_f, "WARNING: --continue_train set but %s missing"
                       % chk)
 
-    # data parallelism over the ranks of the process group
+    # the ranks as a data x space x model x pipe mesh (the JAX CLI's
+    # arithmetic): batches slice over the data axis, or over (data, pipe)
+    # jointly under a pipe axis
     n_dev = multihost.process_count()
-    if n_dev > 1 and opt.batchSize % n_dev != 0:
+    spatial, tensor, pipe = (int(opt.spatial or 0), int(opt.tensor or 0),
+                             int(opt.pipeline or 0))
+    per_data = max(spatial, 1) * max(tensor, 1) * max(pipe, 1)
+    data_axis_size = max(n_dev // per_data, 1)
+    batch_shards = data_axis_size * max(pipe, 1)
+    if n_dev > 1 and opt.batchSize % batch_shards != 0:
         print_log(out_f, "WARNING: %d devices visible but batchSize %d does "
                   "not divide the batch-sharding axes (%d) — running "
                   "UNSHARDED on one device; --spatial/--tensor/--pipeline "
-                  "are ignored" % (n_dev, opt.batchSize, n_dev))
+                  "are ignored" % (n_dev, opt.batchSize, batch_shards))
     elif n_dev > 1:
-        model = DataParallel(model)
-        print_log(out_f, "SPMD over %d devices (data-parallel)"
-                  % model.n_devices)
+        model = DataParallel(model, num_devices=n_dev, spatial=spatial,
+                             tensor=tensor, pipeline=pipe,
+                             microbatches=int(opt.microbatches or 0))
+        print_log(out_f, "SPMD over %d devices (%s)"
+                  % (model.n_devices, model.mesh.describe()))
     dp = isinstance(model, DataParallel)
 
     total_steps = 0

@@ -114,10 +114,10 @@ class TrainConfig:
     compute_dtype: str = "float32"  # {float32, bfloat16} conv compute dtype
     data_axis: str = "data"        # inert (TPU mesh)
     num_devices: int = 0           # local ranks; 0 = every visible card
-    spatial: int = 0               # inert (TPU mesh)
-    tensor: int = 0                # inert (TPU mesh)
-    pipeline: int = 0              # inert (TPU mesh)
-    microbatches: int = 0          # inert (TPU mesh)
+    spatial: int = 0               # ranks an image's rows are sliced over
+    tensor: int = 0                # ranks the large weights are sliced over
+    pipeline: int = 0              # GPipe stages of the generators' trunks
+    microbatches: int = 0          # pipeline microbatches (0 = stages)
     host_devices: int = 0          # inert (TPU runtime)
     dev_size: int = 200
     legacy_eval_constants: bool = False
@@ -255,11 +255,6 @@ def load_train_config_from_expr_dir(expr_dir: str, **overrides) -> TrainConfig:
 # (flag, the field whose value the message shows or None, is it asked for,
 # ROADMAP item): what the training CLI refuses
 _UNPORTED = (
-    ("--spatial", "spatial", lambda c: int(c.spatial) > 1, "M13"),
-    ("--tensor", "tensor", lambda c: int(c.tensor) > 1, "M13"),
-    ("--pipeline", "pipeline", lambda c: int(c.pipeline) > 1, "M13"),
-    ("--microbatches", "microbatches", lambda c: int(c.microbatches) > 0,
-     "M13"),
     ("--ckpt_backend", "ckpt_backend", lambda c: c.ckpt_backend != "flax",
      "M15: an orbax checkpoint directory needs orbax and tensorstore, "
      "which the port does not use"),

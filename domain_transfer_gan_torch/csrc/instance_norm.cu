@@ -417,3 +417,196 @@ extern "C" int instance_norm_fwd_cluster(const void* x, const void* scale, const
                         static_cast<float*>(rstd), hw, c, affine_stride, cluster, rows, stages,
                         eps, unbiased, relu);
 }
+
+
+// ---------------------------------------------------------------------------
+// K1-split: the forward for an activation whose rows are sliced over ranks
+// (the space axis of --spatial).  A rank holds rows [r*h, (r+1)*h) of each
+// sample; no rank sees a whole (sample, channel) slab, so the statistics are
+// formed in two launches around a collective:
+//
+//   instance_norm_partial_stats  per (n, c) the mean and the centered sum of
+//                                squares M2 of this rank's rows (count = hw);
+//   (the caller gathers the ranks' (mean, M2) and merges them by Chan et
+//    al.'s rule in rank order: the global mean and the global M2 about it,
+//    the centered variance the unsplit kernel takes, never E[x^2] - mean^2)
+//   instance_norm_apply          y = (x - mean) * rstd * scale + shift
+//                                (max(y, 0) if relu) from the global mean
+//                                and rstd.
+//
+// Both are streaming kernels with the geometry of instance_norm_fwd (one
+// block of 256 threads per (sample, channel tile), rows strided over TY,
+// the same fixed-order reduction), so a result repeats bit for bit.
+// Bound: partial_stats must read x once (it reads it twice, the second time
+// mostly from L2): N * hw * C * sizeof(T) bytes; apply reads x and writes y
+// once: 2 * N * hw * C * sizeof(T) bytes.
+
+namespace {
+
+template <typename T, int VEC>
+__global__ void __launch_bounds__(kThreads)
+instance_norm_partial_stats_kernel(const T* __restrict__ x, float* __restrict__ mean_out,
+                                   float* __restrict__ m2_out, int hw, int c, int tiles,
+                                   int tx_count) {
+  __shared__ float red[kThreads * VEC];
+
+  const int ty_count = kThreads / tx_count;
+  const int ty = threadIdx.x / tx_count;
+  const int tx = threadIdx.x - ty * tx_count;
+  const int n = blockIdx.x / tiles;
+  const int tile = blockIdx.x - n * tiles;
+  const int c0 = (tile * tx_count + tx) * VEC;
+  const bool active = c0 < c;
+  const T* xp = x + static_cast<size_t>(n) * hw * c + c0;
+
+  float acc[VEC], v[VEC];
+#pragma unroll
+  for (int i = 0; i < VEC; ++i) acc[i] = 0.f;
+  if (active) {
+#pragma unroll 4
+    for (int r = ty; r < hw; r += ty_count) {
+      Pack<T, VEC>::load(xp + static_cast<size_t>(r) * c, v);
+#pragma unroll
+      for (int i = 0; i < VEC; ++i) acc[i] += v[i];
+    }
+  }
+  reduce_over_rows<VEC>(acc, red, tx_count);
+  float mean[VEC];
+#pragma unroll
+  for (int i = 0; i < VEC; ++i) {
+    mean[i] = acc[i] / static_cast<float>(hw);
+    acc[i] = 0.f;
+  }
+  if (active) {
+#pragma unroll 4
+    for (int r = ty; r < hw; r += ty_count) {
+      Pack<T, VEC>::load(xp + static_cast<size_t>(r) * c, v);
+#pragma unroll
+      for (int i = 0; i < VEC; ++i) {
+        const float d = v[i] - mean[i];
+        acc[i] += d * d;
+      }
+    }
+  }
+  reduce_over_rows<VEC>(acc, red, tx_count);
+  if (active && ty == 0) {
+#pragma unroll
+    for (int i = 0; i < VEC; ++i) {
+      mean_out[static_cast<size_t>(n) * c + c0 + i] = mean[i];
+      m2_out[static_cast<size_t>(n) * c + c0 + i] = acc[i];
+    }
+  }
+}
+
+template <typename T, int VEC>
+__global__ void __launch_bounds__(kThreads)
+instance_norm_apply_kernel(const T* __restrict__ x, const float* __restrict__ mean_in,
+                           const float* __restrict__ rstd_in, const float* __restrict__ scale,
+                           const float* __restrict__ shift, T* __restrict__ y, int hw, int c,
+                           int affine_stride, int tiles, int tx_count, int relu) {
+  const int ty_count = kThreads / tx_count;
+  const int ty = threadIdx.x / tx_count;
+  const int tx = threadIdx.x - ty * tx_count;
+  const int n = blockIdx.x / tiles;
+  const int tile = blockIdx.x - n * tiles;
+  const int c0 = (tile * tx_count + tx) * VEC;
+  if (c0 >= c) return;  // no barrier in this kernel
+  const size_t sample = static_cast<size_t>(n) * hw * c;
+  const T* xp = x + sample + c0;
+  T* yp = y + sample + c0;
+  float mean[VEC], rstd[VEC], a[VEC], b[VEC], v[VEC];
+#pragma unroll
+  for (int i = 0; i < VEC; ++i) {
+    mean[i] = mean_in[static_cast<size_t>(n) * c + c0 + i];
+    rstd[i] = rstd_in[static_cast<size_t>(n) * c + c0 + i];
+    a[i] = scale ? scale[static_cast<size_t>(n) * affine_stride + c0 + i] : 1.f;
+    b[i] = shift ? shift[static_cast<size_t>(n) * affine_stride + c0 + i] : 0.f;
+  }
+#pragma unroll 4
+  for (int r = ty; r < hw; r += ty_count) {
+    Pack<T, VEC>::load(xp + static_cast<size_t>(r) * c, v);
+#pragma unroll
+    for (int i = 0; i < VEC; ++i) {
+      float o = (v[i] - mean[i]) * rstd[i];
+      o = o * a[i] + b[i];
+      v[i] = relu ? fmaxf(o, 0.f) : o;
+    }
+    Pack<T, VEC>::store(yp + static_cast<size_t>(r) * c, v);
+  }
+}
+
+template <typename T, int VEC>
+int launch_partial_stats(const void* x, void* mean, void* m2, int n, int hw, int c, int tx_count,
+                         cudaStream_t stream) {
+  const int per_tile = tx_count * VEC;
+  const int tiles = (c + per_tile - 1) / per_tile;
+  const long long blocks = static_cast<long long>(n) * tiles;
+  if (blocks > 2147483647LL) return static_cast<int>(cudaErrorInvalidValue);
+  instance_norm_partial_stats_kernel<T, VEC><<<static_cast<unsigned>(blocks), kThreads, 0, stream>>>(
+      static_cast<const T*>(x), static_cast<float*>(mean), static_cast<float*>(m2), hw, c, tiles,
+      tx_count);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T, int VEC>
+int launch_apply(const void* x, const void* mean, const void* rstd, const void* scale,
+                 const void* shift, void* y, int n, int hw, int c, int affine_stride, int tx_count,
+                 int relu, cudaStream_t stream) {
+  const int per_tile = tx_count * VEC;
+  const int tiles = (c + per_tile - 1) / per_tile;
+  const long long blocks = static_cast<long long>(n) * tiles;
+  if (blocks > 2147483647LL) return static_cast<int>(cudaErrorInvalidValue);
+  instance_norm_apply_kernel<T, VEC><<<static_cast<unsigned>(blocks), kThreads, 0, stream>>>(
+      static_cast<const T*>(x), static_cast<const float*>(mean), static_cast<const float*>(rstd),
+      static_cast<const float*>(scale), static_cast<const float*>(shift), static_cast<T*>(y), hw,
+      c, affine_stride, tiles, tx_count, relu);
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
+// K1-split, first launch.  x: this rank's rows, (n, hw, c) fp32 or bf16
+// (dtype 0 / 1); mean and m2: (n, c) fp32 outputs.  vec and tx_count as for
+// instance_norm_fwd.  Launches on `stream`, allocates nothing, does not
+// synchronise; returns the cudaError_t of the launch (cudaErrorInvalidValue
+// for arguments the kernel does not take).
+extern "C" int instance_norm_partial_stats(const void* x, void* mean, void* m2, int n, int hw,
+                                           int c, int dtype, int vec, int tx_count,
+                                           void* stream) {
+  const int invalid = static_cast<int>(cudaErrorInvalidValue);
+  if (!geometry_ok(n, hw, c, 0, vec, tx_count)) return invalid;
+  if (x == nullptr || mean == nullptr || m2 == nullptr) return invalid;
+  if (vec != 1 && !aligned16(x)) return invalid;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == 0 && vec == 1) return launch_partial_stats<float, 1>(x, mean, m2, n, hw, c, tx_count, s);
+  if (dtype == 0 && vec == 4) return launch_partial_stats<float, 4>(x, mean, m2, n, hw, c, tx_count, s);
+  if (dtype == 1 && vec == 1)
+    return launch_partial_stats<__nv_bfloat16, 1>(x, mean, m2, n, hw, c, tx_count, s);
+  if (dtype == 1 && vec == 8)
+    return launch_partial_stats<__nv_bfloat16, 8>(x, mean, m2, n, hw, c, tx_count, s);
+  return invalid;
+}
+
+// K1-split, second launch: y from the global mean and rstd ((n, c) fp32),
+// with scale / shift / affine_stride as for instance_norm_fwd and the
+// optional ReLU.  Same conventions as above.
+extern "C" int instance_norm_apply(const void* x, const void* mean, const void* rstd,
+                                   const void* scale, const void* shift, void* y, int n, int hw,
+                                   int c, int affine_stride, int dtype, int vec, int tx_count,
+                                   int relu, void* stream) {
+  const int invalid = static_cast<int>(cudaErrorInvalidValue);
+  if (!geometry_ok(n, hw, c, affine_stride, vec, tx_count)) return invalid;
+  if (x == nullptr || y == nullptr || mean == nullptr || rstd == nullptr) return invalid;
+  if ((scale == nullptr) != (shift == nullptr)) return invalid;
+  if (vec != 1 && (!aligned16(x) || !aligned16(y))) return invalid;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == 0 && vec == 1)
+    return launch_apply<float, 1>(x, mean, rstd, scale, shift, y, n, hw, c, affine_stride, tx_count, relu, s);
+  if (dtype == 0 && vec == 4)
+    return launch_apply<float, 4>(x, mean, rstd, scale, shift, y, n, hw, c, affine_stride, tx_count, relu, s);
+  if (dtype == 1 && vec == 1)
+    return launch_apply<__nv_bfloat16, 1>(x, mean, rstd, scale, shift, y, n, hw, c, affine_stride, tx_count, relu, s);
+  if (dtype == 1 && vec == 8)
+    return launch_apply<__nv_bfloat16, 8>(x, mean, rstd, scale, shift, y, n, hw, c, affine_stride, tx_count, relu, s);
+  return invalid;
+}

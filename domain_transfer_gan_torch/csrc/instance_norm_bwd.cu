@@ -413,3 +413,253 @@ extern "C" int instance_norm_bwd_cluster(const void* x, const void* dy, const vo
                         static_cast<float*>(dscale), static_cast<float*>(dshift), hw, c,
                         affine_stride, cluster, rows, stages, unbiased, relu);
 }
+
+
+// ---------------------------------------------------------------------------
+// K2-split: the backward for an activation whose rows are sliced over ranks
+// (see K1-split in instance_norm.cu).  The two sums of the collapsed form
+// run over all of a sample's rows, on every rank, so they are formed in two
+// launches around a collective:
+//
+//   instance_norm_bwd_partial_sums  per (n, c) sum dy' and sum dy' * xhat
+//                                   over this rank's rows (the ReLU mask
+//                                   recomputed as above);
+//   (the caller sums them over the ranks)
+//   instance_norm_bwd_apply_dx      dx = s * rstd * (dy' - sum_g / HW
+//                                   - xhat * sum_gx / D) from the global
+//                                   sums, HW the global row count and D = HW
+//                                   or max(HW - 1, 1) if unbiased.
+//
+// dscale and dshift of this rank are its partial sums (the caller sums the
+// ranks' parameter gradients).  Streaming kernels with the geometry and
+// reduction order of instance_norm_bwd.  Bound: partial_sums must read x and
+// dy once (2 * N * hw * C * sizeof(T) bytes); apply_dx reads x, dy and
+// writes dx once (3 * N * hw * C * sizeof(T)).
+
+namespace {
+
+template <typename T, int VEC>
+__device__ __forceinline__ void load_affine_stats(const float* mean_in, const float* rstd_in,
+                                                  const float* scale, const float* shift, int n,
+                                                  int c, int c0, int affine_stride,
+                                                  float (&mean)[VEC], float (&rstd)[VEC],
+                                                  float (&s)[VEC], float (&t)[VEC]) {
+#pragma unroll
+  for (int i = 0; i < VEC; ++i) {
+    mean[i] = mean_in[static_cast<size_t>(n) * c + c0 + i];
+    rstd[i] = rstd_in[static_cast<size_t>(n) * c + c0 + i];
+    s[i] = scale ? scale[static_cast<size_t>(n) * affine_stride + c0 + i] : 1.f;
+    t[i] = shift ? shift[static_cast<size_t>(n) * affine_stride + c0 + i] : 0.f;
+  }
+}
+
+template <typename T, int VEC>
+__global__ void __launch_bounds__(kThreads)
+instance_norm_bwd_partial_sums_kernel(const T* __restrict__ x, const T* __restrict__ dy,
+                                      const float* __restrict__ mean_in,
+                                      const float* __restrict__ rstd_in,
+                                      const float* __restrict__ scale,
+                                      const float* __restrict__ shift,
+                                      float* __restrict__ sum_g_out,
+                                      float* __restrict__ sum_gx_out, int hw, int c,
+                                      int affine_stride, int tiles, int tx_count, int relu) {
+  __shared__ float red[kThreads * VEC];
+
+  const int ty_count = kThreads / tx_count;
+  const int ty = threadIdx.x / tx_count;
+  const int tx = threadIdx.x - ty * tx_count;
+  const int n = blockIdx.x / tiles;
+  const int tile = blockIdx.x - n * tiles;
+  const int c0 = (tile * tx_count + tx) * VEC;
+  const bool active = c0 < c;
+  const size_t sample = static_cast<size_t>(n) * hw * c;
+  const T* xp = x + sample + c0;
+  const T* dyp = dy + sample + c0;
+
+  float mean[VEC], rstd[VEC], s[VEC], t[VEC];
+#pragma unroll
+  for (int i = 0; i < VEC; ++i) {
+    mean[i] = 0.f; rstd[i] = 0.f; s[i] = 1.f; t[i] = 0.f;
+  }
+  if (active)
+    load_affine_stats<T, VEC>(mean_in, rstd_in, scale, shift, n, c, c0, affine_stride, mean,
+                              rstd, s, t);
+  float xv[VEC], gv[VEC], sum_g[VEC], sum_gx[VEC];
+#pragma unroll
+  for (int i = 0; i < VEC; ++i) { sum_g[i] = 0.f; sum_gx[i] = 0.f; }
+  if (active) {
+#pragma unroll 4
+    for (int r = ty; r < hw; r += ty_count) {
+      Pack<T, VEC>::load(xp + static_cast<size_t>(r) * c, xv);
+      Pack<T, VEC>::load(dyp + static_cast<size_t>(r) * c, gv);
+#pragma unroll
+      for (int i = 0; i < VEC; ++i) {
+        const float xhat = (xv[i] - mean[i]) * rstd[i];
+        const float g = (relu && !pre_positive(xhat, s[i], t[i])) ? 0.f : gv[i];
+        sum_g[i] += g;
+        sum_gx[i] += g * xhat;
+      }
+    }
+  }
+  reduce_over_rows<VEC>(sum_g, red, tx_count);
+  reduce_over_rows<VEC>(sum_gx, red, tx_count);
+  if (active && ty == 0) {
+#pragma unroll
+    for (int i = 0; i < VEC; ++i) {
+      sum_g_out[static_cast<size_t>(n) * c + c0 + i] = sum_g[i];
+      sum_gx_out[static_cast<size_t>(n) * c + c0 + i] = sum_gx[i];
+    }
+  }
+}
+
+template <typename T, int VEC>
+__global__ void __launch_bounds__(kThreads)
+instance_norm_bwd_apply_dx_kernel(const T* __restrict__ x, const T* __restrict__ dy,
+                                  const float* __restrict__ mean_in,
+                                  const float* __restrict__ rstd_in,
+                                  const float* __restrict__ scale,
+                                  const float* __restrict__ shift,
+                                  const float* __restrict__ sum_g_in,
+                                  const float* __restrict__ sum_gx_in, T* __restrict__ dx,
+                                  int hw, int c, int hw_total, int affine_stride, int tiles,
+                                  int tx_count, int unbiased, int relu) {
+  const int ty_count = kThreads / tx_count;
+  const int ty = threadIdx.x / tx_count;
+  const int tx = threadIdx.x - ty * tx_count;
+  const int n = blockIdx.x / tiles;
+  const int tile = blockIdx.x - n * tiles;
+  const int c0 = (tile * tx_count + tx) * VEC;
+  if (c0 >= c) return;  // no barrier in this kernel
+  const size_t sample = static_cast<size_t>(n) * hw * c;
+  const T* xp = x + sample + c0;
+  const T* dyp = dy + sample + c0;
+  T* dxp = dx + sample + c0;
+
+  float mean[VEC], rstd[VEC], s[VEC], t[VEC];
+  load_affine_stats<T, VEC>(mean_in, rstd_in, scale, shift, n, c, c0, affine_stride, mean, rstd,
+                            s, t);
+  const float inv_hw = 1.f / static_cast<float>(hw_total);
+  const float inv_d =
+      unbiased ? 1.f / static_cast<float>(hw_total > 1 ? hw_total - 1 : 1) : inv_hw;
+  float k[VEC], mg[VEC], mgx[VEC];
+#pragma unroll
+  for (int i = 0; i < VEC; ++i) {
+    k[i] = s[i] * rstd[i];
+    mg[i] = sum_g_in[static_cast<size_t>(n) * c + c0 + i] * inv_hw;
+    mgx[i] = sum_gx_in[static_cast<size_t>(n) * c + c0 + i] * inv_d;
+  }
+  float xv[VEC], gv[VEC];
+#pragma unroll 4
+  for (int r = ty; r < hw; r += ty_count) {
+    Pack<T, VEC>::load(xp + static_cast<size_t>(r) * c, xv);
+    Pack<T, VEC>::load(dyp + static_cast<size_t>(r) * c, gv);
+#pragma unroll
+    for (int i = 0; i < VEC; ++i) {
+      const float xhat = (xv[i] - mean[i]) * rstd[i];
+      const float g = (relu && !pre_positive(xhat, s[i], t[i])) ? 0.f : gv[i];
+      xv[i] = k[i] * (g - mg[i] - xhat * mgx[i]);
+    }
+    Pack<T, VEC>::store(dxp + static_cast<size_t>(r) * c, xv);
+  }
+}
+
+inline int split_blocks(int n, int c, int per_tile, int& tiles, unsigned& blocks) {
+  tiles = (c + per_tile - 1) / per_tile;
+  const long long b = static_cast<long long>(n) * tiles;
+  if (b > 2147483647LL) return static_cast<int>(cudaErrorInvalidValue);
+  blocks = static_cast<unsigned>(b);
+  return 0;
+}
+
+template <typename T, int VEC>
+int launch_partial_sums(const void* x, const void* dy, const void* mean, const void* rstd,
+                        const void* scale, const void* shift, void* sum_g, void* sum_gx, int n,
+                        int hw, int c, int affine_stride, int tx_count, int relu,
+                        cudaStream_t stream) {
+  int tiles;
+  unsigned blocks;
+  const int err = split_blocks(n, c, tx_count * VEC, tiles, blocks);
+  if (err) return err;
+  instance_norm_bwd_partial_sums_kernel<T, VEC><<<blocks, kThreads, 0, stream>>>(
+      static_cast<const T*>(x), static_cast<const T*>(dy), static_cast<const float*>(mean),
+      static_cast<const float*>(rstd), static_cast<const float*>(scale),
+      static_cast<const float*>(shift), static_cast<float*>(sum_g), static_cast<float*>(sum_gx),
+      hw, c, affine_stride, tiles, tx_count, relu);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T, int VEC>
+int launch_apply_dx(const void* x, const void* dy, const void* mean, const void* rstd,
+                    const void* scale, const void* shift, const void* sum_g, const void* sum_gx,
+                    void* dx, int n, int hw, int c, int hw_total, int affine_stride, int tx_count,
+                    int unbiased, int relu, cudaStream_t stream) {
+  int tiles;
+  unsigned blocks;
+  const int err = split_blocks(n, c, tx_count * VEC, tiles, blocks);
+  if (err) return err;
+  instance_norm_bwd_apply_dx_kernel<T, VEC><<<blocks, kThreads, 0, stream>>>(
+      static_cast<const T*>(x), static_cast<const T*>(dy), static_cast<const float*>(mean),
+      static_cast<const float*>(rstd), static_cast<const float*>(scale),
+      static_cast<const float*>(shift), static_cast<const float*>(sum_g),
+      static_cast<const float*>(sum_gx), static_cast<T*>(dx), hw, c, hw_total, affine_stride,
+      tiles, tx_count, unbiased, relu);
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
+// K2-split, first launch.  x, dy: this rank's rows, (n, hw, c) fp32 or bf16
+// (dtype 0 / 1); mean, rstd: the forward's global statistics, (n, c) fp32;
+// scale / shift / affine_stride as for instance_norm_bwd; sum_g, sum_gx:
+// (n, c) fp32 outputs.  Launches on `stream`, allocates nothing, does not
+// synchronise; returns the cudaError_t of the launch.
+extern "C" int instance_norm_bwd_partial_sums(const void* x, const void* dy, const void* mean,
+                                              const void* rstd, const void* scale,
+                                              const void* shift, void* sum_g, void* sum_gx,
+                                              int n, int hw, int c, int affine_stride, int dtype,
+                                              int vec, int tx_count, int relu, void* stream) {
+  const int invalid = static_cast<int>(cudaErrorInvalidValue);
+  if (!geometry_ok(n, hw, c, affine_stride, vec, tx_count)) return invalid;
+  if (x == nullptr || dy == nullptr || mean == nullptr || rstd == nullptr || sum_g == nullptr ||
+      sum_gx == nullptr)
+    return invalid;
+  if ((scale == nullptr) != (shift == nullptr)) return invalid;
+  if (vec != 1 && (!aligned16(x) || !aligned16(dy))) return invalid;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (dtype == 0 && vec == 1)
+    return launch_partial_sums<float, 1>(x, dy, mean, rstd, scale, shift, sum_g, sum_gx, n, hw, c, affine_stride, tx_count, relu, st);
+  if (dtype == 0 && vec == 4)
+    return launch_partial_sums<float, 4>(x, dy, mean, rstd, scale, shift, sum_g, sum_gx, n, hw, c, affine_stride, tx_count, relu, st);
+  if (dtype == 1 && vec == 1)
+    return launch_partial_sums<__nv_bfloat16, 1>(x, dy, mean, rstd, scale, shift, sum_g, sum_gx, n, hw, c, affine_stride, tx_count, relu, st);
+  if (dtype == 1 && vec == 8)
+    return launch_partial_sums<__nv_bfloat16, 8>(x, dy, mean, rstd, scale, shift, sum_g, sum_gx, n, hw, c, affine_stride, tx_count, relu, st);
+  return invalid;
+}
+
+// K2-split, second launch: dx from the global sums (n, c) fp32 and the
+// global row count hw_total of a sample.  Same conventions as above.
+extern "C" int instance_norm_bwd_apply_dx(const void* x, const void* dy, const void* mean,
+                                          const void* rstd, const void* scale, const void* shift,
+                                          const void* sum_g, const void* sum_gx, void* dx, int n,
+                                          int hw, int c, int hw_total, int affine_stride,
+                                          int dtype, int vec, int tx_count, int unbiased,
+                                          int relu, void* stream) {
+  const int invalid = static_cast<int>(cudaErrorInvalidValue);
+  if (!geometry_ok(n, hw, c, affine_stride, vec, tx_count) || hw_total < hw) return invalid;
+  if (x == nullptr || dy == nullptr || dx == nullptr || mean == nullptr || rstd == nullptr ||
+      sum_g == nullptr || sum_gx == nullptr)
+    return invalid;
+  if ((scale == nullptr) != (shift == nullptr)) return invalid;
+  if (vec != 1 && (!aligned16(x) || !aligned16(dy) || !aligned16(dx))) return invalid;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (dtype == 0 && vec == 1)
+    return launch_apply_dx<float, 1>(x, dy, mean, rstd, scale, shift, sum_g, sum_gx, dx, n, hw, c, hw_total, affine_stride, tx_count, unbiased, relu, st);
+  if (dtype == 0 && vec == 4)
+    return launch_apply_dx<float, 4>(x, dy, mean, rstd, scale, shift, sum_g, sum_gx, dx, n, hw, c, hw_total, affine_stride, tx_count, unbiased, relu, st);
+  if (dtype == 1 && vec == 1)
+    return launch_apply_dx<__nv_bfloat16, 1>(x, dy, mean, rstd, scale, shift, sum_g, sum_gx, dx, n, hw, c, hw_total, affine_stride, tx_count, unbiased, relu, st);
+  if (dtype == 1 && vec == 8)
+    return launch_apply_dx<__nv_bfloat16, 8>(x, dy, mean, rstd, scale, shift, sum_g, sum_gx, dx, n, hw, c, hw_total, affine_stride, tx_count, unbiased, relu, st);
+  return invalid;
+}

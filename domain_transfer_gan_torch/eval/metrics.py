@@ -31,10 +31,16 @@ What holds as in the JAX package:
   final update);
 - the host reads results once per chunk of 100 steps, never per step;
 - over ranks (a ``parallel.DataParallel`` model) ``eval_mse_A`` and the UBO
-  compute on each rank's slice of a batch, as the JAX package's mesh does:
-  the UBO pads to a multiple of the ranks, draws its noise for the whole
-  batch and slices it, and sums its masked means over the ranks; the
-  visuals are decoded from the gathered (mu, logvar).
+  compute on each rank's part of a batch, as the JAX package's mesh does:
+  the batch sliced over the batch axes (``data``, or ``data x pipe``), the
+  rows too under a space axis, through the same sharded layers (halo
+  convolutions, split norms, channel slices under a model axis); the UBO
+  pads to a multiple of the batch slices, draws its noise for the whole
+  batch and slices it, sums each (mu, logvar) gradient's row shares over
+  the space ranks, and sums its masked means over the ranks that hold
+  parts of the batch; the visuals are decoded from the gathered
+  (mu, logvar).  A batch that does not fit the mesh is computed whole on
+  every rank.  The pipeline is step-scoped: evaluation never runs it.
 
 The random draws (dequantisation noise, the reparametrisation's eps, the
 noise of a noisy cycle) come from the model's ``torch.Generator`` (the
@@ -46,6 +52,7 @@ asks for it).
 
 from __future__ import annotations
 
+import contextlib
 import math
 import os
 from typing import Optional
@@ -54,6 +61,7 @@ import numpy as np
 import torch
 
 from ..nn.networks import frozen
+from ..parallel import multihost
 from ..parallel.multihost import all_reduce_, local_rows
 from ..ops.numerics import (
     gauss_reparametrize_eps,
@@ -95,10 +103,10 @@ def eval_mse_A(dataset, model) -> float:
             torch.no_grad():
         for batch in dataset:
             B, A = model._tensor(batch["B"]), model._tensor(batch["A"])
-            if dp is not None and dp.divides(B.shape[0]):
+            if dp is not None and dp.fits(B):
                 with dp.sharded():
-                    pred_A = net(dp.local_rows(B)).float()
-                    v = torch.mean((pred_A - dp.local_rows(A)) ** 2)
+                    pred_A = net(dp.local_image(B)).float()
+                    v = torch.mean((pred_A - dp.local_image(A)) ** 2)
                 vals.append(dp.mean_over_ranks({"v": v})["v"])
                 continue
             pred_A = net(B).float()
@@ -113,32 +121,39 @@ def eval_mse_A(dataset, model) -> float:
 
 def ubo_chunk(model, real_A, real_B_deq, mu, logvar, sq_mu, sq_lv,
               logvar_B, mask, npix: float, steps: int, eps=None,
-              plain_norm: bool = False, denom=None, shard=None):
+              plain_norm: bool = False, denom=None, mesh=None):
     """``steps`` RMSprop steps on (mu, logvar) from the given state.
 
     ``eps``: None (drawn per step from the model's generator) or a
     (steps, n, nlatent) tensor of these rows.  Returns the new (mu, logvar,
     sq_mu, sq_lv) and the masked-mean UBO and KLD of the last step's
-    iterate, all device tensors.  ``shard`` = (rank, world): the rows are
-    this rank's slice of a global batch whose mask sums to ``denom``; each
-    step's noise is drawn for the global batch and sliced, and the returned
-    means are summed over the ranks (each sample's gradient is its own, so
-    the steps need no collective)."""
+    iterate, all device tensors.  ``mesh`` (``parallel.mesh.Mesh``): the
+    rows are this rank's part of a global batch whose mask sums to
+    ``denom`` (its batch slice; under a space axis its image rows, the
+    (mu, logvar) rows whole on every space rank); each step's noise is
+    drawn for the global batch and sliced, each gradient of (mu, logvar)
+    is the sum of the space ranks' shares (a sample's other gradients are
+    its own), and the returned means are summed over the ranks holding
+    parts."""
     net = model.nets["netG_A_B"]
     ignore_noise = getattr(model, "ignore_noise", False)
     denom = mask.sum() if denom is None else denom
-    world = shard[1] if shard is not None else 1
+    shards = mesh.batch.size if mesh is not None else 1
+    space = mesh.space if mesh is not None else None
+    share = 1.0 / space.size if space is not None else 1.0
     ubo_m = kld_m = None
-    with frozen(net, bool(model.training)), torch.enable_grad():
+    scope = (multihost.sharded(mesh) if mesh is not None
+             else contextlib.nullcontext())
+    with frozen(net, bool(model.training)), torch.enable_grad(), scope:
         for s in range(steps):
             if eps is not None:
                 e = eps[s]
             else:
-                e = torch.randn((world * mu.shape[0],) + tuple(mu.shape[1:]),
+                e = torch.randn((shards * mu.shape[0],) + tuple(mu.shape[1:]),
                                 dtype=mu.dtype, device=mu.device,
                                 generator=model._noise)
-                if shard is not None:
-                    e = local_rows(e, *shard)
+                if mesh is not None:
+                    e = local_rows(e, mesh.batch.index, shards)
             mu_ = mu.detach().requires_grad_(True)
             lv_ = logvar.detach().requires_grad_(True)
             z = gauss_reparametrize_eps(mu_, lv_, e)
@@ -148,10 +163,15 @@ def ubo_chunk(model, real_A, real_B_deq, mu, logvar, sq_mu, sq_lv,
             lp = log_prob_laplace(real_B_deq, fake_B, logvar_B)
             lp = lp.reshape(lp.shape[0], -1).sum(dim=1)
             kld = kld_std_gauss(mu_, lv_)
-            ubo = (-lp + kld) + npix * math.log(127.5)
+            # a space rank's share: its rows' log-density, and the terms
+            # every space rank computes alike divided among them
+            ubo = -lp + share * (kld + npix * math.log(127.5))
             ubo_m = (ubo * mask).sum() / denom
-            kld_m = (kld * mask).sum() / denom
+            kld_m = (share * kld * mask).sum() / denom
             g_mu, g_lv = torch.autograd.grad(ubo_m, (mu_, lv_))
+            if space is not None and space.size > 1:
+                g = all_reduce_(torch.stack([g_mu, g_lv]), axis=space)
+                g_mu, g_lv = g[0], g[1]
             with torch.no_grad():
                 sq_mu = RMS_ALPHA * sq_mu + (1 - RMS_ALPHA) * g_mu ** 2
                 sq_lv = RMS_ALPHA * sq_lv + (1 - RMS_ALPHA) * g_lv ** 2
@@ -159,8 +179,9 @@ def ubo_chunk(model, real_A, real_B_deq, mu, logvar, sq_mu, sq_lv,
                 logvar = logvar - RMS_LR * g_lv / (torch.sqrt(sq_lv)
                                                    + RMS_EPS)
     ubo_m, kld_m = ubo_m.detach(), kld_m.detach()
-    if shard is not None:
-        ubo_m, kld_m = all_reduce_(torch.stack([ubo_m, kld_m])).unbind()
+    if mesh is not None:
+        ubo_m, kld_m = all_reduce_(torch.stack([ubo_m, kld_m]),
+                                   axis=mesh.replica).unbind()
     return mu, logvar, sq_mu, sq_lv, ubo_m, kld_m
 
 
@@ -178,10 +199,14 @@ def variational_ubo(model, real_A, real_B, steps: int,
     real_A, real_B = model._tensor(real_A), model._tensor(real_B)
     n_real = real_A.shape[0]
     dp = _ranks(model)
+    if dp is not None and not dp.fits(real_A[:1].expand(
+            dp.mesh.batch_shards, *real_A.shape[1:])):
+        dp = None  # rows that do not split: whole on every rank
     if dp is not None:
-        # over ranks: the pad target rounded up to a multiple of the ranks,
-        # so that the zero-weight rows absorb the remainder
-        pad_to = -(-max(pad_to or n_real, n_real) // dp.world) * dp.world
+        # over ranks: the pad target rounded up to a multiple of the batch
+        # slices, so that the zero-weight rows absorb the remainder
+        k = dp.mesh.batch_shards
+        pad_to = -(-max(pad_to or n_real, n_real) // k) * k
     if pad_to is not None and n_real < pad_to:
         pad = pad_to - n_real
         real_A = torch.cat([real_A, real_A[:1].expand(pad, *real_A.shape[1:])])
@@ -219,12 +244,16 @@ def variational_ubo(model, real_A, real_B, steps: int,
     sq_lv = torch.zeros_like(logvar)
     if eps is not None:
         eps = model._tensor(eps)
-    # over ranks every rank steps its slice of the rows; the slices of
+    # over ranks every rank steps its part of the batch; the slices of
     # (mu, logvar) are gathered where the whole batch is read
-    shard, chunk_in, denom = None, (real_A, real_B_deq, mask), None
+    mesh, chunk_in, denom = None, (real_A, real_B_deq, mask), None
     if dp is not None:
-        shard, denom = (dp.rank, dp.world), mask.sum()
-        chunk_in = tuple(dp.local_rows(t) for t in chunk_in)
+        mesh, denom = dp.mesh, mask.sum()
+        chunk_in = (dp.local_image(real_A), dp.local_image(real_B_deq),
+                    dp.local_rows(mask))
+        sp = mesh.space
+        if sp.size > 1 and logvar_B.shape[1] > 1:
+            logvar_B = local_rows(logvar_B, sp.index, sp.size, 1)
         mu, logvar = dp.local_rows(mu), dp.local_rows(logvar)
         sq_mu, sq_lv = dp.local_rows(sq_mu), dp.local_rows(sq_lv)
         if eps is not None:
@@ -260,7 +289,7 @@ def variational_ubo(model, real_A, real_B, steps: int,
         mu, logvar, sq_mu, sq_lv, ubo_dev, kld_dev = ubo_chunk(
             model, chunk_in[0], chunk_in[1], mu, logvar, sq_mu, sq_lv,
             logvar_B, chunk_in[2], npix, todo, chunk_eps, plain_norm,
-            denom=denom, shard=shard)
+            denom=denom, mesh=mesh)
         done += todo
         ubo_val, kld_val = torch.stack([ubo_dev, kld_dev]).tolist()
         bpp = ubo_val / (npix * math.log(2.0))

@@ -68,11 +68,10 @@ def _check_cfg(cfg: TrainConfig, what: str) -> int:
         raise ValueError("--grad_accum with --norm batch would switch the "
                          "main networks to per-microbatch statistics; use "
                          "instance norms or drop --grad_accum")
-    # the training CLI refuses --pipeline for every run; create_model
-    # reaches this guard
     if cfg.pipeline and cfg.pipeline > 1:
         raise ValueError("--grad_accum does not compose with --pipeline "
-                         "(a pipeline schedule owns the microbatch split)")
+                         "(the GPipe schedule already owns the microbatch "
+                         "split; raise --microbatches instead)")
     _check_batch(cfg.batchSize, k)
     return k
 

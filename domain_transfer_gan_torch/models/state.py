@@ -89,12 +89,15 @@ def adam_init(params: Sequence[torch.Tensor]) -> AdamState:
 def apply_net_update(params: Sequence[torch.Tensor], opt: AdamState,
                      grads: Sequence[torch.Tensor], lr: float,
                      max_gnorm: float, beta1: float,
-                     beta2: float = 0.999, eps: float = 1e-8) -> torch.Tensor:
+                     beta2: float = 0.999, eps: float = 1e-8,
+                     gnorm: Optional[torch.Tensor] = None) -> torch.Tensor:
     """clip (torch-style) -> Adam -> ``p -= lr * update``, in place on
     ``params`` and ``opt``.  Returns the pre-clip gradient norm as a 0-dim
-    device tensor; nothing is read back to the host."""
+    device tensor; nothing is read back to the host.  ``gnorm``: the
+    gradient's global norm where the caller computed it (slices over a
+    model axis), else computed here."""
     params = list(params)
-    grads, gnorm = clip_grads_torchlike(grads, max_gnorm)
+    grads, gnorm = clip_grads_torchlike(grads, max_gnorm, gnorm)
     opt.count += 1
     torch._foreach_mul_(opt.mu, beta1)
     torch._foreach_add_(opt.mu, grads, alpha=1.0 - beta1)

@@ -29,6 +29,17 @@ model hands in) in place of the fresh fakes; the G phase still scores the
 fresh fakes.  With ``--ema`` every step ends with
 :func:`models.state.ema_update`.
 
+Over a mesh of ranks (``parallel/mesh.py``) each rank runs this same step
+on its part of the batch and differentiates its own loss.  Under a space
+axis a term over row-sliced tensors (the image L1 cycles) is the mean over
+the rank's rows, the slices being equal, and a term computed after a
+gather (the edges discriminator's logit, the PatchGAN map past its
+gathered layers, ``netE_B``'s mu / logvar and everything of z: the z-cycle,
+KLD, ``netD_z_B``) is the same on every space rank; every collective's
+backward sums what the ranks hand it, so the mean over the space ranks of
+their gradients, taken with the data axis's in :func:`_apply`, is one
+process's gradient, and neither kind of term is counted S times.
+
 The loss assembly of the two phases (:func:`encode`, :func:`d_losses`,
 :func:`g_losses`) is shared with the ``--grad_accum`` steps of
 ``models/accum.py``, which run it per microbatch.  The supervised step is
@@ -44,6 +55,7 @@ import torch
 
 from ..config import TrainConfig
 from ..parallel import multihost
+from ..parallel.mesh import slices_of
 from ..ops.numerics import (
     criterion_gan,
     gauss_reparametrize_eps,
@@ -103,16 +115,59 @@ def _apply(state: TrainState, grads: Dict[str, List[torch.Tensor]],
            gnorms: Dict[str, torch.Tensor]) -> None:
     """Per-net clip + Adam at ``lr`` with ``grads`` (by net name); each
     net's pre-clip norm goes to ``gnorms["gnorm_" + short]``.  On a rank's
-    slice of a global batch (``multihost.sharded``) each net's gradients
-    are first averaged over the ranks, in one flat all-reduce, so the clip
-    sees the global gradient and its norm."""
-    reduce = multihost.shard_info() is not None
+    part of a global batch (``multihost.sharded``) each net's gradients
+    are first averaged, in one flat all-reduce, over the ranks that hold
+    the same model slice (``data x space x pipe``, ``parallel/mesh.py``),
+    so the clip sees the global gradient; under a model axis the leaves it
+    leaves whole are averaged over every rank (:func:`_reduce_sliced`) and
+    the clip's norm sums the sliced leaves' squares over the model ranks
+    and counts the whole leaves once."""
+    mesh = multihost.shard_info()
     for k, g in grads.items():
-        if reduce:
-            g = multihost.all_reduce_mean_list(g)
+        net = state.nets[k]
+        axis, dims = slices_of(net) or (None, {})
+        sliced = [d is not None for d in dims.values()]
+        gnorm = None
+        if any(sliced):
+            g = _reduce_sliced(g, sliced, mesh)
+            gnorm = sliced_global_norm(g, sliced, axis)
+        elif mesh is not None:
+            g = multihost.all_reduce_mean_list(g, mesh.replica)
+        extra = {} if gnorm is None else {"gnorm": gnorm}
         gnorms["gnorm_" + k[3:]] = apply_net_update(
-            list(state.nets[k].parameters()), state.opt_state[k], g, lr,
-            cfg.max_gnorm, cfg.beta1)
+            list(net.parameters()), state.opt_state[k], g, lr,
+            cfg.max_gnorm, cfg.beta1, **extra)
+
+
+def _reduce_sliced(grads, sliced: List[bool], mesh):
+    """A net's gradients under a model axis: the slices averaged over the
+    ranks holding the same slice (``data x space x pipe``), the whole
+    leaves over every rank.  The model ranks compute a whole leaf's
+    gradient alike up to the rounding of the card's own reductions, so the
+    mean over them too keeps their copies of it equal."""
+    if mesh is None:
+        return list(grads)
+    parts = [g for g, s in zip(grads, sliced) if s]
+    whole = [g for g, s in zip(grads, sliced) if not s]
+    parts = multihost.all_reduce_mean_list(parts, mesh.replica)
+    if whole:
+        whole = multihost.all_reduce_mean_list(whole)
+    it_p, it_w = iter(parts), iter(whole)
+    return [next(it_p) if s else next(it_w) for s in sliced]
+
+
+def sliced_global_norm(grads: List[torch.Tensor], sliced: List[bool],
+                       axis) -> torch.Tensor:
+    """The global norm of a net's gradient whose leaves ``sliced`` are
+    this rank's slices over the model ``axis``: their squares summed over
+    it, the whole leaves' counted once."""
+    zero = grads[0].new_zeros((), dtype=torch.float32)
+    part = sum((g.float().pow(2).sum() for g, s in zip(grads, sliced) if s),
+               zero)
+    whole = sum((g.float().pow(2).sum() for g, s in zip(grads, sliced)
+                 if not s), zero)
+    part = multihost.all_reduce_(part.reshape(1).clone(), axis=axis)[0]
+    return torch.sqrt(part + whole)
 
 
 def _update(state: TrainState, names, loss, lr: float, cfg: TrainConfig,
@@ -124,21 +179,24 @@ def _update(state: TrainState, names, loss, lr: float, cfg: TrainConfig,
 def _d_fakes(state: TrainState, fake_A, fake_B, pool_draws):
     """What the D phase scores as fakes: the detached fakes, or with pools
     the pools' answers to them (the pools advance in place).  On a rank's
-    slice the pools answer the all-gathered fakes with the full batch's
-    draws and the rank takes its slice, so every rank's pools stay the
-    single process's."""
+    part the pools answer the gathered fakes (all rows under a space axis,
+    every batch slice) with the full batch's draws and the rank takes its
+    part, so every rank's pools stay the single process's."""
     fake_A, fake_B = fake_A.detach(), fake_B.detach()
     if not state.pools:
         return fake_A, fake_B
-    shard = multihost.shard_info()
+    mesh = multihost.shard_info()
     out = []
     for name, fake in (("fake_A", fake_A), ("fake_B", fake_B)):
-        if shard is not None:
-            fake = multihost.all_gather_cat(fake)
+        if mesh is not None:
+            fake = multihost.all_gather_cat(fake, mesh.space, 1)
+            fake = multihost.all_gather_cat(fake, mesh.batch)
         state.pools[name], d_fake = pool_query(state.pools[name], fake,
                                                *pool_draws[name])
-        if shard is not None:
-            d_fake = multihost.local_rows(d_fake, *shard)
+        if mesh is not None:
+            b, sp = mesh.batch, mesh.space
+            d_fake = multihost.local_rows(d_fake, b.index, b.size)
+            d_fake = multihost.local_rows(d_fake, sp.index, sp.size, 1)
         out.append(d_fake)
     return tuple(out)
 

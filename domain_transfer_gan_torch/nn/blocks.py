@@ -9,30 +9,22 @@
 
 from __future__ import annotations
 
-import torch
 import torch.nn.functional as F
 from torch import nn
 
-from ..ops.convs import reflect_pad2d, replicate_pad2d
 from .layers import Conv2d, Dropout
 from .norms import CondInstanceNorm, InstanceNorm, make_norm
 
-
-def _pad(x: torch.Tensor, padding_type: str, p: int):
-    """The padded tensor and the zero padding left for the conv to apply."""
-    if padding_type == "reflect":
-        return reflect_pad2d(x, p), 0
-    if padding_type == "replicate":
-        return replicate_pad2d(x, p), 0
-    if padding_type == "zero":
-        return x, p
-    raise NotImplementedError("padding [%s] is not implemented" % padding_type)
+_PADDINGS = ("reflect", "replicate", "zero")
 
 
-def _conv3x3(x, conv: nn.Conv2d, padding_type: str):
-    h, p = _pad(x, padding_type, 1)
-    bias = None if conv.bias is None else conv.bias.to(h.dtype)
-    return F.conv2d(h, conv.weight.to(h.dtype), bias, padding=p)
+def _conv3x3(x, conv: Conv2d, padding_type: str):
+    """pad by 1 (``padding_type``) -> 3x3 conv (``Conv2d.forward``: halo rows
+    under a space axis, a channel slice under a model axis)."""
+    if padding_type not in _PADDINGS:
+        raise NotImplementedError("padding [%s] is not implemented"
+                                  % padding_type)
+    return conv(x, pre_pad=1, pad_mode=padding_type)
 
 
 class ResnetBlock(nn.Module):

@@ -33,10 +33,11 @@ import torch.nn.functional as F
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
-from ..ops.convs import conv_transpose2d_torch, reflect_pad2d
+from ..parallel import hints, pipeline
+from ..parallel.spatial import conv_transpose2d_layer, image_rows
 from .blocks import CINResnetBlock, ResnetBlock
 from .init import init_kernel_, torch_linear_init_
-from .layers import Conv2d, Dropout, Linear
+from .layers import Conv2d, Dropout, Linear, sliced_layer
 from .norms import (
     BatchNorm1d,
     BatchNorm2d,
@@ -62,10 +63,8 @@ class TorchConvTranspose(nn.Module):
         self.bias = nn.Parameter(torch.zeros(features)) if use_bias else None
 
     def forward(self, x):
-        bias = None if self.bias is None else self.bias.to(x.dtype)
-        return conv_transpose2d_torch(x, self.weight.to(x.dtype), bias,
-                                      self.stride, self.padding,
-                                      self.output_padding)
+        return sliced_layer(self, x, lambda x_, w, b: conv_transpose2d_layer(
+            x_, w, b, self.stride, self.padding, self.output_padding), 1)
 
 
 class _NormRelu(nn.Module):
@@ -180,6 +179,27 @@ class _Net(nn.Module):
         return checkpoint(run, *args, use_reentrant=False,
                           preserve_rng_state=gen is None)
 
+    def _trunk(self, h, z, plain_norm):
+        """The residual blocks in turn (``z``: the CIN code, None for blocks
+        without one); inside a train step over a pipe axis
+        (``parallel.pipeline.active_engine``) a GPipe schedule over it,
+        where the trunk can take one (no dropout, instance norms: the
+        ``trunk_fn`` the JAX ``apply_net`` injects)."""
+        blocks = [getattr(self, "block%d" % i) for i in range(self.n_blocks)]
+        engine = pipeline.active_engine()
+        if engine is not None and self.pipelineable():
+            return pipeline.gpipe_trunk(engine, blocks, h, z, plain_norm)
+        for blk in blocks:
+            h = blk(h, plain_norm) if z is None else blk(h, z, plain_norm)
+        return h
+
+    def pipelineable(self) -> bool:
+        """Whether the trunk runs as a pipeline (per-sample norms, no
+        dropout)."""
+        return all(not isinstance(m, (Dropout, BatchNorm2d))
+                   for i in range(self.n_blocks)
+                   for m in getattr(self, "block%d" % i).modules())
+
     def _enter(self, x: torch.Tensor) -> torch.Tensor:
         if x.dim() != 4:
             raise ValueError("images must be NHWC (N, H, W, C), got %r"
@@ -235,15 +255,15 @@ class CINResnetGenerator(_Net):
                                  plain_norm)
 
     def _body(self, x, z, plain_norm):
-        h = self.conv0(reflect_pad2d(self._enter(x), 3))
-        h = self.cin0(h, z, plain_norm)
-        h = self.cin1(self.conv1(h), z, plain_norm)
-        h = self.cin2(self.conv2(h), z, plain_norm)
-        for i in range(self.n_blocks):
-            h = getattr(self, "block%d" % i)(h, z, plain_norm)
-        h = self.cin3(self.up0(h), z, plain_norm)
-        h = self.cin4(self.conv3(h), z, plain_norm)
-        return self._leave(self.conv4(h))
+        with image_rows():
+            h = self.conv0(self._enter(x), pre_pad=3, pad_mode="reflect")
+            h = self.cin0(h, z, plain_norm)
+            h = self.cin1(self.conv1(h), z, plain_norm)
+            h = self.cin2(self.conv2(h), z, plain_norm)
+            h = self._trunk(h, z, plain_norm)
+            h = self.cin3(self.up0(h), z, plain_norm)
+            h = self.cin4(self.conv3(h), z, plain_norm)
+            return self._leave(self.conv4(h))
 
 
 class ResnetGenerator(_Net):
@@ -275,15 +295,15 @@ class ResnetGenerator(_Net):
         return self._maybe_remat(self._body, x, plain_norm)
 
     def _body(self, x, plain_norm):
-        h = self.conv0(reflect_pad2d(self._enter(x), 3))
-        h = self.nr0(h, plain_norm)
-        h = self.nr1(self.conv1(h), plain_norm)
-        h = self.nr2(self.conv2(h), plain_norm)
-        for i in range(self.n_blocks):
-            h = getattr(self, "block%d" % i)(h, plain_norm)
-        h = self.nr3(self.up0(h), plain_norm)
-        h = self.nr4(self.conv3(h), plain_norm)
-        return self._leave(self.conv4(h))
+        with image_rows():
+            h = self.conv0(self._enter(x), pre_pad=3, pad_mode="reflect")
+            h = self.nr0(h, plain_norm)
+            h = self.nr1(self.conv1(h), plain_norm)
+            h = self.nr2(self.conv2(h), plain_norm)
+            h = self._trunk(h, None, plain_norm)
+            h = self.nr3(self.up0(h), plain_norm)
+            h = self.nr4(self.conv3(h), plain_norm)
+            return self._leave(self.conv4(h))
 
 
 def _flat_logits(h: torch.Tensor, use_sigmoid: bool) -> torch.Tensor:
@@ -311,11 +331,15 @@ class Discriminator(_Net):
         self.conv4 = Conv2d(4 * ndf, 1, 4, padding=1)
 
     def forward(self, x: torch.Tensor, plain_norm: bool = False):
-        h = F.leaky_relu(self.conv0(self._enter(x)), 0.2)
-        h = self.nl1(self.conv1(h), plain_norm)
-        h = self.nl2(self.conv2(h), plain_norm)
-        h = self.nl3(self.conv3(h), plain_norm)
-        return _flat_logits(self.conv4(h), self.use_sigmoid)
+        with image_rows():
+            h = F.leaky_relu(self.conv0(self._enter(x)), 0.2)
+            h = self.nl1(self.conv1(h), plain_norm)
+            # under a space axis conv2's rows (H/4 - 1) never split evenly:
+            # its input is gathered (parallel.spatial.conv2d_layer) and the
+            # patch map computed whole on every space rank
+            h = self.nl2(self.conv2(h), plain_norm)
+            h = self.nl3(self.conv3(h), plain_norm)
+            return _flat_logits(self.conv4(h), self.use_sigmoid)
 
 
 class DiscriminatorEdges(_Net):
@@ -336,11 +360,15 @@ class DiscriminatorEdges(_Net):
         self.conv4 = Conv2d(4 * ndf, 1, 4)
 
     def forward(self, x: torch.Tensor, plain_norm: bool = False):
-        h = F.leaky_relu(self.conv0(self._enter(x)), 0.2)
-        h = self.nl1(self.conv1(h), plain_norm)
-        h = self.nl2(self.conv2(h), plain_norm)
-        h = self.nl3(self.conv3(h), plain_norm)
-        return _flat_logits(self.conv4(h), self.use_sigmoid)
+        with image_rows():
+            h = F.leaky_relu(self.conv0(self._enter(x)), 0.2)
+            h = self.nl1(self.conv1(h), plain_norm)
+            h = self.nl2(self.conv2(h), plain_norm)
+            h = self.nl3(self.conv3(h), plain_norm)
+            # the 4x4 head collapses the image: all of H (JAX pins it to
+            # batch-only sharding here)
+            h = hints.pin_batch_only(h)
+            return _flat_logits(self.conv4(h), self.use_sigmoid)
 
 
 class DiscriminatorLatent(_Net):
@@ -378,12 +406,13 @@ class DiscriminatorLatent(_Net):
     def forward(self, z: torch.Tensor, plain_norm: bool = False):
         if z.dim() == 4:
             z = z.reshape(z.shape[0], self.nlatent)
-        h = z.to(self.compute_dtype)
-        h = F.leaky_relu(self.bn0(self.fc0(h)), 0.2)
-        h = F.leaky_relu(self.bn1(self.fc1(h)), 0.2)
-        h = F.leaky_relu(self.bn2(self.fc2(h)), 0.2)
-        h = self.fc3(h)
-        return torch.sigmoid(h) if self.use_sigmoid else h
+        with image_rows(sliced=False):  # z: whole on every space rank
+            h = z.to(self.compute_dtype)
+            h = F.leaky_relu(self.bn0(self.fc0(h)), 0.2)
+            h = F.leaky_relu(self.bn1(self.fc1(h)), 0.2)
+            h = F.leaky_relu(self.bn2(self.fc2(h)), 0.2)
+            h = self.fc3(h)
+            return torch.sigmoid(h) if self.use_sigmoid else h
 
 
 class LatentEncoder(_Net):
@@ -414,11 +443,20 @@ class LatentEncoder(_Net):
         self.enc_logvar = Conv2d(8 * nef, nlatent, 1)
 
     def forward(self, x: torch.Tensor, plain_norm: bool = False):
+        with image_rows():
+            return self._heads(self._stack(x, plain_norm))
+
+    def _stack(self, x, plain_norm):
         h = F.relu(self.conv0(self._enter(x)))
         h = self.nr1(self.conv1(h), plain_norm)
         h = self.nr2(self.conv2(h), plain_norm)
         h = self.nr3(self.conv3(h), plain_norm)
-        h = self.nr4(self.conv4(h), plain_norm)
+        # the valid 4x4 conv collapses the image: all of H (JAX pins it to
+        # batch-only sharding here)
+        h = hints.pin_batch_only(h)
+        return self.nr4(self.conv4(h), plain_norm)
+
+    def _heads(self, h):
         if self.adaptive_pool and (h.shape[2] > 1 or h.shape[3] > 1):
             h = h.mean(dim=(2, 3), keepdim=True)
         mu = self.enc_mu(h).permute(0, 2, 3, 1)

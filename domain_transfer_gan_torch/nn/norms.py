@@ -17,6 +17,13 @@ instead, on either device; that is the twin the fused path is held against.
 ``flax.linen.BatchNorm(momentum=0.9)``, not ``torch.nn.BatchNorm``: the
 running average stores the *biased* batch variance.
 
+Under a space axis (``parallel.spatial.rows_axis``) an instance norm sees
+this rank's rows of each sample: it runs the split forms of the kernels
+(``ops.kernels.instance_norm.instance_norm_split``), whose statistics and
+backward sums are combined over the space group by :class:`SpaceStats`; a
+batch norm reduces over ``data x space``, or over the batch slices alone
+where the rows were gathered.
+
 ``instance_norm_ref`` is the twin of the JAX package's ``instance_norm_xla``
 (variance as E[x^2] - mean^2 clamped at 0) and is kept for module-level
 parity tests; it differs from the kernel's centered form by rounding only.
@@ -32,9 +39,12 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..parallel import multihost
+from ..parallel.spatial import rows_axis
 from ..ops.kernels.instance_norm import (
+    combine_stats,
     instance_norm_fused,
     instance_norm_plain,
+    instance_norm_split,
 )
 from .init import (
     batchnorm2d_scale_init_,
@@ -74,13 +84,37 @@ def instance_norm_ref(x: torch.Tensor, scale: Optional[torch.Tensor],
     return y.to(x.dtype)
 
 
+class SpaceStats:
+    """The collectives of the split instance norm over a space axis: the
+    ranks' (mean, M2) gathered and merged in rank order (every rank
+    computes the same merge), and the backward's sums all-reduced."""
+
+    def __init__(self, axis):
+        self.axis = axis
+
+    def combine(self, mean, m2, rows: int):
+        both = multihost.all_gather_list(torch.stack([mean, m2]), self.axis)
+        return combine_stats([t[0] for t in both], [t[1] for t in both],
+                             [rows] * self.axis.size)
+
+    def sum_(self, t: torch.Tensor) -> torch.Tensor:
+        return multihost.all_reduce_(t.contiguous(), axis=self.axis)
+
+
 def _norm_nchw(x: torch.Tensor, scale, shift, eps: float, unbiased: bool,
                relu: bool, plain: bool) -> torch.Tensor:
-    """Apply the fused norm to an NCHW activation through its NHWC view."""
+    """Apply the fused norm to an NCHW activation through its NHWC view
+    (its split form where the rows are spread over a space axis)."""
     x_nhwc = x.permute(0, 2, 3, 1)
     if not x_nhwc.is_contiguous():
         # a conv that answered in another memory format: one copy
         x_nhwc = x_nhwc.contiguous()
+    axis = rows_axis()
+    if axis is not None:
+        y = instance_norm_split(x_nhwc, scale, shift, SpaceStats(axis),
+                                eps=eps, unbiased=unbiased, relu=relu,
+                                plain=plain)
+        return y.permute(0, 3, 1, 2)
     fn = instance_norm_plain if plain else instance_norm_fused
     y = fn(x_nhwc, scale, shift, eps=eps, unbiased=unbiased, relu=relu)
     return y.permute(0, 3, 1, 2)
@@ -146,15 +180,16 @@ class CondInstanceNorm(nn.Module):
                           plain_norm)
 
 
-def _global_moments(x32: torch.Tensor, dims):
+def _global_moments(x32: torch.Tensor, dims, axis):
     """Mean and E[x^2] - mean^2 (clamped at 0) per channel over the global
-    batch: the per-channel sums of x and x^2 are summed over the ranks in
-    one differentiable all-reduce, whose backward sums the two per-channel
-    gradient sums over the ranks likewise."""
+    batch: the per-channel sums of x and x^2 are summed over the ranks of
+    ``axis`` (whose parts are equal) in one differentiable all-reduce, whose
+    backward sums the two per-channel gradient sums over them likewise."""
     c = x32.shape[1]
-    count = x32.numel() // c * multihost.process_count()
+    count = x32.numel() // c * axis.size
     sums = multihost.all_reduce_sum(torch.cat([x32.sum(dim=dims),
-                                               (x32 * x32).sum(dim=dims)]))
+                                               (x32 * x32).sum(dim=dims)]),
+                                    axis)
     mean = sums[:c] / count
     return mean, torch.clamp_min(sums[c:] / count - mean * mean, 0.0)
 
@@ -169,7 +204,8 @@ class _BatchNormCore(nn.Module):
     unless ``advance`` is off (:func:`running_stats_held`).  On a rank's
     slice of a global batch (``parallel.multihost.sharded``) the statistics
     are the global batch's, as the JAX package's mesh computes them, and
-    the running averages advance from those."""
+    the running averages advance from those (over ``data x space`` where the
+    rows are spread over a space axis)."""
 
     momentum = 0.9
     eps = 1e-5
@@ -187,8 +223,13 @@ class _BatchNormCore(nn.Module):
         shape = [1, -1] + [1] * (x.dim() - 2)
         x32 = x.to(torch.float32)
         if self.training:
-            if multihost.shard_info() is not None:
-                mean, var = _global_moments(x32, dims)
+            mesh = multihost.shard_info()
+            if mesh is not None:
+                # rows spread over a space axis: data x space; else the
+                # batch's slices (the rows whole, or no space axis)
+                axis = (mesh.replica if rows_axis() is not None
+                        else mesh.batch)
+                mean, var = _global_moments(x32, dims, axis)
             else:
                 mean = x32.mean(dim=dims)
                 var = torch.clamp_min(

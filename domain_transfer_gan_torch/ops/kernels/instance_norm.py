@@ -603,3 +603,319 @@ def instance_norm_fused(x: torch.Tensor, scale: Optional[torch.Tensor],
 instance_norm_fused.launches = 0
 instance_norm_fused.launches_by_shape = {}
 instance_norm_fused.launches_by_variant = {"cluster": 0, "streaming": 0}
+
+
+# ---------------------------------------------------------------------------
+# The split forms (K1-split, K2-split): an activation sliced by rows over
+# ranks (``--spatial``).  Each rank holds some of every sample's rows, so the
+# statistics and the backward's two sums are formed from per-rank partials
+# combined over the space group between two launches (``csrc/
+# instance_norm.cu`` and ``csrc/instance_norm_bwd.cu``, the K1-split and
+# K2-split sections).  Each entry point has a wrapper (CUDA tensor: its
+# kernel, or it raises; CPU tensor: its plain twin) that counts its launches
+# in ``launches`` / ``launches_by_shape`` as the unsplit wrappers do.
+# ---------------------------------------------------------------------------
+
+# instance_norm_partial_stats(x, mean, m2; n, hw, c, dtype, vec, tx; stream)
+_PSTATS_ARGTYPES = [_P] * 3 + [_I] * 6 + [_P]
+# instance_norm_apply(x, mean, rstd, scale, shift, y; n, hw, c,
+#                     affine_stride, dtype, vec, tx, relu; stream)
+_APPLY_ARGTYPES = [_P] * 6 + [_I] * 8 + [_P]
+# instance_norm_bwd_partial_sums(x, dy, mean, rstd, scale, shift, sum_g,
+#     sum_gx; n, hw, c, affine_stride, dtype, vec, tx, relu; stream)
+_PSUMS_ARGTYPES = [_P] * 8 + [_I] * 8 + [_P]
+# instance_norm_bwd_apply_dx(x, dy, mean, rstd, scale, shift, sum_g, sum_gx,
+#     dx; n, hw, c, hw_total, affine_stride, dtype, vec, tx, unbiased, relu;
+#     stream)
+_APPLY_DX_ARGTYPES = [_P] * 9 + [_I] * 10 + [_P]
+
+
+def instance_norm_partial_stats_plain(x: torch.Tensor):
+    """Plain twin of K1-split's first launch: per (sample, channel) the
+    mean and the centered sum of squares M2 over this slice's HW rows,
+    (N, C) fp32 each."""
+    _check_x(x)
+    n, h, w, c = x.shape
+    x32 = x.reshape(n, h * w, c).to(torch.float32)
+    mean = x32.mean(dim=1, keepdim=True)
+    d = x32 - mean
+    return mean[:, 0, :], (d * d).sum(dim=1)
+
+
+def instance_norm_apply_plain(x, mean, rstd, scale, shift, *,
+                              relu: bool = False):
+    """Plain twin of K1-split's second launch: ``(x - mean) * rstd``, the
+    affine ((C,) or (N, C)), the optional ReLU, in x's dtype."""
+    _check_x(x)
+    n, h, w, c = x.shape
+    _check_affine(scale, shift, n, c, x.device)
+    x32 = x.reshape(n, h * w, c).to(torch.float32)
+    y = (x32 - mean.reshape(n, 1, c)) * rstd.reshape(n, 1, c)
+    if scale is not None:
+        y = (y * scale.to(torch.float32).reshape(-1, 1, c)
+             + shift.to(torch.float32).reshape(-1, 1, c))
+    if relu:
+        y = torch.clamp_min(y, 0.0)
+    return y.to(x.dtype).reshape(n, h, w, c)
+
+
+def _xhat_and_grad(x, dy, mean, rstd, scale, shift, relu):
+    n, h, w, c = x.shape
+    x32 = x.reshape(n, h * w, c).to(torch.float32)
+    g = dy.reshape(n, h * w, c).to(torch.float32)
+    xhat = (x32 - mean.reshape(n, 1, c)) * rstd.reshape(n, 1, c)
+    if scale is None:
+        s = torch.ones((1, 1, c), dtype=torch.float32, device=x.device)
+        t = torch.zeros((1, 1, c), dtype=torch.float32, device=x.device)
+    else:
+        s = scale.to(torch.float32).reshape(-1, 1, c)
+        t = shift.to(torch.float32).reshape(-1, 1, c)
+    if relu:
+        g = torch.where(xhat * s + t > 0.0, g, torch.zeros_like(g))
+    return xhat, g, s
+
+
+def instance_norm_bwd_partial_sums_plain(x, dy, mean, rstd, scale, shift, *,
+                                         relu: bool = False):
+    """Plain twin of K2-split's first launch: per (sample, channel) the sums
+    of dy' and dy' * xhat over this slice's rows (dy' masked by the
+    recomputed ReLU), (N, C) fp32 each."""
+    _check_x(x)
+    xhat, g, _ = _xhat_and_grad(x, dy, mean, rstd, scale, shift, relu)
+    return g.sum(dim=1), (g * xhat).sum(dim=1)
+
+
+def instance_norm_bwd_apply_dx_plain(x, dy, mean, rstd, scale, shift, sum_g,
+                                     sum_gx, hw_total: int, *,
+                                     unbiased: bool = False,
+                                     relu: bool = False):
+    """Plain twin of K2-split's second launch: dx of this slice's rows from
+    the global sums over a sample's ``hw_total`` rows (the collapsed form of
+    :func:`instance_norm_bwd_plain`)."""
+    _check_x(x)
+    n, h, w, c = x.shape
+    xhat, g, s = _xhat_and_grad(x, dy, mean, rstd, scale, shift, relu)
+    divisor = max(hw_total - 1, 1) if unbiased else hw_total
+    dx = (s * rstd.reshape(n, 1, c)) * (
+        g - sum_g.reshape(n, 1, c) * (1.0 / hw_total)
+        - xhat * (sum_gx.reshape(n, 1, c) / divisor))
+    return dx.to(x.dtype).reshape(n, h, w, c)
+
+
+def combine_stats(means, m2s, counts):
+    """Chan et al.'s merge of per-slice statistics, in slice order: the
+    mean and the centered sum of squares about it over all the slices'
+    rows.  ``means``, ``m2s``: sequences of (N, C) fp32; ``counts``: rows
+    per slice.  Returns (mean, M2, total count)."""
+    total = sum(counts)
+    acc = None
+    for m, k in zip(means, counts):
+        acc = m * float(k) if acc is None else acc + m * float(k)
+    mean = acc / float(total)
+    m2 = None
+    for m, q, k in zip(means, m2s, counts):
+        d = m - mean
+        term = q + float(k) * d * d
+        m2 = term if m2 is None else m2 + term
+    return mean, m2, total
+
+
+def _split_launch(x, fn_name, argtypes, lib, *args):
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = _c_function(lib, fn_name, argtypes)(*args, stream)
+    if err != 0:
+        raise RuntimeError("%s launch failed with cudaError %d for x %r %s"
+                           % (fn_name, err, tuple(x.shape), x.dtype))
+
+
+def _split_geometry(x, *others):
+    aligned = all(t.data_ptr() % 16 == 0 for t in (x,) + others)
+    return launch_geometry(x.shape[0], x.shape[3], x.element_size(), aligned,
+                           _sm_count(x.device.index))
+
+
+def _count_split(wrapper, x) -> None:
+    n, h, w, c = x.shape
+    with _count_lock:
+        wrapper.launches += 1
+        key = (n, h * w, c)
+        wrapper.launches_by_shape[key] = \
+            wrapper.launches_by_shape.get(key, 0) + 1
+
+
+def instance_norm_partial_stats(x: torch.Tensor):
+    """K1-split, first launch (see :func:`instance_norm_partial_stats_plain`
+    for what it computes)."""
+    _check_x(x)
+    if not x.is_cuda:
+        return instance_norm_partial_stats_plain(x)
+    _check_launchable(x, "partial-statistics")
+    n, h, w, c = x.shape
+    mean = torch.empty((n, c), dtype=torch.float32, device=x.device)
+    m2 = torch.empty_like(mean)
+    vec, tx = _split_geometry(x)
+    _split_launch(x, "instance_norm_partial_stats", _PSTATS_ARGTYPES,
+                  KERNEL_NAME, x.data_ptr(), mean.data_ptr(), m2.data_ptr(),
+                  n, h * w, c, _DTYPE_CODE[x.dtype], vec, tx)
+    _count_split(instance_norm_partial_stats, x)
+    return mean, m2
+
+
+def instance_norm_apply(x, mean, rstd, scale, shift, *, relu: bool = False):
+    """K1-split, second launch (:func:`instance_norm_apply_plain`)."""
+    _check_x(x)
+    n, h, w, c = x.shape
+    _check_affine(scale, shift, n, c, x.device)
+    if not x.is_cuda:
+        return instance_norm_apply_plain(x, mean, rstd, scale, shift,
+                                         relu=relu)
+    _check_launchable(x, "apply")
+    scale, shift, stride = _affine_pointers(scale, shift, c)
+    mean, rstd = mean.contiguous(), rstd.contiguous()
+    y = torch.empty_like(x)
+    vec, tx = _split_geometry(x, y)
+    _split_launch(x, "instance_norm_apply", _APPLY_ARGTYPES, KERNEL_NAME,
+                  x.data_ptr(), mean.data_ptr(), rstd.data_ptr(), _ptr(scale),
+                  _ptr(shift), y.data_ptr(), n, h * w, c, stride,
+                  _DTYPE_CODE[x.dtype], vec, tx, int(relu))
+    _count_split(instance_norm_apply, x)
+    return y
+
+
+def instance_norm_bwd_partial_sums(x, dy, mean, rstd, scale, shift, *,
+                                   relu: bool = False):
+    """K2-split, first launch
+    (:func:`instance_norm_bwd_partial_sums_plain`)."""
+    _check_x(x)
+    n, h, w, c = x.shape
+    _check_affine(scale, shift, n, c, x.device)
+    dy = dy.contiguous()
+    if not x.is_cuda:
+        return instance_norm_bwd_partial_sums_plain(
+            x, dy, mean, rstd, scale, shift, relu=relu)
+    _check_launchable(x, "partial-sums")
+    scale, shift, stride = _affine_pointers(scale, shift, c)
+    mean, rstd = mean.contiguous(), rstd.contiguous()
+    sum_g = torch.empty((n, c), dtype=torch.float32, device=x.device)
+    sum_gx = torch.empty_like(sum_g)
+    vec, tx = _split_geometry(x, dy)
+    _split_launch(x, "instance_norm_bwd_partial_sums", _PSUMS_ARGTYPES,
+                  BWD_KERNEL_NAME, x.data_ptr(), dy.data_ptr(),
+                  mean.data_ptr(), rstd.data_ptr(), _ptr(scale), _ptr(shift),
+                  sum_g.data_ptr(), sum_gx.data_ptr(), n, h * w, c, stride,
+                  _DTYPE_CODE[x.dtype], vec, tx, int(relu))
+    _count_split(instance_norm_bwd_partial_sums, x)
+    return sum_g, sum_gx
+
+
+def instance_norm_bwd_apply_dx(x, dy, mean, rstd, scale, shift, sum_g,
+                               sum_gx, hw_total: int, *,
+                               unbiased: bool = False, relu: bool = False):
+    """K2-split, second launch (:func:`instance_norm_bwd_apply_dx_plain`)."""
+    _check_x(x)
+    n, h, w, c = x.shape
+    _check_affine(scale, shift, n, c, x.device)
+    dy = dy.contiguous()
+    if not x.is_cuda:
+        return instance_norm_bwd_apply_dx_plain(
+            x, dy, mean, rstd, scale, shift, sum_g, sum_gx, hw_total,
+            unbiased=unbiased, relu=relu)
+    _check_launchable(x, "apply-dx")
+    scale, shift, stride = _affine_pointers(scale, shift, c)
+    mean, rstd = mean.contiguous(), rstd.contiguous()
+    sum_g, sum_gx = sum_g.contiguous(), sum_gx.contiguous()
+    dx = torch.empty_like(x)
+    vec, tx = _split_geometry(x, dy, dx)
+    _split_launch(x, "instance_norm_bwd_apply_dx", _APPLY_DX_ARGTYPES,
+                  BWD_KERNEL_NAME, x.data_ptr(), dy.data_ptr(),
+                  mean.data_ptr(), rstd.data_ptr(), _ptr(scale), _ptr(shift),
+                  sum_g.data_ptr(), sum_gx.data_ptr(), dx.data_ptr(), n,
+                  h * w, c, int(hw_total), stride, _DTYPE_CODE[x.dtype], vec,
+                  tx, int(unbiased), int(relu))
+    _count_split(instance_norm_bwd_apply_dx, x)
+    return dx
+
+
+SPLIT_WRAPPERS = (instance_norm_partial_stats, instance_norm_apply,
+                  instance_norm_bwd_partial_sums, instance_norm_bwd_apply_dx)
+for _w in SPLIT_WRAPPERS:
+    _w.launches = 0
+    _w.launches_by_shape = {}
+
+class _InstanceNormSplit(torch.autograd.Function):
+    """K1-split and K2-split behind one autograd node.  ``reducer`` does the
+    collectives between the launches: ``combine(mean, m2, rows)`` returns
+    the global (mean, M2, rows) of the slices' statistics, ``sum_(t)`` sums
+    a tensor over the slices.  The backward's dx comes from the global
+    sums; dscale and dshift are this slice's share (its rows' sums), which
+    the caller's gradient reduction adds up.  ``plain`` runs the plain
+    twins."""
+
+    @staticmethod
+    def forward(ctx, x, scale, shift, eps, unbiased, relu, reducer, plain):
+        n, h, w, c = x.shape
+        if plain:
+            mean_l, m2_l = instance_norm_partial_stats_plain(x)
+        else:
+            mean_l, m2_l = instance_norm_partial_stats(x)
+        mean, m2, rows = reducer.combine(mean_l, m2_l, h * w)
+        correction = rows / max(rows - 1, 1) if unbiased else 1.0
+        rstd = torch.rsqrt(m2 / float(rows) * correction + eps)
+        apply = instance_norm_apply_plain if plain else instance_norm_apply
+        y = apply(x, mean, rstd, scale, shift, relu=relu)
+        ctx.save_for_backward(x, mean, rstd, scale, shift)
+        ctx.unbiased, ctx.relu, ctx.rows = unbiased, relu, rows
+        ctx.reducer, ctx.plain = reducer, plain
+        ctx.mark_non_differentiable(mean, rstd)
+        return y, mean, rstd
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, dy, _dmean, _drstd):
+        x, mean, rstd, scale, shift = ctx.saved_tensors
+        dy = dy.contiguous()
+        if ctx.plain:
+            sums, dx_fn = instance_norm_bwd_partial_sums_plain, \
+                instance_norm_bwd_apply_dx_plain
+        else:
+            sums, dx_fn = instance_norm_bwd_partial_sums, \
+                instance_norm_bwd_apply_dx
+        sum_g, sum_gx = sums(x, dy, mean, rstd, scale, shift, relu=ctx.relu)
+        total = ctx.reducer.sum_(torch.stack([sum_g, sum_gx]))
+        dx = dx_fn(x, dy, mean, rstd, scale, shift, total[0], total[1],
+                   ctx.rows, unbiased=ctx.unbiased, relu=ctx.relu)
+        dscale = dshift = None
+        if scale is not None:
+            dscale, dshift = sum_gx, sum_g
+            if scale.dim() == 1:
+                dscale, dshift = dscale.sum(0), dshift.sum(0)
+            dscale, dshift = dscale.to(scale.dtype), dshift.to(shift.dtype)
+        if not ctx.needs_input_grad[0]:
+            dx = None
+        return dx, dscale, dshift, None, None, None, None, None
+
+
+def instance_norm_split(x: torch.Tensor, scale, shift, reducer, *,
+                        eps: float = 1e-5, unbiased: bool = False,
+                        relu: bool = False, plain: bool = False):
+    """Instance norm of this slice's rows of an NHWC activation whose rows
+    are spread over ranks (``reducer``: the collectives over them, as
+    :class:`_InstanceNormSplit` takes them); differentiable in x, scale and
+    shift.  Returns y."""
+    _check_x(x)
+    n, _, _, c = x.shape
+    _check_affine(scale, shift, n, c, x.device)
+    with _count_lock:
+        key = (n, x.shape[1] * x.shape[2], c)
+        by = instance_norm_split.calls_by_shape
+        by[key] = by.get(key, 0) + 1
+    y, _, _ = _InstanceNormSplit.apply(x, scale, shift, float(eps),
+                                       bool(unbiased), bool(relu), reducer,
+                                       bool(plain))
+    return y
+
+
+# norms computed in split form in this process by (N, HW, C) of the slice
+# (either device; the kernels' launches are counted by their own wrappers)
+instance_norm_split.calls_by_shape = {}

@@ -94,7 +94,8 @@ def global_norm(tensors: Sequence[torch.Tensor]) -> torch.Tensor:
     return torch.linalg.vector_norm(torch.stack(norms))
 
 
-def clip_grads_torchlike(grads: Sequence[torch.Tensor], max_norm: float
+def clip_grads_torchlike(grads: Sequence[torch.Tensor], max_norm: float,
+                         norm: Optional[torch.Tensor] = None
                          ) -> Tuple[List[torch.Tensor], torch.Tensor]:
     """Global-norm clipping of one network's gradients: scale by
     ``max_norm / (norm + 1e-6)`` only when the norm exceeds ``max_norm``.
@@ -103,10 +104,12 @@ def clip_grads_torchlike(grads: Sequence[torch.Tensor], max_norm: float
     This is the old ``clip_grad_norm`` rule the upstream model was written
     against; ``torch.nn.utils.clip_grad_norm_`` clamps the coefficient
     instead, which scales by 1 / (1 + 1e-6 / max) just below the threshold.
-    The decision stays on the device: no value is read back.
+    The decision stays on the device: no value is read back.  ``norm``:
+    the gradient's global norm where the caller has it, else computed here.
     """
     grads = list(grads)
-    norm = global_norm(grads)
+    if norm is None:
+        norm = global_norm(grads)
     if not grads:
         return grads, norm
     scale = torch.where(norm > max_norm, max_norm / (norm + 1e-6),

@@ -16,14 +16,21 @@ process, joined by ``torch.distributed``:
   ranks on one device).  Nothing retries with another backend, and nothing
   moves to the CPU;
 - the collectives (:func:`all_reduce_`, :func:`all_gather_cat`,
-  :func:`all_reduce_sum`, the differentiable one batch norm uses) take
-  device tensors; under gloo a CUDA tensor goes through a host copy;
-- :func:`sharded` marks the code that computes on this rank's slice of a
-  global batch (``parallel.mesh.DataParallel`` enters it): there batch
-  norm takes global statistics, dropout masks and pool draws are the
-  rank's slice of the full batch's, gradients are averaged over ranks
-  (``models/steps.py``).  Outside it (one process, or a batch computed
-  whole on every rank) nothing communicates.
+  :func:`broadcast_`, the point-to-point :func:`exchange`) take device
+  tensors and an :class:`Axis` (a line of ``parallel.mesh.Mesh``; default:
+  every rank); under gloo a CUDA tensor goes through a host copy.  The
+  differentiable ones: :func:`all_reduce_sum` (batch norm's statistics),
+  :func:`gather_dim` (an all-gather along a dimension whose backward hands
+  each rank its part's gradient) and :func:`copy_to` (the identity whose
+  backward sums over an axis: a channel-sliced layer's input);
+- :func:`sharded` marks the code that computes on this rank's part of a
+  global batch (``parallel.mesh.DataParallel`` enters it with its mesh):
+  there batch norm takes global statistics, dropout masks and pool draws
+  are the rank's part of the full batch's, gradients are averaged over
+  ranks (``models/steps.py``), and under a space axis the networks slice
+  their images by rows (``parallel/hints.py``).  Outside it (one process,
+  or a batch computed whole on every rank) nothing communicates, except a
+  layer whose weight a model axis slices.
 
 ``process_count`` / ``is_primary`` / ``to_host`` / ``to_host_tree`` are the
 JAX module's helpers: the primary rank owns the artifact directory,
@@ -37,7 +44,7 @@ import datetime
 import os
 import socket
 import time
-from typing import List, Optional, Sequence, Tuple
+from typing import List, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -46,8 +53,10 @@ import torch.distributed as dist
 __all__ = ["initialize", "is_primary", "process_count", "process_index",
            "to_host", "to_host_tree", "choose_backend", "ranks_per_host",
            "local_rank", "check_spec", "free_port", "sharded", "shard_info",
-           "all_reduce_", "all_reduce_sum", "all_gather_cat",
-           "all_reduce_mean_list", "local_rows", "shutdown"]
+           "scope", "all_reduce_", "all_reduce_sum", "all_gather_cat",
+           "all_reduce_mean_list", "local_rows", "shutdown", "Axis",
+           "world_axis", "all_gather_list", "broadcast_", "exchange",
+           "gather_dim", "copy_to"]
 
 _LOOPBACK = ("127.0.0.1", "localhost", "::1", "[::1]")
 # seconds any collective may wait for the other ranks before it raises
@@ -151,39 +160,89 @@ def is_primary() -> bool:
 # where the code computes on this rank's slice of a global batch
 # ---------------------------------------------------------------------------
 
-# module state on purpose: the process group it qualifies is global to the
-# process, and the batch norms and dropout masks that read it sit deep
-# inside the networks, where no argument reaches
-_SHARDED = [False]
+
+class Axis(NamedTuple):
+    """One line of the rank mesh through this rank: the global ranks along
+    it in order, this rank's place among them, and its process group (None:
+    the default group, which is the whole world)."""
+
+    ranks: Tuple[int, ...]
+    index: int
+    pg: object = None
+
+    @property
+    def size(self) -> int:
+        return len(self.ranks)
+
+    def peer(self, index: int) -> int:
+        """The global rank at ``index`` along this line."""
+        return self.ranks[index]
+
+
+def world_axis() -> Axis:
+    """Every rank, in rank order (the default group)."""
+    return Axis(tuple(range(process_count())), process_index(), None)
+
+
+class _Scope:
+    """What the code deep inside the networks reads of the step it runs
+    in: ``mesh`` (the layout, inside :func:`sharded`), ``engine`` (the
+    pipeline of a train step, ``parallel/pipeline.py``) and ``rows`` (the
+    space axis while the current network's activation is this rank's rows,
+    ``parallel/spatial.py``).  Module state on purpose: the process group
+    it qualifies is global to the process, and the batch norms, dropout
+    masks, convolutions and trunks that read it sit where no argument
+    reaches."""
+
+    __slots__ = ("mesh", "engine", "rows")
+
+    def __init__(self):
+        self.mesh = self.engine = self.rows = None
+
+
+_SCOPE = _Scope()
+
+
+def scope() -> _Scope:
+    return _SCOPE
 
 
 @contextlib.contextmanager
-def sharded():
-    """Inside: batch-coupled operations act on the global batch."""
-    prev = _SHARDED[0]
-    _SHARDED[0] = process_count() > 1
+def sharded(mesh=None, engine=None):
+    """Inside: this rank computes its part of a global batch as ``mesh``
+    (``parallel.mesh.Mesh``) lays it out: batch-coupled operations act on
+    the global batch, images are sliced by rows over a space axis, and the
+    generators' trunks run as a pipeline on ``engine`` (a train step's).
+    A no-op with one rank or without a mesh."""
+    prev = (_SCOPE.mesh, _SCOPE.engine, _SCOPE.rows)
+    many = process_count() > 1
+    _SCOPE.mesh = mesh if many else None
+    _SCOPE.engine = engine if many else None
+    _SCOPE.rows = None
     try:
         yield
     finally:
-        _SHARDED[0] = prev
+        _SCOPE.mesh, _SCOPE.engine, _SCOPE.rows = prev
 
 
-def shard_info() -> Optional[Tuple[int, int]]:
-    """(rank, world) inside :func:`sharded` with more than one rank, else
-    None."""
-    if not _SHARDED[0]:
-        return None
-    return process_index(), process_count()
+def shard_info():
+    """The layout inside :func:`sharded` with more than one rank (an object
+    with ``batch``, ``space``, ``model``, ``pipe`` and ``replica`` axes),
+    else None."""
+    return _SCOPE.mesh
 
 
-def local_rows(x: torch.Tensor, rank: int, world: int) -> torch.Tensor:
-    """Rank ``rank``'s contiguous slice of axis 0 (the JAX sharding);
-    the length must divide by ``world``."""
-    n = x.shape[0] // world
-    if n * world != x.shape[0]:
-        raise ValueError("a batch of %d does not divide over %d ranks"
-                         % (x.shape[0], world))
-    return x[rank * n:(rank + 1) * n]
+def local_rows(x: torch.Tensor, rank: int, world: int,
+               dim: int = 0) -> torch.Tensor:
+    """Part ``rank`` of ``world`` contiguous parts of ``x`` along ``dim``
+    (axis 0: the JAX batch sharding); the length must divide by
+    ``world``."""
+    n = x.shape[dim] // world
+    if n * world != x.shape[dim]:
+        raise ValueError("a %s of %d does not divide over %d ranks"
+                         % ("batch" if dim == 0 else "dimension %d" % dim,
+                            x.shape[dim], world))
+    return x.narrow(dim, rank * n, n)
 
 
 # ---------------------------------------------------------------------------
@@ -212,46 +271,117 @@ def _timed(t: torch.Tensor):
         collective_seconds[0] += time.perf_counter() - start
 
 
-def _staged(t: torch.Tensor) -> bool:
+def _axis(axis: Optional[Axis]) -> Axis:
+    return world_axis() if axis is None else axis
+
+
+def _staged(t: torch.Tensor, axis: Optional[Axis] = None) -> bool:
     """Whether ``t`` must go through the host (gloo with a CUDA tensor)."""
-    return t.is_cuda and dist.get_backend() == "gloo"
+    pg = None if axis is None else axis.pg
+    return t.is_cuda and dist.get_backend(pg) == "gloo"
 
 
-def all_reduce_(t: torch.Tensor, op=dist.ReduceOp.SUM) -> torch.Tensor:
-    """In place over every rank; returns ``t``."""
+def all_reduce_(t: torch.Tensor, op=dist.ReduceOp.SUM,
+                axis: Optional[Axis] = None) -> torch.Tensor:
+    """In place over the ranks of ``axis`` (default: every rank); returns
+    ``t``."""
+    axis = _axis(axis)
+    if axis.size == 1:
+        return t
     with _timed(t):
-        if _staged(t):
+        if _staged(t, axis):
             host = t.cpu()
-            dist.all_reduce(host, op=op)
+            dist.all_reduce(host, op=op, group=axis.pg)
             t.copy_(host)
         else:
-            dist.all_reduce(t, op=op)
+            dist.all_reduce(t, op=op, group=axis.pg)
     return t
 
 
-def all_gather_cat(x: torch.Tensor) -> torch.Tensor:
-    """Every rank's ``x`` (equal shapes) concatenated along axis 0, in rank
-    order, on every rank."""
+def all_gather_list(x: torch.Tensor,
+                    axis: Optional[Axis] = None) -> List[torch.Tensor]:
+    """Every rank's ``x`` (equal shapes) along ``axis``, in its order."""
+    axis = _axis(axis)
     x = x.contiguous()
-    world = process_count()
+    if axis.size == 1:
+        return [x]
     with _timed(x):
-        if _staged(x):
-            parts = [torch.empty_like(x, device="cpu") for _ in range(world)]
-            dist.all_gather(parts, x.cpu())
-            return torch.cat(parts).to(x.device)
-        out = torch.empty((world * x.shape[0],) + tuple(x.shape[1:]),
-                          dtype=x.dtype, device=x.device)
-        dist.all_gather_into_tensor(out, x)
-        return out
+        staged = _staged(x, axis)
+        src = x.cpu() if staged else x
+        parts = [torch.empty_like(src) for _ in range(axis.size)]
+        dist.all_gather(parts, src, group=axis.pg)
+        if staged:
+            parts = [p.to(x.device) for p in parts]
+        return parts
 
 
-def all_reduce_mean_list(tensors: Sequence[torch.Tensor]
-                         ) -> List[torch.Tensor]:
-    """The mean over ranks of each tensor, in ONE flat all-reduce."""
+def all_gather_cat(x: torch.Tensor, axis: Optional[Axis] = None,
+                   dim: int = 0) -> torch.Tensor:
+    """Every rank's ``x`` (equal shapes) concatenated along ``dim``, in the
+    order of ``axis`` (default: every rank), on every rank."""
+    parts = all_gather_list(x, axis)
+    return parts[0] if len(parts) == 1 else torch.cat(parts, dim=dim)
+
+
+def broadcast_(t: torch.Tensor, src: int,
+               axis: Optional[Axis] = None) -> torch.Tensor:
+    """``t`` of the rank at place ``src`` of ``axis``, in place on every
+    rank of it; returns ``t``."""
+    axis = _axis(axis)
+    if axis.size == 1:
+        return t
+    with _timed(t):
+        if _staged(t, axis):
+            host = t.cpu()
+            dist.broadcast(host, src=axis.peer(src), group=axis.pg)
+            t.copy_(host)
+        else:
+            dist.broadcast(t, src=axis.peer(src), group=axis.pg)
+    return t
+
+
+def exchange(sends, recvs, axis: Axis) -> None:
+    """Point to point along ``axis``: ``sends`` maps a place on the axis to
+    the tensor this rank sends it, ``recvs`` a place to the tensor this rank
+    receives from it (filled in place).  Every send and receive is posted
+    before any is waited on, so a ring of neighbours cannot deadlock; the
+    two sides of a pair must name each other."""
+    if not sends and not recvs:
+        return
+    any_t = next(iter(list(sends.values()) + list(recvs.values())))
+    with _timed(any_t):
+        staged = _staged(any_t, axis)
+        out = {k: (v.new_empty(v.shape, device="cpu") if staged else v)
+               for k, v in recvs.items()}
+        src = {k: (v.detach().contiguous().cpu() if staged
+                   else v.detach().contiguous()) for k, v in sends.items()}
+        if not staged and dist.get_backend(axis.pg) == "nccl":
+            ops = [dist.P2POp(dist.irecv, t, axis.peer(k), axis.pg)
+                   for k, t in out.items()]
+            ops += [dist.P2POp(dist.isend, t, axis.peer(k), axis.pg)
+                    for k, t in src.items()]
+            works = dist.batch_isend_irecv(ops)
+        else:
+            works = [dist.irecv(t, axis.peer(k), group=axis.pg)
+                     for k, t in out.items()]
+            works += [dist.isend(t, axis.peer(k), group=axis.pg)
+                      for k, t in src.items()]
+        for w in works:
+            w.wait()
+        if staged:
+            for k, t in recvs.items():
+                t.copy_(out[k])
+
+
+def all_reduce_mean_list(tensors: Sequence[torch.Tensor],
+                         axis: Optional[Axis] = None) -> List[torch.Tensor]:
+    """The mean over the ranks of ``axis`` (default: every rank) of each
+    tensor, in ONE flat all-reduce."""
     tensors = list(tensors)
+    axis = _axis(axis)
     flat = torch.cat([t.reshape(-1) for t in tensors])
-    all_reduce_(flat)
-    flat.div_(process_count())
+    all_reduce_(flat, axis=axis)
+    flat.div_(axis.size)
     out, i = [], 0
     for t in tensors:
         out.append(flat[i:i + t.numel()].view_as(t))
@@ -264,17 +394,71 @@ class _AllReduceSum(torch.autograd.Function):
     (each rank differentiates its own loss; their gradients meet here)."""
 
     @staticmethod
-    def forward(ctx, x):
-        return all_reduce_(x.clone())
+    def forward(ctx, x, axis):
+        ctx.axis = axis
+        return all_reduce_(x.clone(), axis=axis)
 
     @staticmethod
     def backward(ctx, g):
-        return all_reduce_(g.contiguous().clone())
+        return all_reduce_(g.contiguous().clone(), axis=ctx.axis), None
 
 
-def all_reduce_sum(x: torch.Tensor) -> torch.Tensor:
-    """The sum of ``x`` over ranks, differentiable."""
-    return _AllReduceSum.apply(x)
+def all_reduce_sum(x: torch.Tensor,
+                   axis: Optional[Axis] = None) -> torch.Tensor:
+    """The sum of ``x`` over the ranks of ``axis`` (default: every rank),
+    differentiable."""
+    return _AllReduceSum.apply(x, axis)
+
+
+class _GatherDim(torch.autograd.Function):
+    """All-gather along ``dim``; the backward hands each rank the gradient
+    of its own part: summed over the ranks first where each rank's
+    gradient is a share of the whole (``summed``), taken as it is where
+    every rank holds the whole gradient already."""
+
+    @staticmethod
+    def forward(ctx, x, axis, dim, summed):
+        ctx.axis, ctx.dim, ctx.summed = axis, dim, summed
+        ctx.n = x.shape[dim]
+        return all_gather_cat(x, axis, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        g = g.contiguous()
+        if ctx.summed:
+            g = all_reduce_(g.clone(), axis=ctx.axis)
+        return (g.narrow(ctx.dim, ctx.axis.index * ctx.n, ctx.n),
+                None, None, None)
+
+
+def gather_dim(x: torch.Tensor, axis: Axis, dim: int,
+               summed: bool = True) -> torch.Tensor:
+    """Every rank's ``x`` along ``axis`` concatenated along ``dim``,
+    differentiable (:class:`_GatherDim`)."""
+    if axis.size == 1:
+        return x
+    return _GatherDim.apply(x, axis, dim, summed)
+
+
+class _CopyTo(torch.autograd.Function):
+    """The identity, whose backward sums the gradient over the ranks of
+    ``axis``: the input of a layer whose ranks each compute a part of its
+    output from all of it."""
+
+    @staticmethod
+    def forward(ctx, x, axis):
+        ctx.axis = axis
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return all_reduce_(g.contiguous().clone(), axis=ctx.axis), None
+
+
+def copy_to(x: torch.Tensor, axis: Axis) -> torch.Tensor:
+    if axis.size == 1:
+        return x
+    return _CopyTo.apply(x, axis)
 
 
 def to_host(x) -> np.ndarray:
@@ -282,8 +466,9 @@ def to_host(x) -> np.ndarray:
     numpy on every rank; a numpy array or a replicated tensor outside
     :func:`sharded` comes back as it is."""
     if isinstance(x, torch.Tensor):
-        if shard_info() is not None:
-            x = all_gather_cat(x)
+        mesh = shard_info()
+        if mesh is not None:
+            x = all_gather_cat(x, mesh.batch)
         return x.detach().cpu().numpy()
     return np.asarray(x)
 

@@ -1,15 +1,26 @@
-"""Data parallelism held against one process, on any device.
+"""Training over a mesh of ranks held against one process, on any device.
 
 Runs the same jobs (a few train steps of a configuration, or the sharded
 evaluation) once in this process on the full batch and once over ``world``
 ranks, each rank a process started with ``spawn`` that computes on its
-slice through ``parallel.DataParallel``, and compares them: losses and
+part through ``parallel.DataParallel``, and compares them: losses and
 gradient norms per step, every parameter and running statistic after the
 last step, the pools and EMA shadows, the evaluation's numbers.  The ranks
 must also agree with each other bit for bit (one all-reduced gradient, one
 update).  Every job's weights, inputs and noise come from its seed.
 
+``JOBS`` are data-parallel over any world; ``MESH_JOBS`` lay their ranks
+out as a ``data x space x model x pipe`` mesh (``--spatial``, ``--tensor``,
+``--pipeline``, ``--microbatches`` in the job's flags) and name the world
+they take: ``pp*`` the GPipe trunks (M = S and M = 2S, the stoch and
+supervised steps, EMA, the unpipelined evaluation), ``sp*`` the row slices,
+``tp*`` the channel slices, ``dp_*`` / ``sp_tp`` two axes over 4 ranks.
+
     python -m domain_transfer_gan_torch.parallel.selfcheck --device cpu
+    python -m domain_transfer_gan_torch.parallel.selfcheck --device cpu \\
+        --jobs pp,pp_m4,sp,tp,pp_eval,sp_eval,tp_eval
+    python -m domain_transfer_gan_torch.parallel.selfcheck --device cpu \\
+        --world 4 --jobs dp_pp,dp_pp_m4,dp_sp,dp_tp,sp_tp
     python -m domain_transfer_gan_torch.parallel.selfcheck --device cuda \\
         --width full --jobs aug,norm_batch,pool
 
@@ -33,7 +44,7 @@ from typing import Dict, List, Optional
 import numpy as np
 import torch
 
-from . import multihost
+from . import multihost, pipeline
 
 TINY = dict(ngf=4, nef=4, ndf=4, nlatent=8, n_blocks=3)
 FULL = dict(ngf=32, nef=32, ndf=64, nlatent=16, n_blocks=3)
@@ -52,6 +63,35 @@ JOBS = {
     "batch_norm": ({"norm": "batch"}, 4, 1, "norm"),
 }
 
+_PP = {"n_blocks": 4, "pipeline": 2}
+# name -> (config flags, batch, steps, kind, world): jobs over a mesh
+MESH_JOBS = {
+    "pp": (_PP, 8, 2, "main", 2),
+    "pp_m4": (dict(_PP, microbatches=4), 8, 2, "main", 2),
+    "pp_stoch": (dict(_PP, model="stoch_cycle_gan"), 8, 2, "main", 2),
+    "pp_sup": (_PP, 8, 2, "sup", 2),
+    "pp_ema": (dict(_PP, ema=0.9), 8, 2, "main", 2),
+    "pp_eval": (_PP, 8, 3, "eval", 2),
+    "sp": ({"spatial": 2}, 4, 2, "main", 2),
+    "sp_eval": ({"spatial": 2}, 4, 3, "eval", 2),
+    "tp": ({"tensor": 2}, 4, 2, "main", 2),
+    "tp_eval": ({"tensor": 2}, 4, 3, "eval", 2),
+    "tp_ema": ({"tensor": 2, "ema": 0.9}, 4, 2, "main", 2),
+    "dp_pp": (_PP, 8, 2, "main", 4),
+    "dp_pp_m4": (dict(_PP, microbatches=4), 8, 2, "main", 4),
+    "dp_sp": ({"spatial": 2}, 4, 2, "main", 4),
+    "dp_tp": ({"tensor": 2}, 4, 2, "main", 4),
+    "sp_tp": ({"spatial": 2, "tensor": 2}, 4, 2, "main", 4),
+}
+
+
+def _job(name: str):
+    """(flags, batch, steps, kind) of a job of either table."""
+    if name in JOBS:
+        return JOBS[name]
+    return MESH_JOBS[name][:4]
+
+
 # (step-1 losses, step-1 gnorms, later steps' losses, later gnorms),
 # relative, as phase 5 of chip_smoke.py holds its twins; the CPU's are
 # tighter (the same float32 code, other summation orders only)
@@ -66,6 +106,9 @@ BN_RTOL = 1e-5
 # chip_smoke.py holds the kernels against the plain norms so)
 UBO_RTOL = (1e-5, 1e-3)
 LR = 2e-4  # the jobs' Adam learning rate (the configs' default)
+# the EMA shadows' difference, relative L2, over their displacement from
+# the start (:func:`hold_shadows`)
+EMA_DISP_RTOL = 0.3
 
 
 def job_config(name: str, width=TINY, device="cpu", batch=None,
@@ -73,7 +116,7 @@ def job_config(name: str, width=TINY, device="cpu", batch=None,
     """The ``TrainConfig`` of job ``name``."""
     from ..config import TrainConfig
 
-    flags, default_batch, _, _ = JOBS[name]
+    flags, default_batch, _, _ = _job(name)
     cfg = dict(model="aug_cycle_gan", grid_size=64, init_scheme="sane",
                monitor_gnorm=True, seed=seed, device=str(device),
                batchSize=batch or default_batch,
@@ -100,13 +143,30 @@ def _launch_counts(what="launches_by_shape"):
             "bwd": dict(getattr(instance_norm_bwd_fused, what))}
 
 
+def _split_counts():
+    from ..ops.kernels.instance_norm import SPLIT_WRAPPERS
+    return {w.__name__: dict(w.launches_by_shape) for w in SPLIT_WRAPPERS}
+
+
+def _split_norms():
+    """The split norms of this process by (N, HW, C)."""
+    from ..ops.kernels.instance_norm import instance_norm_split
+    return dict(instance_norm_split.calls_by_shape)
+
+
 def _reset_counts():
-    from ..ops.kernels.instance_norm import (instance_norm_bwd_fused,
-                                             instance_norm_fused)
+    from ..ops.kernels.instance_norm import (SPLIT_WRAPPERS,
+                                             instance_norm_bwd_fused,
+                                             instance_norm_fused,
+                                             instance_norm_split)
     for w in (instance_norm_fused, instance_norm_bwd_fused):
         w.launches = 0
         w.launches_by_shape = {}
         w.launches_by_variant = {}
+    for w in SPLIT_WRAPPERS:
+        w.launches = 0
+        w.launches_by_shape = {}
+    instance_norm_split.calls_by_shape = {}
 
 
 def _floats(d) -> Dict[str, float]:
@@ -123,9 +183,11 @@ def _norm_pass(model, A, B) -> dict:
     the loss, the gradients and the running statistics it leaves."""
     nets = model.state.nets
     sharded = multihost.process_count() > 1
+    scope = contextlib.nullcontext()
     if sharded:
-        A, B = model.local_rows(A), model.local_rows(B)
-    with multihost.sharded():
+        A, B = model.local_image(A), model.local_image(B)
+        scope = model.sharded()
+    with scope:
         params = [p for k in ("netG_B_A", "netE_B")
                   for p in nets[k].parameters()]
         mu, logvar = nets["netE_B"](torch.cat([A, B], dim=-1))
@@ -152,19 +214,34 @@ def _sync(device):
         torch.cuda.synchronize(device)
 
 
+def _whole_grads(net, grads):
+    """A net's gradients as one process holds them: the slices a model axis
+    holds gathered over it."""
+    from .mesh import slices_of
+
+    sliced = slices_of(net)
+    if sliced is None:
+        return list(grads)
+    axis, dims = sliced
+    return [g if d is None else multihost.all_gather_cat(
+        g.contiguous(), axis, d) for g, d in zip(grads, dims.values())]
+
+
 @contextlib.contextmanager
 def _recording_grads(state, seen):
     """Record the gradients every network's update applies (after the
-    mean over ranks), per step, as numpy: ``seen[net]`` is a list with one
-    list of arrays per update."""
+    mean over ranks; whole under a model axis), per step, as numpy:
+    ``seen[net]`` is a list with one list of arrays per update."""
     from ..models import steps as steps_mod
 
     orig = steps_mod.apply_net_update
     names = {id(s): k for k, s in state.opt_state.items()}
 
     def recording(params, opt, grads, *a, **kw):
-        seen.setdefault(names[id(opt)], []).append(
-            [g.detach().float().cpu().numpy() for g in grads])
+        name = names[id(opt)]
+        seen.setdefault(name, []).append(
+            [g.detach().float().cpu().numpy()
+             for g in _whole_grads(state.nets[name], grads)])
         return orig(params, opt, grads, *a, **kw)
 
     steps_mod.apply_net_update = recording
@@ -172,6 +249,22 @@ def _recording_grads(state, seen):
         yield seen
     finally:
         steps_mod.apply_net_update = orig
+
+
+def _whole(model):
+    """A context in which a model over a mesh holds one process's tensors
+    (``DataParallel._whole``)."""
+    from .mesh import DataParallel
+
+    if isinstance(model, DataParallel):
+        return model._whole()
+    return contextlib.nullcontext()
+
+
+def _shadows(state):
+    """The EMA shadows as numpy copies (the updates are in place)."""
+    return {k: [t.detach().cpu().numpy().copy() for t in v]
+            for k, v in state.ema.items()}
 
 
 def run_job(name: str, device="cpu", width=TINY, batch=None, steps=None,
@@ -187,9 +280,9 @@ def run_job(name: str, device="cpu", width=TINY, batch=None, steps=None,
     update too."""
     from ..eval.metrics import eval_mse_A, variational_ubo
     from ..models import create_model
-    from .mesh import DataParallel
+    from .mesh import DataParallel, state_bytes
 
-    _, _, default_steps, kind = JOBS[name]
+    _, _, default_steps, kind = _job(name)
     cfg = job_config(name, width, device, batch, compute_dtype, seed,
                      **extra)
     steps = steps or default_steps
@@ -200,12 +293,17 @@ def run_job(name: str, device="cpu", width=TINY, batch=None, steps=None,
     if ckpt is not None:
         model.load(ckpt)
     if multihost.process_count() > 1:
-        model = DataParallel(model)
+        model = DataParallel(model, spatial=cfg.spatial, tensor=cfg.tensor,
+                             pipeline=cfg.pipeline,
+                             microbatches=cfg.microbatches)
     A, B, zs = _inputs(seed + 1, cfg.batchSize, cfg.nlatent, steps)
     A, B = model._tensor(A), model._tensor(B)
-    out = {"steps": [], "ms": []}
+    out = {"steps": [], "ms": [], "ema_decay": cfg.ema}
+    with _whole(model):  # the shadows' start, to hold their displacement
+        out["ema_start"] = _shadows(model.state)
     _sync(device)
     _reset_counts()
+    pipeline.trunk_runs[0] = 0
     multihost.collective_seconds[0] = 0.0
     multihost.timing[0] = torch.device(device).type == "cuda"
     seen = {}
@@ -242,25 +340,33 @@ def run_job(name: str, device="cpu", width=TINY, batch=None, steps=None,
             if "stats1" not in out:
                 out["stats1"] = _running_stats(model.state.nets)
     out["grads"] = seen
+    out["norm"] = cfg.norm
     out["param_names"] = {k: [n for n, _ in net.named_parameters()]
                           for k, net in model.state.nets.items()}
     out["collective_s"] = multihost.collective_seconds[0]
     out["launches"] = _launch_counts()
     out["launches_by_variant"] = _launch_counts("launches_by_variant")
+    out["split_launches"] = _split_counts()
+    out["trunk_runs"] = pipeline.trunk_runs[0]
+    out["split_shapes"] = _split_norms()
+    out["split_norms"] = sum(out["split_shapes"].values())
     state = model.state
-    out["state"] = {k: {n: v.detach().float().cpu().numpy()
-                        for n, v in net.state_dict().items()}
-                    for k, net in state.nets.items()}
+    out["bytes_held"] = state_bytes(state)
+    with _whole(model):  # one process's tensors under a model axis
+        out["state"] = {k: {n: v.detach().float().cpu().numpy()
+                            for n, v in net.state_dict().items()}
+                        for k, net in state.nets.items()}
+        out["ema"] = _shadows(state)
+        out["moments"] = {k: [t.cpu().numpy() for t in s.mu + s.nu]
+                          for k, s in state.opt_state.items()}
     out["pools"] = {k: (p.buf.cpu().numpy(), p.n)
                     for k, p in state.pools.items()}
-    out["ema"] = {k: [t.cpu().numpy() for t in v]
-                  for k, v in state.ema.items()}
     out["counts"] = {k: s.count for k, s in state.opt_state.items()}
     return out
 
 
 def _rank_main(rank: int, world: int, coordinator: str, backend: str,
-               device: str, jobs: List[dict], out_dir: str) -> None:
+               device: str, target, args, out_dir: str) -> None:
     dev = torch.device(device)
     if dev.type == "cuda":
         n = torch.cuda.device_count()
@@ -269,12 +375,16 @@ def _rank_main(rank: int, world: int, coordinator: str, backend: str,
             torch.cuda.set_device(dev)
     multihost.initialize(coordinator, world, rank, backend=backend)
     try:
-        results = [run_job(device=dev, **job) for job in jobs]
+        result = target(dev, *args)
         # every rank done (on the rank's device: NCCL takes no CPU tensor)
         multihost.all_reduce_(torch.zeros(1, device=dev))
     finally:
         multihost.shutdown()
-    torch.save(results, os.path.join(out_dir, "rank%d.pt" % rank))
+    torch.save(result, os.path.join(out_dir, "rank%d.pt" % rank))
+
+
+def _run_jobs(device, jobs):
+    return [run_job(device=device, **job) for job in jobs]
 
 
 def run_ranks(jobs: List[dict], world: int = 2, device: str = "cpu",
@@ -283,6 +393,18 @@ def run_ranks(jobs: List[dict], world: int = 2, device: str = "cpu",
     """Run ``jobs`` (keyword arguments of :func:`run_job`) over ``world``
     ranks in as many spawned processes; returns each rank's results.  The
     backend is chosen from the layout unless given."""
+    return run_rank_fn(_run_jobs, (jobs,), world, device, backend, timeout,
+                       env)
+
+
+def run_rank_fn(target, args=(), world: int = 2, device: str = "cpu",
+                backend: Optional[str] = None, timeout: float = 300.0,
+                env: Optional[Dict[str, str]] = None) -> list:
+    """``target(device, *args)`` on each of ``world`` ranks, each a spawned
+    process in the process group (``target`` must be importable by name);
+    returns each rank's result.  A rank still running after ``timeout``
+    seconds is killed, and so are the others; so is every rank once one
+    fails."""
     import torch.multiprocessing as mp
 
     dev = torch.device(device)
@@ -295,8 +417,8 @@ def run_ranks(jobs: List[dict], world: int = 2, device: str = "cpu",
     with tempfile.TemporaryDirectory() as out_dir:
         try:
             procs = [ctx.Process(target=_rank_main, args=(
-                r, world, coordinator, backend, device, jobs, out_dir))
-                for r in range(world)]
+                r, world, coordinator, backend, device, target, args,
+                out_dir)) for r in range(world)]
             for p in procs:
                 p.start()
         finally:
@@ -345,6 +467,39 @@ def _undetermined(single: dict, mine: dict, net: str):
     return out
 
 
+def hold_shadows(got, want, start, decay: float, steps: int,
+                 lr: float = LR) -> float:
+    """A net's EMA shadows (one array per parameter) against another run's
+    from the same start, by their displacement from ``start``: the
+    relative L2 of the difference over the displacement of ``want`` within
+    ``EMA_DISP_RTOL``, at most a tenth of the entries off by more than
+    (1 - decay) lr / 10 (the parameters' own share of ``compare``'s limit,
+    scaled by the shadow's weight on them), and none off by more than the
+    shadow of the parameters' bound (2 t lr after step t).  A shadow left
+    at its start reads 1 on the relative L2, one updated with decay and
+    1 - decay swapped about 5; where the parameters part by Adam's +-lr on
+    a few entries it reads about 0.1.  Raises AssertionError; returns the
+    relative L2."""
+    bound = 1.05 * (1 - decay) * sum(
+        decay ** (steps - t) * 2 * t * lr for t in range(1, steps + 1))
+    gap2 = moved2 = 0.0
+    off = total = 0
+    assert len(got) == len(want) == len(start)
+    for i, (g, w, s0) in enumerate(zip(got, want, start)):
+        assert g.shape == w.shape, ("shadow", i, g.shape, w.shape)
+        gap = np.abs(g - w)
+        assert gap.max() <= bound, ("shadow", i, float(gap.max()), bound)
+        gap2 += float(np.sum(np.square(gap)))
+        moved2 += float(np.sum(np.square(w - s0)))
+        off += int((gap > 0.1 * (1 - decay) * lr).sum())
+        total += gap.size
+    assert moved2 > 0.0, "the shadows never moved"
+    rel = float(np.sqrt(gap2 / moved2))
+    assert rel <= EMA_DISP_RTOL, ("shadow displacement", rel)
+    assert off <= 0.1 * total, ("shadow entries off", off, total)
+    return rel
+
+
 def _rel(a: float, b: float) -> float:
     return abs(a - b) / max(1.0, abs(b))
 
@@ -362,13 +517,14 @@ def compare(single: dict, ranks: List[dict], limits=LIMITS["cpu"],
     rounding puts them), with at most a tenth of each net's entries off by
     more than lr / 10, not counting, where both runs recorded their
     gradients, the entries whose gradient at some update was no larger than
-    the two runs' disagreement on it (its sign is not determined); pools
-    and Adam counts equal; the evaluation's MSE within ``limits[0]``, its
+    the two runs' disagreement on it (its sign is not determined); the EMA
+    shadows by their displacement from the start (:func:`hold_shadows`);
+    pools and Adam counts equal; the evaluation's MSE within ``limits[0]``, its
     bound after one RMSprop step and after the last within ``UBO_RTOL``
     (RMSprop's first update is lr * sign(g), so later iterates part where a
-    gradient entry sits at 0).  With ``params=False`` the parameters are not
-    held (a run that recorded no gradients).  Raises AssertionError;
-    returns the largest deviations seen."""
+    gradient entry sits at 0).  With ``params=False`` the parameters and
+    shadows are not held (a run that recorded no gradients).  Raises
+    AssertionError; returns the largest deviations seen."""
     lr, step_stats_rtol = LR, limits[2]
     first = ranks[0]
     for other in ranks[1:]:
@@ -444,6 +600,10 @@ def compare(single: dict, ranks: List[dict], limits=LIMITS["cpu"],
             off += int((d > 0.1 * lr).sum())
             total += d.size
         assert off <= 0.1 * max(total, 1), (net, off, total)
+    for net, want in single["ema"].items() if params else ():
+        worst["ema"] = max(worst.get("ema", 0.0), hold_shadows(
+            first["ema"][net], want, single["ema_start"][net],
+            single["ema_decay"], len(single["steps"]), lr))
     assert first["counts"] == single["counts"]
     for k, (buf, n) in single["pools"].items():
         # fakes of generators that Adam moved apart, per slot: a wrong slot
@@ -458,7 +618,8 @@ def compare(single: dict, ranks: List[dict], limits=LIMITS["cpu"],
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--device", default="cuda")
-    ap.add_argument("--world", type=int, default=2)
+    ap.add_argument("--world", type=int, default=0,
+                    help="ranks (default: the jobs' own world, 2 for JOBS)")
     ap.add_argument("--width", choices=["tiny", "full"], default="tiny")
     ap.add_argument("--jobs", default=",".join(JOBS))
     ap.add_argument("--batch", type=int, default=0,
@@ -468,9 +629,16 @@ def main(argv=None) -> int:
     ap.add_argument("--timeout", type=float, default=600.0)
     args = ap.parse_args(argv)
     width = FULL if args.width == "full" else TINY
+    names = args.jobs.split(",")
+    if not args.world:
+        worlds = {MESH_JOBS[n][4] if n in MESH_JOBS else 2 for n in names}
+        if len(worlds) != 1:
+            raise SystemExit("the jobs take worlds %s: run them apart, or "
+                             "name --world" % sorted(worlds))
+        args.world = worlds.pop()
     jobs = [dict(name=n, width=width, record_grads=True,
                  batch=args.batch or None, steps=args.steps or None)
-            for n in args.jobs.split(",")]
+            for n in names]
     t0 = time.perf_counter()
     singles = [run_job(device=args.device, **j) for j in jobs]
     t1 = time.perf_counter()

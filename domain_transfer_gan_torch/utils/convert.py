@@ -67,6 +67,18 @@ def _convert_leaf(path, value: np.ndarray) -> np.ndarray:
     return np.transpose(value, (3, 2, 0, 1))
 
 
+def flax_last_axis_dim(name: str, shape) -> int:
+    """The dimension of the port's parameter ``name`` (a ``state_dict`` key)
+    of ``shape`` that holds the last axis of its JAX leaf, by the layout map
+    of :func:`_convert_leaf`: a conv kernel (kh, kw, I, O) is (O, I, kh, kw)
+    here, a transposed one (``up*``) (I, O, kh, kw), a Dense (in, out) a
+    Linear (out, in); a 1-D leaf is the same."""
+    parts = name.split(".")
+    if len(shape) == 4 and len(parts) >= 2 and parts[-2].startswith("up"):
+        return 1
+    return 0
+
+
 def _walk(tree: Mapping, prefix=()):
     for k in tree:
         v = tree[k]

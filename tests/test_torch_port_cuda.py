@@ -464,3 +464,71 @@ def test_prefetch_feed_on_the_card_is_the_synchronous_copy(size):
         for k in w:
             assert g[k].device.type == "cuda"
             assert torch.equal(g[k], w[k]), k
+
+
+class _OneSlice:
+    """The split norm's collectives over a single slice: nothing to
+    combine (the statistics are the slice's, the sums its own)."""
+
+    def combine(self, mean, m2, rows):
+        return mean, m2, rows
+
+    def sum_(self, t):
+        return t
+
+
+@pytest.mark.cuda
+def test_split_kernels_vs_their_twins_on_the_card():
+    """K1-split and K2-split (four launches) against their plain twins at a
+    small shape, each wrapper counting its launch."""
+    _need_card()
+    g = torch.Generator(device="cuda").manual_seed(4)
+    x = torch.randn((3, 8, 6, 16), generator=g, device="cuda")
+    dy = torch.randn(x.shape, generator=g, device="cuda")
+    scale = torch.rand((3, 16), generator=g, device="cuda") + 0.5
+    shift = torch.randn((3, 16), generator=g, device="cuda")
+    before = [w.launches for w in K.SPLIT_WRAPPERS]
+    mean, m2 = K.instance_norm_partial_stats(x)
+    pm, pq = K.instance_norm_partial_stats_plain(x)
+    torch.testing.assert_close(mean, pm, rtol=1e-5, atol=1e-5)
+    torch.testing.assert_close(m2, pq, rtol=1e-5, atol=1e-4)
+    rstd = torch.rsqrt(m2 / 48 * (48 / 47) + 1e-5)
+    y = K.instance_norm_apply(x, mean, rstd, scale, shift, relu=True)
+    torch.testing.assert_close(y, K.instance_norm_apply_plain(
+        x, mean, rstd, scale, shift, relu=True), rtol=1e-5, atol=1e-5)
+    sg, sgx = K.instance_norm_bwd_partial_sums(x, dy, mean, rstd, scale,
+                                               shift, relu=True)
+    psg, psgx = K.instance_norm_bwd_partial_sums_plain(
+        x, dy, mean, rstd, scale, shift, relu=True)
+    torch.testing.assert_close(sg, psg, rtol=1e-4, atol=1e-4)
+    torch.testing.assert_close(sgx, psgx, rtol=1e-4, atol=1e-4)
+    dx = K.instance_norm_bwd_apply_dx(x, dy, mean, rstd, scale, shift, sg,
+                                      sgx, 48, unbiased=True, relu=True)
+    torch.testing.assert_close(dx, K.instance_norm_bwd_apply_dx_plain(
+        x, dy, mean, rstd, scale, shift, sg, sgx, 48, unbiased=True,
+        relu=True), rtol=1e-4, atol=1e-4)
+    torch.cuda.synchronize()
+    assert [w.launches for w in K.SPLIT_WRAPPERS] == [b + 1 for b in before]
+
+
+@pytest.mark.cuda
+def test_the_split_function_over_one_slice_is_the_fused_norm():
+    """The autograd Function of the split kernels, over one slice, gives
+    the unsplit kernels' y and gradients."""
+    _need_card()
+    g = torch.Generator(device="cuda").manual_seed(5)
+    x = torch.randn((2, 8, 8, 16), generator=g, device="cuda")
+    scale = (torch.rand((16,), generator=g, device="cuda") + 0.5)
+    shift = torch.randn((16,), generator=g, device="cuda")
+    dy = torch.randn(x.shape, generator=g, device="cuda")
+    grads = []
+    for split in (True, False):
+        xs, ss, ts = (t.clone().requires_grad_(True)
+                      for t in (x, scale, shift))
+        if split:
+            y = K.instance_norm_split(xs, ss, ts, _OneSlice(), relu=True)
+        else:
+            y = instance_norm_fused(xs, ss, ts, relu=True)
+        grads.append([y] + list(torch.autograd.grad(y, (xs, ss, ts), dy)))
+    for a, b in zip(*grads):
+        torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-4)

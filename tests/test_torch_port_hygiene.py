@@ -69,7 +69,10 @@ def test_every_module_imports_without_jax():
             "domain_transfer_gan_torch.parallel",
             "domain_transfer_gan_torch.parallel.multihost",
             "domain_transfer_gan_torch.parallel.mesh",
-            "domain_transfer_gan_torch.parallel.selfcheck"} <= set(names)
+            "domain_transfer_gan_torch.parallel.selfcheck",
+            "domain_transfer_gan_torch.parallel.pipeline",
+            "domain_transfer_gan_torch.parallel.hints",
+            "domain_transfer_gan_torch.parallel.spatial"} <= set(names)
     code = (
         "import importlib, sys\n"
         "for n in %r: importlib.import_module(n)\n"

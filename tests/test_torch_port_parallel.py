@@ -204,7 +204,8 @@ def test_dropout_on_a_slice_keeps_the_full_batch_mask(monkeypatch):
     g2.manual_seed(7)
     drop.generator = g1
     full = drop(x)
-    monkeypatch.setattr(multihost, "shard_info", lambda: (1, 2))
+    layout = type("Layout", (), {"batch": multihost.Axis((0, 1), 1)})()
+    monkeypatch.setattr(multihost, "shard_info", lambda: layout)
     drop.generator = g2
     assert torch.equal(drop(x[2:]), full[2:])
     assert torch.equal(g1.get_state(), g2.get_state())

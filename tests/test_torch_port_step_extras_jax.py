@@ -12,6 +12,8 @@ Run with ``-m slow``."""
 import numpy as np
 import pytest
 
+from domain_transfer_gan_torch.parallel import selfcheck
+
 from torch_port_helpers import (  # noqa: F401 (a fixture)
     check_two_step_parity,
     one_torch_thread,
@@ -26,39 +28,20 @@ pytestmark = [pytest.mark.usefixtures("one_torch_thread"), pytest.mark.slow]
 POOL_ATOL = 1e-3
 LR = 2e-4
 DECAY = 0.9
-# The shadows are held by their displacement from the start (both packages
-# start them at the parameters).  Two steps at decay 0.9 move a shadow by
-# 0.19 u1 + 0.1 u2 (u the Adam steps, about lr each), so a shadow left
-# unchanged reads 1 on the relative L2 of a net's displacement and has
-# nearly every entry off; decay and 1 - decay swapped read about 5.  What
-# the parameters part by (Adam's sign flips, up to 2 lr on a few entries)
-# reads up to 0.11 (netG_A_B) with 3 % of its entries off.
-EMA_DISP_RTOL = 0.3
 
 
 def check_shadows(run):
-    """Each tracked net's shadow, port against JAX: the relative L2 of its
-    displacement from the start within EMA_DISP_RTOL, at most a tenth of
-    its entries off by more than (1 - decay) lr / 10 (the parameters' own
-    share, scaled by the shadow's weight on them), and none off by more
-    than the shadow of the parameters' bound of check_two_step_parity
-    (2 t lr after step t)."""
-    bound = (1 - DECAY) * (DECAY * 2 * LR + 4 * LR) * 1.05
+    """Each tracked net's shadow, port against JAX, by its displacement
+    from the start (both packages start the shadow at the parameters):
+    ``selfcheck.hold_shadows``' rule after the two steps.  What the
+    parameters part by (Adam's sign flips, up to 2 lr on a few entries)
+    reads up to 0.11 (netG_A_B) with 3 % of its entries off."""
     for net, want in run["jax_ema"].items():
-        start = run["start"][net]
-        gap2 = moved2 = 0.0
-        off = total = 0
-        for name, w in want.items():
-            got = run["ema"][net][name]
-            gap = np.abs(got - w)
-            assert gap.max() <= bound, (net, name, gap.max())
-            gap2 += float(np.sum(np.square(gap)))
-            moved2 += float(np.sum(np.square(w - start[name])))
-            off += int((gap > 0.1 * (1 - DECAY) * LR).sum())
-            total += gap.size
-        assert np.sqrt(gap2 / moved2) <= EMA_DISP_RTOL, (
-            net, np.sqrt(gap2 / moved2))
-        assert off <= 0.1 * total, (net, off, total)
+        names = list(want)
+        selfcheck.hold_shadows([run["ema"][net][k] for k in names],
+                               [want[k] for k in names],
+                               [run["start"][net][k] for k in names],
+                               DECAY, 2, LR)
 
 
 @pytest.mark.parametrize("flags,batch", [

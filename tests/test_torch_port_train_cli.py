@@ -200,10 +200,6 @@ def test_export_from_checkpoint_serves_the_model(run, tmp_path):
 
 
 REFUSED = [
-    (["--spatial", "2"], "--spatial 2", "M13"),
-    (["--tensor", "2"], "--tensor 2", "M13"),
-    (["--pipeline", "2"], "--pipeline 2", "M13"),
-    (["--microbatches", "2"], "--microbatches 2", "M13"),
     (["--ckpt_backend", "orbax"], "--ckpt_backend orbax", "M15"),
 ]
 
@@ -220,8 +216,8 @@ def test_unported_flags_are_refused_by_name(tmp_path, flags, named, item):
 
 
 def test_a_config_passed_in_is_refused_too():
-    with pytest.raises(UnportedFlagError, match="--spatial 2"):
-        train_model(opt=TrainConfig(spatial=2, device="cpu"))
+    with pytest.raises(UnportedFlagError, match="--ckpt_backend orbax"):
+        train_model(opt=TrainConfig(ckpt_backend="orbax", device="cpu"))
 
 
 def test_a_paired_jpg_dataroot_is_refused_before_anything_is_written(
