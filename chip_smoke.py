@@ -185,6 +185,7 @@ from __future__ import annotations
 
 import argparse
 import io
+import itertools
 import json
 import subprocess
 import sys
@@ -3923,7 +3924,8 @@ P12_CLI = (("pp", ["--pipeline", "2", "--n_blocks", "4"]),
            ("sp", ["--spatial", "2"]))
 # the training CLI as phase 12 (d) runs each rank: ``python -c P12_CLI_MAIN
 # OUT.json ARGS...`` runs ``cli/train.py`` on ARGS and, at exit, writes the
-# process's split norms and split-kernel launches by (N, HW, C) to OUT.json
+# process's split norms and split-kernel launches by (N, HW, C), and the
+# split-kernel launches by variant, to OUT.json
 P12_CLI_MAIN = """
 import json, runpy, sys
 from domain_transfer_gan_torch.ops.kernels import instance_norm as K
@@ -3935,8 +3937,10 @@ finally:
     by = {w.__name__: w.launches_by_shape for w in K.SPLIT_WRAPPERS}
     by["split_norms"] = K.instance_norm_split.calls_by_shape
     with open(out, "w") as f:
-        json.dump({k: [[list(s), c] for s, c in v.items()]
-                   for k, v in by.items()}, f)
+        json.dump({"shapes": {k: [[list(s), c] for s, c in v.items()]
+                              for k, v in by.items()},
+                   "variants": {w.__name__: w.launches_by_variant
+                                for w in K.SPLIT_WRAPPERS}}, f)
 """
 
 
@@ -3949,17 +3953,39 @@ def _split_cases():
                     yield shape, dtype, affine == "sample", relu, affine
 
 
+def _split_plans(K, shape, itemsize, arrays):
+    """The plans a split reduction is checked and timed under: the cluster
+    variant's (the one ``split_plan`` picks, or its K where it picks
+    ``"rows"``) and the streaming ``"rows"`` kernel."""
+    n, hw, c = shape
+    return {"cluster": K.split_plan(n, hw, c, itemsize, arrays,
+                                    K._sm_count(0), on_chip=True),
+            "rows": K.SPLIT_ROWS}
+
+
+def _split_picked(K, shape, itemsize, arrays):
+    n, hw, c = shape
+    return K.split_plan(n, hw, c, itemsize, arrays, K._sm_count(0))
+
+
+SPLIT_VARIANTS = ("cluster", "rows")
+
+
 def check_split_kernels(torch, K):
     """Phase 12's check of K1-split and K2-split: at every rank shape of
     ``SPLIT_SHAPES`` (a sample's rows cut in two halves, as two space ranks
-    hold them) each of the four launches against its plain twin on the same
-    inputs, and the halves' y and dx, gathered, against unsplit K1 / K2 on
-    the whole rows (K2 on the split's mean and rstd; the mean and rstd
-    against K1's).  float32 within FP32_ATOL (dx and the sums relative to
-    their largest value), bfloat16 within SPLIT_ULPS.  Returns the largest
-    errors."""
-    worst = {"y_float32": 0.0, "dx_float32": 0.0, "sums": 0.0,
-             "y_bfloat16_ulps": 0.0, "dx_bfloat16_ulps": 0.0}
+    hold them), under each variant of the two reductions, each of the four
+    launches against its plain twin on the same inputs, and the halves' y
+    and dx, gathered, against unsplit K1 / K2 on the whole rows (K2 on the
+    split's mean and rstd; the mean and rstd against K1's); the cluster
+    variant launched twice, bit for bit the same.  float32 within FP32_ATOL
+    (dx and the sums relative to their largest value), bfloat16 within
+    SPLIT_ULPS.  Returns the largest errors, overall and per variant."""
+    keys = ("y_float32", "dx_float32", "sums", "y_bfloat16_ulps",
+            "dx_bfloat16_ulps")
+    by_variant = {v: dict.fromkeys(keys, 0.0) for v in SPLIT_VARIANTS}
+    held = dict.fromkeys(SPLIT_VARIANTS, 0)
+    repeats = 0
     t0 = time.perf_counter()
     for case, (shape, name, unbiased, relu, affine) in enumerate(
             _split_cases()):
@@ -3971,98 +3997,184 @@ def check_split_kernels(torch, K):
         dy = torch.randn(x.shape, generator=g, device="cuda").to(dtype)
         halves = [t.contiguous() for t in x.chunk(2, dim=1)]
         dys = [t.contiguous() for t in dy.chunk(2, dim=1)]
-        what = "%r %s unbiased=%s relu=%s affine=%s" % (
-            shape, name, unbiased, relu, affine)
-        errs, stats = [], []
-        for h in halves:
-            got = K.instance_norm_partial_stats(h)
-            want = K.instance_norm_partial_stats_plain(h)
-            errs += [_rel_err(a, b) for a, b in zip(got, want)]
-            stats.append(got)
-        mean, m2, rows = K.combine_stats([t[0] for t in stats],
-                                         [t[1] for t in stats], [hw, hw])
-        corr = rows / (rows - 1) if unbiased else 1.0
-        rstd = torch.rsqrt(m2 / rows * corr + 1e-5)
-        ys = [K.instance_norm_apply(h, mean, rstd, scale, shift, relu=relu)
-              for h in halves]
-        yps = [K.instance_norm_apply_plain(h, mean, rstd, scale, shift,
-                                           relu=relu) for h in halves]
         y_ref, mean_ref, rstd_ref = K._launch(x, scale, shift, 1e-5,
                                               unbiased, relu)
-        y = torch.cat(ys, dim=1)
-        sums = [K.instance_norm_bwd_partial_sums(
-            h, d, mean, rstd, scale, shift, relu=relu)
-            for h, d in zip(halves, dys)]
-        sums_p = [K.instance_norm_bwd_partial_sums_plain(
-            h, d, mean, rstd, scale, shift, relu=relu)
-            for h, d in zip(halves, dys)]
-        for a, b in zip(sums, sums_p):
-            errs += [_rel_err(a[0], b[0]), _rel_err(a[1], b[1])]
-        tot_g = sums[0][0] + sums[1][0]
-        tot_gx = sums[0][1] + sums[1][1]
-        dxs = [K.instance_norm_bwd_apply_dx(
-            h, d, mean, rstd, scale, shift, tot_g, tot_gx, rows,
-            unbiased=unbiased, relu=relu) for h, d in zip(halves, dys)]
-        dxps = [K.instance_norm_bwd_apply_dx_plain(
-            h, d, mean, rstd, scale, shift, tot_g, tot_gx, rows,
-            unbiased=unbiased, relu=relu) for h, d in zip(halves, dys)]
-        # on the split's statistics: the ReLU mask of dx is discontinuous
-        # in them, and they differ from the unsplit kernel's by rounding
-        dx_ref = K._launch_bwd(x, dy, mean.contiguous(), rstd.contiguous(),
-                               scale, shift, unbiased, relu)[0]
-        dx = torch.cat(dxs, dim=1)
-        scale_dx = dx_ref.float().abs().max().clamp_min(1e-30)
-        checks = [
-            torch.isfinite(y.float()).all() & torch.isfinite(dx.float()).all(),
-            torch.stack(errs).max(),
-            _rel_err(mean, mean_ref), _rel_err(rstd, rstd_ref),
-            torch.stack([(a.float() - b.float()).abs().max()
-                         for a, b in zip(ys, yps)]).max(),
-            (y.float() - y_ref.float()).abs().max(),
-            torch.stack([(a.float() - b.float()).abs().max()
-                         for a, b in zip(dxs, dxps)]).max() / scale_dx,
-            (dx.float() - dx_ref.float()).abs().max() / scale_dx,
-            torch.stack([_bf16_ulps_apart(torch, a, b)[0]
-                         for a, b in zip(ys, yps)]).max(),
-            _bf16_ulps_apart(torch, y, y_ref)[0],
-            torch.stack([_bf16_ulps_apart(torch, a, b)[0]
-                         for a, b in zip(dxs, dxps)]).max(),
-            _bf16_ulps_apart(torch, dx, dx_ref)[0]]
-        (finite, e_sums, e_mean, e_rstd, e_y_twin, e_y_ref, e_dx_twin,
-         e_dx_ref, u_y_twin, u_y_ref, u_dx_twin, u_dx_ref) = _read(
-             torch, *checks)
-        if not finite:
-            raise AssertionError("split kernels: non-finite output for "
-                                 + what)
-        worst["sums"] = max(worst["sums"], e_sums, e_mean, e_rstd)
-        if max(e_sums, e_mean, e_rstd) > BWD_SUM_RTOL:
-            raise AssertionError("split kernels: partial sums / statistics "
-                                 "off by %g, %g, %g for %s" % (
-                                     e_sums, e_mean, e_rstd, what))
-        if name == "float32":
-            worst["y_float32"] = max(worst["y_float32"], e_y_twin, e_y_ref)
-            worst["dx_float32"] = max(worst["dx_float32"], e_dx_twin,
-                                      e_dx_ref)
-            if max(e_y_twin, e_y_ref, e_dx_twin, e_dx_ref) > FP32_ATOL:
-                raise AssertionError(
-                    "split kernels: y %g / %g, dx %g / %g (twin / unsplit) "
-                    "for %s" % (e_y_twin, e_y_ref, e_dx_twin, e_dx_ref,
-                                what))
-        else:
-            worst["y_bfloat16_ulps"] = max(worst["y_bfloat16_ulps"],
-                                           u_y_twin, u_y_ref)
-            worst["dx_bfloat16_ulps"] = max(worst["dx_bfloat16_ulps"],
-                                            u_dx_twin, u_dx_ref)
-            if max(u_y_twin, u_y_ref, u_dx_twin, u_dx_ref) > SPLIT_ULPS:
-                raise AssertionError(
-                    "split kernels: y %.2f / %.2f, dx %.2f / %.2f bfloat16 "
-                    "ulp (twin / unsplit) for %s" % (
-                        u_y_twin, u_y_ref, u_dx_twin, u_dx_ref, what))
-    worst["cases"] = case + 1
-    log("phase 12: split kernel check, %d cases at %d shapes in %.1f s: %s"
-        % (case + 1, len(SPLIT_SHAPES), time.perf_counter() - t0,
-           json.dumps(worst)))
-    return worst
+        plans = {a: _split_plans(K, shape, x.element_size(), a)
+                 for a in (1, 2)}
+        for variant in SPLIT_VARIANTS:
+            what = "%r %s unbiased=%s relu=%s affine=%s variant=%s" % (
+                shape, name, unbiased, relu, affine, variant)
+            p_stats, p_sums = plans[1][variant], plans[2][variant]
+            errs, stats, same = [], [], []
+            for h in halves:
+                got = K.instance_norm_partial_stats(h, plan=p_stats)
+                want = K.instance_norm_partial_stats_plain(h)
+                errs += [_rel_err(a, b) for a, b in zip(got, want)]
+                stats.append(got)
+                if variant == "cluster":
+                    again = K.instance_norm_partial_stats(h, plan=p_stats)
+                    same += [torch.equal(a, b) for a, b in zip(got, again)]
+            mean, m2, rows = K.combine_stats([t[0] for t in stats],
+                                             [t[1] for t in stats],
+                                             [hw, hw])
+            corr = rows / (rows - 1) if unbiased else 1.0
+            rstd = torch.rsqrt(m2 / rows * corr + 1e-5)
+            ys = [K.instance_norm_apply(h, mean, rstd, scale, shift,
+                                        relu=relu) for h in halves]
+            yps = [K.instance_norm_apply_plain(h, mean, rstd, scale, shift,
+                                               relu=relu) for h in halves]
+            y = torch.cat(ys, dim=1)
+            sums = []
+            for h, d in zip(halves, dys):
+                got = K.instance_norm_bwd_partial_sums(
+                    h, d, mean, rstd, scale, shift, relu=relu, plan=p_sums)
+                want = K.instance_norm_bwd_partial_sums_plain(
+                    h, d, mean, rstd, scale, shift, relu=relu)
+                errs += [_rel_err(got[0], want[0]),
+                         _rel_err(got[1], want[1])]
+                sums.append(got)
+                if variant == "cluster":
+                    again = K.instance_norm_bwd_partial_sums(
+                        h, d, mean, rstd, scale, shift, relu=relu,
+                        plan=p_sums)
+                    same += [torch.equal(a, b) for a, b in zip(got, again)]
+            if not all(same):
+                raise AssertionError("split kernels: two launches of the "
+                                     "cluster variant differ for " + what)
+            repeats += len(same)
+            tot_g = sums[0][0] + sums[1][0]
+            tot_gx = sums[0][1] + sums[1][1]
+            dxs = [K.instance_norm_bwd_apply_dx(
+                h, d, mean, rstd, scale, shift, tot_g, tot_gx, rows,
+                unbiased=unbiased, relu=relu) for h, d in zip(halves, dys)]
+            dxps = [K.instance_norm_bwd_apply_dx_plain(
+                h, d, mean, rstd, scale, shift, tot_g, tot_gx, rows,
+                unbiased=unbiased, relu=relu) for h, d in zip(halves, dys)]
+            # on the split's statistics: the ReLU mask of dx is
+            # discontinuous in them, and they differ from the unsplit
+            # kernel's by rounding
+            dx_ref = K._launch_bwd(x, dy, mean.contiguous(),
+                                   rstd.contiguous(), scale, shift, unbiased,
+                                   relu)[0]
+            dx = torch.cat(dxs, dim=1)
+            scale_dx = dx_ref.float().abs().max().clamp_min(1e-30)
+            checks = [
+                torch.isfinite(y.float()).all()
+                & torch.isfinite(dx.float()).all(),
+                torch.stack(errs).max(),
+                _rel_err(mean, mean_ref), _rel_err(rstd, rstd_ref),
+                torch.stack([(a.float() - b.float()).abs().max()
+                             for a, b in zip(ys, yps)]).max(),
+                (y.float() - y_ref.float()).abs().max(),
+                torch.stack([(a.float() - b.float()).abs().max()
+                             for a, b in zip(dxs, dxps)]).max() / scale_dx,
+                (dx.float() - dx_ref.float()).abs().max() / scale_dx,
+                torch.stack([_bf16_ulps_apart(torch, a, b)[0]
+                             for a, b in zip(ys, yps)]).max(),
+                _bf16_ulps_apart(torch, y, y_ref)[0],
+                torch.stack([_bf16_ulps_apart(torch, a, b)[0]
+                             for a, b in zip(dxs, dxps)]).max(),
+                _bf16_ulps_apart(torch, dx, dx_ref)[0]]
+            (finite, e_sums, e_mean, e_rstd, e_y_twin, e_y_ref, e_dx_twin,
+             e_dx_ref, u_y_twin, u_y_ref, u_dx_twin, u_dx_ref) = _read(
+                 torch, *checks)
+            if not finite:
+                raise AssertionError("split kernels: non-finite output for "
+                                     + what)
+            worst = by_variant[variant]
+            worst["sums"] = max(worst["sums"], e_sums, e_mean, e_rstd)
+            if max(e_sums, e_mean, e_rstd) > BWD_SUM_RTOL:
+                raise AssertionError("split kernels: partial sums / "
+                                     "statistics off by %g, %g, %g for %s"
+                                     % (e_sums, e_mean, e_rstd, what))
+            if name == "float32":
+                worst["y_float32"] = max(worst["y_float32"], e_y_twin,
+                                         e_y_ref)
+                worst["dx_float32"] = max(worst["dx_float32"], e_dx_twin,
+                                          e_dx_ref)
+                if max(e_y_twin, e_y_ref, e_dx_twin, e_dx_ref) > FP32_ATOL:
+                    raise AssertionError(
+                        "split kernels: y %g / %g, dx %g / %g (twin / "
+                        "unsplit) for %s" % (e_y_twin, e_y_ref, e_dx_twin,
+                                             e_dx_ref, what))
+            else:
+                worst["y_bfloat16_ulps"] = max(worst["y_bfloat16_ulps"],
+                                               u_y_twin, u_y_ref)
+                worst["dx_bfloat16_ulps"] = max(worst["dx_bfloat16_ulps"],
+                                                u_dx_twin, u_dx_ref)
+                if max(u_y_twin, u_y_ref, u_dx_twin, u_dx_ref) > SPLIT_ULPS:
+                    raise AssertionError(
+                        "split kernels: y %.2f / %.2f, dx %.2f / %.2f "
+                        "bfloat16 ulp (twin / unsplit) for %s" % (
+                            u_y_twin, u_y_ref, u_dx_twin, u_dx_ref, what))
+            held[variant] += 1
+    if set(held.values()) != {case + 1}:
+        raise AssertionError("split kernels: cases held per variant %r of "
+                             "%d" % (held, case + 1))
+    out = {k: max(w[k] for w in by_variant.values()) for k in keys}
+    out["cases"] = case + 1
+    out["cluster_repeats_bit_equal"] = repeats
+    out["by_variant"] = by_variant
+    log("phase 12: split kernel check, %d cases at %d shapes under both "
+        "variants in %.1f s: %s" % (case + 1, len(SPLIT_SHAPES),
+                                    time.perf_counter() - t0,
+                                    json.dumps(out)))
+    return out
+
+
+# x = 1000 + N(0, 0.1^2): the statistics of a one-pass sum of x and x^2
+# would keep no digit of the variance (x^2 ~ 1e6 in float32 rounds by 0.06)
+HIGH_MEAN_SHAPES = ((8, 32768, 32), SPLIT_HEADLINE[0])
+
+
+def check_split_high_mean(torch, K):
+    """The partial statistics of both variants of ``instance_norm_partial_
+    stats`` on x = 1000 + N(0, 0.1^2), float32, at a 256x256 rank's shape
+    and the headline, against a float64 reference of the same values: the
+    cluster variant's one pass must keep its M2 within the plain twin's
+    own float32 error (floored at one float32 ulp), as the twin's two
+    passes do.  Returns the relative errors of M2 and the mean, per shape."""
+    out = {}
+    eps32 = 2.0 ** -23
+    for shape in HIGH_MEAN_SHAPES:
+        n, hw, c = shape
+        h, w = _hw_split(hw)
+        g = torch.Generator(device="cuda").manual_seed(n * hw + c)
+        x = 1000.0 + 0.1 * torch.randn((n, h, w, c), generator=g,
+                                       device="cuda")
+        x64 = x.double().reshape(n, hw, c)
+        mean64 = x64.mean(dim=1)
+        m2_64 = ((x64 - mean64[:, None, :]) ** 2).sum(dim=1)
+
+        def rel(got, want):
+            return ((got.double() - want).abs() / want.abs()).max()
+
+        row = {}
+        plans = _split_plans(K, shape, 4, 1)
+        ways = {"twin": K.instance_norm_partial_stats_plain(x)}
+        for v in SPLIT_VARIANTS:
+            ways[v] = K.instance_norm_partial_stats(x, plan=plans[v])
+        x32 = x.reshape(n, hw, c)
+        sumsq = (x32 * x32).mean(dim=1) - x32.mean(dim=1) ** 2
+        errs = _read(torch, *[e for way in ways.values()
+                              for e in (rel(way[1], m2_64),
+                                        rel(way[0], mean64))],
+                     rel(sumsq * hw, m2_64))
+        for i, way in enumerate(ways):
+            row[way] = {"m2_rel_err": errs[2 * i],
+                        "mean_rel_err": errs[2 * i + 1]}
+        row["sum_of_squares_m2_rel_err"] = errs[-1]
+        out[str(shape)] = row
+        limit = max(row["twin"]["m2_rel_err"], eps32)
+        if row["cluster"]["m2_rel_err"] > limit:
+            raise AssertionError(
+                "split kernels: the cluster variant's M2 is %g off a float64 "
+                "reference at %r on x = 1000 + N(0, 0.1^2), the twin's %g"
+                % (row["cluster"]["m2_rel_err"], shape,
+                   row["twin"]["m2_rel_err"]))
+    log("phase 12: partial statistics on x = 1000 + N(0, 0.1^2) against "
+        "float64 (relative errors): %s" % json.dumps(out))
+    return out
 
 
 def _split_bytes(shape, itemsize, arrays):
@@ -4103,6 +4215,91 @@ def _library_split_calls(torch, x, dy, mean, rstd, scale, shift, sum_g,
             torch.batch_norm_backward_elemt(flat(dy), flat(x), m, r, s_,
                                             sum_dy, sum_dy_xmu, count)),
     }
+
+
+def _split_arrays(K):
+    """The split reductions by name, each with the arrays it streams: 1
+    (x) for K1-split's partial statistics, 2 (x and dy) for K2-split's
+    partial sums."""
+    return {w.__name__: i + 1 for i, w in enumerate(K.SPLIT_REDUCTIONS)}
+
+
+def _split_plan_row(plan, n):
+    return {"variant": plan.variant, "cluster": plan.cluster,
+            "rows": plan.rows, "stages": plan.stages,
+            "stage_rows": plan.stage_rows, "threads": plan.threads,
+            "smem_bytes": plan.smem_bytes, "ctas": n * plan.cluster}
+
+
+def sweep_split_plans(torch, K, out_path=None):
+    """Device ms of the two split reductions at every ``SPLIT_SHAPES``
+    shape, float32 and bfloat16, (N, C) affine, no ReLU: the ``"rows"``
+    variant and the cluster variant under every cluster size of 1-16 CTAs
+    of 256 or 512 threads, ring of 2 or 4 slots, and chunk of 1 or 2 times
+    the default rows (``ring_plan``), each timed as phase 6 times a kernel;
+    beside them the plan ``split_plan`` picks.  The evidence for
+    ``split_plan``'s rule.
+    Returns the rows (also written to ``out_path`` as JSON)."""
+    out = []
+    for shape in SPLIT_SHAPES:
+        n, hw, c = shape
+        for name in ("float32", "bfloat16"):
+            dtype = getattr(torch, name)
+            item = 4 if name == "float32" else 2
+            nbuf = _n_buffers(n * hw * c * item * 2)
+            ins = [_make_inputs(torch, shape, dtype, "sample", 91 + i)
+                   for i in range(nbuf)]
+            dys = [torch.randn_like(t[0].float()).to(dtype) for t in ins]
+            mean, m2 = K.instance_norm_partial_stats_plain(ins[0][0])
+            rstd = torch.rsqrt(m2 / hw + 1e-5)
+            launch = {
+                1: lambda i, p: K.instance_norm_partial_stats(
+                    ins[i % nbuf][0], plan=p),
+                2: lambda i, p: K.instance_norm_bwd_partial_sums(
+                    ins[i % nbuf][0], dys[i % nbuf], mean, rstd,
+                    *ins[i % nbuf][1:], plan=p)}
+            for kname, arrays in _split_arrays(K).items():
+                row = {"shape": list(shape), "dtype": name, "kernel": kname,
+                       "picked": _split_plan_row(
+                           _split_picked(K, shape, item, arrays), n),
+                       "rows_ms": _time_device(torch, lambda i: launch[
+                           arrays](i, K.SPLIT_ROWS)), "cluster_ms": {}}
+                for k, stages, mult, threads in itertools.product(
+                        (1, 2, 4, 8, 16), (2, 4), (1, 2), (256, 512)):
+                    try:
+                        p = K.ring_plan(hw, c, item, arrays, k, stages,
+                                        threads=threads)
+                        if mult > 1:
+                            # the default chunk doubled, where it does
+                            # not hold the CTA's rows already
+                            if p.stage_rows >= p.rows:
+                                continue
+                            p = K.ring_plan(hw, c, item, arrays, k, stages,
+                                            min(mult * p.stage_rows, p.rows),
+                                            threads)
+                    except ValueError:
+                        continue
+                    key = "k%d s%d r%d t%d" % (k, stages, p.stage_rows,
+                                               p.threads)
+                    row["cluster_ms"][key] = _time_device(
+                        torch, lambda i, p=p: launch[arrays](i, p))
+                best = min(row["cluster_ms"], key=row["cluster_ms"].get)
+                row["best"], row["best_ms"] = best, row["cluster_ms"][best]
+                picked = row["picked"]
+                row["picked_ms"] = row["rows_ms"] if picked[
+                    "variant"] == "rows" else _time_device(
+                        torch, lambda i: launch[arrays](i, None))
+                out.append(row)
+                log("sweep %s %s %r: rows %.4f, picked %s %.4f, best %s "
+                    "%.4f" % (kname, name, shape, row["rows_ms"],
+                              "%(variant)s k%(cluster)d s%(stages)d "
+                              "r%(stage_rows)d t%(threads)d" % picked,
+                              row["picked_ms"], best, row["best_ms"]))
+            del ins, dys
+    if out_path:
+        with open(out_path, "w") as f:
+            json.dump(out, f)
+    return out
 
 
 def time_split_kernels(torch, K, launches):
@@ -4158,25 +4355,28 @@ def time_split_kernels(torch, K, launches):
         def each(fn):
             return lambda i: fn(i % nbuf)
 
-        calls = {  # name: (kernel(i, relu), plain(i), library(i), arrays)
+        calls = {  # name: (kernel(i, relu, plan), plain(i), library(i),
+            #        arrays); the plan is the reductions' (None: the pick)
             "instance_norm_partial_stats": (
-                lambda i, relu: K.instance_norm_partial_stats(ins[i][0]),
+                lambda i, relu, plan=None: K.instance_norm_partial_stats(
+                    ins[i][0], plan=plan),
                 lambda i: K.instance_norm_partial_stats_plain(ins[i][0]),
                 lambda i: torch.var_mean(x4[i], dim=1, correction=0), 1),
             "instance_norm_apply": (
-                lambda i, relu: K.instance_norm_apply(
+                lambda i, relu, plan=None: K.instance_norm_apply(
                     ins[i][0], mean, rstd, *ins[i][1:], relu=relu),
                 lambda i: K.instance_norm_apply_plain(
                     ins[i][0], mean, rstd, *ins[i][1:]),
                 lambda i: libs[i]["instance_norm_apply"](), 2),
             "instance_norm_bwd_partial_sums": (
-                lambda i, relu: K.instance_norm_bwd_partial_sums(
-                    ins[i][0], dys[i], mean, rstd, *ins[i][1:], relu=relu),
+                lambda i, relu, plan=None: K.instance_norm_bwd_partial_sums(
+                    ins[i][0], dys[i], mean, rstd, *ins[i][1:], relu=relu,
+                    plan=plan),
                 lambda i: K.instance_norm_bwd_partial_sums_plain(
                     ins[i][0], dys[i], mean, rstd, *ins[i][1:]),
                 lambda i: libs[i]["instance_norm_bwd_partial_sums"](), 2),
             "instance_norm_bwd_apply_dx": (
-                lambda i, relu: K.instance_norm_bwd_apply_dx(
+                lambda i, relu, plan=None: K.instance_norm_bwd_apply_dx(
                     ins[i][0], dys[i], mean, rstd, *ins[i][1:], sg, sgx,
                     2 * hw, unbiased=relu, relu=relu),
                 lambda i: K.instance_norm_bwd_apply_dx_plain(
@@ -4186,16 +4386,29 @@ def time_split_kernels(torch, K, launches):
         }
         for name, (fn, plain, lib, arrays) in calls.items():
             bound = _split_bytes(shape, 4, arrays) / HBM_BYTES_PER_S * 1e3
-            rows[name].append({
-                "shape": list(shape), "dtype": "float32",
-                "kernel_ms": _time_device(torch, each(
-                    lambda i, fn=fn: fn(i, False))),
+            row = {"shape": list(shape), "dtype": "float32"}
+            if name in _split_arrays(K):
+                # both variants in turns (rows, cluster, cluster, rows)
+                plans = _split_plans(K, shape, 4, arrays)
+                r1, c1, c2, r2 = (_time_device(torch, each(
+                    lambda i, fn=fn, p=plans[v]: fn(i, False, p)))
+                    for v in ("rows", "cluster", "cluster", "rows"))
+                row["variant"] = _split_picked(K, shape, 4, arrays).variant
+                row["plan"] = _split_plan_row(plans["cluster"], shape[0])
+                row["cluster_ms"], row["rows_ms"] = (c1 + c2) / 2, \
+                    (r1 + r2) / 2
+                row["kernel_ms"] = row[row["variant"] + "_ms"]
+            else:
+                row["kernel_ms"] = _time_device(torch, each(
+                    lambda i, fn=fn: fn(i, False)))
+            row.update({
                 "kernel_relu_ms": _time_device(torch, each(
                     lambda i, fn=fn: fn(i, True))),
                 "plain_ms": _time_device(torch, each(plain)),
                 "library_ms": _time_device(torch, each(lib)),
                 "bound_ms": bound, "bound_by": "bytes",
                 "launches": launches.get(name, {}).get(shape, 0)})
+            rows[name].append(row)
         del ins, dys, x4, libs, twins
     log("phase 6: the split kernels' library calls agree with the twins "
         "within %g" % lib_err)
@@ -4250,6 +4463,7 @@ def drive_phase12(torch, K, tmp, smi, device="cuda", width=CLI_WIDTH):
     totals = {"fwd": {}, "bwd": {}}
     variants = {d: {"cluster": 0, "streaming": 0} for d in ("fwd", "bwd")}
     split = {w.__name__: {} for w in K.SPLIT_WRAPPERS}
+    split_var = {w.__name__: {} for w in K.SPLIT_WRAPPERS}
     jobs = [dict(name="aug", width=dict(width), batch=P12_BATCH,
                  steps=P12_STEPS, seed=2027, **flags)
             for _, flags in P12_JOBS]
@@ -4282,6 +4496,8 @@ def drive_phase12(torch, K, tmp, smi, device="cuda", width=CLI_WIDTH):
                     variants[d][v] += c
             for name, by in r[i]["split_launches"].items():
                 _add(split[name], by)
+            for name, by in r[i]["split_variants"].items():
+                _add(split_var[name], by)
         row["split_norms"] = [r[i]["split_norms"] for r in ranks]
         row["trunk_runs"] = [r[i]["trunk_runs"] for r in ranks]
         fig["steps"][label] = row
@@ -4355,11 +4571,14 @@ def drive_phase12(torch, K, tmp, smi, device="cuda", width=CLI_WIDTH):
         norms = {}
         for path in counts:
             with open(path) as f:
-                by = {k: {tuple(sh): c for sh, c in v}
-                      for k, v in json.load(f).items()}
+                got = json.load(f)
+            by = {k: {tuple(sh): c for sh, c in v}
+                  for k, v in got["shapes"].items()}
             _add(norms, by.pop("split_norms"))
             for k, v in by.items():
                 _add(split[k], v)
+            for k, v in got["variants"].items():
+                _add(split_var[k], v)
         shapes = p12_split_shapes(width)
         if set(norms) - set(shapes) or bool(norms) != (name == "sp"):
             raise AssertionError("phase 12 (d) %s: split norms at %r, "
@@ -4386,9 +4605,28 @@ def drive_phase12(torch, K, tmp, smi, device="cuda", width=CLI_WIDTH):
             raise AssertionError("phase 12 (d) %s: TEST_MSE_A %r, one "
                                  "process %r" % (name, logged, direct))
         log("phase 12 (d) %s: %s" % (name, json.dumps(fig["cli"][name])))
+    # every split launch took the variant split_plan picks for its shape
+    # (float32 rows, aligned tensors: an unaligned one would show as
+    # "rows" where the plan picks "cluster")
+    if device == "cuda":
+        for name, by in split.items():
+            arrays = _split_arrays(K).get(name)
+            want = {}
+            for shape, k in by.items():
+                v = _split_picked(K, shape, 4, arrays).variant \
+                    if arrays else "rows"
+                want[v] = want.get(v, 0) + k
+            got = {v: k for v, k in split_var[name].items() if k}
+            if got != want:
+                raise AssertionError(
+                    "phase 12: %s launched %r by variant, the plan picks %r"
+                    % (name, got, want))
+    fig["split_launches_by_variant"] = split_var
+    log("phase 12: split launches by variant %s (each the plan's pick)"
+        % json.dumps(split_var))
     log("phase 12: ranks sharing one card over gloo are a correctness run, "
         "not a scaling figure")
-    return totals, variants, split, fig
+    return totals, variants, split, split_var, fig
 
 
 def main(argv=None):
@@ -4439,6 +4677,7 @@ def main(argv=None):
     worst = check_kernel(torch, K)
     bwd_worst = check_bwd_kernel(torch, K)
     split_worst = check_split_kernels(torch, K)
+    high_mean = check_split_high_mean(torch, K)
 
     # phase 4: the serving path
     with tempfile.TemporaryDirectory() as tmp:
@@ -4518,8 +4757,8 @@ def main(argv=None):
         # phase 12: the space, model and pipe axes over ranks, the split
         # kernels on the main path (the counts read from 0 in the ranks)
         t12 = time.perf_counter()
-        p12, p12_variants, p12_split, p12_figures = drive_phase12(
-            torch, K, tmp, smi)
+        p12, p12_variants, p12_split, p12_split_var, p12_figures = \
+            drive_phase12(torch, K, tmp, smi)
         p12_fwd, p12_bwd = (sum(p12[d].values()) for d in ("fwd", "bwd"))
         p12_figures["s"] = time.perf_counter() - t12
         log("phase 12: %.1f s, launches %d forward, %d backward; split "
@@ -4546,6 +4785,10 @@ def main(argv=None):
         split_rows = time_split_kernels(torch, K, p12_split)
         log("phase 6: split kernels (ms, twin, library, bound, phase 12 "
             "launches) %s" % json.dumps({"card": smi, "rows": split_rows}))
+        if args.profile:
+            sweep = sweep_split_plans(torch, K)
+            log("phase 6: split reductions under every plan %s"
+                % json.dumps({"card": smi, "rows": sweep}))
         e2e.update(time_ubo_step(torch))
         prof = None
         if args.profile:
@@ -4655,6 +4898,7 @@ def main(argv=None):
             "max_err_bf16_ulps": max(split_worst["y_bfloat16_ulps"],
                                      split_worst["dx_bfloat16_ulps"]),
             "check": split_worst,
+            "launches_by_variant": p12_split_var[name],
             "shape": list(SPLIT_HEADLINE[0]), "dtype": SPLIT_HEADLINE[1],
             # without the ReLU: the function the library call computes
             "ms": head_row["kernel_ms"], "plain_ms": head_row["plain_ms"],
@@ -4663,6 +4907,16 @@ def main(argv=None):
             "bound_by": head_row["bound_by"],
             "library_ms": head_row["library_ms"],
             "shapes": split_rows[name]})
+        if name in _split_arrays(K):
+            kernels["kernels"][-1].update({
+                "variant": head_row["variant"],
+                "cluster_ms": head_row["cluster_ms"],
+                "rows_ms": head_row["rows_ms"],
+                "plan_by_shape": {str(tuple(r["shape"])): dict(
+                    r["plan"], variant=r["variant"])
+                    for r in split_rows[name]}})
+            if _split_arrays(K)[name] == 1:
+                kernels["kernels"][-1]["high_mean"] = high_mean
     log(json.dumps({"end_to_end": e2e, "card": smi}))
     if prof is not None:
         log(json.dumps({"profile": prof, "card": smi}))

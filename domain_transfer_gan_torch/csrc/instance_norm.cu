@@ -610,3 +610,190 @@ extern "C" int instance_norm_apply(const void* x, const void* mean, const void* 
     return launch_apply<__nv_bfloat16, 8>(x, mean, rstd, scale, shift, y, n, hw, c, affine_stride, tx_count, relu, s);
   return invalid;
 }
+
+
+// ---------------------------------------------------------------------------
+// K1-split's first launch, cluster variant (instance_norm_partial_stats_
+// cluster): the streaming kernel above reads x twice and, at a 256x256
+// rank's shapes, has one block per (sample, channel tile) for a grid of 32
+// blocks on 132 SMs.  Here a sample's rows on this rank are split over a
+// cluster of K CTAs, each streaming whole rows of all C channels through the
+// ring of instance_norm_cluster.cuh, so x is read from device memory once,
+// and a sample gets K CTAs.  One pass with two-pass accuracy: a thread holds
+// up to kRingRowsPerThread rows of its channel pack in registers, forms
+// that chunk's mean and its M2 about that mean, and folds (count, mean, M2)
+// into its running triple by Chan's rule; never sums of x and x^2.  Every
+// mean is formed of x less the sample's first row on this rank, and that
+// row is added back once, to the mean written out: the merges' differences
+// of means then keep the digits of the spread where x sits far from 0.
+// Reduction order, fixed so that a result repeats bit for bit (no atomics):
+// in-thread in row order; across the CTA's threads by tree_over_rows with
+// Chan's merge; across the cluster by rank 0, which merges the K CTAs'
+// triples (each stored into its shared memory over DSMEM) in rank order
+// 0..K-1 and writes mean and M2.
+
+namespace {
+
+template <typename T>
+__global__ void __launch_bounds__(kRingThreadsMax)
+instance_norm_partial_stats_cluster_kernel(const T* __restrict__ x, float* __restrict__ mean_out,
+                                           float* __restrict__ m2_out, int hw, int c,
+                                           int k_count, int rows, int stages, int stage_rows) {
+  constexpr int VEC = 16 / sizeof(T);
+  constexpr int RPT = kRingRowsPerThread;
+  extern __shared__ __align__(16) unsigned char smem[];
+  const RingLayout lay =
+      ring_layout(1, stage_rows, c, sizeof(T), blockDim.x, stages, k_count);
+  float* part = reinterpret_cast<float*>(smem + lay.part);  // [K][3][c]: count, mean, M2
+  float* red = reinterpret_cast<float*>(smem + lay.red);
+
+  const int rank = static_cast<int>(cg::this_cluster().block_rank());
+  const int n = blockIdx.x / k_count;
+  const int packs = c / VEC;
+  const int ty_count = blockDim.x / packs;
+  const int tid = threadIdx.x;
+  const int ty = tid / packs;
+  const int tx = tid - ty * packs;
+  const int c0 = tx * VEC;
+
+  Ring<T, 1> ring;
+  ring.slots = reinterpret_cast<T*>(smem);
+  ring.bars = reinterpret_cast<uint64_t*>(smem + lay.bars);
+  ring.src[0] = x + static_cast<size_t>(n) * hw * c;
+  ring.first = min(rank * rows, hw);
+  ring.last = min(ring.first + rows, hw);
+  ring.c = c;
+  ring.stage_rows = stage_rows;
+  ring.stages = stages;
+  if (k_count > 1) cluster_arrive_relaxed();
+  if (tid == 0) ring.start();
+
+  // this thread's (count, mean, M2) of its rows, per channel, of x less
+  // `ref`, the sample's first row on this rank (the same for every thread
+  // and CTA): every mean merged below then has the digits of the spread,
+  // not of the mean, so Chan's d = mb - ma keeps them where x sits far from
+  // 0; rank 0 adds ref back to the mean it writes
+  float cnt = 0.f, mean[VEC], m2[VEC], ref[VEC];
+#pragma unroll
+  for (int i = 0; i < VEC; ++i) mean[i] = m2[i] = 0.f;
+  Pack<T, VEC>::load(ring.src[0] + c0, ref);
+  __syncthreads();
+  const int chunks = ring.chunks();
+  for (int ch = 0; ch < chunks; ++ch) {
+    ring.wait(ch);
+    const T* xs = ring.chunk(ch, 0) + c0;
+    const int in_chunk = ring.rows_of(ch);
+    for (int base = 0; base < in_chunk; base += RPT * ty_count) {
+      float v[RPT][VEC];
+      int m = 0;
+#pragma unroll
+      for (int j = 0; j < RPT; ++j) {
+        const int r = base + ty + j * ty_count;
+        if (r < in_chunk) {
+          Pack<T, VEC>::load(xs + static_cast<size_t>(r) * c, v[j]);
+          ++m;
+        }
+      }
+      if (m == 0) continue;
+      // Chan's merge of this chunk of m rows into the running triple; the
+      // counts are the pack's, so the weights are formed once for its VEC
+      // channels
+      const float fm = static_cast<float>(m);
+      const float inv_m = m == RPT ? 1.f / RPT : 1.f / fm;
+      const float total = cnt + fm;
+      const float w = fm / total;
+      const float wa = cnt * w;
+      cnt = total;
+#pragma unroll
+      for (int i = 0; i < VEC; ++i) {
+        float u[RPT];
+        float sum = 0.f;
+#pragma unroll
+        for (int j = 0; j < RPT; ++j) {
+          u[j] = j < m ? v[j][i] - ref[i] : 0.f;
+          sum += u[j];
+        }
+        const float mb = sum * inv_m;
+        float q = 0.f;
+#pragma unroll
+        for (int j = 0; j < RPT; ++j) {
+          if (j < m) {
+            const float d = u[j] - mb;
+            q += d * d;
+          }
+        }
+        const float d = mb - mean[i];
+        mean[i] = mean[i] + d * w;
+        m2[i] = (m2[i] + q) + (d * d) * wa;
+      }
+    }
+    ring.release(ch);
+  }
+  float acc[3 * VEC];  // as ChanOp lays triples out
+#pragma unroll
+  for (int i = 0; i < VEC; ++i) {
+    acc[i] = cnt;
+    acc[VEC + i] = mean[i];
+    acc[2 * VEC + i] = m2[i];
+  }
+  tree_over_rows<3 * VEC>(acc, red, packs, ty_count, ChanOp<VEC>());
+  publish_to_rank0<3 * VEC, VEC>(red, part, rank, c, c0, tx, ty, k_count);
+  cluster_sync(k_count);
+  if (rank == 0 && ty == 0) {
+    float tot[3 * VEC];
+#pragma unroll
+    for (int i = 0; i < 3 * VEC; ++i) tot[i] = 0.f;
+    for (int k = 0; k < k_count; ++k) {
+      const float* pk = part + k * 3 * c + c0;
+      float cnt_k[VEC], mk[VEC], qk[VEC];
+      load_f4<VEC>(cnt_k, pk);
+      load_f4<VEC>(mk, pk + c);
+      load_f4<VEC>(qk, pk + 2 * c);
+#pragma unroll
+      for (int i = 0; i < VEC; ++i)
+        chan_merge(tot[i], tot[VEC + i], tot[2 * VEC + i], cnt_k[i], mk[i], qk[i]);
+    }
+#pragma unroll
+    for (int i = 0; i < VEC; ++i) {
+      mean_out[static_cast<size_t>(n) * c + c0 + i] = tot[VEC + i] + ref[i];
+      m2_out[static_cast<size_t>(n) * c + c0 + i] = tot[2 * VEC + i];
+    }
+  }
+}
+
+}  // namespace
+
+// K1-split, first launch, cluster variant.  x: this rank's rows, (n, hw, c)
+// fp32 or bf16 (dtype 0 / 1), 16-byte aligned, C * sizeof(T) a multiple of
+// 16; mean and m2: (n, c) fp32 outputs.  The plan
+// (ops/kernels/instance_norm.py::split_plan): `cluster` CTAs per sample (1,
+// 2, 4, 8 or 16), `rows` rows per CTA, a ring of `stages` slots of
+// `stage_rows` rows, `threads` per CTA (a multiple of C / VEC),
+// `smem_bytes` of dynamic shared memory, which must equal the layout's
+// size.  Launches on `stream`, allocates nothing, does not synchronise.
+// Returns the cudaError_t of the launch (0 on success),
+// cudaErrorInvalidValue for arguments the kernel does not take,
+// cudaErrorInvalidConfiguration if no cluster of this shape fits the card.
+extern "C" int instance_norm_partial_stats_cluster(const void* x, void* mean, void* m2, int n,
+                                                   int hw, int c, int dtype, int cluster,
+                                                   int rows, int stages, int stage_rows,
+                                                   int threads, int smem_bytes, void* stream) {
+  const int invalid = static_cast<int>(cudaErrorInvalidValue);
+  if (dtype != 0 && dtype != 1) return invalid;
+  const int itemsize = dtype == 0 ? 4 : 2;
+  if (!ring_plan_ok(n, hw, c, itemsize, 1, cluster, rows, stages, stage_rows, threads,
+                    smem_bytes))
+    return invalid;
+  if (x == nullptr || mean == nullptr || m2 == nullptr || !aligned16(x)) return invalid;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int blocks = n * cluster;
+  if (dtype == 0)
+    return launch_cluster(instance_norm_partial_stats_cluster_kernel<float>, blocks, cluster,
+                          threads, smem_bytes, s, static_cast<const float*>(x),
+                          static_cast<float*>(mean), static_cast<float*>(m2), hw, c, cluster,
+                          rows, stages, stage_rows);
+  return launch_cluster(instance_norm_partial_stats_cluster_kernel<__nv_bfloat16>, blocks,
+                        cluster, threads, smem_bytes, s, static_cast<const __nv_bfloat16*>(x),
+                        static_cast<float*>(mean), static_cast<float*>(m2), hw, c, cluster, rows,
+                        stages, stage_rows);
+}

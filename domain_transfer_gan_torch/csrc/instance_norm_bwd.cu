@@ -663,3 +663,152 @@ extern "C" int instance_norm_bwd_apply_dx(const void* x, const void* dy, const v
     return launch_apply_dx<__nv_bfloat16, 8>(x, dy, mean, rstd, scale, shift, sum_g, sum_gx, dx, n, hw, c, hw_total, affine_stride, tx_count, unbiased, relu, st);
   return invalid;
 }
+
+
+// ---------------------------------------------------------------------------
+// K2-split's first launch, cluster variant (instance_norm_bwd_partial_sums_
+// cluster): the same sums as instance_norm_bwd_partial_sums (the ReLU mask
+// recomputed from xhat, s and t, then plain sums of dy' and dy' * xhat), with
+// the work split of K1-split's cluster variant (instance_norm.cu): a
+// sample's rows on this rank over a cluster of K CTAs, each streaming whole
+// rows of x and dy together through the ring of instance_norm_cluster.cuh
+// (one mbarrier per slot counts both), so both are read from device memory
+// once.  Reduction order, fixed (no atomics): in-thread in row order; across
+// the CTA's threads by tree_over_rows; across the cluster by rank 0, which
+// adds the K CTAs' sums (each stored into its shared memory over DSMEM) in
+// rank order 0..K-1 and writes them.
+
+namespace {
+
+template <typename T>
+__global__ void __launch_bounds__(kRingThreadsMax)
+instance_norm_bwd_partial_sums_cluster_kernel(
+    const T* __restrict__ x, const T* __restrict__ dy, const float* __restrict__ mean_in,
+    const float* __restrict__ rstd_in, const float* __restrict__ scale,
+    const float* __restrict__ shift, float* __restrict__ sum_g_out,
+    float* __restrict__ sum_gx_out, int hw, int c, int affine_stride, int k_count, int rows,
+    int stages, int stage_rows, int relu) {
+  constexpr int VEC = 16 / sizeof(T);
+  extern __shared__ __align__(16) unsigned char smem[];
+  const RingLayout lay =
+      ring_layout(2, stage_rows, c, sizeof(T), blockDim.x, stages, k_count);
+  float* part = reinterpret_cast<float*>(smem + lay.part);  // [K][3][c]: sum_g, sum_gx, -
+  float* red = reinterpret_cast<float*>(smem + lay.red);
+
+  const int rank = static_cast<int>(cg::this_cluster().block_rank());
+  const int n = blockIdx.x / k_count;
+  const int packs = c / VEC;
+  const int ty_count = blockDim.x / packs;
+  const int tid = threadIdx.x;
+  const int ty = tid / packs;
+  const int tx = tid - ty * packs;
+  const int c0 = tx * VEC;
+  const size_t sample = static_cast<size_t>(n) * hw * c;
+
+  Ring<T, 2> ring;
+  ring.slots = reinterpret_cast<T*>(smem);
+  ring.bars = reinterpret_cast<uint64_t*>(smem + lay.bars);
+  ring.src[0] = x + sample;
+  ring.src[1] = dy + sample;
+  ring.first = min(rank * rows, hw);
+  ring.last = min(ring.first + rows, hw);
+  ring.c = c;
+  ring.stage_rows = stage_rows;
+  ring.stages = stages;
+  if (k_count > 1) cluster_arrive_relaxed();
+  if (tid == 0) ring.start();
+
+  float mean[VEC], rstd[VEC], s[VEC], t[VEC];
+  load_affine_stats<T, VEC>(mean_in, rstd_in, scale, shift, n, c, c0, affine_stride, mean, rstd,
+                            s, t);
+  __syncthreads();
+
+  // acc: sum dy' [0, VEC), sum dy' * xhat [VEC, 2 VEC)
+  float acc[2 * VEC], xv[VEC], gv[VEC];
+#pragma unroll
+  for (int i = 0; i < 2 * VEC; ++i) acc[i] = 0.f;
+  const int chunks = ring.chunks();
+  for (int ch = 0; ch < chunks; ++ch) {
+    ring.wait(ch);
+    const T* xs = ring.chunk(ch, 0) + c0;
+    const T* gs = ring.chunk(ch, 1) + c0;
+    const int in_chunk = ring.rows_of(ch);
+#pragma unroll 4
+    for (int r = ty; r < in_chunk; r += ty_count) {
+      Pack<T, VEC>::load(xs + static_cast<size_t>(r) * c, xv);
+      Pack<T, VEC>::load(gs + static_cast<size_t>(r) * c, gv);
+#pragma unroll
+      for (int i = 0; i < VEC; ++i) {
+        const float xhat = (xv[i] - mean[i]) * rstd[i];
+        const float g = (relu && !pre_positive(xhat, s[i], t[i])) ? 0.f : gv[i];
+        acc[i] += g;
+        acc[VEC + i] += g * xhat;
+      }
+    }
+    ring.release(ch);
+  }
+  tree_over_rows<2 * VEC>(acc, red, packs, ty_count);
+  publish_to_rank0<2 * VEC, VEC>(red, part, rank, c, c0, tx, ty, k_count);
+  cluster_sync(k_count);
+  if (rank == 0 && ty == 0) {
+    float sum_g[VEC], sum_gx[VEC];
+#pragma unroll
+    for (int i = 0; i < VEC; ++i) sum_g[i] = sum_gx[i] = 0.f;
+    for (int k = 0; k < k_count; ++k) {
+      add_f4<VEC>(sum_g, part + k * 3 * c + c0);
+      add_f4<VEC>(sum_gx, part + k * 3 * c + c + c0);
+    }
+#pragma unroll
+    for (int i = 0; i < VEC; ++i) {
+      sum_g_out[static_cast<size_t>(n) * c + c0 + i] = sum_g[i];
+      sum_gx_out[static_cast<size_t>(n) * c + c0 + i] = sum_gx[i];
+    }
+  }
+}
+
+}  // namespace
+
+// K2-split, first launch, cluster variant.  x, dy: this rank's rows,
+// (n, hw, c) fp32 or bf16 (dtype 0 / 1), 16-byte aligned, C * sizeof(T) a
+// multiple of 16; mean, rstd, scale / shift / affine_stride, sum_g, sum_gx
+// as for instance_norm_bwd_partial_sums; the plan (cluster, rows, stages,
+// stage_rows, threads, smem_bytes) as for
+// instance_norm_partial_stats_cluster.  Launches on `stream`, allocates
+// nothing, does not synchronise; returns the cudaError_t of the launch
+// (cudaErrorInvalidValue for arguments the kernel does not take,
+// cudaErrorInvalidConfiguration if no cluster of this shape fits the card).
+extern "C" int instance_norm_bwd_partial_sums_cluster(
+    const void* x, const void* dy, const void* mean, const void* rstd, const void* scale,
+    const void* shift, void* sum_g, void* sum_gx, int n, int hw, int c, int affine_stride,
+    int dtype, int cluster, int rows, int stages, int stage_rows, int threads, int smem_bytes,
+    int relu, void* stream) {
+  const int invalid = static_cast<int>(cudaErrorInvalidValue);
+  if (dtype != 0 && dtype != 1) return invalid;
+  const int itemsize = dtype == 0 ? 4 : 2;
+  if (!ring_plan_ok(n, hw, c, itemsize, 2, cluster, rows, stages, stage_rows, threads,
+                    smem_bytes))
+    return invalid;
+  if (affine_stride != 0 && affine_stride != c) return invalid;
+  if (x == nullptr || dy == nullptr || mean == nullptr || rstd == nullptr || sum_g == nullptr ||
+      sum_gx == nullptr)
+    return invalid;
+  if ((scale == nullptr) != (shift == nullptr)) return invalid;
+  if (!aligned16(x) || !aligned16(dy)) return invalid;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const int blocks = n * cluster;
+  if (dtype == 0)
+    return launch_cluster(instance_norm_bwd_partial_sums_cluster_kernel<float>, blocks, cluster,
+                          threads, smem_bytes, st, static_cast<const float*>(x),
+                          static_cast<const float*>(dy), static_cast<const float*>(mean),
+                          static_cast<const float*>(rstd), static_cast<const float*>(scale),
+                          static_cast<const float*>(shift), static_cast<float*>(sum_g),
+                          static_cast<float*>(sum_gx), hw, c, affine_stride, cluster, rows,
+                          stages, stage_rows, relu);
+  return launch_cluster(instance_norm_bwd_partial_sums_cluster_kernel<__nv_bfloat16>, blocks,
+                        cluster, threads, smem_bytes, st, static_cast<const __nv_bfloat16*>(x),
+                        static_cast<const __nv_bfloat16*>(dy), static_cast<const float*>(mean),
+                        static_cast<const float*>(rstd), static_cast<const float*>(scale),
+                        static_cast<const float*>(shift), static_cast<float*>(sum_g),
+                        static_cast<float*>(sum_gx), hw, c, affine_stride, cluster, rows, stages,
+                        stage_rows, relu);
+}

@@ -1,7 +1,9 @@
 // What the on-chip ("cluster") variants of the instance-norm forward and
 // backward kernels share: the shared-memory layout of a CTA, the bulk copies
 // of its rows, the reduction inside a CTA and across the cluster, and the
-// checked launch.
+// checked launch; and, at the end, the ring through which the cluster
+// variants of the split reductions (K1-split's partial statistics, K2-split's
+// partial sums) stream rows that need not fit the cluster.
 //
 // A sample's slab (HW rows of C channels, contiguous in the NHWC tensor) is
 // split over a cluster of K CTAs.  CTA rank k owns the rows
@@ -137,6 +139,12 @@ __device__ __forceinline__ void cluster_arrive() {
 __device__ __forceinline__ void cluster_wait() {
   asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
 }
+// The first half of a barrier that orders nothing: arrived at when a CTA
+// starts, waited for (cluster_wait) before its first store into another
+// CTA's shared memory, which must not precede that CTA's start.
+__device__ __forceinline__ void cluster_arrive_relaxed() {
+  asm volatile("barrier.cluster.arrive.relaxed.aligned;\n" ::: "memory");
+}
 __device__ __forceinline__ void cluster_sync(int k_count) {
   if (k_count > 1) {
     cluster_arrive();
@@ -183,6 +191,15 @@ __device__ __forceinline__ void store_f4(float* p, const float (&v)[NV]) {
 }
 
 template <int NV>
+__device__ __forceinline__ void load_f4(float (&v)[NV], const float* p) {
+#pragma unroll
+  for (int q = 0; q < NV / 4; ++q) {
+    const float4 f = reinterpret_cast<const float4*>(p)[q];
+    v[4 * q] = f.x; v[4 * q + 1] = f.y; v[4 * q + 2] = f.z; v[4 * q + 3] = f.w;
+  }
+}
+
+template <int NV>
 __device__ __forceinline__ void add_f4(float (&v)[NV], const float* p) {
 #pragma unroll
   for (int q = 0; q < NV / 4; ++q) {
@@ -191,26 +208,46 @@ __device__ __forceinline__ void add_f4(float (&v)[NV], const float* p) {
   }
 }
 
-// Sum `acc` (NV floats, a multiple of 4) over the TY = threads / packs
-// threads that share a tx; every thread of the CTA must call it.  Where a
-// warp holds several rows of a tx (packs divides 32), they are first added
-// by a butterfly of shuffles (lane l adds lane l ^ off, off = 16, 8, ...,
-// packs: every lane of the class gets the same bits), leaving one row per
-// warp.  The remaining rows are added by a binary tree in `red` (rows *
-// packs * NV floats): at stride s = P/2, P/4, ..., 1 (P the power of two >=
-// rows) row t adds row t + s where that row exists.  Afterwards red[tx * NV
-// ..] hold the CTA's totals, for the threads tid < packs.
-template <int NV>
+// The combining step of tree_over_rows: a := a (+) b, `a` the lower row.
+// Plain sums (the K1 / K2 cluster kernels, K2-split's sums).
+struct AddOp {
+  static constexpr bool kCommutative = true;  // a + b and b + a give the same bits
+  template <int NV>
+  __device__ __forceinline__ void operator()(float (&a)[NV], const float (&b)[NV]) const {
+#pragma unroll
+    for (int i = 0; i < NV; ++i) a[i] += b[i];
+  }
+};
+
+// Combine `acc` (NV floats, a multiple of 4) over the TY = threads / packs
+// threads that share a tx with `op`; every thread of the CTA must call it.
+// Where a warp holds several rows of a tx (packs divides 32), they are first
+// combined by a butterfly of shuffles (lane l with lane l ^ off, off = 16, 8,
+// ..., packs; the lane with bit `off` clear is the lower row, so both lanes
+// of a pair get the same bits), leaving one row per warp.  The remaining
+// rows are combined by a binary tree in `red` (rows * packs * NV floats): at
+// stride s = P/2, P/4, ..., 1 (P the power of two >= rows) row t takes row
+// t + s where that row exists.  Afterwards red[tx * NV ..] hold the CTA's
+// totals, for the threads tid < packs.
+template <int NV, typename Op = AddOp>
 __device__ __forceinline__ void tree_over_rows(float (&acc)[NV], float* red, int packs,
-                                               int ty_count) {
+                                               int ty_count, Op op = Op()) {
   const int tid = threadIdx.x;
   int row = tid / packs;
   int rows = ty_count;
   bool holder = true;
   if (packs < 32 && 32 % packs == 0) {  // then threads is a multiple of 32
     for (int off = 16; off >= packs; off >>= 1) {
+      float other[NV];
 #pragma unroll
-      for (int i = 0; i < NV; ++i) acc[i] += __shfl_xor_sync(0xffffffffu, acc[i], off);
+      for (int i = 0; i < NV; ++i) other[i] = __shfl_xor_sync(0xffffffffu, acc[i], off);
+      if (Op::kCommutative || !(tid & off)) {
+        op(acc, other);
+      } else {
+        op(other, acc);
+#pragma unroll
+        for (int i = 0; i < NV; ++i) acc[i] = other[i];
+      }
     }
     const int lane = tid & 31;
     holder = lane < packs;
@@ -224,10 +261,10 @@ __device__ __forceinline__ void tree_over_rows(float (&acc)[NV], float* red, int
   while (span < rows) span <<= 1;
   for (int s = span >> 1; s > 0; s >>= 1) {
     if (holder && row < s && row + s < rows) {
-      float v[NV];
-#pragma unroll
-      for (int i = 0; i < NV; ++i) v[i] = red[slot * NV + i];
-      add_f4<NV>(v, red + (slot + s * packs) * NV);
+      float v[NV], w[NV];
+      load_f4<NV>(v, red + slot * NV);
+      load_f4<NV>(w, red + (slot + s * packs) * NV);
+      op(v, w);
       store_f4<NV>(red + slot * NV, v);
     }
     __syncthreads();
@@ -267,7 +304,7 @@ template <typename... Params, typename... Args>
 int launch_cluster(void (*kernel)(Params...), int blocks, int cluster, int threads, int smem,
                    cudaStream_t stream, Args... args) {
   static std::mutex mu;
-  static std::set<std::tuple<int, int, int, int>> checked;
+  static std::set<std::tuple<const void*, int, int, int, int>> checked;
   int device = 0;
   cudaError_t err = cudaGetDevice(&device);
   if (err != cudaSuccess) return static_cast<int>(err);
@@ -285,11 +322,11 @@ int launch_cluster(void (*kernel)(Params...), int blocks, int cluster, int threa
   cfg.attrs = attr;
   cfg.numAttrs = cluster > 1 ? 1 : 0;  // one CTA: an ordinary launch
 
-  const auto key = std::make_tuple(device, cluster, threads, smem);
+  const void* fn = reinterpret_cast<const void*>(kernel);
+  const auto key = std::make_tuple(fn, device, cluster, threads, smem);
   {
     std::lock_guard<std::mutex> lock(mu);
     if (!checked.count(key)) {
-      const void* fn = reinterpret_cast<const void*>(kernel);
       err = cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemPerBlockMax);
       if (err == cudaSuccess)
         err = cudaFuncSetAttribute(fn, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
@@ -326,6 +363,175 @@ inline bool cluster_plan_ok(int n, int hw, int c, int affine_stride, int itemsiz
   const long long slab = static_cast<long long>(arrays) * rows * c * itemsize;
   if (slab > kSmemPerBlockMax) return false;
   if (smem != cluster_layout(arrays, rows, c, itemsize, threads, stages).total) return false;
+  return smem <= kSmemPerBlockMax;
+}
+
+
+// ---------------------------------------------------------------------------
+// The ring: the cluster variant of the split reductions (K1-split's partial
+// statistics, K2-split's partial sums), whose rows need not fit the cluster.
+//
+// A reduction never needs a row again once it has read it.  CTA rank k of a
+// cluster of K owns the rows [k * rows, min((k + 1) * rows, HW)) of its
+// sample, all C channels: one contiguous byte range, read as chunks of
+// `stage_rows` whole rows through a ring of `stages` slots in shared memory.
+// Thread 0 starts the first `stages` chunks, one bulk copy per array (x, and
+// dy for the sums), each chunk completing on its slot's mbarrier (waited on
+// with the parity of the slot's use count); the threads reduce chunk i while
+// chunks i + 1 .. i + stages - 1 are in flight, and after a block barrier
+// thread 0 refills chunk i's slot with chunk i + stages.  So x (and dy) are
+// read from device memory exactly once, whatever the size of a sample.
+//
+// After the tree every CTA stores its partials into rank 0's `part` (over
+// DSMEM), at its own rank's place, and one cluster barrier later rank 0
+// merges them in rank order and writes the result; no CTA reads another's
+// shared memory, so none waits again before it exits.  (A barrier arrived
+// at when the CTAs start, and waited for before those stores, makes sure
+// rank 0 has started; it costs no wait by then.)
+//
+// Shared memory of a CTA (`RingLayout`, mirrored by
+// ops/kernels/instance_norm.py::_ring_smem_bytes):
+//   ring  stages * arrays * stage_rows * C * sizeof(T)
+//   part  cluster * 3 * C floats       every CTA's partials (used in rank 0)
+//   red   tree_rows * C * 3 floats     the tree (tree_rows: see tree_over_rows)
+//   bars  stages mbarriers
+
+constexpr int kRingRowsPerThread = 4;  // rows of a thread's pack held in registers at once
+constexpr int kRingStagesMax = 8;
+constexpr int kRingThreadsMax = 512;
+
+struct RingLayout {
+  int part, red, bars, total;  // byte offsets, and the whole size
+};
+
+__host__ __device__ inline RingLayout ring_layout(int arrays, int stage_rows, int c, int itemsize,
+                                                  int threads, int stages, int cluster) {
+  const int vec = 16 / itemsize;
+  RingLayout l;
+  l.part = stages * arrays * stage_rows * c * itemsize;
+  l.red = l.part + cluster * 3 * c * 4;
+  l.bars = l.red + tree_rows(c / vec, threads) * c * 3 * 4;
+  l.total = l.bars + stages * 8;
+  return l;
+}
+
+// One CTA's rows [first, last) of ARRAYS arrays (`src`: each at the sample's
+// first element) as chunks through the ring.
+template <typename T, int ARRAYS>
+struct Ring {
+  T* slots;
+  uint64_t* bars;
+  const T* src[ARRAYS];
+  int first, last, c, stage_rows, stages;
+
+  __device__ __forceinline__ int chunks() const {
+    return (last - first + stage_rows - 1) / stage_rows;
+  }
+  __device__ __forceinline__ int rows_of(int i) const {
+    return min(stage_rows, last - first - i * stage_rows);
+  }
+  // array a of chunk i, in its slot
+  __device__ __forceinline__ const T* chunk(int i, int a) const {
+    return slots + (static_cast<size_t>(i % stages) * ARRAYS + a) * stage_rows * c;
+  }
+  // thread 0: chunk i's copies into its slot
+  __device__ __forceinline__ void issue(int i) const {
+    const size_t r0 = static_cast<size_t>(first) + static_cast<size_t>(i) * stage_rows;
+    const uint32_t bytes = static_cast<uint32_t>(rows_of(i)) * c * sizeof(T);
+    uint64_t* bar = &bars[i % stages];
+    mbar_expect_tx(bar, ARRAYS * bytes);
+#pragma unroll
+    for (int a = 0; a < ARRAYS; ++a)
+      bulk_load(const_cast<T*>(chunk(i, a)), src[a] + r0 * c, bytes, bar);
+  }
+  // thread 0: the barriers, then the first `stages` chunks; a block barrier
+  // must follow before any thread waits
+  __device__ __forceinline__ void start() const {
+    for (int s = 0; s < stages; ++s) mbar_init(&bars[s]);
+    fence_barrier_init();
+    const int n = min(stages, chunks());
+    for (int i = 0; i < n; ++i) issue(i);
+  }
+  __device__ __forceinline__ void wait(int i) const {
+    mbar_wait(&bars[i % stages], static_cast<uint32_t>((i / stages) & 1));
+  }
+  // every thread, once it has read chunk i: thread 0 refills its slot
+  __device__ __forceinline__ void release(int i) const {
+    if (i + stages < chunks()) {  // the same for every thread
+      __syncthreads();
+      if (threadIdx.x == 0) issue(i + stages);
+    }
+  }
+};
+
+// Chan et al.'s merge of two (count, mean, M2) triples: (n, mean, m2) :=
+// the rows of both, (n, mean, m2) the lower rows.  M2 is the centered sum
+// of squares, and the merge keeps it centered: M2 = M2_a + M2_b + d^2 n_a
+// n_b / n with d the difference of the means.  An empty side (count 0)
+// leaves the other unchanged, bit for bit.
+__device__ __forceinline__ void chan_merge(float& n, float& mean, float& m2, float nb, float mb,
+                                           float m2b) {
+  const float na = n;
+  const float total = na + nb;
+  const float w = nb / fmaxf(total, 1.f);
+  const float d = mb - mean;
+  mean = mean + d * w;
+  m2 = (m2 + m2b) + (d * d) * (na * w);
+  n = total;
+}
+
+// tree_over_rows' step for triples laid out as 3 * VEC floats: counts
+// [0, VEC), means [VEC, 2 VEC), M2 [2 VEC, 3 VEC).
+template <int VEC>
+struct ChanOp {
+  static constexpr bool kCommutative = false;
+  template <int NV>
+  __device__ __forceinline__ void operator()(float (&a)[NV], const float (&b)[NV]) const {
+    static_assert(NV == 3 * VEC, "triples of VEC channels");
+#pragma unroll
+    for (int i = 0; i < VEC; ++i)
+      chan_merge(a[i], a[VEC + i], a[2 * VEC + i], b[i], b[VEC + i], b[2 * VEC + i]);
+  }
+};
+
+// After tree_over_rows, the ty == 0 threads (tid < packs) store the CTA's
+// NV = 3 * VEC totals of channels c0 .. into rank 0's part[rank][3][c]
+// (part[3][c] of the one CTA of a cluster of one), as [k][c] for k < NV / VEC.
+// Every thread of the CTA calls it (the wait is a cluster barrier's half).
+template <int NV, int VEC>
+__device__ __forceinline__ void publish_to_rank0(const float* red, float* part, int rank, int c,
+                                                 int c0, int tx, int ty, int k_count) {
+  float* dst = part;
+  if (k_count > 1) {
+    cluster_wait();  // of the arrival at the start: rank 0 has started
+    dst = cg::this_cluster().map_shared_rank(part, 0);
+  }
+  if (ty != 0) return;
+  dst += rank * 3 * c + c0;
+#pragma unroll
+  for (int k = 0; k < NV / VEC; ++k) {
+    float v[VEC];
+    load_f4<VEC>(v, red + tx * NV + k * VEC);
+    store_f4<VEC>(dst + k * c, v);
+  }
+}
+
+// What both ring entry points refuse: returns false for a plan the kernels
+// do not take.
+inline bool ring_plan_ok(int n, int hw, int c, int itemsize, int arrays, int cluster, int rows,
+                         int stages, int stage_rows, int threads, int smem) {
+  const int vec = 16 / itemsize;
+  if (n < 1 || hw < 1 || c < 1 || c % vec != 0) return false;
+  if (cluster < 1 || cluster > kClusterMax || (cluster & (cluster - 1)) != 0) return false;
+  if (static_cast<long long>(n) * cluster > 2147483647LL) return false;
+  if (rows < 1 || static_cast<long long>(rows) * cluster < hw || rows > hw) return false;
+  if (stages < 1 || stages > kRingStagesMax || stage_rows < 1) return false;
+  const int packs = c / vec;
+  if (threads < packs || threads > kRingThreadsMax || threads % packs != 0) return false;
+  const long long ring = static_cast<long long>(stages) * arrays * stage_rows * c * itemsize;
+  if (ring > kSmemPerBlockMax) return false;
+  if (smem != ring_layout(arrays, stage_rows, c, itemsize, threads, stages, cluster).total)
+    return false;
   return smem <= kSmemPerBlockMax;
 }
 

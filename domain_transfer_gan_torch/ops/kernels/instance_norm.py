@@ -613,21 +613,197 @@ instance_norm_fused.launches_by_variant = {"cluster": 0, "streaming": 0}
 # instance_norm.cu`` and ``csrc/instance_norm_bwd.cu``, the K1-split and
 # K2-split sections).  Each entry point has a wrapper (CUDA tensor: its
 # kernel, or it raises; CPU tensor: its plain twin) that counts its launches
-# in ``launches`` / ``launches_by_shape`` as the unsplit wrappers do.
+# in ``launches`` / ``launches_by_shape`` / ``launches_by_variant`` as the
+# unsplit wrappers do.  The two reductions (partial statistics, partial
+# sums) have two variants each, and :func:`split_plan` picks one per shape:
+# the cluster one (a sample's rows on the rank split over a thread-block
+# cluster, streamed once through a ring in shared memory) and the "rows"
+# one (one block per sample and channel tile looping over the rows).
 # ---------------------------------------------------------------------------
 
 # instance_norm_partial_stats(x, mean, m2; n, hw, c, dtype, vec, tx; stream)
 _PSTATS_ARGTYPES = [_P] * 3 + [_I] * 6 + [_P]
+# instance_norm_partial_stats_cluster(x, mean, m2; n, hw, c, dtype, cluster,
+#     rows, stages, stage_rows, threads, smem_bytes; stream)
+_PSTATS_CLUSTER_ARGTYPES = [_P] * 3 + [_I] * 10 + [_P]
 # instance_norm_apply(x, mean, rstd, scale, shift, y; n, hw, c,
 #                     affine_stride, dtype, vec, tx, relu; stream)
 _APPLY_ARGTYPES = [_P] * 6 + [_I] * 8 + [_P]
 # instance_norm_bwd_partial_sums(x, dy, mean, rstd, scale, shift, sum_g,
 #     sum_gx; n, hw, c, affine_stride, dtype, vec, tx, relu; stream)
 _PSUMS_ARGTYPES = [_P] * 8 + [_I] * 8 + [_P]
+# instance_norm_bwd_partial_sums_cluster(x, dy, mean, rstd, scale, shift,
+#     sum_g, sum_gx; n, hw, c, affine_stride, dtype, cluster, rows, stages,
+#     stage_rows, threads, smem_bytes, relu; stream)
+_PSUMS_CLUSTER_ARGTYPES = [_P] * 8 + [_I] * 12 + [_P]
 # instance_norm_bwd_apply_dx(x, dy, mean, rstd, scale, shift, sum_g, sum_gx,
 #     dx; n, hw, c, hw_total, affine_stride, dtype, vec, tx, unbiased, relu;
 #     stream)
 _APPLY_DX_ARGTYPES = [_P] * 9 + [_I] * 10 + [_P]
+
+
+class SplitPlan(NamedTuple):
+    """How a split reduction (K1-split's partial statistics, K2-split's
+    partial sums) runs one shape.  ``variant`` is ``"cluster"`` (the ring
+    kernels of ``csrc/instance_norm_cluster.cuh``: ``cluster`` CTAs per
+    sample, each owning ``rows`` rows and streaming them through a ring of
+    ``stages`` slots of ``stage_rows`` rows, ``threads`` threads,
+    ``smem_bytes`` of shared memory) or ``"rows"`` (the first, streaming
+    kernels, one block per sample and channel tile, geometry from
+    :func:`launch_geometry`; the other fields are 0)."""
+
+    variant: str
+    cluster: int = 0
+    rows: int = 0
+    stages: int = 0
+    stage_rows: int = 0
+    threads: int = 0
+    smem_bytes: int = 0
+
+    def row_ranges(self, hw: int) -> List[Tuple[int, int]]:
+        """``[first, last)`` rows of each CTA of a cluster, in rank order."""
+        return [(min(k * self.rows, hw), min((k + 1) * self.rows, hw))
+                for k in range(self.cluster)]
+
+    def chunk_ranges(self, first: int, last: int) -> List[Tuple[int, int]]:
+        """``[r0, r1)`` rows of each chunk the CTA owning ``[first, last)``
+        streams through its ring, in order."""
+        return [(r, min(r + self.stage_rows, last))
+                for r in range(first, last, self.stage_rows)]
+
+
+SPLIT_ROWS = SplitPlan("rows")
+
+RING_ROWS_PER_THREAD = 4  # csrc/instance_norm_cluster.cuh::kRingRowsPerThread
+RING_STAGES_MAX = 8       # ::kRingStagesMax
+RING_THREADS_MAX = 512    # ::kRingThreadsMax
+_RING_STAGES = 2          # slots of a ring: the card measured two fastest
+
+
+def _ring_smem_bytes(arrays: int, stage_rows: int, c: int, itemsize: int,
+                     threads: int, stages: int, cluster: int) -> int:
+    """Dynamic shared memory of a ring CTA, as
+    ``csrc/instance_norm_cluster.cuh::ring_layout`` lays it out: the ring,
+    3 C partials per CTA of the cluster, the tree (one row of 3 C floats per
+    warp where C / vec divides 32, else per thread row), the barriers."""
+    packs = c * itemsize // 16
+    tree_rows = threads // 32 if 32 % packs == 0 and packs < 32 else \
+        threads // packs
+    return (stages * arrays * stage_rows * c * itemsize + cluster * 3 * c * 4
+            + tree_rows * c * 3 * 4 + stages * 8)
+
+
+def ring_plan(hw: int, c: int, itemsize: int, arrays: int, cluster: int,
+              stages: int = _RING_STAGES,
+              stage_rows: Optional[int] = None,
+              threads: int = _CLUSTER_THREADS) -> SplitPlan:
+    """The cluster variant's plan with ``cluster`` CTAs per sample of
+    ``threads`` threads (rounded down to a multiple of the C / vec channel
+    packs): each owns ``ceil(hw / cluster)`` rows; a chunk is
+    ``stage_rows`` rows (default: ``RING_ROWS_PER_THREAD`` rows of every
+    thread, 16 KB of each array at 256 threads, or the CTA's rows if
+    fewer); the ring has ``stages`` slots.  Raises ValueError for a plan
+    the kernels do not take."""
+    row_bytes = c * itemsize
+    packs = row_bytes // 16
+    if row_bytes % 16 or packs > threads or threads > RING_THREADS_MAX:
+        raise ValueError("the cluster variant does not take C=%d at %d bytes "
+                         "with %d threads" % (c, itemsize, threads))
+    if cluster not in (1, 2, 4, 8, 16):
+        raise ValueError("a cluster of %r CTAs" % (cluster,))
+    threads = packs * (threads // packs)
+    rows = -(-hw // cluster)
+    if stage_rows is None:
+        stage_rows = min(rows, RING_ROWS_PER_THREAD * (threads // packs))
+    if not 1 <= stages <= RING_STAGES_MAX or stage_rows < 1:
+        raise ValueError("a ring of %r slots of %r rows" % (stages,
+                                                             stage_rows))
+    smem = _ring_smem_bytes(arrays, stage_rows, c, itemsize, threads, stages,
+                            cluster)
+    if smem > SMEM_PER_CTA_MAX:
+        raise ValueError("a ring of %d slots of %d rows of %d arrays needs "
+                         "%d bytes of shared memory" % (
+                             stages, stage_rows, arrays, smem))
+    return SplitPlan("cluster", cluster, rows, stages, stage_rows, threads,
+                     smem)
+
+
+# split_plan's rule, measured on an H100 at every rank shape phase 12 gives
+# the split reductions (``chip_smoke.sweep_split_plans``, PERF.md): the
+# cluster grows while the grid has fewer than _SPLIT_GRID_CTAS CTAs; the
+# partial statistics take 512 threads where the grid has fewer CTAs than
+# the card has SMs and a CTA streams at least _SPLIT_WIDE_CTA_BYTES; a
+# chunk is doubled where the CTA holds four or more
+_SPLIT_GRID_CTAS = 64
+_SPLIT_WIDE_CTA_BYTES = 256 << 10
+
+
+def _split_ring(n: int, hw: int, c: int, itemsize: int, arrays: int,
+                sm_count: int, k: int) -> SplitPlan:
+    """The ring of a cluster of ``k`` CTAs under split_plan's rule."""
+    row_bytes = c * itemsize
+    packs = row_bytes // 16
+    cta_rows = -(-hw // k)
+    threads = _CLUSTER_THREADS
+    if (arrays == 1 and n * k < sm_count
+            and cta_rows * row_bytes >= _SPLIT_WIDE_CTA_BYTES):
+        threads = RING_THREADS_MAX
+    chunk = RING_ROWS_PER_THREAD * (threads // packs)
+    if cta_rows >= 4 * chunk:
+        chunk *= 2
+    return ring_plan(hw, c, itemsize, arrays, k,
+                     stage_rows=min(chunk, cta_rows), threads=threads)
+
+
+@functools.lru_cache(maxsize=None)
+def split_plan(n: int, hw: int, c: int, itemsize: int, arrays: int,
+               sm_count: int, aligned: bool = True,
+               on_chip: bool = False) -> SplitPlan:
+    """The plan of a split reduction's launch on a rank's rows ``(n, hw,
+    c)``: ``arrays`` is 1 for K1-split's partial statistics (x), 2 for
+    K2-split's partial sums (x and dy).
+
+    The variant is a test of legality, not of speed: the cluster variant
+    needs rows of a multiple of 16 bytes (C * itemsize) and 16-byte aligned
+    tensors, so that every row boundary is a legal bulk copy boundary;
+    shapes without them take the ``"rows"`` variant (the first, streaming
+    kernels), and every other shape takes the cluster variant.  In the
+    sweep of every (shape, dtype, reduction) case phase 12 gives the
+    reductions (``chip_smoke.sweep_split_plans``, PERF.md) an H100 measured
+    that variant faster in 108 of the 116, several times faster at a
+    256x256 rank's shapes, and 1.6-16 % slower in the other eight, each
+    under 0.09 ms.  No observable of the shape separates those eight (the
+    partial statistics lose at (10, 512, 128) and win at (32, 512, 128)),
+    so the rule accepts those losses.
+
+    What the card measured fastest sets the ring
+    (``chip_smoke.sweep_split_plans``): the cluster size K is the smallest
+    power of two, up to the portable 8, that gives the grid of N * K CTAs
+    at least ``_SPLIT_GRID_CTAS`` (about half an H100's SMs; more CTAs, each
+    with less to stream, measured slower), as long as each CTA keeps at
+    least two chunks of rows; the partial statistics, whose one pass does
+    more arithmetic per byte, run 512 threads a CTA where the grid has
+    fewer CTAs than the card has SMs and each streams 256 KB or more; a
+    chunk is ``RING_ROWS_PER_THREAD`` rows of every thread, doubled where a
+    CTA holds four or more; the ring has two slots.
+
+    ``on_chip`` forces the cluster variant with the K above (checks and
+    measurements of that variant where the rule picks ``"rows"``); it
+    raises if the variant cannot run so.  A plan of another K is
+    :func:`ring_plan`'s.
+    """
+    row_bytes = c * itemsize
+    if not aligned or row_bytes % 16 or row_bytes // 16 > _CLUSTER_THREADS:
+        if on_chip:
+            raise ValueError("the cluster variant does not take C=%d at %d "
+                             "bytes (aligned=%s)" % (c, itemsize, aligned))
+        return SPLIT_ROWS
+    chunk = RING_ROWS_PER_THREAD * (_CLUSTER_THREADS // (row_bytes // 16))
+    k = 1
+    while (k < _CLUSTER_PORTABLE and n * k < _SPLIT_GRID_CTAS
+           and -(-hw // (2 * k)) >= 2 * chunk):
+        k *= 2
+    return _split_ring(n, hw, c, itemsize, arrays, sm_count, k)
 
 
 def instance_norm_partial_stats_plain(x: torch.Tensor):
@@ -720,13 +896,14 @@ def combine_stats(means, m2s, counts):
     return mean, m2, total
 
 
-def _split_launch(x, fn_name, argtypes, lib, *args):
+def _split_launch(x, fn_name, argtypes, lib, *args, plan=SPLIT_ROWS):
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = _c_function(lib, fn_name, argtypes)(*args, stream)
     if err != 0:
-        raise RuntimeError("%s launch failed with cudaError %d for x %r %s"
-                           % (fn_name, err, tuple(x.shape), x.dtype))
+        raise RuntimeError("%s launch failed with cudaError %d for x %r %s, "
+                           "%r" % (fn_name, err, tuple(x.shape), x.dtype,
+                                   plan))
 
 
 def _split_geometry(x, *others):
@@ -735,18 +912,35 @@ def _split_geometry(x, *others):
                            _sm_count(x.device.index))
 
 
-def _count_split(wrapper, x) -> None:
+def _split_plan_for(x, arrays: int, plan: Optional[SplitPlan], *others):
+    """The plan of a split reduction's launch on x (and ``others``, read
+    beside it): ``plan`` if given, else :func:`split_plan`'s."""
+    aligned = all(t.data_ptr() % 16 == 0 for t in (x,) + others)
+    if plan is None:
+        n, h, w, c = x.shape
+        return split_plan(n, h * w, c, x.element_size(), arrays,
+                          _sm_count(x.device.index), aligned)
+    if plan.variant == "cluster" and not aligned:
+        raise ValueError("the cluster variant needs 16-byte aligned tensors")
+    return plan
+
+
+def _count_split(wrapper, x, variant: str = "rows") -> None:
     n, h, w, c = x.shape
     with _count_lock:
         wrapper.launches += 1
         key = (n, h * w, c)
         wrapper.launches_by_shape[key] = \
             wrapper.launches_by_shape.get(key, 0) + 1
+        wrapper.launches_by_variant[variant] = \
+            wrapper.launches_by_variant.get(variant, 0) + 1
 
 
-def instance_norm_partial_stats(x: torch.Tensor):
+def instance_norm_partial_stats(x: torch.Tensor, *,
+                                plan: Optional[SplitPlan] = None):
     """K1-split, first launch (see :func:`instance_norm_partial_stats_plain`
-    for what it computes)."""
+    for what it computes): the variant :func:`split_plan` picks, or
+    ``plan``."""
     _check_x(x)
     if not x.is_cuda:
         return instance_norm_partial_stats_plain(x)
@@ -754,11 +948,17 @@ def instance_norm_partial_stats(x: torch.Tensor):
     n, h, w, c = x.shape
     mean = torch.empty((n, c), dtype=torch.float32, device=x.device)
     m2 = torch.empty_like(mean)
-    vec, tx = _split_geometry(x)
-    _split_launch(x, "instance_norm_partial_stats", _PSTATS_ARGTYPES,
-                  KERNEL_NAME, x.data_ptr(), mean.data_ptr(), m2.data_ptr(),
-                  n, h * w, c, _DTYPE_CODE[x.dtype], vec, tx)
-    _count_split(instance_norm_partial_stats, x)
+    plan = _split_plan_for(x, 1, plan)
+    head = (x.data_ptr(), mean.data_ptr(), m2.data_ptr(), n, h * w, c,
+            _DTYPE_CODE[x.dtype])
+    if plan.variant == "cluster":
+        _split_launch(x, "instance_norm_partial_stats_cluster",
+                      _PSTATS_CLUSTER_ARGTYPES, KERNEL_NAME, *head,
+                      *plan[1:], plan=plan)
+    else:
+        _split_launch(x, "instance_norm_partial_stats", _PSTATS_ARGTYPES,
+                      KERNEL_NAME, *head, *_split_geometry(x))
+    _count_split(instance_norm_partial_stats, x, plan.variant)
     return mean, m2
 
 
@@ -784,9 +984,11 @@ def instance_norm_apply(x, mean, rstd, scale, shift, *, relu: bool = False):
 
 
 def instance_norm_bwd_partial_sums(x, dy, mean, rstd, scale, shift, *,
-                                   relu: bool = False):
+                                   relu: bool = False,
+                                   plan: Optional[SplitPlan] = None):
     """K2-split, first launch
-    (:func:`instance_norm_bwd_partial_sums_plain`)."""
+    (:func:`instance_norm_bwd_partial_sums_plain`): the variant
+    :func:`split_plan` picks, or ``plan``."""
     _check_x(x)
     n, h, w, c = x.shape
     _check_affine(scale, shift, n, c, x.device)
@@ -799,13 +1001,19 @@ def instance_norm_bwd_partial_sums(x, dy, mean, rstd, scale, shift, *,
     mean, rstd = mean.contiguous(), rstd.contiguous()
     sum_g = torch.empty((n, c), dtype=torch.float32, device=x.device)
     sum_gx = torch.empty_like(sum_g)
-    vec, tx = _split_geometry(x, dy)
-    _split_launch(x, "instance_norm_bwd_partial_sums", _PSUMS_ARGTYPES,
-                  BWD_KERNEL_NAME, x.data_ptr(), dy.data_ptr(),
-                  mean.data_ptr(), rstd.data_ptr(), _ptr(scale), _ptr(shift),
-                  sum_g.data_ptr(), sum_gx.data_ptr(), n, h * w, c, stride,
-                  _DTYPE_CODE[x.dtype], vec, tx, int(relu))
-    _count_split(instance_norm_bwd_partial_sums, x)
+    plan = _split_plan_for(x, 2, plan, dy)
+    head = (x.data_ptr(), dy.data_ptr(), mean.data_ptr(), rstd.data_ptr(),
+            _ptr(scale), _ptr(shift), sum_g.data_ptr(), sum_gx.data_ptr(), n,
+            h * w, c, stride, _DTYPE_CODE[x.dtype])
+    if plan.variant == "cluster":
+        _split_launch(x, "instance_norm_bwd_partial_sums_cluster",
+                      _PSUMS_CLUSTER_ARGTYPES, BWD_KERNEL_NAME, *head,
+                      *plan[1:], int(relu), plan=plan)
+    else:
+        _split_launch(x, "instance_norm_bwd_partial_sums", _PSUMS_ARGTYPES,
+                      BWD_KERNEL_NAME, *head, *_split_geometry(x, dy),
+                      int(relu))
+    _count_split(instance_norm_bwd_partial_sums, x, plan.variant)
     return sum_g, sum_gx
 
 
@@ -839,9 +1047,13 @@ def instance_norm_bwd_apply_dx(x, dy, mean, rstd, scale, shift, sum_g,
 
 SPLIT_WRAPPERS = (instance_norm_partial_stats, instance_norm_apply,
                   instance_norm_bwd_partial_sums, instance_norm_bwd_apply_dx)
+# the two reductions, which have a cluster variant beside the "rows" one
+SPLIT_REDUCTIONS = (instance_norm_partial_stats,
+                    instance_norm_bwd_partial_sums)
 for _w in SPLIT_WRAPPERS:
     _w.launches = 0
     _w.launches_by_shape = {}
+    _w.launches_by_variant = {}
 
 class _InstanceNormSplit(torch.autograd.Function):
     """K1-split and K2-split behind one autograd node.  ``reducer`` does the

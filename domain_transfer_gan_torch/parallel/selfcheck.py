@@ -143,9 +143,9 @@ def _launch_counts(what="launches_by_shape"):
             "bwd": dict(getattr(instance_norm_bwd_fused, what))}
 
 
-def _split_counts():
+def _split_counts(what="launches_by_shape"):
     from ..ops.kernels.instance_norm import SPLIT_WRAPPERS
-    return {w.__name__: dict(w.launches_by_shape) for w in SPLIT_WRAPPERS}
+    return {w.__name__: dict(getattr(w, what)) for w in SPLIT_WRAPPERS}
 
 
 def _split_norms():
@@ -166,6 +166,7 @@ def _reset_counts():
     for w in SPLIT_WRAPPERS:
         w.launches = 0
         w.launches_by_shape = {}
+        w.launches_by_variant = {}
     instance_norm_split.calls_by_shape = {}
 
 
@@ -347,6 +348,7 @@ def run_job(name: str, device="cpu", width=TINY, batch=None, steps=None,
     out["launches"] = _launch_counts()
     out["launches_by_variant"] = _launch_counts("launches_by_variant")
     out["split_launches"] = _split_counts()
+    out["split_variants"] = _split_counts("launches_by_variant")
     out["trunk_runs"] = pipeline.trunk_runs[0]
     out["split_shapes"] = _split_norms()
     out["split_norms"] = sum(out["split_shapes"].values())

@@ -509,6 +509,47 @@ def test_split_kernels_vs_their_twins_on_the_card():
         relu=True), rtol=1e-4, atol=1e-4)
     torch.cuda.synchronize()
     assert [w.launches for w in K.SPLIT_WRAPPERS] == [b + 1 for b in before]
+    # both variants of the two reductions at a headline rank shape, a
+    # 256x256 rank's and a discriminator site's, each counted by variant;
+    # the cluster variant twice, bit for bit the same
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    for n, hw, c in ((32, 512, 128), (8, 32768, 32), (32, 8, 128)):
+        for dtype in (torch.float32, torch.bfloat16):
+            x = (torch.randn((n, hw, 1, c), generator=g, device="cuda")
+                 * 1.5 + 0.5).to(dtype)
+            dy = torch.randn(x.shape, generator=g, device="cuda").to(dtype)
+            scale = torch.rand((n, c), generator=g, device="cuda") + 0.5
+            shift = torch.randn((n, c), generator=g, device="cuda")
+            pm, pq = K.instance_norm_partial_stats_plain(x)
+            rstd = torch.rsqrt(pq / hw + 1e-5)
+            psg, psgx = K.instance_norm_bwd_partial_sums_plain(
+                x, dy, pm, rstd, scale, shift, relu=True)
+            for arrays, plan in ((a, p) for a in (1, 2) for p in (
+                    K.split_plan(n, hw, c, x.element_size(), a, sms,
+                                 on_chip=True), K.SPLIT_ROWS)):
+                wrapper = K.SPLIT_REDUCTIONS[arrays - 1]
+                before = dict(wrapper.launches_by_variant)
+                if arrays == 1:
+                    def run():
+                        return K.instance_norm_partial_stats(x, plan=plan)
+                    want = (pm, pq)
+                else:
+                    def run():
+                        return K.instance_norm_bwd_partial_sums(
+                            x, dy, pm, rstd, scale, shift, relu=True,
+                            plan=plan)
+                    want = (psg, psgx)
+                got = run()
+                for a, b in zip(got, want):
+                    torch.testing.assert_close(
+                        a, b, rtol=1e-5, atol=1e-4 * max(1.0, float(
+                            b.abs().max())))
+                if plan.variant == "cluster":
+                    assert all(torch.equal(a, b) for a, b in zip(got, run()))
+                torch.cuda.synchronize()
+                runs = 2 if plan.variant == "cluster" else 1
+                assert wrapper.launches_by_variant[plan.variant] == \
+                    before.get(plan.variant, 0) + runs
 
 
 @pytest.mark.cuda

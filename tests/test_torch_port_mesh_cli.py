@@ -99,8 +99,8 @@ def test_chip_smoke_phase12_runs_on_the_cpu(tmp_path, monkeypatch):
     tmp = str(tmp_path)
     write_synthetic_dataset(tmp + "/cli_data", n_train=data["n_train"],
                             n_test=data["n_test"], size=64)
-    _, _, _, fig = cs.drive_phase12(torch, K, tmp, "cpu", device="cpu",
-                                    width=tiny)
+    _, _, _, _, fig = cs.drive_phase12(torch, K, tmp, "cpu", device="cpu",
+                                       width=tiny)
     assert set(fig["steps"]) == {j[0] for j in cs.P12_JOBS}
     assert all(v["test_mse_A_vs_one_process"] <= 1e-6
                for v in fig["cli"].values())
