@@ -12,12 +12,14 @@ It needs one CUDA device, ``nvcc`` and no network.  It
 2. builds every CUDA source of ``domain_transfer_gan_torch/csrc`` into
    ``build/``, one ``nvcc`` per source, all started together;
 3. holds both instance-norm kernels against their plain PyTorch versions on
-   the card, each in both its variants (the on-chip cluster one wherever
-   ``cluster_plan`` can take the shape, the streaming one everywhere), at
-   every shape the serving path, the train steps at batch 32 and batch
-   128, the training CLI's evaluations and visuals (the generators at 10,
-   25, 50, 100 and 250 images) and the evaluation CLI's (at 5, 64, 150, 200
-   and 320 besides) give them and at edge shapes, in float32 and
+   the card, each in its variants (the on-chip cluster one wherever
+   ``cluster_plan`` can take the shape, else the ring route wherever it
+   can, each ring launch repeated bit for bit; the streaming one
+   everywhere), at every shape the serving path, the train steps at batch
+   32 and batch 128, the training CLI's evaluations and visuals (the
+   generators at 10, 25, 50, 100 and 250 images), the evaluation CLI's (at
+   5, 64, 150, 200 and 320 besides) and phase 9's steps (at 256x256 too)
+   give them and at edge shapes, in float32 and
    bfloat16, over unbiased x relu x {no, per-channel, per-sample} affine:
    the forward's y, mean, rstd, and the backward's dx, dscale, dshift;
 4. drives the serving path at the published width (``aug_cycle_gan``, ngf 32,
@@ -39,10 +41,11 @@ It needs one CUDA device, ``nvcc`` and no network.  It
    forward and backward launch counters are read around every step and held
    to the counts the step's structure gives, and every launch must take the
    cluster variant;
-6. times both kernels (the cluster and the streaming variant, in turns in
-   this run, with the plan beside each row) at every site of the serving
-   path, the train steps and the eval batch of 100 and at the 256x256
-   request's, beside their plain versions and the library calls
+6. times both kernels (the library call, the streaming variant and the
+   cluster variant or the ring route, in turns in this run, with the plan
+   beside each row) at every site of the serving path, the train steps and
+   the eval batch of 100 and at the 256x256 generator sites (N = 4, 8, 32)
+   in both dtypes, beside their plain versions and the library calls
    (``F.relu(F.instance_norm(...))`` and its backward), the two generators
    end to end and the train step in both dtypes, and prints the ``kernels``
    line with the launches per variant;
@@ -84,7 +87,9 @@ It needs one CUDA device, ``nvcc`` and no network.  It
    steps of ``aug_cycle_gan`` (3 float32 at batch 32, one bfloat16 at 128,
    one float32 at batch 32 on 256x256 images) and of ``stoch_cycle_gan``
    (one float32 at 32), 3 float32 ``--pool_size 50 --ema 0.999`` steps at
-   32 (the pool full by step 2, so it replays), each against a plain-norm
+   32 (the pool full by step 2, so it replays), one fused bfloat16
+   ``aug_cycle_gan`` step on 256x256 images at batch 32 (its generator
+   sites through the ring route), each against a plain-norm
    twin with the same weights, inputs, noise and pool draws under phase 5's
    limits, with its launches by shape and variant held to its structure
    (K1 and K2 at the microbatch of 8, the discriminators' concatenated pass
@@ -97,7 +102,11 @@ It needs one CUDA device, ``nvcc`` and no network.  It
    each of the four generator calls with a graph); the bfloat16 batch-128
    step fused, with ``--remat`` and with ``--grad_accum 4``: peak memory
    and time; the float32 batch-32 step with and without the pool and EMA:
-   time; then one epoch each of ``aug_cycle_gan --pool_size 50 --ema
+   time; the 256x256 float32 ``--grad_accum 4`` step and the 256x256
+   bfloat16 batch-32 step (the latter through the ring route and with the
+   streaming variant forced, in turns): time, peak memory and the
+   instance norms' device time and share under ``torch.profiler``; then
+   one epoch each of ``aug_cycle_gan --pool_size 50 --ema
    0.999 --remat`` and ``--grad_accum 4 --ema 0.999`` through the training
    CLI on phase 7's data, one more epoch of the pool run with
    ``--continue_train`` (its restored pools equal the saved ones bit for
@@ -207,7 +216,10 @@ FP32_FLOP_PER_S = 67e12
 PATH_SHAPES = ((32, 4096, 32), (32, 4096, 64), (32, 1024, 128))
 SITES_PREDICT_B = {(32, 4096, 32): 2, (32, 4096, 64): 2, (32, 1024, 128): 7}
 SITES_PREDICT_A = {(32, 4096, 32): 2, (32, 4096, 64): 2, (32, 1024, 128): 4}
-EDGE_SHAPES = ((2, 4096, 4), (3, 169, 20), (4, 65536, 32))
+# edge shapes: rows of 16 and of 80 bytes, the first site of a 256x256
+# request, and wide rows whose ring the plan narrows to fit a CTA (the
+# discriminators' third site at 256x256 with --ndf 128 --batchSize 1)
+EDGE_SHAPES = ((2, 4096, 4), (3, 169, 20), (4, 65536, 32), (2, 3969, 512))
 # timed besides the path shapes: the first norm site of a 256x256 request of
 # 4 images, twice the bytes of (32, 4096, 32) in a grid of only 16 blocks
 TIMED_EXTRA_SHAPES = ((4, 65536, 32),)
@@ -382,6 +394,15 @@ ACCUM_K = 4
 EXTRAS_SHAPES = tuple(dict.fromkeys(
     s for hw in (64, 256)
     for s in sorted(accum_sites(32, ACCUM_K, hw=hw)["fwd"], reverse=True)))
+# phase 9's fused bfloat16 step on 256x256 images at batch 32 (the JAX
+# package's quality arm at the reference's default grid size): its sites
+STEP256_BATCH = 32
+STEP256_SHAPES = tuple(sorted(train_sites(STEP256_BATCH, hw=256),
+                              reverse=True))
+# the 256x256 generator sites (a request of 4, phase 9's microbatch of 8,
+# the step at 32), whose slabs no cluster holds: K1's and K2's ring route
+RING_SHAPES = ((4, 65536, 32),) + tuple(gen_sites(8, "B", hw=256)) + \
+    tuple(gen_sites(STEP256_BATCH, "B", hw=256))
 
 # phase 10: the per-file data path, the host feed, the Livneh ETL and
 # upstream-checkpoint interop, at the published width in float32.  Sizes
@@ -453,19 +474,27 @@ def synchronous_feed(train_cli):
 # serving path, of a train step at batch 32 and at batch 128 (the
 # discriminators' concatenated pass has N = 2 batch; the launch geometry
 # differs with N), of the training CLI's evaluations and visuals, of phase
-# 9's microbatches and phase 10's tails, and edge shapes
+# 9's microbatches and 256x256 step, phase 10's tails, and edge shapes
 CHECK_SHAPES = tuple(dict.fromkeys(
     PATH_SHAPES + tuple(s for b in sorted(set(TRAIN_BATCH.values()))
                         for s in train_sites(b))
     + tuple(s for n in CLI_BATCHES + TEST_CLI_BATCHES
             for s in gen_sites(n, "B"))
-    + EXTRAS_SHAPES + P10_SHAPES + P11_SHAPES + EDGE_SHAPES
-    + (HW1_SHAPE,)))
+    + EXTRAS_SHAPES + P10_SHAPES + P11_SHAPES + STEP256_SHAPES
+    + EDGE_SHAPES + (HW1_SHAPE,)))
 BWD_SUM_RTOL = 1e-4  # dscale, dshift: fp32 sums of up to 65536 products
 
 
 def log(*a):
     print(*a, flush=True)
+
+
+# the kernels' variants (ops/kernels/instance_norm.py::VARIANTS)
+VARIANTS = ("cluster", "ring", "streaming")
+
+
+def _no_launches():
+    return dict.fromkeys(VARIANTS, 0)
 
 
 def _hw_split(hw: int):
@@ -539,6 +568,15 @@ def _on_chip_plan(K, shape, itemsize, arrays):
         return None
 
 
+def _ring_route(K, shape, itemsize, arrays):
+    """The ring route's plan where the wrapper takes it (no cluster holds
+    the slab, the rows are a multiple of 16 bytes and a ring fits), else
+    None."""
+    n, hw, c = shape
+    plan = K.cluster_plan(n, hw, c, itemsize, arrays, K._sm_count(0))
+    return plan if plan.variant == "ring" else None
+
+
 def _picked_variant(K, shape, itemsize, arrays):
     n, hw, c = shape
     return K.cluster_plan(n, hw, c, itemsize, arrays,
@@ -547,8 +585,10 @@ def _picked_variant(K, shape, itemsize, arrays):
 
 def _variants(K, shape, itemsize, arrays):
     """The plans a case is checked under: the cluster variant's wherever it
-    can run, and the streaming one everywhere."""
-    chip = _on_chip_plan(K, shape, itemsize, arrays)
+    can run, else the ring route's wherever that can, and the streaming
+    one everywhere."""
+    chip = _on_chip_plan(K, shape, itemsize, arrays) or \
+        _ring_route(K, shape, itemsize, arrays)
     return ([chip] if chip is not None else []) + [K.STREAMING]
 
 
@@ -557,8 +597,9 @@ class _Worst:
 
     def __init__(self, *names):
         self.names = names
-        self.cases = {"cluster": 0, "streaming": 0}
+        self.cases = _no_launches()
         self.worst = {v: dict.fromkeys(names, 0.0) for v in self.cases}
+        self.ring_repeats = 0  # ring launches repeated, bit for bit equal
 
     def add(self, variant, **errs):
         for k, e in errs.items():
@@ -568,14 +609,26 @@ class _Worst:
         return max(w[name] for w in self.worst.values())
 
     def summary(self):
-        return {v: dict(self.worst[v], cases=self.cases[v])
-                for v in self.cases}
+        out = {v: dict(self.worst[v], cases=self.cases[v])
+               for v in self.cases}
+        out["ring"]["repeats_bit_equal"] = self.ring_repeats
+        return out
+
+    def repeat(self, torch, got, launch, what):
+        """A second launch of the ring route, bit for bit the first."""
+        again = launch()
+        if not all(a is b or torch.equal(a, b) for a, b in zip(got, again)):
+            raise AssertionError("two launches of the ring route differ "
+                                 "for " + what)
+        self.ring_repeats += 1
 
 
 def check_kernel(torch, K):
-    """Phase 3, forward.  Both variants of the kernel against
+    """Phase 3, forward.  The variants of the kernel against
     ``instance_norm_plain`` on the same inputs: the cluster variant at
-    every case whose shape it takes, the streaming variant at every case.
+    every case whose shape it takes, else the ring route where it can run
+    (launched twice, bit for bit the same), the streaming variant at every
+    case.
     float32 y, mean, rstd within FP32_ATOL; bfloat16 y within one bfloat16
     ulp.  Returns a ``_Worst`` (float32 |y| error, mean/rstd error,
     bfloat16 distance in ulps)."""
@@ -590,10 +643,14 @@ def check_kernel(torch, K):
             x, scale, shift, eps=1e-5, unbiased=unbiased, relu=relu,
             return_stats=True)
         for plan in _variants(K, shape, x.element_size(), 1):
-            y, mean, rstd = K._launch(x, scale, shift, 1e-5, unbiased, relu,
-                                      plan=plan)
+            def launch(plan=plan):
+                return K._launch(x, scale, shift, 1e-5, unbiased, relu,
+                                 plan=plan)
+            y, mean, rstd = launch()
             what = "%r %s unbiased=%s relu=%s affine=%s, %r" % (
                 shape, name, unbiased, relu, affine, plan)
+            if plan.variant == "ring":
+                worst.repeat(torch, (y, mean, rstd), launch, what)
             if y.shape != x.shape or y.dtype != x.dtype:
                 raise AssertionError("bad output for " + what)
             finite, e_stats, e, over = _read(
@@ -630,7 +687,7 @@ def check_kernel(torch, K):
 
 
 def check_bwd_kernel(torch, K):
-    """Phase 3, backward.  Both variants' dx, dscale, dshift against
+    """Phase 3, backward.  The variants' dx, dscale, dshift against
     ``instance_norm_bwd_plain`` on the same x, dy, mean, rstd, scale, shift,
     as ``check_kernel`` does for the forward.  float32 dx within FP32_ATOL
     relative to the largest |dx|; bfloat16 dx within one bfloat16 ulp; the
@@ -652,10 +709,14 @@ def check_bwd_kernel(torch, K):
         dxp, dsp, dtp = K.instance_norm_bwd_plain(x, dy, mean, rstd, scale,
                                                   shift, **kw)
         for plan in _variants(K, shape, x.element_size(), 2):
-            dx, ds, dt = K._launch_bwd(x, dy, mean, rstd, scale, shift,
-                                       unbiased, relu, plan=plan)
+            def launch(plan=plan):
+                return K._launch_bwd(x, dy, mean, rstd, scale, shift,
+                                     unbiased, relu, plan=plan)
+            dx, ds, dt = launch()
             what = "%r %s unbiased=%s relu=%s affine=%s, %r" % (
                 shape, name, unbiased, relu, affine, plan)
+            if plan.variant == "ring":
+                worst.repeat(torch, (dx, ds, dt), launch, what)
             if dx.shape != x.shape or dx.dtype != x.dtype:
                 raise AssertionError("bad dx for " + what)
             if affine == "none":
@@ -787,44 +848,75 @@ def _phase11_cases():
             + [(shape, "bfloat16") for shape in gen_sites(64, "B")])
 
 
+def _ring_cases():
+    """The 256x256 generator sites in both dtypes (the ring route's), and
+    the sites of phase 9's bfloat16 step at 256x256 and batch 32."""
+    return ([(shape, name) for shape in RING_SHAPES
+             for name in ("float32", "bfloat16")]
+            + [(shape, "bfloat16") for shape in STEP256_SHAPES])
+
+
 def _timed_cases():
     serving = _serving_cases()
     return serving + [c for c in dict.fromkeys(
         _train_cases() + _eval_cases() + _test_cases() + _extras_cases()
-        + _phase10_cases() + _phase11_cases()) if c not in serving]
+        + _phase10_cases() + _phase11_cases() + _ring_cases())
+        if c not in serving]
 
 
 def _plan_row(plan, n):
-    return {"variant": plan.variant, "cluster": plan.cluster,
-            "rows": plan.rows, "stages": plan.stages,
-            "threads": plan.threads, "smem_bytes": plan.smem_bytes,
-            "ctas": n * plan.cluster}
+    """A plan's fields; the ring route's are its ring's and its chunk."""
+    p = plan.ring or plan
+    return {"variant": plan.variant, "cluster": p.cluster, "rows": p.rows,
+            "stages": p.stages, "threads": p.threads,
+            "smem_bytes": p.smem_bytes,
+            "stage_rows": plan.ring.stage_rows if plan.ring else 0,
+            "chunk_rows": plan.chunk_rows, "ctas": n * p.cluster}
 
 
-def _time_variants(torch, K, launch, shape, itemsize, arrays, sweep):
+def _calls_for(nbytes):
+    """Calls a timing graph captures: 20, fewer where each allocates an
+    output of ``nbytes`` (x's size) and the plain versions' intermediates,
+    so that a graph of the 256x256 sites stays within a few GB."""
+    return max(3, min(20, int(2e9 // max(nbytes, 1))))
+
+
+def _time_variants(torch, K, launch, shape, itemsize, arrays, sweep,
+                   library=None, calls=20):
     """Device ms of ``launch(i, plan)`` under the cluster variant's plan
-    (``cluster_ms``, where it can run) and under the streaming plan (the PR
-    1/2 kernels, ``streaming_ms``), timed in turns (streaming, cluster,
-    cluster, streaming) and averaged per plan; ``kernel_ms`` is the time of
-    the variant the wrapper picks (``variant``), ``plan`` the cluster
-    variant's plan.  With ``sweep`` also under every cluster size that holds
-    the slab."""
+    (``cluster_ms``, where it can run), under the ring route's plan
+    (``ring_ms``, where no cluster holds the slab and the route can run)
+    and under the streaming plan (the kernels' first ports, ``streaming_ms``),
+    timed in turns (library, streaming, the other plan twice, streaming,
+    library) and averaged per plan; ``library(i)`` (the library call's
+    ``library_turns_ms``) where given.  ``kernel_ms`` is the time of the
+    variant the wrapper picks (``variant``), ``plan`` the cluster variant's
+    or the ring route's plan.  With ``sweep`` also under every cluster size
+    that holds the slab."""
     n, hw, c = shape
     sm_count = K._sm_count(0)
     picked = _picked_variant(K, shape, itemsize, arrays)
-    chip = _on_chip_plan(K, shape, itemsize, arrays)
+    other = _on_chip_plan(K, shape, itemsize, arrays) or \
+        _ring_route(K, shape, itemsize, arrays)
 
     def timed(p):
-        return _time_device(torch, lambda i: launch(i, p))
+        if p == "library":
+            return _time_device(torch, library, calls=calls)
+        return _time_device(torch, lambda i: launch(i, p), calls=calls)
 
-    out = {"variant": picked,
-           "plan": _plan_row(chip or K.STREAMING, n)}
-    if chip is not None:
-        s1, k1, k2, s2 = (timed(p) for p in (K.STREAMING, chip, chip,
-                                             K.STREAMING))
-        out["cluster_ms"], out["streaming_ms"] = (k1 + k2) / 2, (s1 + s2) / 2
-    else:
-        out["cluster_ms"], out["streaming_ms"] = None, timed(K.STREAMING)
+    out = {"variant": picked, "plan": _plan_row(other or K.STREAMING, n),
+           "cluster_ms": None, "ring_ms": None}
+    turns = [K.STREAMING] + ([other, other] if other is not None else []) \
+        + [K.STREAMING]
+    if library is not None:
+        turns = ["library"] + turns + ["library"]
+    times = {}
+    for p in turns:
+        key = "library" if p == "library" else p.variant
+        times.setdefault(key, []).append(timed(p))
+    for key, ts in times.items():
+        out[("library_turns" if key == "library" else key) + "_ms"] = \
+            sum(ts) / len(ts)
     out["kernel_ms"] = out[picked + "_ms"]
     if sweep:
         out["cluster_sweep_ms"] = {}
@@ -898,14 +990,15 @@ def time_kernel(torch, F, K, site_counts, train_counts, cli_counts,
                 x.permute(0, 3, 1, 2), weight=s.to(dtype),
                 bias=b.to(dtype), eps=1e-5))
 
+        calls = _calls_for(x_bytes)
         row = {"shape": list(shape), "dtype": name, "bytes": nbytes}
         row.update(_time_variants(torch, K, launch, shape, itemsize, 1,
-                                  sweep=extra))
+                                  sweep=extra, library=library, calls=calls))
         row.update({
             "bound_ms": max(t_bytes, t_ops),
             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-            "plain_ms": _time_device(torch, plain),
-            "library_ms": _time_device(torch, library),
+            "plain_ms": _time_device(torch, plain, calls=calls),
+            "library_ms": row["library_turns_ms"],
             "launches_per_predict_B":
                 site_counts[name]["predict_B"].get(shape, 0),
             "launches_per_predict_A":
@@ -1006,15 +1099,17 @@ def time_bwd_kernel(torch, F, K, train_counts, cli_counts, variant_counts,
             y = F.relu(F.instance_norm(xl, weight=sl, bias=bl, eps=1e-5))
             return torch.autograd.grad(y, (xl, sl, bl), dyl)
 
+        calls = _calls_for(x_bytes)
         row = {"shape": list(shape), "dtype": name, "bytes": nbytes}
         row.update(_time_variants(torch, K, launch, shape, itemsize, 2,
-                                  sweep=extra))
-        lib_both = _time_device(torch, library_fwd_bwd)
-        lib_fwd = _time_device(torch, library_fwd)
+                                  sweep=extra, library=library_fwd_bwd,
+                                  calls=calls))
+        lib_both = row["library_turns_ms"]
+        lib_fwd = _time_device(torch, library_fwd, calls=calls)
         row.update({
             "bound_ms": max(t_bytes, t_ops),
             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-            "plain_ms": _time_device(torch, plain),
+            "plain_ms": _time_device(torch, plain, calls=calls),
             "library_ms": lib_both - lib_fwd,
             "library_fwd_bwd_ms": lib_both,
             "launches_per_train_step":
@@ -1120,7 +1215,7 @@ def drive_serving_path(torch, fused, fused_bwd, tmp):
     for wrapper in (fused, fused_bwd):
         wrapper.launches = 0
         wrapper.launches_by_shape = {}
-        wrapper.launches_by_variant = {"cluster": 0, "streaming": 0}
+        wrapper.launches_by_variant = _no_launches()
     with Served(TrainConfig(**cfg), tmp + "/fp32", batch) as srv:
         with urllib.request.urlopen(srv.url + "/", timeout=30) as resp:
             manifest = json.loads(resp.read())
@@ -1156,7 +1251,7 @@ def drive_serving_path(torch, fused, fused_bwd, tmp):
     if bwd_launches:
         raise AssertionError("serving launched the backward kernel %d times"
                              % bwd_launches)
-    if by_variant != {"cluster": main_path_launches, "streaming": 0}:
+    if by_variant != dict(_no_launches(), cluster=main_path_launches):
         raise AssertionError("serving launched the forward kernel's variants "
                              "%r: every serving shape must take the cluster "
                              "one" % by_variant)
@@ -1310,7 +1405,7 @@ class _Counters:
         for w in (self.fwd, self.bwd):
             w.launches = 0
             w.launches_by_shape = {}
-            w.launches_by_variant = {"cluster": 0, "streaming": 0}
+            w.launches_by_variant = _no_launches()
         self.bwd.dy_copies = 0
 
     def variants(self):
@@ -1399,7 +1494,7 @@ def drive_training_path(torch, K, seed_offset=0, hold=True):
         cfg = dict(TRAIN_CFG, seed=TRAIN_CFG["seed"] + seed_offset, **kw)
         return create_model(TrainConfig(**cfg), testing=True, device="cuda")
 
-    expected = {d: {"cluster": 0, "streaming": 0} for d in ("fwd", "bwd")}
+    expected = {d: _no_launches() for d in ("fwd", "bwd")}
 
     def step(m, A, B, z, eps, plain_norm=False):
         before = counters.read()
@@ -1678,7 +1773,7 @@ def drive_training_cli(torch, K, tmp, device="cuda", width=CLI_WIDTH):
                 "training CLI: %s launches by shape %r, expected %r" % (
                     direction, sorted(seen[direction].items()),
                     sorted(want[direction].items())))
-    expected = {d: {"cluster": 0, "streaming": 0} for d in ("fwd", "bwd")}
+    expected = {d: _no_launches() for d in ("fwd", "bwd")}
     _tally(K, seen, 4, expected)
     if variants != expected:
         raise AssertionError("training CLI launched the variants %r, the "
@@ -1872,7 +1967,7 @@ def drive_variant_steps(torch, K):
     from domain_transfer_gan_torch.models import create_model
 
     counters = _Counters(K)
-    expected = {d: {"cluster": 0, "streaming": 0} for d in ("fwd", "bwd")}
+    expected = {d: _no_launches() for d in ("fwd", "bwd")}
     nlatent = TRAIN_CFG["nlatent"]
     devs, per_step = {}, {}
     counters.reset()  # phase 8's steps start here
@@ -2059,8 +2154,8 @@ def drive_variants_cli(torch, K, tmp, device="cuda", width=CLI_WIDTH):
     root, ckpt = tmp + "/cli_data", tmp + "/variant_runs"
     counters = _Counters(K)
     total = {"fwd": {}, "bwd": {}}
-    expected = {d: {"cluster": 0, "streaming": 0} for d in ("fwd", "bwd")}
-    variants = {d: {"cluster": 0, "streaming": 0} for d in ("fwd", "bwd")}
+    expected = {d: _no_launches() for d in ("fwd", "bwd")}
+    variants = {d: _no_launches() for d in ("fwd", "bwd")}
     figures = {"train_s": {}, "metric_s": {}}
     runs = {}
 
@@ -2234,6 +2329,8 @@ EXTRAS_STEPS = (
      "float32", 32, 256, 1),
     ("aug_pool50_ema_f32_b32", "aug_cycle_gan",
      dict(pool_size=50, ema=0.999), "float32", 32, 64, 3),
+    ("aug_bf16_b32_256", "aug_cycle_gan", {}, "bfloat16", STEP256_BATCH,
+     256, 1),
 )
 # --remat against the same model without it, one float32 step at batch 32
 # each (cuDNN's deterministic algorithms on, so that the two runs differ in
@@ -2312,6 +2409,59 @@ EXTRAS_WAYS = (("fused", {}), ("pool50_ema", dict(pool_size=50, ema=0.999)))
 EXTRAS_TIMED = 10
 
 
+def _streamed_ring(K, on):
+    """A context in which (``on``) every launch the plan sends to the ring
+    route takes the streaming variant instead: the route's yardstick
+    inside a whole step."""
+    import contextlib
+
+    @contextlib.contextmanager
+    def swapped():
+        plan = K.cluster_plan
+
+        def streamed(*a, **kw):
+            p = plan(*a, **kw)
+            return K.STREAMING if p.variant == "ring" else p
+        if on:
+            K.cluster_plan = streamed
+        try:
+            yield
+        finally:
+            K.cluster_plan = plan
+    return swapped()
+
+
+def _profile_window(torch, step, reps):
+    """``step()`` ``reps`` times under torch.profiler: wall ms of a step,
+    the device's busy ms (all kernels) and the instance norms' (K1 and K2,
+    every variant and route) per step, and their shares."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            step()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) / reps * 1e3
+    kernels = {}
+    for ev in prof.events():
+        if str(getattr(ev, "device_type", "")).endswith("CUDA"):
+            kernels[ev.name] = kernels.get(ev.name, 0.0) + \
+                ev.time_range.elapsed_us() / reps
+    busy_ms = sum(kernels.values()) / 1e3
+    norm_ms = _norm_ms(kernels)
+    return {"step_wall_ms_under_profiler": wall_ms,
+            "device_busy_ms_per_step": busy_ms,
+            "instance_norm_ms_per_step": norm_ms,
+            "instance_norm_share_of_busy": norm_ms / max(busy_ms, 1e-9),
+            "instance_norm_share_of_wall": norm_ms / wall_ms,
+            "norm_kernels_us_per_step": {
+                k[:80]: round(v, 1) for k, v in sorted(
+                    kernels.items(), key=lambda kv: -kv[1])
+                if "instance_norm" in k}}
+
+
 def drive_extras_steps(torch, K):
     """Phase 9 (a): the --grad_accum steps, the pool with EMA and --remat at
     the published width.  Each step of EXTRAS_STEPS is held against a twin
@@ -2325,13 +2475,17 @@ def drive_extras_steps(torch, K):
     bfloat16 batch-128 step fused, with --remat and with --grad_accum 4,
     and the float32 batch-32 --grad_accum 4 step on 256x256 images: peak
     memory and step time; the float32 batch-32 step with and without the
-    pool and EMA (EXTRAS_WAYS): step time.  Returns (launches by dtype, direction and
-    shape, the same per variant, the figures)."""
+    pool and EMA (EXTRAS_WAYS): step time; the bfloat16 batch-32 step on
+    256x256 images with the ring route and with the streaming variant
+    forced (_streamed_ring), in turns, and the 256x256 --grad_accum 4
+    step: the instance norms' device time and share (_profile_window).
+    Returns (launches by dtype, direction and shape, the same per variant,
+    the figures)."""
     from domain_transfer_gan_torch.config import TrainConfig
     from domain_transfer_gan_torch.models import create_model
 
     counters = _Counters(K)
-    expected = {d: {"cluster": 0, "streaming": 0} for d in ("fwd", "bwd")}
+    expected = {d: _no_launches() for d in ("fwd", "bwd")}
     by_dtype = {n: {"fwd": {}, "bwd": {}} for n in ("float32", "bfloat16")}
     nlatent = TRAIN_CFG["nlatent"]
     width = dict(n_blocks=TRAIN_CFG["n_blocks"], ngf=TRAIN_CFG["ngf"],
@@ -2376,7 +2530,7 @@ def drive_extras_steps(torch, K):
         if "grad_accum" in flags:
             want = accum_sites(batch, flags["grad_accum"], hw=hw, **width)
         else:
-            sites = train_sites(batch, **width)
+            sites = train_sites(batch, hw=hw, **width)
             want = {"fwd": sites, "bwd": sites}
         rng = np.random.RandomState(51 + i)
         pool_size = flags.get("pool_size", 0)
@@ -2523,6 +2677,36 @@ def drive_extras_steps(torch, K):
         * 1e3
     figures["f32_b32_256_accum4_peak_memory_gb"] = \
         torch.cuda.max_memory_allocated() / 2 ** 30
+    figures["f32_b32_256_accum4_profile"] = _profile_window(
+        torch, lambda: m.train_instance(A, B), reps=2)
+    del m, A, B
+    torch.cuda.empty_cache()
+    # the bfloat16 step on 256x256 images at batch 32, its 256x256
+    # generator sites through the ring route (the plan's pick) and through
+    # the streaming variant forced, in turns: time, peak memory and the
+    # instance norms' device time under torch.profiler (the counters are
+    # not read here)
+    A, B, _ = _train_inputs(STEP256_BATCH, nlatent, seed=17, hw=256)
+    A, B = torch.from_numpy(A).cuda(), torch.from_numpy(B).cuda()
+    m = model(compute_dtype="bfloat16", grid_size=256,
+              batchSize=STEP256_BATCH)
+    for way in ("ring", "streaming", "streaming", "ring"):
+        with _streamed_ring(K, way == "streaming"):
+            m.train_instance(A, B)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            for _ in range(2):
+                m.train_instance(A, B)
+            torch.cuda.synchronize()
+            key = "bf16_b32_256_%s" % way
+            figures.setdefault(key + "_step_ms", []).append(
+                (time.perf_counter() - t0) / 2 * 1e3)
+            figures[key + "_peak_memory_gb"] = \
+                torch.cuda.max_memory_allocated() / 2 ** 30
+            if key + "_profile" not in figures:
+                figures[key + "_profile"] = _profile_window(
+                    torch, lambda: m.train_instance(A, B), reps=2)
     del m, A, B
     torch.cuda.empty_cache()
     log("extras steps: launches by direction and shape %s, per variant %s"
@@ -2594,8 +2778,8 @@ def drive_extras_cli(torch, K, tmp, device="cuda", width=CLI_WIDTH):
     root, ckpt = tmp + "/cli_data", tmp + "/extras_runs"
     counters = _Counters(K)
     total = {"fwd": {}, "bwd": {}}
-    expected = {d: {"cluster": 0, "streaming": 0} for d in ("fwd", "bwd")}
-    variants = {d: {"cluster": 0, "streaming": 0} for d in ("fwd", "bwd")}
+    expected = {d: _no_launches() for d in ("fwd", "bwd")}
+    variants = {d: _no_launches() for d in ("fwd", "bwd")}
     figures = {"train_s": {}}
 
     def counted(what, want, fn):
@@ -3207,8 +3391,8 @@ def drive_phase10(torch, K, tmp, smi, device="cuda", width=CLI_WIDTH,
     counters = counters or _Counters(K)
     on_card = device == "cuda"
     total = {"fwd": {}, "bwd": {}}
-    expected = {d: {"cluster": 0, "streaming": 0} for d in ("fwd", "bwd")}
-    variants = {d: {"cluster": 0, "streaming": 0} for d in ("fwd", "bwd")}
+    expected = {d: _no_launches() for d in ("fwd", "bwd")}
+    variants = {d: _no_launches() for d in ("fwd", "bwd")}
     fig = {"run_s": {}, "native_reader": native.reader_name(),
            "zlib_h": os.path.exists("/usr/include/zlib.h")}
     log("phase 10: host reader %s; /usr/include/zlib.h %s"
@@ -3663,8 +3847,8 @@ def drive_phase11(torch, K, tmp, smi, device="cuda", width=CLI_WIDTH,
     on_card = device == "cuda"
     counters = counters or _Counters(K)
     totals = {n: {"fwd": {}, "bwd": {}} for n in ("float32", "bfloat16")}
-    variants = {d: {"cluster": 0, "streaming": 0} for d in ("fwd", "bwd")}
-    expected = {d: {"cluster": 0, "streaming": 0} for d in ("fwd", "bwd")}
+    variants = {d: _no_launches() for d in ("fwd", "bwd")}
+    expected = {d: _no_launches() for d in ("fwd", "bwd")}
     fig = {"card": smi}
 
     def sync():
@@ -4125,6 +4309,7 @@ def check_split_kernels(torch, K):
 # x = 1000 + N(0, 0.1^2): the statistics of a one-pass sum of x and x^2
 # would keep no digit of the variance (x^2 ~ 1e6 in float32 rounds by 0.06)
 HIGH_MEAN_SHAPES = ((8, 32768, 32), SPLIT_HEADLINE[0])
+RING_HIGH_MEAN_SHAPES = ((8, 65536, 32),)
 
 
 def check_split_high_mean(torch, K):
@@ -4172,8 +4357,41 @@ def check_split_high_mean(torch, K):
                 "reference at %r on x = 1000 + N(0, 0.1^2), the twin's %g"
                 % (row["cluster"]["m2_rel_err"], shape,
                    row["twin"]["m2_rel_err"]))
-    log("phase 12: partial statistics on x = 1000 + N(0, 0.1^2) against "
-        "float64 (relative errors): %s" % json.dumps(out))
+    # K1's ring route at a 256x256 generator site: its mean and rstd (the
+    # finalizing epilogue of the same one pass), held as the twin's
+    for shape in RING_HIGH_MEAN_SHAPES:
+        n, hw, c = shape
+        h, w = _hw_split(hw)
+        g = torch.Generator(device="cuda").manual_seed(n * hw + c)
+        x = 1000.0 + 0.1 * torch.randn((n, h, w, c), generator=g,
+                                       device="cuda")
+        x64 = x.double().reshape(n, hw, c)
+        mean64 = x64.mean(dim=1)
+        rstd64 = torch.rsqrt(((x64 - mean64[:, None, :]) ** 2).mean(dim=1)
+                             + 1e-5)
+        plan = _ring_route(K, shape, 4, 1)
+        ways = {"twin": K.instance_norm_plain(x, None, None,
+                                              return_stats=True)[1:],
+                "ring": K._launch(x, None, None, 1e-5, False, False,
+                                  plan=plan)[1:]}
+        errs = _read(torch, *[((got.double() - want).abs()
+                               / want.abs()).max()
+                              for way in ways.values()
+                              for got, want in zip(way, (mean64, rstd64))])
+        row = {way: {"mean_rel_err": errs[2 * i],
+                     "rstd_rel_err": errs[2 * i + 1]}
+               for i, way in enumerate(ways)}
+        out["ring " + str(shape)] = row
+        limit = max(row["twin"]["rstd_rel_err"], eps32)
+        if row["ring"]["rstd_rel_err"] > limit:
+            raise AssertionError(
+                "the ring route's rstd is %g off a float64 reference at %r "
+                "on x = 1000 + N(0, 0.1^2), the twin's %g"
+                % (row["ring"]["rstd_rel_err"], shape,
+                   row["twin"]["rstd_rel_err"]))
+    log("phase 12: partial statistics (and K1's ring route) on x = 1000 + "
+        "N(0, 0.1^2) against float64 (relative errors): %s"
+        % json.dumps(out))
     return out
 
 
@@ -4461,7 +4679,7 @@ def drive_phase12(torch, K, tmp, smi, device="cuda", width=CLI_WIDTH):
     log("phase 12 on %s" % smi)
     fig = {"card": smi}
     totals = {"fwd": {}, "bwd": {}}
-    variants = {d: {"cluster": 0, "streaming": 0} for d in ("fwd", "bwd")}
+    variants = {d: _no_launches() for d in ("fwd", "bwd")}
     split = {w.__name__: {} for w in K.SPLIT_WRAPPERS}
     split_var = {w.__name__: {} for w in K.SPLIT_WRAPPERS}
     jobs = [dict(name="aug", width=dict(width), batch=P12_BATCH,
@@ -4917,6 +5135,19 @@ def main(argv=None):
                     for r in split_rows[name]}})
             if _split_arrays(K)[name] == 1:
                 kernels["kernels"][-1]["high_mean"] = high_mean
+    # every variant of both kernels that the plan picks at some shape of
+    # the main path ran on it: the cluster one and the ring route.  The
+    # counts are calls of the wrappers, each one launch but the ring
+    # route's, which launches its ring and then its apply / dx
+    for entry in kernels["kernels"][:2]:
+        ring_calls = entry["launches_by_variant"]["ring"]
+        entry["counts_are"] = "calls; a ring-route call is two launches"
+        entry["ring_route_launches"] = 2 * ring_calls
+        entry["kernel_launches"] = entry["launches"] + ring_calls
+        for v in ("cluster", "ring"):
+            if entry["launches_by_variant"][v] < 1:
+                raise AssertionError("%s: the %s variant never launched on "
+                                     "the main path" % (entry["name"], v))
     log(json.dumps({"end_to_end": e2e, "card": smi}))
     if prof is not None:
         log(json.dumps({"profile": prof, "card": smi}))

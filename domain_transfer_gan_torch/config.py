@@ -262,14 +262,14 @@ _UNPORTED = (
 
 
 class UnportedFlagError(NotImplementedError):
-    """A training flag that asks for a part of the system the port does not
-    run yet."""
+    """A flag that asks for a part of the JAX package the port does not
+    run, and why it will not."""
 
 
 def refuse_unported(cfg: TrainConfig) -> None:
     """Raise :class:`UnportedFlagError` naming the first flag of ``cfg``
     that asks for something the port's training CLI does not run, and the
-    ROADMAP item that ports it.  A paired-jpg dataroot (a ``train/``
+    ROADMAP item that says why.  A paired-jpg dataroot (a ``train/``
     directory and no ``trainA.npz``) without PIL raises
     ``data.edges2shoes.PILMissingError``.  Nothing is written before this
     check."""
@@ -278,8 +278,8 @@ def refuse_unported(cfg: TrainConfig) -> None:
             if field is not None:
                 flag = "%s %s" % (flag, getattr(cfg, field))
             raise UnportedFlagError(
-                "%s is not ported to the PyTorch package yet (ROADMAP %s)"
-                % (flag, item))
+                "%s is not supported by the PyTorch port, and will not be "
+                "(ROADMAP %s)" % (flag, item))
     if cfg.numpy_data:
         from .data.edges2shoes import require_pil_for
         require_pil_for(cfg.dataroot)
@@ -451,11 +451,12 @@ class TestOptions:
                             "tests)")
 
     def parse(self, args=None) -> TestConfig:
-        """Parse, then refuse what the port does not run yet by name."""
+        """Parse, then refuse what the port does not run by name."""
         cfg = TestConfig(**vars(self.parser.parse_args(args)))
         for flag, field, asked, item in _UNPORTED_TEST:
             if asked(cfg):
                 raise UnportedFlagError(
-                    "%s %s is not ported to the PyTorch package yet "
-                    "(ROADMAP %s)" % (flag, getattr(cfg, field), item))
+                    "%s %s is not supported by the PyTorch port, and will "
+                    "not be (ROADMAP %s)" % (flag, getattr(cfg, field),
+                                            item))
         return cfg

@@ -22,8 +22,8 @@
 // (scale, shift, mean, rstd are N * C * 16 bytes, negligible), so the least
 // time on an H100 SXM is 2 * N * HW * C * sizeof(T) / 3.35e12 s.
 //
-// Two variants; ops/kernels/instance_norm.py::cluster_plan picks one per
-// shape, and a refused launch is an error, never a move to the other.
+// Three variants; ops/kernels/instance_norm.py::cluster_plan picks one per
+// shape, and a refused launch is an error, never a move to another.
 //
 // 1. On chip (instance_norm_fwd_cluster, the main path's): a cluster of K
 //    CTAs per sample holds the sample's slab in shared memory, so x is read
@@ -44,12 +44,23 @@
 //    barriers.  Taken where C * sizeof(T) is a multiple of 16 bytes, the
 //    tensors are 16-byte aligned and some K <= 16 fits the slab into 227 KB
 //    per CTA: every shape of the serving path and of the train steps.
-// 2. Streaming (instance_norm_fwd, the first port of the kernel): one block
+// 2. The ring route, two launches, where no cluster holds the slab (the
+//    256x256 generator sites, 1-16 MB of x per sample, and the widest
+//    256x256 discriminator sites): instance_norm_ring_stats, the ring of
+//    K1-split's cluster variant (below) over a cluster of K CTAs per sample,
+//    reads x once and merges by Chan's rule in rank order, and rank 0's
+//    finalizing epilogue writes mean and rstd; then instance_norm_apply
+//    (K1-split's second launch, below) over a grid of (sample, row chunk,
+//    channel tile) blocks reads x again and writes y.  Bound as above; the
+//    two launches move 3 * N * HW * C * sizeof(T) bytes, 1.5x it.  Taken
+//    where C * sizeof(T) is a multiple of 16 bytes and the tensors are
+//    16-byte aligned.
+// 3. Streaming (instance_norm_fwd, the first port of the kernel): one block
 //    per (sample, channel tile) loops over HW, so every HW >= 1 and C >= 1 is
 //    served.  It reads x three times (mean, centered variance, output; the
 //    second and third reads mostly from the 50 MB L2).  Taken elsewhere:
-//    rows of other widths, and slabs no cluster holds (the 256x256 request
-//    (4, 65536, 32): 4-8 MB per sample).
+//    rows of other widths and unaligned tensors, and at the mid-size
+//    discriminator sites where the card measured it faster than a cluster.
 //      * grid  = N * ceil(C / (TX * VEC)) blocks, one per (sample, channel
 //        tile);
 //      * block = 256 threads laid out as TX (channel direction) x TY = 256 /
@@ -67,8 +78,8 @@
 //        shared memory (stride TY/2, TY/4, ..., 1).  Pass 1 gives the mean,
 //        pass 2 the centered sum of squares, pass 3 writes y.
 //
-// Both variants add in a fixed order and use no atomics, so a result repeats
-// bit for bit from run to run.
+// Every variant adds in a fixed order and uses no atomics, so a result
+// repeats bit for bit from run to run.
 
 #include "instance_norm_cluster.cuh"
 #include "instance_norm_common.cuh"
@@ -434,9 +445,16 @@ extern "C" int instance_norm_fwd_cluster(const void* x, const void* scale, const
 //                                (max(y, 0) if relu) from the global mean
 //                                and rstd.
 //
-// Both are streaming kernels with the geometry of instance_norm_fwd (one
-// block of 256 threads per (sample, channel tile), rows strided over TY,
-// the same fixed-order reduction), so a result repeats bit for bit.
+// partial_stats has the geometry of instance_norm_fwd (one block of 256
+// threads per (sample, channel tile), rows strided over TY, the same
+// fixed-order reduction), so a result repeats bit for bit; its cluster
+// variant is at the end of this file.  apply is elementwise over a grid of
+// (sample, row chunk, channel tile) blocks of 256 threads, TX x TY as
+// above with TX covering up to 32 channel packs, each block's rows a
+// contiguous chunk of `chunk_rows` (ops/kernels/instance_norm.py::
+// apply_grid: several waves of blocks on 132 SMs, each thread loading its
+// channels' statistics and affine once for 4-32 rows).  It is also the
+// ring route's second launch (above).
 // Bound: partial_stats must read x once (it reads it twice, the second time
 // mostly from L2): N * hw * C * sizeof(T) bytes; apply reads x and writes y
 // once: 2 * N * hw * C * sizeof(T) bytes.
@@ -503,14 +521,20 @@ __global__ void __launch_bounds__(kThreads)
 instance_norm_apply_kernel(const T* __restrict__ x, const float* __restrict__ mean_in,
                            const float* __restrict__ rstd_in, const float* __restrict__ scale,
                            const float* __restrict__ shift, T* __restrict__ y, int hw, int c,
-                           int affine_stride, int tiles, int tx_count, int relu) {
+                           int affine_stride, int tiles, int tx_count, int chunk_rows, int chunks,
+                           int relu) {
   const int ty_count = kThreads / tx_count;
   const int ty = threadIdx.x / tx_count;
   const int tx = threadIdx.x - ty * tx_count;
-  const int n = blockIdx.x / tiles;
-  const int tile = blockIdx.x - n * tiles;
+  // block = (sample, row chunk, channel tile), the tile fastest
+  const int tile = blockIdx.x % tiles;
+  const int rest = blockIdx.x / tiles;
+  const int chunk = rest % chunks;
+  const int n = rest / chunks;
   const int c0 = (tile * tx_count + tx) * VEC;
   if (c0 >= c) return;  // no barrier in this kernel
+  const int r0 = chunk * chunk_rows;
+  const int r1 = min(r0 + chunk_rows, hw);
   const size_t sample = static_cast<size_t>(n) * hw * c;
   const T* xp = x + sample + c0;
   T* yp = y + sample + c0;
@@ -523,7 +547,7 @@ instance_norm_apply_kernel(const T* __restrict__ x, const float* __restrict__ me
     b[i] = shift ? shift[static_cast<size_t>(n) * affine_stride + c0 + i] : 0.f;
   }
 #pragma unroll 4
-  for (int r = ty; r < hw; r += ty_count) {
+  for (int r = r0 + ty; r < r1; r += ty_count) {
     Pack<T, VEC>::load(xp + static_cast<size_t>(r) * c, v);
 #pragma unroll
     for (int i = 0; i < VEC; ++i) {
@@ -551,15 +575,16 @@ int launch_partial_stats(const void* x, void* mean, void* m2, int n, int hw, int
 template <typename T, int VEC>
 int launch_apply(const void* x, const void* mean, const void* rstd, const void* scale,
                  const void* shift, void* y, int n, int hw, int c, int affine_stride, int tx_count,
-                 int relu, cudaStream_t stream) {
+                 int chunk_rows, int relu, cudaStream_t stream) {
   const int per_tile = tx_count * VEC;
   const int tiles = (c + per_tile - 1) / per_tile;
-  const long long blocks = static_cast<long long>(n) * tiles;
+  const int chunks = (hw + chunk_rows - 1) / chunk_rows;
+  const long long blocks = static_cast<long long>(n) * chunks * tiles;
   if (blocks > 2147483647LL) return static_cast<int>(cudaErrorInvalidValue);
   instance_norm_apply_kernel<T, VEC><<<static_cast<unsigned>(blocks), kThreads, 0, stream>>>(
       static_cast<const T*>(x), static_cast<const float*>(mean), static_cast<const float*>(rstd),
       static_cast<const float*>(scale), static_cast<const float*>(shift), static_cast<T*>(y), hw,
-      c, affine_stride, tiles, tx_count, relu);
+      c, affine_stride, tiles, tx_count, chunk_rows, chunks, relu);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -587,27 +612,29 @@ extern "C" int instance_norm_partial_stats(const void* x, void* mean, void* m2, 
   return invalid;
 }
 
-// K1-split, second launch: y from the global mean and rstd ((n, c) fp32),
-// with scale / shift / affine_stride as for instance_norm_fwd and the
-// optional ReLU.  Same conventions as above.
+// K1-split, second launch, and the second launch of K1's ring route: y from
+// the global mean and rstd ((n, c) fp32), with scale / shift / affine_stride
+// as for instance_norm_fwd and the optional ReLU.  A block owns `chunk_rows`
+// rows (>= 1; hw: the whole sample) of one sample and one channel tile.
+// Same conventions as above.
 extern "C" int instance_norm_apply(const void* x, const void* mean, const void* rstd,
                                    const void* scale, const void* shift, void* y, int n, int hw,
                                    int c, int affine_stride, int dtype, int vec, int tx_count,
-                                   int relu, void* stream) {
+                                   int chunk_rows, int relu, void* stream) {
   const int invalid = static_cast<int>(cudaErrorInvalidValue);
-  if (!geometry_ok(n, hw, c, affine_stride, vec, tx_count)) return invalid;
+  if (!geometry_ok(n, hw, c, affine_stride, vec, tx_count) || chunk_rows < 1) return invalid;
   if (x == nullptr || y == nullptr || mean == nullptr || rstd == nullptr) return invalid;
   if ((scale == nullptr) != (shift == nullptr)) return invalid;
   if (vec != 1 && (!aligned16(x) || !aligned16(y))) return invalid;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0 && vec == 1)
-    return launch_apply<float, 1>(x, mean, rstd, scale, shift, y, n, hw, c, affine_stride, tx_count, relu, s);
+    return launch_apply<float, 1>(x, mean, rstd, scale, shift, y, n, hw, c, affine_stride, tx_count, chunk_rows, relu, s);
   if (dtype == 0 && vec == 4)
-    return launch_apply<float, 4>(x, mean, rstd, scale, shift, y, n, hw, c, affine_stride, tx_count, relu, s);
+    return launch_apply<float, 4>(x, mean, rstd, scale, shift, y, n, hw, c, affine_stride, tx_count, chunk_rows, relu, s);
   if (dtype == 1 && vec == 1)
-    return launch_apply<__nv_bfloat16, 1>(x, mean, rstd, scale, shift, y, n, hw, c, affine_stride, tx_count, relu, s);
+    return launch_apply<__nv_bfloat16, 1>(x, mean, rstd, scale, shift, y, n, hw, c, affine_stride, tx_count, chunk_rows, relu, s);
   if (dtype == 1 && vec == 8)
-    return launch_apply<__nv_bfloat16, 8>(x, mean, rstd, scale, shift, y, n, hw, c, affine_stride, tx_count, relu, s);
+    return launch_apply<__nv_bfloat16, 8>(x, mean, rstd, scale, shift, y, n, hw, c, affine_stride, tx_count, chunk_rows, relu, s);
   return invalid;
 }
 
@@ -630,7 +657,8 @@ extern "C" int instance_norm_apply(const void* x, const void* mean, const void* 
 // in-thread in row order; across the CTA's threads by tree_over_rows with
 // Chan's merge; across the cluster by rank 0, which merges the K CTAs'
 // triples (each stored into its shared memory over DSMEM) in rank order
-// 0..K-1 and writes mean and M2.
+// 0..K-1 and writes mean and M2 (instance_norm_ring_stats, the ring route's
+// first launch, whose rows are a whole sample's: mean and rstd).
 
 namespace {
 
@@ -638,7 +666,8 @@ template <typename T>
 __global__ void __launch_bounds__(kRingThreadsMax)
 instance_norm_partial_stats_cluster_kernel(const T* __restrict__ x, float* __restrict__ mean_out,
                                            float* __restrict__ m2_out, int hw, int c,
-                                           int k_count, int rows, int stages, int stage_rows) {
+                                           int k_count, int rows, int stages, int stage_rows,
+                                           int finalize, float eps, int unbiased) {
   constexpr int VEC = 16 / sizeof(T);
   constexpr int RPT = kRingRowsPerThread;
   extern __shared__ __align__(16) unsigned char smem[];
@@ -753,12 +782,41 @@ instance_norm_partial_stats_cluster_kernel(const T* __restrict__ x, float* __res
       for (int i = 0; i < VEC; ++i)
         chan_merge(tot[i], tot[VEC + i], tot[2 * VEC + i], cnt_k[i], mk[i], qk[i]);
     }
+    // the finalizing epilogue (K1's ring route, whose rows are the whole
+    // sample): rstd in place of M2, as the cluster forward forms it
+    const float correction =
+        unbiased ? static_cast<float>(hw) / static_cast<float>(hw > 1 ? hw - 1 : 1) : 1.f;
 #pragma unroll
     for (int i = 0; i < VEC; ++i) {
+      const float m2 = tot[2 * VEC + i];
       mean_out[static_cast<size_t>(n) * c + c0 + i] = tot[VEC + i] + ref[i];
-      m2_out[static_cast<size_t>(n) * c + c0 + i] = tot[2 * VEC + i];
+      m2_out[static_cast<size_t>(n) * c + c0 + i] =
+          finalize ? rsqrtf(m2 / static_cast<float>(hw) * correction + eps) : m2;
     }
   }
+}
+
+// The launch of both entry points below.
+int launch_ring_stats(const void* x, void* mean, void* out2, int n, int hw, int c, int dtype,
+                      int cluster, int rows, int stages, int stage_rows, int threads,
+                      int smem_bytes, int finalize, float eps, int unbiased, cudaStream_t s) {
+  const int invalid = static_cast<int>(cudaErrorInvalidValue);
+  if (dtype != 0 && dtype != 1) return invalid;
+  const int itemsize = dtype == 0 ? 4 : 2;
+  if (!ring_plan_ok(n, hw, c, itemsize, 1, cluster, rows, stages, stage_rows, threads,
+                    smem_bytes))
+    return invalid;
+  if (x == nullptr || mean == nullptr || out2 == nullptr || !aligned16(x)) return invalid;
+  const int blocks = n * cluster;
+  if (dtype == 0)
+    return launch_cluster(instance_norm_partial_stats_cluster_kernel<float>, blocks, cluster,
+                          threads, smem_bytes, s, static_cast<const float*>(x),
+                          static_cast<float*>(mean), static_cast<float*>(out2), hw, c, cluster,
+                          rows, stages, stage_rows, finalize, eps, unbiased);
+  return launch_cluster(instance_norm_partial_stats_cluster_kernel<__nv_bfloat16>, blocks,
+                        cluster, threads, smem_bytes, s, static_cast<const __nv_bfloat16*>(x),
+                        static_cast<float*>(mean), static_cast<float*>(out2), hw, c, cluster, rows,
+                        stages, stage_rows, finalize, eps, unbiased);
 }
 
 }  // namespace
@@ -778,22 +836,20 @@ extern "C" int instance_norm_partial_stats_cluster(const void* x, void* mean, vo
                                                    int hw, int c, int dtype, int cluster,
                                                    int rows, int stages, int stage_rows,
                                                    int threads, int smem_bytes, void* stream) {
-  const int invalid = static_cast<int>(cudaErrorInvalidValue);
-  if (dtype != 0 && dtype != 1) return invalid;
-  const int itemsize = dtype == 0 ? 4 : 2;
-  if (!ring_plan_ok(n, hw, c, itemsize, 1, cluster, rows, stages, stage_rows, threads,
-                    smem_bytes))
-    return invalid;
-  if (x == nullptr || mean == nullptr || m2 == nullptr || !aligned16(x)) return invalid;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int blocks = n * cluster;
-  if (dtype == 0)
-    return launch_cluster(instance_norm_partial_stats_cluster_kernel<float>, blocks, cluster,
-                          threads, smem_bytes, s, static_cast<const float*>(x),
-                          static_cast<float*>(mean), static_cast<float*>(m2), hw, c, cluster,
-                          rows, stages, stage_rows);
-  return launch_cluster(instance_norm_partial_stats_cluster_kernel<__nv_bfloat16>, blocks,
-                        cluster, threads, smem_bytes, s, static_cast<const __nv_bfloat16*>(x),
-                        static_cast<float*>(mean), static_cast<float*>(m2), hw, c, cluster, rows,
-                        stages, stage_rows);
+  return launch_ring_stats(x, mean, m2, n, hw, c, dtype, cluster, rows, stages, stage_rows,
+                           threads, smem_bytes, 0, 0.f, 0, static_cast<cudaStream_t>(stream));
+}
+
+// K1's ring route, first launch: the same kernel over a whole sample's rows
+// (hw = H * W), with the finalizing epilogue: rank 0 writes mean and
+// rstd = rsqrt(M2 / hw * corr + eps), corr = hw / max(hw - 1, 1) if
+// `unbiased`, else 1.  The plan and the conventions as above; mean and rstd
+// are (n, c) fp32 outputs.  The second launch is instance_norm_apply.
+extern "C" int instance_norm_ring_stats(const void* x, void* mean, void* rstd, int n, int hw,
+                                        int c, int dtype, int cluster, int rows, int stages,
+                                        int stage_rows, int threads, int smem_bytes, float eps,
+                                        int unbiased, void* stream) {
+  return launch_ring_stats(x, mean, rstd, n, hw, c, dtype, cluster, rows, stages, stage_rows,
+                           threads, smem_bytes, 1, eps, unbiased,
+                           static_cast<cudaStream_t>(stream));
 }

@@ -37,9 +37,9 @@
 // (mean, rstd, scale, shift, dscale, dshift are N * C * 24 bytes, negligible),
 // so the least time on an H100 SXM is 3 * N * HW * C * sizeof(T) / 3.35e12 s.
 //
-// Two variants, picked per shape by ops/kernels/instance_norm.py::cluster_plan
-// as for the forward (instance_norm.cu); a refused launch is an error, never
-// a move to the other.
+// Three variants, picked per shape by ops/kernels/instance_norm.py::
+// cluster_plan as for the forward (instance_norm.cu); a refused launch is an
+// error, never a move to another.
 //
 // 1. On chip (instance_norm_bwd_cluster, the training path's): a cluster of K
 //    CTAs per sample holds the sample's x and dy in shared memory, so both
@@ -57,17 +57,30 @@
 //    tensors are 16-byte aligned and some K <= 16 fits x and dy into 227 KB
 //    per CTA: every shape of the train steps (a float32 (32, 4096, 64) site
 //    needs K = 16, 2 MB per sample).
-// 2. Streaming (instance_norm_bwd, the first port of the kernel): one block
+// 2. The ring route, two launches, where no cluster holds x and dy (the
+//    256x256 generator sites and the widest 256x256 discriminator sites):
+//    instance_norm_bwd_partial_sums_cluster (K2-split's cluster variant,
+//    below) over a cluster of K CTAs per sample streams x and dy once
+//    through the ring, recomputes the ReLU mask as pre_positive does, and
+//    rank 0 writes dshift = sum dy' and dscale = sum dy' * xhat in rank
+//    order; then instance_norm_bwd_apply_dx (K2-split's second launch) over
+//    a grid of (sample, row chunk, channel tile) blocks reads x and dy again
+//    and writes dx from those sums with hw_total = HW.  The two launches
+//    move 5 * N * HW * C * sizeof(T) bytes, 1.67x the bound above.  Taken
+//    where C * sizeof(T) is a multiple of 16 bytes and the tensors are
+//    16-byte aligned.
+// 3. Streaming (instance_norm_bwd, the first port of the kernel): one block
 //    of 256 threads per (sample, channel tile) loops over HW, with the
 //    forward's streaming geometry (instance_norm_common.cuh, chosen by the
 //    same Python function); every HW >= 1 and C >= 1 is served.  Pass 1
 //    reads x and dy and reduces (each thread in row order, then a fixed
 //    binary tree over the TY partials, dshift first, then dscale); pass 2
 //    reads both again, mostly from the 50 MB L2, and writes dx.  Taken
-//    elsewhere: rows of other widths, and slabs no cluster holds.
+//    elsewhere: rows of other widths, unaligned tensors, and the mid-size
+//    sites where the card measured it faster than a cluster.
 //
-// Both variants add in a fixed order and use no atomics, so a result repeats
-// bit for bit from run to run.
+// Every variant adds in a fixed order and uses no atomics, so a result
+// repeats bit for bit from run to run.
 
 #include "instance_norm_cluster.cuh"
 #include "instance_norm_common.cuh"
@@ -431,10 +444,13 @@ extern "C" int instance_norm_bwd_cluster(const void* x, const void* dy, const vo
 //                                   or max(HW - 1, 1) if unbiased.
 //
 // dscale and dshift of this rank are its partial sums (the caller sums the
-// ranks' parameter gradients).  Streaming kernels with the geometry and
-// reduction order of instance_norm_bwd.  Bound: partial_sums must read x and
-// dy once (2 * N * hw * C * sizeof(T) bytes); apply_dx reads x, dy and
-// writes dx once (3 * N * hw * C * sizeof(T)).
+// ranks' parameter gradients).  partial_sums has the geometry and reduction
+// order of instance_norm_bwd (its cluster variant is at the end of this
+// file); apply_dx is elementwise over the row-chunk grid of K1-split's
+// apply (instance_norm.cu) and is also the ring route's second launch.
+// Bound: partial_sums must read x and dy once (2 * N * hw * C * sizeof(T)
+// bytes); apply_dx reads x, dy and writes dx once (3 * N * hw * C *
+// sizeof(T)).
 
 namespace {
 
@@ -522,14 +538,20 @@ instance_norm_bwd_apply_dx_kernel(const T* __restrict__ x, const T* __restrict__
                                   const float* __restrict__ sum_g_in,
                                   const float* __restrict__ sum_gx_in, T* __restrict__ dx,
                                   int hw, int c, int hw_total, int affine_stride, int tiles,
-                                  int tx_count, int unbiased, int relu) {
+                                  int tx_count, int chunk_rows, int chunks, int unbiased,
+                                  int relu) {
   const int ty_count = kThreads / tx_count;
   const int ty = threadIdx.x / tx_count;
   const int tx = threadIdx.x - ty * tx_count;
-  const int n = blockIdx.x / tiles;
-  const int tile = blockIdx.x - n * tiles;
+  // block = (sample, row chunk, channel tile), the tile fastest
+  const int tile = blockIdx.x % tiles;
+  const int rest = blockIdx.x / tiles;
+  const int chunk = rest % chunks;
+  const int n = rest / chunks;
   const int c0 = (tile * tx_count + tx) * VEC;
   if (c0 >= c) return;  // no barrier in this kernel
+  const int r0 = chunk * chunk_rows;
+  const int r1 = min(r0 + chunk_rows, hw);
   const size_t sample = static_cast<size_t>(n) * hw * c;
   const T* xp = x + sample + c0;
   const T* dyp = dy + sample + c0;
@@ -550,7 +572,7 @@ instance_norm_bwd_apply_dx_kernel(const T* __restrict__ x, const T* __restrict__
   }
   float xv[VEC], gv[VEC];
 #pragma unroll 4
-  for (int r = ty; r < hw; r += ty_count) {
+  for (int r = r0 + ty; r < r1; r += ty_count) {
     Pack<T, VEC>::load(xp + static_cast<size_t>(r) * c, xv);
     Pack<T, VEC>::load(dyp + static_cast<size_t>(r) * c, gv);
 #pragma unroll
@@ -563,9 +585,10 @@ instance_norm_bwd_apply_dx_kernel(const T* __restrict__ x, const T* __restrict__
   }
 }
 
-inline int split_blocks(int n, int c, int per_tile, int& tiles, unsigned& blocks) {
+inline int split_blocks(int n, int c, int per_tile, int& tiles, unsigned& blocks,
+                        int chunks = 1) {
   tiles = (c + per_tile - 1) / per_tile;
-  const long long b = static_cast<long long>(n) * tiles;
+  const long long b = static_cast<long long>(n) * chunks * tiles;
   if (b > 2147483647LL) return static_cast<int>(cudaErrorInvalidValue);
   blocks = static_cast<unsigned>(b);
   return 0;
@@ -592,17 +615,18 @@ template <typename T, int VEC>
 int launch_apply_dx(const void* x, const void* dy, const void* mean, const void* rstd,
                     const void* scale, const void* shift, const void* sum_g, const void* sum_gx,
                     void* dx, int n, int hw, int c, int hw_total, int affine_stride, int tx_count,
-                    int unbiased, int relu, cudaStream_t stream) {
+                    int chunk_rows, int unbiased, int relu, cudaStream_t stream) {
   int tiles;
   unsigned blocks;
-  const int err = split_blocks(n, c, tx_count * VEC, tiles, blocks);
+  const int chunks = (hw + chunk_rows - 1) / chunk_rows;
+  const int err = split_blocks(n, c, tx_count * VEC, tiles, blocks, chunks);
   if (err) return err;
   instance_norm_bwd_apply_dx_kernel<T, VEC><<<blocks, kThreads, 0, stream>>>(
       static_cast<const T*>(x), static_cast<const T*>(dy), static_cast<const float*>(mean),
       static_cast<const float*>(rstd), static_cast<const float*>(scale),
       static_cast<const float*>(shift), static_cast<const float*>(sum_g),
       static_cast<const float*>(sum_gx), static_cast<T*>(dx), hw, c, hw_total, affine_stride,
-      tiles, tx_count, unbiased, relu);
+      tiles, tx_count, chunk_rows, chunks, unbiased, relu);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -637,16 +661,20 @@ extern "C" int instance_norm_bwd_partial_sums(const void* x, const void* dy, con
   return invalid;
 }
 
-// K2-split, second launch: dx from the global sums (n, c) fp32 and the
-// global row count hw_total of a sample.  Same conventions as above.
+// K2-split, second launch, and the second launch of K2's ring route: dx from
+// the global sums (n, c) fp32 and the global row count hw_total of a sample
+// (hw_total = hw on the ring route).  A block owns `chunk_rows` rows (>= 1;
+// hw: the whole slice) of one sample and one channel tile.  Same
+// conventions as above.
 extern "C" int instance_norm_bwd_apply_dx(const void* x, const void* dy, const void* mean,
                                           const void* rstd, const void* scale, const void* shift,
                                           const void* sum_g, const void* sum_gx, void* dx, int n,
                                           int hw, int c, int hw_total, int affine_stride,
-                                          int dtype, int vec, int tx_count, int unbiased,
-                                          int relu, void* stream) {
+                                          int dtype, int vec, int tx_count, int chunk_rows,
+                                          int unbiased, int relu, void* stream) {
   const int invalid = static_cast<int>(cudaErrorInvalidValue);
-  if (!geometry_ok(n, hw, c, affine_stride, vec, tx_count) || hw_total < hw) return invalid;
+  if (!geometry_ok(n, hw, c, affine_stride, vec, tx_count) || hw_total < hw || chunk_rows < 1)
+    return invalid;
   if (x == nullptr || dy == nullptr || dx == nullptr || mean == nullptr || rstd == nullptr ||
       sum_g == nullptr || sum_gx == nullptr)
     return invalid;
@@ -654,13 +682,13 @@ extern "C" int instance_norm_bwd_apply_dx(const void* x, const void* dy, const v
   if (vec != 1 && (!aligned16(x) || !aligned16(dy) || !aligned16(dx))) return invalid;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == 0 && vec == 1)
-    return launch_apply_dx<float, 1>(x, dy, mean, rstd, scale, shift, sum_g, sum_gx, dx, n, hw, c, hw_total, affine_stride, tx_count, unbiased, relu, st);
+    return launch_apply_dx<float, 1>(x, dy, mean, rstd, scale, shift, sum_g, sum_gx, dx, n, hw, c, hw_total, affine_stride, tx_count, chunk_rows, unbiased, relu, st);
   if (dtype == 0 && vec == 4)
-    return launch_apply_dx<float, 4>(x, dy, mean, rstd, scale, shift, sum_g, sum_gx, dx, n, hw, c, hw_total, affine_stride, tx_count, unbiased, relu, st);
+    return launch_apply_dx<float, 4>(x, dy, mean, rstd, scale, shift, sum_g, sum_gx, dx, n, hw, c, hw_total, affine_stride, tx_count, chunk_rows, unbiased, relu, st);
   if (dtype == 1 && vec == 1)
-    return launch_apply_dx<__nv_bfloat16, 1>(x, dy, mean, rstd, scale, shift, sum_g, sum_gx, dx, n, hw, c, hw_total, affine_stride, tx_count, unbiased, relu, st);
+    return launch_apply_dx<__nv_bfloat16, 1>(x, dy, mean, rstd, scale, shift, sum_g, sum_gx, dx, n, hw, c, hw_total, affine_stride, tx_count, chunk_rows, unbiased, relu, st);
   if (dtype == 1 && vec == 8)
-    return launch_apply_dx<__nv_bfloat16, 8>(x, dy, mean, rstd, scale, shift, sum_g, sum_gx, dx, n, hw, c, hw_total, affine_stride, tx_count, unbiased, relu, st);
+    return launch_apply_dx<__nv_bfloat16, 8>(x, dy, mean, rstd, scale, shift, sum_g, sum_gx, dx, n, hw, c, hw_total, affine_stride, tx_count, chunk_rows, unbiased, relu, st);
   return invalid;
 }
 

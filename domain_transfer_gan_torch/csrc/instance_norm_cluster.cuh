@@ -3,7 +3,8 @@
 // of its rows, the reduction inside a CTA and across the cluster, and the
 // checked launch; and, at the end, the ring through which the cluster
 // variants of the split reductions (K1-split's partial statistics, K2-split's
-// partial sums) stream rows that need not fit the cluster.
+// partial sums) and the first launch of K1's and K2's ring route stream rows
+// that need not fit the cluster.
 //
 // A sample's slab (HW rows of C channels, contiguous in the NHWC tensor) is
 // split over a cluster of K CTAs.  CTA rank k owns the rows
@@ -369,7 +370,8 @@ inline bool cluster_plan_ok(int n, int hw, int c, int affine_stride, int itemsiz
 
 // ---------------------------------------------------------------------------
 // The ring: the cluster variant of the split reductions (K1-split's partial
-// statistics, K2-split's partial sums), whose rows need not fit the cluster.
+// statistics, K2-split's partial sums), whose rows need not fit the cluster,
+// and the first launch of K1's and K2's ring route over whole samples.
 //
 // A reduction never needs a row again once it has read it.  CTA rank k of a
 // cluster of K owns the rows [k * rows, min((k + 1) * rows, HW)) of its

@@ -11,19 +11,24 @@ the plain versions ``instance_norm_plain`` and ``instance_norm_bwd_plain``
 (the hand-derived backward, not autograd of the forward).  There is no way
 from a kernel to its plain version.
 
-Each kernel has two variants, and :func:`cluster_plan` picks one per shape:
-the on-chip one ("cluster") splits a sample's HW rows over a thread-block
-cluster that holds the whole slab in shared memory, so x (and dy) are read
-from device memory once; the streaming one (one block per sample and channel
-tile looping over HW, geometry from :func:`launch_geometry`) takes every
-shape, and runs where the slab does not fit a cluster, where its rows are
-not a multiple of 16 bytes, and at the mid-size shapes where the card
-measured it faster.  A refused launch raises; nothing moves to the other
-variant.
+Each kernel has three variants, and :func:`cluster_plan` picks one per
+shape: the on-chip one ("cluster") splits a sample's HW rows over a
+thread-block cluster that holds the whole slab in shared memory, so x (and
+dy) are read from device memory once; the ring route ("ring", two
+launches) streams a sample's rows once through the ring of the split
+reductions over a cluster (statistics, or the backward's two sums), then
+applies them over a grid of row chunks, where no cluster holds the slab;
+the streaming one (one block per sample and channel tile looping over HW,
+geometry from :func:`launch_geometry`) takes every shape, and runs where
+its rows are not a multiple of 16 bytes or the tensors are unaligned, and
+at the mid-size shapes where the card measured it faster.  A refused launch
+raises; nothing moves to another variant.
 
-Each wrapper counts its launches (``instance_norm_fused.launches``,
+Each wrapper counts its calls (``instance_norm_fused.launches``,
 ``instance_norm_bwd_fused.launches``, the same per ``(N, HW, C)`` in
-``launches_by_shape`` and per variant in ``launches_by_variant``);
+``launches_by_shape`` and per variant in ``launches_by_variant``): each is
+one kernel launch, but for the ring route's, which is two (the ring, then
+the apply / dx);
 ``instance_norm_bwd_fused.dy_copies`` counts the incoming gradients that had
 to be copied into NHWC order first.
 """
@@ -44,6 +49,10 @@ KERNEL_NAME = "instance_norm"
 BWD_KERNEL_NAME = "instance_norm_bwd"
 
 _MIN_SEGMENT_BYTES = 32  # one memory sector: narrowest row segment of a tile
+# threads of a streaming, apply or dx block (csrc/instance_norm_common.cuh::
+# kThreads), and the most of a cluster CTA (instance_norm_cluster.cuh::
+# kClusterThreadsMax)
+_THREADS = 256
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -139,7 +148,10 @@ class ClusterPlan(NamedTuple):
     """How a kernel runs one shape.  ``variant`` is ``"cluster"`` (the
     on-chip kernels: ``cluster`` CTAs per sample, each holding ``rows`` rows
     of x, and of dy for the backward, in ``smem_bytes`` of shared memory,
-    copied in ``stages`` bulk copies, ``threads`` threads) or
+    copied in ``stages`` bulk copies, ``threads`` threads), ``"ring"`` (two
+    launches: the split reductions' ring over whole samples, ``ring`` a
+    :class:`SplitPlan`; then the apply / dx over a grid of (sample,
+    ``chunk_rows`` rows, channel tile); the other fields are 0) or
     ``"streaming"`` (the kernels that loop over HW, geometry from
     :func:`launch_geometry`; the other fields are 0)."""
 
@@ -149,6 +161,8 @@ class ClusterPlan(NamedTuple):
     stages: int = 0
     threads: int = 0
     smem_bytes: int = 0
+    ring: Optional["SplitPlan"] = None
+    chunk_rows: int = 0
 
     def row_ranges(self, hw: int) -> List[Tuple[int, int]]:
         """``[first, last)`` rows of each CTA of a cluster, in rank order."""
@@ -165,13 +179,19 @@ class ClusterPlan(NamedTuple):
             out.append((r0, min(r0 + per, last)))
         return out
 
+    def apply_ranges(self, hw: int) -> List[Tuple[int, int]]:
+        """The ring route's apply / dx: ``[r0, r1)`` rows of each block's
+        row chunk of a sample."""
+        return [(r, min(r + self.chunk_rows, hw))
+                for r in range(0, hw, self.chunk_rows)]
+
 
 STREAMING = ClusterPlan("streaming")
+VARIANTS = ("cluster", "ring", "streaming")
 
 SMEM_PER_CTA_MAX = 232448  # 227 KB: what an H100 CTA may opt in to
 CLUSTER_MAX = 16           # needs the non-portable cluster attribute above 8
 _CLUSTER_PORTABLE = 8
-_CLUSTER_THREADS = 256  # csrc/instance_norm_cluster.cuh::kClusterThreadsMax
 _STAGE_BYTES = 16 << 10    # target size of one bulk copy
 _MAX_STAGES = 4
 # K grows from the smallest cluster that holds the slab only for large slabs
@@ -206,19 +226,25 @@ def cluster_plan(n: int, hw: int, c: int, itemsize: int, arrays: int,
                  cluster: Optional[int] = None,
                  on_chip: bool = False) -> ClusterPlan:
     """The plan of one launch: the on-chip variant where a sample's slab fits
-    a cluster and the card measured it faster, else the streaming one.
+    a cluster and the card measured it faster, the ring route where no
+    cluster holds it, else the streaming one.
     ``arrays`` is 1 for the forward (x), 2 for the backward (x and dy).
 
-    The on-chip variant needs rows of a multiple of 16 bytes (C * itemsize)
-    and 16-byte aligned tensors, so that every row boundary is a legal bulk
-    copy boundary.  Its cluster size K is the smallest power of two whose
-    CTAs' slabs fit ``SMEM_PER_CTA_MAX``, doubled, up to the portable 8,
-    while a sample's x of ``_FILL_SLAB_BYTES`` or more leaves the grid N * K
-    with fewer CTAs than the card has SMs, and while a slab (x, and dy for
-    the backward) of ``_SPLIT_SLAB_BYTES`` or more leaves a CTA more than
-    ``_SPLIT_CTA_BYTES``.  Every CTA a cluster adds costs time
+    The on-chip and ring variants need rows of a multiple of 16 bytes (C *
+    itemsize) and 16-byte aligned tensors, so that every row boundary is a
+    legal bulk copy boundary.  Its cluster size K is the smallest power of
+    two whose CTAs' slabs fit ``SMEM_PER_CTA_MAX``, doubled, up to the
+    portable 8, while a sample's x of ``_FILL_SLAB_BYTES`` or more leaves
+    the grid N * K with fewer CTAs than the card has SMs, and while a slab
+    (x, and dy for the backward) of ``_SPLIT_SLAB_BYTES`` or more leaves a
+    CTA more than ``_SPLIT_CTA_BYTES``.  Every CTA a cluster adds costs time
     (a cluster of one is an ordinary launch), so K stays as small as that
-    allows.  No K up to 16 fits: streaming.
+    allows.  No K up to 16 fits: the ring route (:func:`_ring_route`), which
+    an H100 measured 1.1-13x faster than the streaming variant at every
+    such shape ``chip_smoke.py`` times (the 256x256 generator sites, the
+    discriminator sites of its 256x256 steps; ``ring_sweeps.py``, PERF.md),
+    unless wide rows leave no ring that fits a CTA well, which take the
+    streaming variant.
 
     Mid-size samples, of more than ``_MID_SLAB_BYTES`` and less than
     ``_FILL_SLAB_BYTES`` of x, take the streaming variant in two cases: in a
@@ -237,12 +263,12 @@ def cluster_plan(n: int, hw: int, c: int, itemsize: int, arrays: int,
     row_bytes = c * itemsize
     packs = row_bytes // 16
     forced = cluster is not None or on_chip
-    if not aligned or row_bytes % 16 or packs > _CLUSTER_THREADS:
+    if not aligned or row_bytes % 16 or packs > _THREADS:
         if forced:
             raise ValueError("the cluster variant does not take C=%d at %d "
                              "bytes (aligned=%s)" % (c, itemsize, aligned))
         return STREAMING
-    threads = packs * (_CLUSTER_THREADS // packs)
+    threads = packs * (_THREADS // packs)
 
     def cta_bytes(k):
         return arrays * -(-hw // k) * row_bytes
@@ -269,7 +295,7 @@ def cluster_plan(n: int, hw: int, c: int, itemsize: int, arrays: int,
         if forced:
             raise ValueError("no cluster holds a (%d, %d) slab of %d arrays"
                              % (hw, c, arrays))
-        return STREAMING
+        return _ring_route(n, hw, c, itemsize, arrays, sm_count) or STREAMING
     slab = cta_bytes(1)
     x_slab = slab // arrays
     if (not forced and _MID_SLAB_BYTES < x_slab < _FILL_SLAB_BYTES
@@ -282,6 +308,83 @@ def cluster_plan(n: int, hw: int, c: int, itemsize: int, arrays: int,
            and cta_bytes(k) > _SPLIT_CTA_BYTES):
         k *= 2
     return plan(k)
+
+
+# the apply / dx grid (ring_sweeps.py's grids and ring sweeps,
+# PERF.md): rows of every thread row a block owns, by itemsize and launch;
+# halved while the grid has fewer blocks than the card has SMs
+_APPLY_ROWS_PER_THREAD = {(4, False): 4, (4, True): 4, (2, False): 8,
+                          (2, True): 32}
+
+
+# the chunk halvings the ring route's ring may take to fit a CTA (wide rows)
+_RING_ROUTE_CUTS = 1
+
+
+def _ring_route(n: int, hw: int, c: int, itemsize: int, arrays: int,
+                sm_count: int, cuts: Optional[int] = _RING_ROUTE_CUTS
+                ) -> Optional[ClusterPlan]:
+    """The ring route's plan of K1 (``arrays`` 1) or K2 (2) on ``(n, hw,
+    c)``, rows of a multiple of 16 bytes: the ring of :func:`split_plan`'s
+    rule over whole samples with clusters of up to 16 CTAs, then the apply
+    / dx over :func:`apply_grid`'s row chunks.  None where that ring fits a
+    CTA only with its chunk cut more than ``cuts`` times or with fewer CTAs
+    (``cuts`` None: as often as it must).  An H100 measured the streaming
+    variant faster there (``ring_sweeps.py ring --wide``, C = 1024: 1.4-3.2x
+    at three of four cases, 1.14x slower at the fourth), and the route
+    faster where one cut was enough (C = 512: 1.2-4.0x at seven of eight
+    cases, 1 % slower at the eighth; PERF.md).
+
+    K gives the grid about ``_SPLIT_GRID_CTAS`` CTAs (:func:`_ring_cluster`),
+    the threads and the chunk are :func:`_split_ring`'s for that K.  In an
+    H100's sweep of every (shape, dtype, kernel) of the 256x256 steps that
+    no cluster holds (``ring_sweeps.py``, PERF.md) it was the fastest ring
+    at 38 of 56 and within 11 % of it at the rest."""
+    k = _ring_cluster(n, hw, c, itemsize, CLUSTER_MAX)
+    ring = _split_ring(n, hw, c, itemsize, arrays, sm_count, k, cuts)
+    if ring is None:
+        return None
+    chunk_rows = apply_grid(n, hw, c, itemsize, True, sm_count,
+                            arrays == 2)[2]
+    return ClusterPlan("ring", ring=ring, chunk_rows=chunk_rows)
+
+
+def apply_grid(n: int, hw: int, c: int, itemsize: int, aligned: bool,
+               sm_count: int, dx: bool = False) -> Tuple[int, int, int]:
+    """``(vec, tx, chunk_rows)`` of an apply launch (``dx`` False: K1-split's
+    and the ring route's ``instance_norm_apply``; True: K2's
+    ``instance_norm_bwd_apply_dx``) over a grid of (sample, row chunk,
+    channel tile) blocks of 256 threads, as :func:`_apply_tile` lays it out
+    for a number of rows of every thread row.
+
+    That number is what an H100 measured fastest at the split and 256x256
+    shapes (``_APPLY_ROWS_PER_THREAD``): 4 in float32; in bfloat16, whose
+    threads each load the statistics and affine of 8 channels before their
+    rows, 8 for the apply and 32 for dx; halved while the grid has fewer
+    blocks than ``sm_count``."""
+    per = _APPLY_ROWS_PER_THREAD[(itemsize, bool(dx))]
+    while True:
+        vec, tx, chunk_rows = _apply_tile(hw, c, itemsize, aligned, per)
+        if per == 1 or n * -(-c // (vec * tx)) * -(-hw // chunk_rows) \
+                >= sm_count:
+            return vec, tx, chunk_rows
+        per //= 2
+
+
+def _apply_tile(hw: int, c: int, itemsize: int, aligned: bool,
+                rows_per_thread: int) -> Tuple[int, int, int]:
+    """``(vec, tx, chunk_rows)`` of an apply / dx block: ``vec`` as in
+    :func:`launch_geometry`, ``tx`` the power of two that covers C / vec (at
+    most 32: whole rows of up to 32 packs, so a warp's loads are
+    contiguous), and ``chunk_rows`` = ``rows_per_thread`` rows of every
+    thread row, at most HW."""
+    wide = 16 // itemsize
+    vec = wide if (aligned and c % wide == 0) else 1
+    packs = -(-c // vec)
+    tx = 1
+    while tx < 32 and tx < packs:
+        tx *= 2
+    return vec, tx, min(hw, _THREADS // tx * rows_per_thread)
 
 
 @functools.lru_cache(maxsize=None)
@@ -304,6 +407,9 @@ _BWD_ARGTYPES = [_P] * 9 + [_I] * 9 + [_P]
 #     dshift; n, hw, c, affine_stride, dtype, cluster, rows, stages, threads,
 #     smem_bytes, unbiased, relu; stream)
 _BWD_CLUSTER_ARGTYPES = [_P] * 9 + [_I] * 12 + [_P]
+# instance_norm_ring_stats(x, mean, rstd; n, hw, c, dtype, cluster, rows,
+#     stages, stage_rows, threads, smem_bytes; eps; unbiased; stream)
+_RING_STATS_ARGTYPES = [_P] * 3 + [_I] * 10 + [ctypes.c_float, _I, _P]
 
 
 def _c_function(kernel_name: str, fn_name: str, argtypes):
@@ -353,17 +459,28 @@ def _count(wrapper, key, variant: str) -> None:
 
 def _plan_for(x: torch.Tensor, arrays: int, aligned: bool,
               plan: Optional[ClusterPlan]):
-    """The plan of a launch on x (``plan`` if given), and the streaming
-    geometry ``(vec, tx)`` it needs."""
+    """The plan of a launch on x (``plan`` if given), and the geometry
+    ``(vec, tx)`` it needs: the streaming variant's, or the ring route's
+    apply / dx tile."""
     n, h, w, c = x.shape
     sm_count = _sm_count(x.device.index)
     if plan is None:
         plan = cluster_plan(n, h * w, c, x.element_size(), arrays, sm_count,
                             aligned)
-    if plan.variant == "cluster" and not aligned:
-        raise ValueError("the cluster variant needs 16-byte aligned tensors")
-    vec, tx = launch_geometry(n, c, x.element_size(), aligned, sm_count)
+    if plan.variant != "streaming" and not aligned:
+        raise ValueError("the %s variant needs 16-byte aligned tensors"
+                         % plan.variant)
+    if plan.variant == "ring":
+        vec, tx, _ = apply_grid(n, h * w, c, x.element_size(), True,
+                                sm_count, arrays == 2)
+    else:
+        vec, tx = launch_geometry(n, c, x.element_size(), aligned, sm_count)
     return plan, vec, tx
+
+
+def _cluster_args(plan: ClusterPlan):
+    return (plan.cluster, plan.rows, plan.stages, plan.threads,
+            plan.smem_bytes)
 
 
 def _launch(x: torch.Tensor, scale: Optional[torch.Tensor],
@@ -381,9 +498,9 @@ def _launch(x: torch.Tensor, scale: Optional[torch.Tensor],
     rstd = torch.empty((n, c), dtype=torch.float32, device=x.device)
     aligned = x.data_ptr() % 16 == 0 and y.data_ptr() % 16 == 0
     plan, vec, tx = _plan_for(x, 1, aligned, plan)
+    dtype = _DTYPE_CODE[x.dtype]
     head = (x.data_ptr(), _ptr(scale), _ptr(shift), y.data_ptr(),
-            mean.data_ptr(), rstd.data_ptr(), n, hw, c, affine_stride,
-            _DTYPE_CODE[x.dtype])
+            mean.data_ptr(), rstd.data_ptr(), n, hw, c, affine_stride, dtype)
     tail = (float(eps), int(unbiased), int(relu))
     # the kernel must be launched with x's device current
     with torch.cuda.device(x.device):
@@ -391,7 +508,21 @@ def _launch(x: torch.Tensor, scale: Optional[torch.Tensor],
         if plan.variant == "cluster":
             fn = _c_function(KERNEL_NAME, "instance_norm_fwd_cluster",
                              _FWD_CLUSTER_ARGTYPES)
-            err = fn(*head, *plan[1:], *tail, stream)
+            err = fn(*head, *_cluster_args(plan), *tail, stream)
+        elif plan.variant == "ring":
+            # the ring's statistics (mean, rstd), then the row-gridded apply
+            fn = _c_function(KERNEL_NAME, "instance_norm_ring_stats",
+                             _RING_STATS_ARGTYPES)
+            err = fn(x.data_ptr(), mean.data_ptr(), rstd.data_ptr(), n, hw,
+                     c, dtype, *plan.ring[1:], float(eps), int(unbiased),
+                     stream)
+            if err == 0:
+                fn = _c_function(KERNEL_NAME, "instance_norm_apply",
+                                 _APPLY_ARGTYPES)
+                err = fn(x.data_ptr(), mean.data_ptr(), rstd.data_ptr(),
+                         _ptr(scale), _ptr(shift), y.data_ptr(), n, hw, c,
+                         affine_stride, dtype, vec, tx, plan.chunk_rows,
+                         int(relu), stream)
         else:
             fn = _c_function(KERNEL_NAME, "instance_norm_fwd", _FWD_ARGTYPES)
             err = fn(*head, vec, tx, *tail, stream)
@@ -468,22 +599,43 @@ def _launch_bwd(x: torch.Tensor, dy: torch.Tensor, mean: torch.Tensor,
                              % (name, tuple(t.shape), t.dtype, t.device))
     scale, shift, affine_stride = _affine_pointers(scale, shift, c)
     dx = torch.empty_like(x)
-    dscale = dshift = None
-    if scale is not None:
-        dscale = torch.empty((n, c), dtype=torch.float32, device=x.device)
-        dshift = torch.empty((n, c), dtype=torch.float32, device=x.device)
     aligned = all(t.data_ptr() % 16 == 0 for t in (x, dy, dx))
     plan, vec, tx = _plan_for(x, 2, aligned, plan)
-    head = (x.data_ptr(), dy.data_ptr(), mean.data_ptr(), rstd.data_ptr(),
-            _ptr(scale), _ptr(shift), dx.data_ptr(), _ptr(dscale),
-            _ptr(dshift), n, hw, c, affine_stride, _DTYPE_CODE[x.dtype])
+    dscale = dshift = None
+    if scale is not None or plan.variant == "ring":
+        # the ring route's sums are its dx's too: kept without an affine
+        dscale = torch.empty((n, c), dtype=torch.float32, device=x.device)
+        dshift = torch.empty((n, c), dtype=torch.float32, device=x.device)
+    dtype = _DTYPE_CODE[x.dtype]
+    ptrs = (x.data_ptr(), dy.data_ptr(), mean.data_ptr(), rstd.data_ptr(),
+            _ptr(scale), _ptr(shift))
+    head = ptrs + (dx.data_ptr(), _ptr(dscale), _ptr(dshift), n, hw, c,
+                   affine_stride, dtype)
     tail = (int(unbiased), int(relu))
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream().cuda_stream
         if plan.variant == "cluster":
             fn = _c_function(BWD_KERNEL_NAME, "instance_norm_bwd_cluster",
                              _BWD_CLUSTER_ARGTYPES)
-            err = fn(*head, *plan[1:], *tail, stream)
+            err = fn(*head, *_cluster_args(plan), *tail, stream)
+        elif plan.variant == "ring":
+            # the ring's sums dshift = sum dy', dscale = sum dy' * xhat,
+            # then the row-gridded dx from them
+            fn = _c_function(BWD_KERNEL_NAME,
+                             "instance_norm_bwd_partial_sums_cluster",
+                             _PSUMS_CLUSTER_ARGTYPES)
+            err = fn(*ptrs, dshift.data_ptr(), dscale.data_ptr(), n, hw, c,
+                     affine_stride, dtype, *plan.ring[1:], int(relu),
+                     stream)
+            if err == 0:
+                fn = _c_function(BWD_KERNEL_NAME,
+                                 "instance_norm_bwd_apply_dx",
+                                 _APPLY_DX_ARGTYPES)
+                err = fn(*ptrs, dshift.data_ptr(), dscale.data_ptr(),
+                         dx.data_ptr(), n, hw, c, hw, affine_stride, dtype,
+                         vec, tx, plan.chunk_rows, *tail, stream)
+            if scale is None:
+                dscale = dshift = None
         else:
             fn = _c_function(BWD_KERNEL_NAME, "instance_norm_bwd",
                              _BWD_ARGTYPES)
@@ -527,7 +679,7 @@ def instance_norm_bwd_fused(x: torch.Tensor, dy: torch.Tensor,
 
 instance_norm_bwd_fused.launches = 0
 instance_norm_bwd_fused.launches_by_shape = {}
-instance_norm_bwd_fused.launches_by_variant = {"cluster": 0, "streaming": 0}
+instance_norm_bwd_fused.launches_by_variant = dict.fromkeys(VARIANTS, 0)
 instance_norm_bwd_fused.dy_copies = 0
 
 
@@ -602,7 +754,7 @@ def instance_norm_fused(x: torch.Tensor, scale: Optional[torch.Tensor],
 
 instance_norm_fused.launches = 0
 instance_norm_fused.launches_by_shape = {}
-instance_norm_fused.launches_by_variant = {"cluster": 0, "streaming": 0}
+instance_norm_fused.launches_by_variant = dict.fromkeys(VARIANTS, 0)
 
 
 # ---------------------------------------------------------------------------
@@ -611,14 +763,16 @@ instance_norm_fused.launches_by_variant = {"cluster": 0, "streaming": 0}
 # statistics and the backward's two sums are formed from per-rank partials
 # combined over the space group between two launches (``csrc/
 # instance_norm.cu`` and ``csrc/instance_norm_bwd.cu``, the K1-split and
-# K2-split sections).  Each entry point has a wrapper (CUDA tensor: its
-# kernel, or it raises; CPU tensor: its plain twin) that counts its launches
-# in ``launches`` / ``launches_by_shape`` / ``launches_by_variant`` as the
-# unsplit wrappers do.  The two reductions (partial statistics, partial
-# sums) have two variants each, and :func:`split_plan` picks one per shape:
-# the cluster one (a sample's rows on the rank split over a thread-block
-# cluster, streamed once through a ring in shared memory) and the "rows"
-# one (one block per sample and channel tile looping over the rows).
+# K2-split sections; K1's and K2's ring route launches the same kernels
+# over whole samples, counted as its own).  Each entry point has a wrapper
+# (CUDA tensor: its kernel, or it raises; CPU tensor: its plain twin) that
+# counts its launches in ``launches`` / ``launches_by_shape`` /
+# ``launches_by_variant`` as the unsplit wrappers do.  The two reductions
+# (partial statistics, partial sums) have two variants each, and
+# :func:`split_plan` picks one per shape: the cluster one (a sample's rows
+# on the rank split over a thread-block cluster, streamed once through a
+# ring in shared memory) and the "rows" one (one block per sample and
+# channel tile looping over the rows).
 # ---------------------------------------------------------------------------
 
 # instance_norm_partial_stats(x, mean, m2; n, hw, c, dtype, vec, tx; stream)
@@ -627,8 +781,8 @@ _PSTATS_ARGTYPES = [_P] * 3 + [_I] * 6 + [_P]
 #     rows, stages, stage_rows, threads, smem_bytes; stream)
 _PSTATS_CLUSTER_ARGTYPES = [_P] * 3 + [_I] * 10 + [_P]
 # instance_norm_apply(x, mean, rstd, scale, shift, y; n, hw, c,
-#                     affine_stride, dtype, vec, tx, relu; stream)
-_APPLY_ARGTYPES = [_P] * 6 + [_I] * 8 + [_P]
+#                     affine_stride, dtype, vec, tx, chunk_rows, relu; stream)
+_APPLY_ARGTYPES = [_P] * 6 + [_I] * 9 + [_P]
 # instance_norm_bwd_partial_sums(x, dy, mean, rstd, scale, shift, sum_g,
 #     sum_gx; n, hw, c, affine_stride, dtype, vec, tx, relu; stream)
 _PSUMS_ARGTYPES = [_P] * 8 + [_I] * 8 + [_P]
@@ -637,9 +791,9 @@ _PSUMS_ARGTYPES = [_P] * 8 + [_I] * 8 + [_P]
 #     stage_rows, threads, smem_bytes, relu; stream)
 _PSUMS_CLUSTER_ARGTYPES = [_P] * 8 + [_I] * 12 + [_P]
 # instance_norm_bwd_apply_dx(x, dy, mean, rstd, scale, shift, sum_g, sum_gx,
-#     dx; n, hw, c, hw_total, affine_stride, dtype, vec, tx, unbiased, relu;
-#     stream)
-_APPLY_DX_ARGTYPES = [_P] * 9 + [_I] * 10 + [_P]
+#     dx; n, hw, c, hw_total, affine_stride, dtype, vec, tx, chunk_rows,
+#     unbiased, relu; stream)
+_APPLY_DX_ARGTYPES = [_P] * 9 + [_I] * 11 + [_P]
 
 
 class SplitPlan(NamedTuple):
@@ -696,7 +850,7 @@ def _ring_smem_bytes(arrays: int, stage_rows: int, c: int, itemsize: int,
 def ring_plan(hw: int, c: int, itemsize: int, arrays: int, cluster: int,
               stages: int = _RING_STAGES,
               stage_rows: Optional[int] = None,
-              threads: int = _CLUSTER_THREADS) -> SplitPlan:
+              threads: int = _THREADS) -> SplitPlan:
     """The cluster variant's plan with ``cluster`` CTAs per sample of
     ``threads`` threads (rounded down to a multiple of the C / vec channel
     packs): each owns ``ceil(hw / cluster)`` rows; a chunk is
@@ -738,21 +892,57 @@ _SPLIT_GRID_CTAS = 64
 _SPLIT_WIDE_CTA_BYTES = 256 << 10
 
 
+def _ring_cluster(n: int, hw: int, c: int, itemsize: int,
+                  k_max: int) -> int:
+    """The ring's cluster size: the smallest power of two, up to ``k_max``,
+    that gives the grid of N * K CTAs at least ``_SPLIT_GRID_CTAS``, as long
+    as each CTA keeps two chunks of rows."""
+    chunk = RING_ROWS_PER_THREAD * (_THREADS // (c * itemsize // 16))
+    k = 1
+    while (k < k_max and n * k < _SPLIT_GRID_CTAS
+           and -(-hw // (2 * k)) >= 2 * chunk):
+        k *= 2
+    return k
+
+
 def _split_ring(n: int, hw: int, c: int, itemsize: int, arrays: int,
-                sm_count: int, k: int) -> SplitPlan:
-    """The ring of a cluster of ``k`` CTAs under split_plan's rule."""
+                sm_count: int, k: int,
+                cuts: Optional[int] = None) -> Optional[SplitPlan]:
+    """The ring of a cluster of ``k`` CTAs under split_plan's rule.  Where
+    its CTA would need more than ``SMEM_PER_CTA_MAX`` of shared memory (wide
+    rows: the ring holds two chunks of each array, and rank 0 the partials
+    of all K CTAs), the chunk is halved, down to one row of every thread
+    row, and failing that K is halved and the chunk tried anew.  With
+    ``cuts`` given, None where that takes more than ``cuts`` halvings;
+    without, as many as it takes: a CTA of one such row fits at K = 1 for
+    any row the ring takes (at most 256 packs of 16 bytes)."""
     row_bytes = c * itemsize
     packs = row_bytes // 16
     cta_rows = -(-hw // k)
-    threads = _CLUSTER_THREADS
+    threads = _THREADS
     if (arrays == 1 and n * k < sm_count
             and cta_rows * row_bytes >= _SPLIT_WIDE_CTA_BYTES):
         threads = RING_THREADS_MAX
     chunk = RING_ROWS_PER_THREAD * (threads // packs)
     if cta_rows >= 4 * chunk:
         chunk *= 2
-    return ring_plan(hw, c, itemsize, arrays, k,
-                     stage_rows=min(chunk, cta_rows), threads=threads)
+    rows = min(chunk, cta_rows)
+    while _ring_smem_bytes(arrays, rows, c, itemsize,
+                           packs * (threads // packs), _RING_STAGES,
+                           k) > SMEM_PER_CTA_MAX:
+        if cuts is not None:
+            if cuts == 0:
+                return None
+            cuts -= 1
+        if rows > threads // packs:
+            rows //= 2
+        elif k > 1:
+            k //= 2
+            rows = min(chunk, -(-hw // k))
+        else:
+            break  # ring_plan raises
+    return ring_plan(hw, c, itemsize, arrays, k, stage_rows=rows,
+                     threads=threads)
 
 
 @functools.lru_cache(maxsize=None)
@@ -793,16 +983,12 @@ def split_plan(n: int, hw: int, c: int, itemsize: int, arrays: int,
     :func:`ring_plan`'s.
     """
     row_bytes = c * itemsize
-    if not aligned or row_bytes % 16 or row_bytes // 16 > _CLUSTER_THREADS:
+    if not aligned or row_bytes % 16 or row_bytes // 16 > _THREADS:
         if on_chip:
             raise ValueError("the cluster variant does not take C=%d at %d "
                              "bytes (aligned=%s)" % (c, itemsize, aligned))
         return SPLIT_ROWS
-    chunk = RING_ROWS_PER_THREAD * (_CLUSTER_THREADS // (row_bytes // 16))
-    k = 1
-    while (k < _CLUSTER_PORTABLE and n * k < _SPLIT_GRID_CTAS
-           and -(-hw // (2 * k)) >= 2 * chunk):
-        k *= 2
+    k = _ring_cluster(n, hw, c, itemsize, _CLUSTER_PORTABLE)
     return _split_ring(n, hw, c, itemsize, arrays, sm_count, k)
 
 
@@ -912,6 +1098,15 @@ def _split_geometry(x, *others):
                            _sm_count(x.device.index))
 
 
+def _apply_geometry(x, dx, *others):
+    """``(vec, tx, chunk_rows)`` of an apply (``dx`` False) or dx launch on
+    x (and ``others``): :func:`apply_grid`'s."""
+    aligned = all(t.data_ptr() % 16 == 0 for t in (x,) + others)
+    n, h, w, c = x.shape
+    return apply_grid(n, h * w, c, x.element_size(), aligned,
+                      _sm_count(x.device.index), dx)
+
+
 def _split_plan_for(x, arrays: int, plan: Optional[SplitPlan], *others):
     """The plan of a split reduction's launch on x (and ``others``, read
     beside it): ``plan`` if given, else :func:`split_plan`'s."""
@@ -963,7 +1158,8 @@ def instance_norm_partial_stats(x: torch.Tensor, *,
 
 
 def instance_norm_apply(x, mean, rstd, scale, shift, *, relu: bool = False):
-    """K1-split, second launch (:func:`instance_norm_apply_plain`)."""
+    """K1-split, second launch (:func:`instance_norm_apply_plain`), over the
+    grid :func:`apply_grid` gives."""
     _check_x(x)
     n, h, w, c = x.shape
     _check_affine(scale, shift, n, c, x.device)
@@ -974,11 +1170,11 @@ def instance_norm_apply(x, mean, rstd, scale, shift, *, relu: bool = False):
     scale, shift, stride = _affine_pointers(scale, shift, c)
     mean, rstd = mean.contiguous(), rstd.contiguous()
     y = torch.empty_like(x)
-    vec, tx = _split_geometry(x, y)
+    vec, tx, chunk_rows = _apply_geometry(x, False, y)
     _split_launch(x, "instance_norm_apply", _APPLY_ARGTYPES, KERNEL_NAME,
                   x.data_ptr(), mean.data_ptr(), rstd.data_ptr(), _ptr(scale),
                   _ptr(shift), y.data_ptr(), n, h * w, c, stride,
-                  _DTYPE_CODE[x.dtype], vec, tx, int(relu))
+                  _DTYPE_CODE[x.dtype], vec, tx, chunk_rows, int(relu))
     _count_split(instance_norm_apply, x)
     return y
 
@@ -1020,7 +1216,8 @@ def instance_norm_bwd_partial_sums(x, dy, mean, rstd, scale, shift, *,
 def instance_norm_bwd_apply_dx(x, dy, mean, rstd, scale, shift, sum_g,
                                sum_gx, hw_total: int, *,
                                unbiased: bool = False, relu: bool = False):
-    """K2-split, second launch (:func:`instance_norm_bwd_apply_dx_plain`)."""
+    """K2-split, second launch (:func:`instance_norm_bwd_apply_dx_plain`),
+    over the grid :func:`apply_grid` gives."""
     _check_x(x)
     n, h, w, c = x.shape
     _check_affine(scale, shift, n, c, x.device)
@@ -1034,13 +1231,13 @@ def instance_norm_bwd_apply_dx(x, dy, mean, rstd, scale, shift, sum_g,
     mean, rstd = mean.contiguous(), rstd.contiguous()
     sum_g, sum_gx = sum_g.contiguous(), sum_gx.contiguous()
     dx = torch.empty_like(x)
-    vec, tx = _split_geometry(x, dy, dx)
+    vec, tx, chunk_rows = _apply_geometry(x, True, dy, dx)
     _split_launch(x, "instance_norm_bwd_apply_dx", _APPLY_DX_ARGTYPES,
                   BWD_KERNEL_NAME, x.data_ptr(), dy.data_ptr(),
                   mean.data_ptr(), rstd.data_ptr(), _ptr(scale), _ptr(shift),
                   sum_g.data_ptr(), sum_gx.data_ptr(), dx.data_ptr(), n,
                   h * w, c, int(hw_total), stride, _DTYPE_CODE[x.dtype], vec,
-                  tx, int(unbiased), int(relu))
+                  tx, chunk_rows, int(unbiased), int(relu))
     _count_split(instance_norm_bwd_apply_dx, x)
     return dx
 

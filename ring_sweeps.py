@@ -1,0 +1,337 @@
+#!/usr/bin/env python3
+"""Sweeps on one NVIDIA Hopper card behind the rules of the instance-norm
+ring route and of the apply / dx grid (``cluster_plan`` / ``_ring_route``
+and ``apply_grid`` in ``domain_transfer_gan_torch/ops/kernels/
+instance_norm.py``), and the repeat check of the selfcheck's eval job.
+Run from the repository root:
+
+    python3 ring_sweeps.py ring [--wide] [--out FILE]
+    python3 ring_sweeps.py grids [--out FILE]
+    python3 ring_sweeps.py eval [--out FILE]
+
+``ring`` times, at every 256x256 shape no cluster holds (``--wide``: at
+the wide rows whose ring is narrowed to fit, ``WIDE_SHAPES``), the
+streaming variant, the ring route (its ring narrowed as far as it must
+be), the ring half under every
+ring of 1-16 CTAs and the apply / dx half under each grid; ``grids`` times
+the split apply / dx at every split shape under each grid; ``eval`` runs
+the selfcheck's eval job twice with cuDNN free and twice with
+``torch.backends.cudnn.deterministic`` and says whether each pair repeats
+bit for bit.  Each logs a line per row and writes the rows to ``--out`` as
+JSON.  Needs a CUDA device and ``nvcc``; builds the kernels from this
+checkout at first use.  Times are device times of CUDA graphs, as
+``chip_smoke.py``'s phase 6 takes them.
+"""
+
+from __future__ import annotations
+
+import argparse
+import itertools
+import json
+import subprocess
+import sys
+
+import chip_smoke as cs
+
+# every shape the ring route's plan was swept at: the 256x256 generator
+# sites, and the 256x256 discriminator sites (phase 9's step at 32, its
+# --grad_accum microbatch) of wide rows, some of which no cluster holds
+RING_SWEEP_SHAPES = tuple(dict.fromkeys(cs.RING_SHAPES + tuple(
+    s for s in cs.STEP256_SHAPES + cs.EXTRAS_SHAPES
+    if s[1] > 2048 and s[2] >= 128)))
+# rows no cluster holds whose ring as split_plan's rule would set it does
+# not fit a CTA's shared memory: the discriminators' third site at 256x256
+# with --ndf 128 --batchSize 1 and a larger sample of its width, whose ring
+# one halving of the chunk fits, and rows of 1024 channels, whose ring
+# needs more (the route's ring is timed as the rule would narrow it)
+WIDE_SHAPES = ((2, 3969, 512), (1, 65536, 512), (1, 16384, 1024))
+APPLY_ROWS_PER_THREAD = (1, 2, 4, 8, 16, 32)  # the apply grids swept
+
+
+def _apply_at(K, torch, x, mean, rstd, scale, shift, grid, relu=False):
+    """``instance_norm_apply``'s launch over ``grid`` = (vec, tx,
+    chunk_rows), uncounted."""
+    n, h, w, c = x.shape
+    scale, shift, stride = K._affine_pointers(scale, shift, c)
+    y = torch.empty_like(x)
+    K._split_launch(x, "instance_norm_apply", K._APPLY_ARGTYPES,
+                    K.KERNEL_NAME, x.data_ptr(), mean.data_ptr(),
+                    rstd.data_ptr(), K._ptr(scale), K._ptr(shift),
+                    y.data_ptr(), n, h * w, c, stride, K._DTYPE_CODE[x.dtype],
+                    *grid, int(relu))
+    return y
+
+
+def _dx_at(K, torch, x, dy, mean, rstd, scale, shift, sum_g, sum_gx,
+           hw_total, grid, relu=False):
+    """``instance_norm_bwd_apply_dx``'s launch over ``grid``, uncounted,
+    biased variance."""
+    n, h, w, c = x.shape
+    scale, shift, stride = K._affine_pointers(scale, shift, c)
+    dx = torch.empty_like(x)
+    K._split_launch(x, "instance_norm_bwd_apply_dx", K._APPLY_DX_ARGTYPES,
+                    K.BWD_KERNEL_NAME, x.data_ptr(), dy.data_ptr(),
+                    mean.data_ptr(), rstd.data_ptr(), K._ptr(scale),
+                    K._ptr(shift), sum_g.data_ptr(), sum_gx.data_ptr(),
+                    dx.data_ptr(), n, h * w, c, int(hw_total), stride,
+                    K._DTYPE_CODE[x.dtype], *grid, 0, int(relu))
+    return dx
+
+
+def _route(K, shape, itemsize, arrays):
+    """The ring route's plan where no cluster holds the slab and the rows
+    are a multiple of 16 bytes, its ring narrowed as far as it must be to
+    fit a CTA (also where the plan takes the streaming variant for it),
+    else None."""
+    n, hw, c = shape
+    if c * itemsize % 16 or \
+            cs._on_chip_plan(K, shape, itemsize, arrays) is not None:
+        return None
+    return K._ring_route(n, hw, c, itemsize, arrays, K._sm_count(0),
+                         cuts=None)
+
+
+def _legacy_grid(K, shape, itemsize):
+    """The apply / dx grid before the row chunks: one block per (sample,
+    channel tile), tile from launch_geometry, over all of HW."""
+    n, hw, c = shape
+    return K.launch_geometry(n, c, itemsize, True, K._sm_count(0)) + (hw,)
+
+
+def _apply_grid_times(torch, K, shape, itemsize, apply, dx, calls=20):
+    """Device ms of ``apply(i, grid)`` and ``dx(i, grid)`` under the legacy
+    grid and under the row-chunked grid at each of APPLY_ROWS_PER_THREAD
+    rows per thread; apply_grid's picks beside them."""
+    n, hw, c = shape
+    grids = {"legacy": _legacy_grid(K, shape, itemsize)}
+    for r in APPLY_ROWS_PER_THREAD:
+        grids["r%d" % r] = K._apply_tile(hw, c, itemsize, True, r)
+    out = {"picked": {k: list(K.apply_grid(n, hw, c, itemsize, True,
+                                           K._sm_count(0), dx=k == "dx"))
+                      for k in ("apply", "dx")}}
+    for name, fn in (("apply", apply), ("dx", dx)):
+        out[name + "_ms"] = {key: cs._time_device(
+            torch, lambda i, g=g: fn(i, g), calls=calls)
+            for key, g in grids.items()}
+    return out
+
+
+def sweep_ring_plans(torch, K, shapes=RING_SWEEP_SHAPES):
+    """Device ms at every shape of ``shapes``, float32 and bfloat16,
+    per-channel affine, ReLU, of each launch that takes the ring route: the
+    streaming variant; the ring half (K1's statistics, K2's sums,
+    ``instance_norm_partial_stats`` / ``instance_norm_bwd_partial_sums``
+    under :func:`ring_plan`'s plans of 1-16 CTAs of 256 or 512 threads, two
+    slots, the default chunk and twice it, where they fit); the apply / dx
+    half under each grid of :func:`_apply_grid_times`; the whole route
+    under :func:`_route`'s plan.  The evidence for the ring route's rule."""
+    out = []
+    for shape in shapes:
+        n, hw, c = shape
+        for name in ("float32", "bfloat16"):
+            dtype = getattr(torch, name)
+            item = 4 if name == "float32" else 2
+            todo = [a for a in (1, 2)
+                    if _route(K, shape, item, a) is not None]
+            if not todo:
+                continue
+            x_bytes = n * hw * c * item
+            calls = cs._calls_for(x_bytes)
+            nbuf = cs._n_buffers(3 * x_bytes)
+            ins = [cs._make_inputs(torch, shape, dtype, "channel", 93 + i)
+                   for i in range(nbuf)]
+            dys = [torch.randn_like(t[0].float()).to(dtype) for t in ins]
+            stats = [K.instance_norm_plain(t[0], *t[1:], return_stats=True,
+                                           relu=True)[1:] for t in ins]
+            sums = [K.instance_norm_bwd_partial_sums_plain(
+                t[0], d, *st, *t[1:], relu=True)
+                for t, d, st in zip(ins, dys, stats)]
+
+            def whole(arrays, i, p):
+                x, s_, b_ = ins[i % nbuf]
+                if arrays == 1:
+                    return K._launch(x, s_, b_, 1e-5, False, True, plan=p)
+                return K._launch_bwd(x, dys[i % nbuf], *stats[i % nbuf],
+                                     s_, b_, False, True, plan=p)
+
+            def half(arrays, i, p):
+                x, s_, b_ = ins[i % nbuf]
+                if arrays == 1:
+                    return K.instance_norm_partial_stats(x, plan=p)
+                return K.instance_norm_bwd_partial_sums(
+                    x, dys[i % nbuf], *stats[i % nbuf], s_, b_, relu=True,
+                    plan=p)
+
+            def apply(i, g):
+                x, s_, b_ = ins[i % nbuf]
+                return _apply_at(K, torch, x, *stats[i % nbuf], s_, b_, g,
+                                 relu=True)
+
+            def dx(i, g):
+                x, s_, b_ = ins[i % nbuf]
+                return _dx_at(K, torch, x, dys[i % nbuf], *stats[i % nbuf],
+                              s_, b_, *sums[i % nbuf], hw, g, relu=True)
+
+            grids = _apply_grid_times(torch, K, shape, item, apply, dx,
+                                      calls)
+            for arrays in todo:
+                kname = ("instance_norm_fwd", "instance_norm_bwd")[arrays - 1]
+                route = _route(K, shape, item, arrays)
+                row = {"shape": list(shape), "dtype": name, "kernel": kname,
+                       "picked": cs._picked_variant(K, shape, item, arrays),
+                       "plan": cs._plan_row(route, n),
+                       "streaming_ms": cs._time_device(
+                           torch, lambda i: whole(arrays, i, K.STREAMING),
+                           calls=calls),
+                       "ring_route_ms": cs._time_device(
+                           torch, lambda i: whole(arrays, i, route),
+                           calls=calls),
+                       "ring_half_ms": {},
+                       "grid_half_ms": grids["apply_ms" if arrays == 1
+                                             else "dx_ms"],
+                       "grid_picked": grids["picked"][
+                           "apply" if arrays == 1 else "dx"]}
+                for k, mult, threads in itertools.product(
+                        (1, 2, 4, 8, 16), (1, 2), (256, 512)):
+                    try:
+                        p = K.ring_plan(hw, c, item, arrays, k,
+                                        threads=threads)
+                        if mult > 1:
+                            if p.stage_rows >= p.rows:
+                                continue
+                            p = K.ring_plan(hw, c, item, arrays, k, 2,
+                                            min(mult * p.stage_rows, p.rows),
+                                            threads)
+                    except ValueError:
+                        continue
+                    key = "k%d r%d t%d" % (k, p.stage_rows, p.threads)
+                    row["ring_half_ms"][key] = cs._time_device(
+                        torch, lambda i, p=p: half(arrays, i, p),
+                        calls=calls)
+                if row["ring_half_ms"]:
+                    best = min(row["ring_half_ms"],
+                               key=row["ring_half_ms"].get)
+                    row["ring_half_best"] = [best,
+                                             row["ring_half_ms"][best]]
+                out.append(row)
+                cs.log("sweep %s %s %r: streaming %.4f, ring route %.4f "
+                       "(%s), best ring half %s, grids %s" % (
+                           kname, name, shape, row["streaming_ms"],
+                           row["ring_route_ms"], cs._plan_row(route, n),
+                           row.get("ring_half_best"), json.dumps(
+                               {k: round(v, 4) for k, v in
+                                row["grid_half_ms"].items()})))
+            del ins, dys, stats, sums
+            torch.cuda.empty_cache()
+    return out
+
+
+def sweep_apply_grids(torch, K):
+    """Device ms of the split apply and dx launches at every
+    ``SPLIT_SHAPES`` shape, float32 and bfloat16, (N, C) affine, no ReLU,
+    under each grid of :func:`_apply_grid_times`: the evidence for the
+    grid they take."""
+    out = []
+    for shape in cs.SPLIT_SHAPES:
+        n, hw, c = shape
+        for name in ("float32", "bfloat16"):
+            dtype = getattr(torch, name)
+            item = 4 if name == "float32" else 2
+            nbuf = cs._n_buffers(n * hw * c * item * 3)
+            ins = [cs._make_inputs(torch, shape, dtype, "sample", 97 + i)
+                   for i in range(nbuf)]
+            dys = [torch.randn_like(t[0].float()).to(dtype) for t in ins]
+            mean, m2 = K.instance_norm_partial_stats_plain(ins[0][0])
+            rstd = torch.rsqrt(m2 / hw + 1e-5)
+            sg, sgx = K.instance_norm_bwd_partial_sums_plain(
+                ins[0][0], dys[0], mean, rstd, *ins[0][1:])
+
+            def apply(i, g):
+                x, s_, b_ = ins[i % nbuf]
+                return _apply_at(K, torch, x, mean, rstd, s_, b_, g)
+
+            def dx(i, g):
+                x, s_, b_ = ins[i % nbuf]
+                return _dx_at(K, torch, x, dys[i % nbuf], mean, rstd, s_, b_,
+                              sg, sgx, 2 * hw, g)
+
+            row = {"shape": list(shape), "dtype": name}
+            row.update(_apply_grid_times(torch, K, shape, item, apply, dx))
+            out.append(row)
+            cs.log("grids %s %r: %s" % (name, shape, json.dumps(
+                {k: {g: round(t, 4) for g, t in row[k].items()}
+                 for k in ("apply_ms", "dx_ms")})))
+            del ins, dys
+    return out
+
+
+def eval_repeats(torch, reps=2):
+    """The selfcheck's eval job (full width, N = EVAL_BATCH, eval_mse_A and
+    the UBO of 1 and UBO_STEPS RMSprop steps, one process) run ``reps``
+    times with cuDNN free to pick its algorithms and ``reps`` times with
+    ``torch.backends.cudnn.deterministic``: each set's numbers, and
+    whether they repeat bit for bit."""
+    from domain_transfer_gan_torch.parallel import selfcheck
+
+    out = {}
+    keep = torch.backends.cudnn.deterministic
+    try:
+        for pinned in (False, True):
+            torch.backends.cudnn.deterministic = pinned
+            runs = []
+            for _ in range(reps):
+                r = selfcheck.run_job("eval", device="cuda",
+                                      width=dict(cs.CLI_WIDTH),
+                                      batch=cs.EVAL_BATCH,
+                                      ubo_steps=cs.UBO_STEPS, seed=2025)
+                runs.append([r["mse"]] + [r[k][v] for k in ("ubo1", "ubo")
+                                          for v in ("ubo", "kld", "bpp")])
+            out["deterministic" if pinned else "free"] = {
+                "mse, ubo1 (ubo, kld, bpp), ubo (ubo, kld, bpp)": runs,
+                "bit_equal": all(r == runs[0] for r in runs)}
+    finally:
+        torch.backends.cudnn.deterministic = keep
+    cs.log("eval job repeated in one process: %s" % json.dumps(out))
+    return out
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("sweep", choices=("ring", "grids", "eval"))
+    ap.add_argument("--wide", action="store_true",
+                    help="ring: sweep WIDE_SHAPES instead of the 256x256 "
+                         "shapes")
+    ap.add_argument("--out", help="write the rows here as JSON")
+    args = ap.parse_args(argv)
+
+    import torch
+
+    if not torch.cuda.is_available():
+        print("ring_sweeps: no CUDA device", file=sys.stderr)
+        return 2
+    from domain_transfer_gan_torch.ops.kernels import build
+    from domain_transfer_gan_torch.ops.kernels import instance_norm as K
+
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], check=True, capture_output=True,
+        text=True).stdout.strip().splitlines()[0]
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    build.compile_all()
+    if args.sweep == "ring":
+        rows = sweep_ring_plans(
+            torch, K, WIDE_SHAPES if args.wide else RING_SWEEP_SHAPES)
+    elif args.sweep == "grids":
+        rows = sweep_apply_grids(torch, K)
+    else:
+        rows = eval_repeats(torch)
+    if args.out:
+        with open(args.out, "w") as f:
+            json.dump({"card": smi, "rows": rows}, f)
+    cs.log(smi)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

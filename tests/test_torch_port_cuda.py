@@ -573,3 +573,61 @@ def test_the_split_function_over_one_slice_is_the_fused_norm():
         grads.append([y] + list(torch.autograd.grad(y, (xs, ss, ts), dy)))
     for a, b in zip(*grads):
         torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(4, 65536, 32), (8, 16384, 128),
+                                   (2, 3969, 512)],
+                         ids=lambda s: "%dx%dx%d" % s)
+def test_ring_route_vs_plain(shape):
+    """K1's and K2's ring route at 256x256 generator sites, where no
+    cluster holds a sample's slab, and at wide rows whose ring the plan
+    narrows to fit a CTA: the plan's pick, against the plain
+    versions (float32 within 1e-4, dx and sums within 1e-5 of the largest
+    |value|; bfloat16 within one rounding), counted once per call as
+    "ring", and a repeated launch bit for bit the first."""
+    _need_card()
+    n, hw, c = shape
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    g = torch.Generator(device="cuda").manual_seed(hw + c)
+    for dtype, tol in ((torch.float32, 1e-5), (torch.bfloat16, 4e-2)):
+        h = 256 if hw % 256 == 0 else int(hw ** 0.5)
+        x = (torch.randn((n, h, hw // h, c), generator=g, device="cuda")
+             * 1.5 + 0.5).to(dtype)
+        dy = torch.randn(x.shape, generator=g, device="cuda").to(dtype)
+        scale = torch.rand((n, c), generator=g, device="cuda") + 0.5
+        shift = torch.randn((n, c), generator=g, device="cuda")
+        kw = dict(unbiased=True, relu=True)
+        for arrays in (1, 2):
+            plan = K.cluster_plan(n, hw, c, x.element_size(), arrays, sms)
+            assert plan.variant == "ring"
+            wrapper = (instance_norm_fused, instance_norm_bwd_fused)[
+                arrays - 1]
+            before = dict(wrapper.launches_by_variant)
+            if arrays == 1:
+                def run():
+                    return K._launch(x, scale, shift, 1e-5, True, True)
+                want = instance_norm_plain(x, scale, shift,
+                                           return_stats=True, **kw)
+                lims = (4e-2 if dtype == torch.bfloat16 else 1e-4, 1e-4,
+                        1e-4)
+            else:
+                _, mean, rstd = instance_norm_plain(x, scale, shift,
+                                                    return_stats=True, **kw)
+
+                def run():
+                    return K._launch_bwd(x, dy, mean, rstd, scale, shift,
+                                         True, True)
+                want = instance_norm_bwd_plain(x, dy, mean, rstd, scale,
+                                               shift, **kw)
+                lims = (tol, 1e-5, 1e-5)
+            got = run()
+            torch.cuda.synchronize()
+            for gt, w_, lim in zip(got, want, lims):
+                ref = 1.0 if arrays == 1 else max(
+                    1.0, float(w_.float().abs().max()))
+                err = float((gt.float() - w_.float()).abs().max())
+                assert err <= lim * ref, (shape, dtype, arrays, err)
+            assert all(torch.equal(a, b) for a, b in zip(got, run()))
+            torch.cuda.synchronize()
+            assert wrapper.launches_by_variant["ring"] == before["ring"] + 2
