@@ -170,7 +170,13 @@ It needs one CUDA device, ``nvcc`` and no network.  It
    ``latest`` loaded and scored by one process to its ``TEST_MSE_A``.
    Phase 6 times the split kernels, without and with the ReLU, beside
    their twins, the library calls and their bound, and the ``kernels``
-   line carries them.
+   line carries them;
+13. (also before 6) the root entry points and ROADMAP F5's repair:
+   ``__graft_entry_torch__.entry()`` against plain norms,
+   ``dryrun_multichip(4)``, the ``dp_sp_tp`` job over 8 ranks at full width
+   against one process, the eval job and a float32 step each run twice, bit
+   for bit; then both pad kernels (``csrc/pad.cu``) against ``F.pad`` at
+   every pad shape phases 4-13 launched them at, and their times.
 
 Any failed build, launch or check ends the run with a non-zero exit code.
 The last line of standard output is
@@ -206,6 +212,11 @@ import urllib.request
 
 import numpy as np
 
+from domain_transfer_gan_torch.utils.timing import (
+    TRAIN_BATCH, TRAIN_CFG, full_model, norm_ms, profile_train_step,
+    profile_ubo_step, profile_window, profiled, time_train_step,
+    time_ubo_step, top_kernels, train_inputs)
+
 # published peaks of one H100 SXM (NVIDIA data sheet, dense)
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOP_PER_S = 67e12
@@ -226,10 +237,6 @@ TIMED_EXTRA_SHAPES = ((4, 65536, 32),)
 HEADLINE = ((32, 1024, 128), "float32")  # the most frequent site
 HW1_SHAPE = (8, 1, 16)  # one pixel: x - mean = 0, the unbiased divisor is 1
 
-TRAIN_BATCH = {"float32": 32, "bfloat16": 128}
-TRAIN_CFG = dict(model="aug_cycle_gan", grid_size=64, ngf=32, nef=32, ndf=64,
-                 nlatent=16, n_blocks=3, input_nc=3, output_nc=3,
-                 init_scheme="sane", seed=2025)
 # (losses, gnorms) of a fused step vs the same step of a twin model with the
 # same weights whose norms run the plain version forward and backward, in
 # the same compute dtype and at the same batch, relative to max(1, |value|).
@@ -446,6 +453,11 @@ P11_JOBS = (  # (label, parallel/selfcheck.py job, dtype, batch, flags)
 P11_SHAPES = tuple(dict.fromkeys(
     tuple(gen_sites(16, "B")) + tuple(gen_sites(64, "B"))))
 P11_TIMEOUT = 600  # seconds a pair of ranks may take before it is killed
+# (c)'s CLI ranks with cuDNN pinned: their latest, which (b)'s eval job
+# loads, is then the same on every run (ROADMAP F5)
+P11_CLI_MAIN = ("import runpy, torch; torch.backends.cudnn.deterministic = "
+                "True; runpy.run_module('domain_transfer_gan_torch.cli.train'"
+                ", run_name='__main__', alter_sys=True)")
 # the feed's three ways: "sync" is the per-file run with the CLI's feed
 # replaced by a pass-through, so that each step copies its host batch
 # synchronously (train_instance on numpy arrays)
@@ -1445,15 +1457,6 @@ def _held_counts(seen, want, what):
                                     sorted(want[direction].items())))
 
 
-def _train_inputs(batch, nlatent, seed, hw=64):
-    rng = np.random.RandomState(seed)
-    A = rng.uniform(-1, 1, (batch, hw, hw, 3)).astype(np.float32)
-    B = rng.uniform(-1, 1, (batch, hw, hw, 3)).astype(np.float32)
-    zs = [(rng.randn(batch, nlatent).astype(np.float32),
-           rng.randn(batch, nlatent).astype(np.float32)) for _ in range(3)]
-    return A, B, zs
-
-
 def _floats(d):
     return {k: float(v) for k, v in d.items()}
 
@@ -1536,7 +1539,7 @@ def drive_training_path(torch, K, seed_offset=0, hold=True):
 
     # (a) float32, batch 32, 3 steps, against the plain-norm twin
     batch = TRAIN_BATCH["float32"]
-    A, B, zs = _train_inputs(batch, nlatent, seed=11 + seed_offset)
+    A, B, zs = train_inputs(batch, nlatent, seed=11 + seed_offset)
     fused, twin = model(), model()
     start = _snapshot(fused)
     for it, (z, eps) in enumerate(zs):
@@ -1565,7 +1568,7 @@ def drive_training_path(torch, K, seed_offset=0, hold=True):
     # each against a plain-norm twin of its own dtype; the bfloat16 step 1
     # losses against the float32 ones only as a sanity check
     batch = TRAIN_BATCH["bfloat16"]
-    A, B, zs = _train_inputs(batch, nlatent, seed=12 + seed_offset)
+    A, B, zs = train_inputs(batch, nlatent, seed=12 + seed_offset)
     for name, n_steps in (("float32", 1), ("bfloat16", 3)):
         fused, twin = model(compute_dtype=name), model(compute_dtype=name)
         for it, (z, eps) in enumerate(zs[:n_steps]):
@@ -1591,7 +1594,7 @@ def drive_training_path(torch, K, seed_offset=0, hold=True):
 
     # (d) norm="batch" at a small depth: the branch runs on the card
     batch = TRAIN_BATCH["float32"]
-    A, B, zs = _train_inputs(batch, nlatent, seed=13 + seed_offset)
+    A, B, zs = train_inputs(batch, nlatent, seed=13 + seed_offset)
     bn = model(norm="batch", n_blocks=1)
     lb, gb, seen = step(bn, A, B, *zs[0])
     check_counts(seen, batch, "norm=batch step", n_blocks=1, instance=False)
@@ -1975,7 +1978,7 @@ def drive_variant_steps(torch, K):
         cfg = dict(TRAIN_CFG, model=name, compute_dtype=dtype)
         fused, twin = (create_model(TrainConfig(**cfg), testing=True,
                                     device="cuda") for _ in range(2))
-        A, B, zs = _train_inputs(batch, nlatent, seed=21 + i)
+        A, B, zs = train_inputs(batch, nlatent, seed=21 + i)
         width = (TRAIN_CFG["n_blocks"], TRAIN_CFG["ngf"])
         if kind == "sup":
             want_sites = sup_sites(batch, *width)
@@ -2431,37 +2434,6 @@ def _streamed_ring(K, on):
     return swapped()
 
 
-def _profile_window(torch, step, reps):
-    """``step()`` ``reps`` times under torch.profiler: wall ms of a step,
-    the device's busy ms (all kernels) and the instance norms' (K1 and K2,
-    every variant and route) per step, and their shares."""
-    from torch.profiler import ProfilerActivity, profile
-
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        for _ in range(reps):
-            step()
-        torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) / reps * 1e3
-    kernels = {}
-    for ev in prof.events():
-        if str(getattr(ev, "device_type", "")).endswith("CUDA"):
-            kernels[ev.name] = kernels.get(ev.name, 0.0) + \
-                ev.time_range.elapsed_us() / reps
-    busy_ms = sum(kernels.values()) / 1e3
-    norm_ms = _norm_ms(kernels)
-    return {"step_wall_ms_under_profiler": wall_ms,
-            "device_busy_ms_per_step": busy_ms,
-            "instance_norm_ms_per_step": norm_ms,
-            "instance_norm_share_of_busy": norm_ms / max(busy_ms, 1e-9),
-            "instance_norm_share_of_wall": norm_ms / wall_ms,
-            "norm_kernels_us_per_step": {
-                k[:80]: round(v, 1) for k, v in sorted(
-                    kernels.items(), key=lambda kv: -kv[1])
-                if "instance_norm" in k}}
-
-
 def drive_extras_steps(torch, K):
     """Phase 9 (a): the --grad_accum steps, the pool with EMA and --remat at
     the published width.  Each step of EXTRAS_STEPS is held against a twin
@@ -2526,7 +2498,7 @@ def drive_extras_steps(torch, K):
         cfg = dict(model=name, compute_dtype=dtype, grid_size=hw,
                    batchSize=batch, **flags)
         fused, twin = model(**cfg), model(**cfg)
-        A, B, zs = _train_inputs(batch, nlatent, seed=41 + i, hw=hw)
+        A, B, zs = train_inputs(batch, nlatent, seed=41 + i, hw=hw)
         if "grad_accum" in flags:
             want = accum_sites(batch, flags["grad_accum"], hw=hw, **width)
         else:
@@ -2592,7 +2564,7 @@ def drive_extras_steps(torch, K):
     torch.backends.cudnn.deterministic = True
     try:
         batch = TRAIN_BATCH["float32"]
-        A, B, zs = _train_inputs(batch, nlatent, seed=61)
+        A, B, zs = train_inputs(batch, nlatent, seed=61)
         for tag, flags in REMAT_STEPS:
             base, remat = model(**flags), model(remat=True, **flags)
             want = remat_sites(batch, flags.get("norm") != "batch", **width)
@@ -2624,7 +2596,7 @@ def drive_extras_steps(torch, K):
     # the bfloat16 batch-128 step three ways: peak memory and time (after
     # one warm-up step; the counters are not read here)
     batch = TRAIN_BATCH["bfloat16"]
-    A, B, _ = _train_inputs(batch, nlatent, seed=14)
+    A, B, _ = train_inputs(batch, nlatent, seed=14)
     A, B = torch.from_numpy(A).cuda(), torch.from_numpy(B).cuda()
     for way, flags in MEMORY_WAYS:
         m = model(compute_dtype="bfloat16", batchSize=batch, **flags)
@@ -2644,7 +2616,7 @@ def drive_extras_steps(torch, K):
     # the float32 batch-32 step with and without the pool and EMA (the
     # model draws the pools' coins and slots)
     batch = TRAIN_BATCH["float32"]
-    A, B, _ = _train_inputs(batch, nlatent, seed=16)
+    A, B, _ = train_inputs(batch, nlatent, seed=16)
     A, B = torch.from_numpy(A).cuda(), torch.from_numpy(B).cuda()
     ways = {way: model(batchSize=batch, **flags) for way, flags in EXTRAS_WAYS}
     for m in ways.values():
@@ -2663,7 +2635,7 @@ def drive_extras_steps(torch, K):
     torch.cuda.empty_cache()
     # the --grad_accum 4 step on 256x256 images, float32 at batch 32: time
     # and peak memory (one warm-up step)
-    A, B, _ = _train_inputs(32, nlatent, seed=15, hw=256)
+    A, B, _ = train_inputs(32, nlatent, seed=15, hw=256)
     A, B = torch.from_numpy(A).cuda(), torch.from_numpy(B).cuda()
     m = model(grid_size=256, batchSize=32, grad_accum=ACCUM_K)
     m.train_instance(A, B)
@@ -2677,8 +2649,8 @@ def drive_extras_steps(torch, K):
         * 1e3
     figures["f32_b32_256_accum4_peak_memory_gb"] = \
         torch.cuda.max_memory_allocated() / 2 ** 30
-    figures["f32_b32_256_accum4_profile"] = _profile_window(
-        torch, lambda: m.train_instance(A, B), reps=2)
+    figures["f32_b32_256_accum4_profile"] = profile_window(
+        lambda: m.train_instance(A, B), reps=2)
     del m, A, B
     torch.cuda.empty_cache()
     # the bfloat16 step on 256x256 images at batch 32, its 256x256
@@ -2686,7 +2658,7 @@ def drive_extras_steps(torch, K):
     # the streaming variant forced, in turns: time, peak memory and the
     # instance norms' device time under torch.profiler (the counters are
     # not read here)
-    A, B, _ = _train_inputs(STEP256_BATCH, nlatent, seed=17, hw=256)
+    A, B, _ = train_inputs(STEP256_BATCH, nlatent, seed=17, hw=256)
     A, B = torch.from_numpy(A).cuda(), torch.from_numpy(B).cuda()
     m = model(compute_dtype="bfloat16", grid_size=256,
               batchSize=STEP256_BATCH)
@@ -2705,8 +2677,8 @@ def drive_extras_steps(torch, K):
             figures[key + "_peak_memory_gb"] = \
                 torch.cuda.max_memory_allocated() / 2 ** 30
             if key + "_profile" not in figures:
-                figures[key + "_profile"] = _profile_window(
-                    torch, lambda: m.train_instance(A, B), reps=2)
+                figures[key + "_profile"] = profile_window(
+                    lambda: m.train_instance(A, B), reps=2)
     del m, A, B
     torch.cuda.empty_cache()
     log("extras steps: launches by direction and shape %s, per variant %s"
@@ -2916,187 +2888,6 @@ def drive_extras_cli(torch, K, tmp, device="cuda", width=CLI_WIDTH):
     return total, variants, figures
 
 
-def time_train_step(torch):
-    """train_step_ms and images/s per dtype at its batch: 3 warm-up steps,
-    then wall time around 10 steps that end in one synchronize()."""
-    from domain_transfer_gan_torch.config import TrainConfig
-    from domain_transfer_gan_torch.models import create_model
-
-    out = {"timed_steps": 10, "warmups": 3}
-    for name, batch in TRAIN_BATCH.items():
-        m = create_model(TrainConfig(**dict(TRAIN_CFG, compute_dtype=name)),
-                         testing=True, device="cuda")
-        A, B, _ = _train_inputs(batch, TRAIN_CFG["nlatent"], seed=14)
-        A, B = torch.from_numpy(A).cuda(), torch.from_numpy(B).cuda()
-        torch.cuda.reset_peak_memory_stats()
-        for _ in range(3):
-            m.train_instance(A, B)
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        for _ in range(10):
-            m.train_instance(A, B)
-        torch.cuda.synchronize()
-        dt = time.perf_counter() - t0
-        out["train_step_ms_%s_b%d" % (name, batch)] = dt / 10 * 1e3
-        out["train_images_per_s_%s_b%d" % (name, batch)] = 10 * batch / dt
-        out["peak_memory_gb_%s_b%d" % (name, batch)] = \
-            torch.cuda.max_memory_allocated() / 2 ** 30
-        del m
-        torch.cuda.empty_cache()
-    # phase 8's steps, float32 at batch 32
-    batch = TRAIN_BATCH["float32"]
-    A, B, _ = _train_inputs(batch, TRAIN_CFG["nlatent"], seed=14)
-    A, B = torch.from_numpy(A).cuda(), torch.from_numpy(B).cuda()
-    for key, model, method in (
-            ("train_step_ms_stoch_cycle_gan", "stoch_cycle_gan",
-             "train_instance"),
-            ("supervised_step_ms", "aug_cycle_gan",
-             "supervised_train_instance")):
-        m = create_model(TrainConfig(**dict(TRAIN_CFG, model=model)),
-                         testing=True, device="cuda")
-        step = getattr(m, method)
-        for _ in range(3):
-            step(A, B)
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        for _ in range(10):
-            step(A, B)
-        torch.cuda.synchronize()
-        out["%s_float32_b%d" % (key, batch)] = \
-            (time.perf_counter() - t0) / 10 * 1e3
-        del m
-        torch.cuda.empty_cache()
-    return out
-
-
-def _ubo_args(torch, n, seed):
-    """A model at full width and the arguments of ``ubo_chunk`` at batch n
-    (float32), from a seed."""
-    from domain_transfer_gan_torch.config import TrainConfig
-    from domain_transfer_gan_torch.models import create_model
-
-    m = create_model(TrainConfig(**TRAIN_CFG), testing=True, device="cuda")
-    nlat = TRAIN_CFG["nlatent"]
-    A, B, _ = _train_inputs(n, nlat, seed=seed)
-    A, B = torch.from_numpy(A).cuda(), torch.from_numpy(B).cuda()
-    B = B + torch.rand_like(B) / 127.5
-    mu = torch.zeros((n, nlat), device="cuda")
-    lv = torch.full((n, nlat), -4.6, device="cuda")
-    return m, (A, B, mu, lv, torch.zeros_like(mu), torch.zeros_like(lv),
-               torch.full((1, 64, 64, 3), -4.6, device="cuda"),
-               torch.ones(n, device="cuda"), 64 * 64 * 3.0)
-
-
-def time_ubo_step(torch):
-    """ms of one UBO RMSprop step (netG_A_B forward + backward to z) at the
-    training CLI's eval batch (100) and the evaluation CLI's (200): wall
-    time around 20 steps that end in one synchronize(), after 3."""
-    from domain_transfer_gan_torch.eval import metrics
-
-    out = {}
-    for n in (EVAL_BATCH, TEST_BATCH):
-        m, args = _ubo_args(torch, n, seed=17)
-        metrics.ubo_chunk(m, *args, 3)
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        metrics.ubo_chunk(m, *args, 20)
-        torch.cuda.synchronize()
-        out["ubo_step_ms_b%d" % n] = (time.perf_counter() - t0) / 20 * 1e3
-        del m, args
-        torch.cuda.empty_cache()
-    return out
-
-
-def profile_train_step(torch):
-    """Device time of one train step by kernel name (torch.profiler): the
-    aug_cycle_gan step per dtype at its batch, the stoch_cycle_gan step and
-    the supervised step in float32 at batch 32; and the device-busy share
-    of the step's wall time."""
-    from torch.profiler import ProfilerActivity, profile
-
-    from domain_transfer_gan_torch.config import TrainConfig
-    from domain_transfer_gan_torch.models import create_model
-
-    cases = [("%s_b%d" % (name, batch), "aug_cycle_gan", name, batch,
-              "train_instance") for name, batch in TRAIN_BATCH.items()]
-    cases += [("stoch_cycle_gan_float32_b32", "stoch_cycle_gan", "float32",
-               32, "train_instance"),
-              ("supervised_float32_b32", "aug_cycle_gan", "float32", 32,
-               "supervised_train_instance")]
-    out = {}
-    for key, model, name, batch, method in cases:
-        m = create_model(TrainConfig(**dict(TRAIN_CFG, model=model,
-                                            compute_dtype=name)),
-                         testing=True, device="cuda")
-        step = getattr(m, method)
-        A, B, _ = _train_inputs(batch, TRAIN_CFG["nlatent"], seed=15)
-        A, B = torch.from_numpy(A).cuda(), torch.from_numpy(B).cuda()
-        for _ in range(3):
-            step(A, B)
-        torch.cuda.synchronize()
-        reps = 3
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            for _ in range(reps):
-                step(A, B)
-            torch.cuda.synchronize()
-            wall_ms = (time.perf_counter() - t0) / reps * 1e3
-        kernels, count = {}, 0
-        for ev in prof.events():
-            if str(getattr(ev, "device_type", "")).endswith("CUDA"):
-                dur = ev.time_range.elapsed_us()
-                kernels[ev.name] = kernels.get(ev.name, 0.0) + dur / reps
-                count += 1
-        busy_ms = sum(kernels.values()) / 1e3
-        out[key] = {
-            "step_wall_ms_under_profiler": wall_ms,
-            "device_busy_ms_per_step": busy_ms,
-            "device_busy_share": busy_ms / wall_ms,
-            "device_kernels_per_step": count / reps,
-            # both variants of both instance-norm kernels, all launches
-            "instance_norm_ms_per_step": _norm_ms(kernels),
-            # ATen's elementwise kernels differ only late in their names
-            "kernels_us_per_step": _top_kernels(kernels, 24, width=200),
-        }
-        del m
-        torch.cuda.empty_cache()
-    return out
-
-
-def profile_ubo_step(torch, n):
-    """Device time of the UBO's RMSprop steps at batch n (float32, full
-    width: one netG_A_B forward and backward to z each) by kernel name
-    (torch.profiler), and the device-busy share of the steps' wall time."""
-    from torch.profiler import ProfilerActivity, profile
-
-    from domain_transfer_gan_torch.eval import metrics
-
-    m, args = _ubo_args(torch, n, seed=16)
-    metrics.ubo_chunk(m, *args, 3)
-    torch.cuda.synchronize()
-    reps = 5
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        metrics.ubo_chunk(m, *args, reps)
-        torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) / reps * 1e3
-    kernels, count = {}, 0
-    for ev in prof.events():
-        if str(getattr(ev, "device_type", "")).endswith("CUDA"):
-            dur = ev.time_range.elapsed_us()
-            kernels[ev.name] = kernels.get(ev.name, 0.0) + dur / reps
-            count += 1
-    busy_ms = sum(kernels.values()) / 1e3
-    return {"step_wall_ms_under_profiler": wall_ms,
-            "device_busy_ms_per_step": busy_ms,
-            "device_busy_share": busy_ms / wall_ms,
-            "device_kernels_per_step": count / reps,
-            "instance_norm_ms_per_step": _norm_ms(kernels),
-            "kernels_us_per_step": _top_kernels(kernels, 16, width=120)}
-
-
 def time_end_to_end(torch, ctx):
     """images/s of the two generators at batch 32: the exported callables on
     device tensors (wall time around a final synchronize) and whole HTTP
@@ -3147,26 +2938,9 @@ def time_end_to_end(torch, ctx):
     return out
 
 
-def _norm_ms(kernels):
-    """Milliseconds of the instance-norm kernels in {kernel name: us}."""
-    return sum(v for k, v in kernels.items() if "instance_norm" in k) / 1e3
-
-
-def _top_kernels(kernels, n, width=80):
-    """The n largest entries of {kernel name: microseconds}, names cut to
-    ``width`` characters (times of names that then coincide are added)."""
-    short = {}
-    for k, v in kernels.items():
-        short[k[:width]] = short.get(k[:width], 0.0) + v
-    top = sorted(short.items(), key=lambda kv: -kv[1])[:n]
-    return {k: round(v, 1) for k, v in top}
-
-
 def profile_forward(torch, ctx):
     """Device time of one predict_B and one predict_A forward by kernel name
     (torch.profiler), float32, batch 32."""
-    from torch.profiler import ProfilerActivity, profile
-
     from domain_transfer_gan_torch.cli.export import load_exported
 
     batch = ctx["batch"]
@@ -3181,21 +2955,11 @@ def profile_forward(torch, ctx):
         for _ in range(3):
             call()
         torch.cuda.synchronize()
-        reps = 5
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            for _ in range(reps):
-                call()
-            torch.cuda.synchronize()
-        kernels = {}
-        for ev in prof.events():
-            if str(getattr(ev, "device_type", "")).endswith("CUDA"):
-                dur = ev.time_range.elapsed_us()
-                kernels[ev.name] = kernels.get(ev.name, 0.0) + dur / reps
+        _, kernels, _ = profiled(call, 5)
         out[name] = {
             "device_busy_ms_per_call": sum(kernels.values()) / 1e3,
-            "instance_norm_ms_per_call": _norm_ms(kernels),
-            "kernels_us_per_call": _top_kernels(kernels, 14),
+            "instance_norm_ms_per_call": norm_ms(kernels),
+            "kernels_us_per_call": top_kernels(kernels, 14),
         }
     return out
 
@@ -3362,11 +3126,11 @@ def drive_phase10(torch, K, tmp, smi, device="cuda", width=CLI_WIDTH,
     run's launches are read from 0 around it and held to its structure
     (and, on the card, to the variants the plan picks).  Returns (launches
     by direction and shape, per variant, the figures)."""
+    import collections
+    import contextlib
     import json as _json
     import os
     import types
-
-    import contextlib
 
     from domain_transfer_gan_torch.cli import test as test_cli
     from domain_transfer_gan_torch.cli import train as train_cli
@@ -3524,14 +3288,17 @@ def drive_phase10(torch, K, tmp, smi, device="cuda", width=CLI_WIDTH,
                              % (out["TEST_MSE_A"], direct))
 
     # (e) the trace of (b)'s steps 10-14
-    trace = os.path.join(prof, "trace.json")
-    with open(trace) as f:
-        names = {e.get("name", "") for e in _json.load(f)["traceEvents"]}
+    with open(os.path.join(prof, "trace.json")) as f:
+        events = _json.load(f)["traceEvents"]
+    names = {e.get("name", "") for e in events}
     fig["trace_k1"] = sorted(n for n in names if "instance_norm_fwd" in n)
     fig["trace_k2"] = sorted(n for n in names if "instance_norm_bwd" in n)
+    cats = dict(collections.Counter(e.get("cat", "") for e in events))
+    fig["trace_events_by_category"] = cats  # "kernel": the card's kernels
     if on_card and not (fig["trace_k1"] and fig["trace_k2"]):
-        raise AssertionError("the --profile_dir trace names K1 %r, K2 %r"
-                             % (fig["trace_k1"], fig["trace_k2"]))
+        raise AssertionError("the --profile_dir trace names K1 %r, K2 %r; "
+                             "its events by category %r"
+                             % (fig["trace_k1"], fig["trace_k2"], cats))
     if "profiler trace written to %s" % prof not in text:
         raise AssertionError("per-file run: no profiler line")
 
@@ -3905,7 +3672,7 @@ def drive_phase11(torch, K, tmp, smi, device="cuda", width=CLI_WIDTH,
         "--num_processes", str(P11_RANKS)])
     t0 = time.perf_counter()
     procs = [subprocess.Popen(
-        [sys.executable, "-m", "domain_transfer_gan_torch.cli.train", *argv,
+        [sys.executable, "-c", P11_CLI_MAIN, *argv,
          "--process_id", str(r)], cwd=here, env=env,
         stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
         for r in range(P11_RANKS)]
@@ -3984,6 +3751,7 @@ def drive_phase11(torch, K, tmp, smi, device="cuda", width=CLI_WIDTH,
     ranks = selfcheck.run_ranks(jobs, P11_RANKS, device,
                                 timeout=P11_TIMEOUT)
     fig["two_rank_jobs_s"] = time.perf_counter() - t0
+    _rank_pads("phase11", ranks)
     fig["steps"], failed = {}, []
     for i, (label, job) in enumerate(zip(labels, jobs)):
         dtype = job.get("compute_dtype", "float32")
@@ -4691,6 +4459,7 @@ def drive_phase12(torch, K, tmp, smi, device="cuda", width=CLI_WIDTH):
     t0 = time.perf_counter()
     ranks = selfcheck.run_ranks(jobs, P12_RANKS, device, timeout=P12_TIMEOUT)
     fig["rank_jobs_s"] = time.perf_counter() - t0
+    _rank_pads("phase12", ranks)
     failed = []
     fig["steps"] = {}
     for i, (label, _) in enumerate(P12_JOBS):
@@ -4847,6 +4616,183 @@ def drive_phase12(torch, K, tmp, smi, device="cuda", width=CLI_WIDTH):
     return totals, variants, split, split_var, fig
 
 
+# phase 13: the root entry points, the three SPMD axes at once, the repair
+# of ROADMAP F5 (bit-stable pads) and the pad kernels themselves
+P13_RANKS, P13_TIMEOUT = 8, 900
+# conv0's pad at the published batch, and a residual block's
+PAD_TIMED = (((32, 3, 64, 64), (3, 3, 3, 3)), ((32, 128, 32, 32),
+                                                (1, 1, 1, 1)))
+PAD_BWD_RTOL = 1e-6  # float32 dx vs F.pad's backward, relative to max |dx|
+RANK_PADS = {}  # {phase: {wrapper: {shape: launches}}} of its selfcheck ranks
+
+
+def _rank_pads(phase, ranks):
+    """Add the pad launches of a phase's selfcheck ranks (each rank's total
+    is in its last job's result) to RANK_PADS."""
+    for r in ranks:
+        for name, by in r[-1]["pad_launches"].items():
+            _add(RANK_PADS.setdefault(phase, {}).setdefault(name, {}), by)
+
+
+def eval_repeats(reps=2):
+    """The selfcheck's eval job (full width, N = EVAL_BATCH, eval_mse_A and
+    the UBO of 1 and UBO_STEPS RMSprop steps, one process, cuDNN pinned by
+    the job) ``reps`` times: each run's numbers, and whether they repeat
+    bit for bit."""
+    from domain_transfer_gan_torch.parallel import selfcheck
+
+    runs = []
+    for _ in range(reps):
+        r = selfcheck.run_job("eval", device="cuda", width=dict(CLI_WIDTH),
+                              batch=EVAL_BATCH, ubo_steps=UBO_STEPS, seed=2025)
+        runs.append([r["mse"]] + [r[k][v] for k in ("ubo1", "ubo")
+                                  for v in ("ubo", "kld", "bpp")])
+    return {"bit_equal": all(r == runs[0] for r in runs),
+            "mse, ubo1 (ubo, kld, bpp), ubo (ubo, kld, bpp)": runs}
+
+
+def step_repeats(torch):
+    """One aug_cycle_gan float32 step at batch 32, twice from the same
+    seed-drawn state, inputs and noise, cuDNN pinned: the parameters that
+    differ after it (bit for bit), of how many."""
+    A, B, (zs, *_) = train_inputs(32, TRAIN_CFG["nlatent"], 71)
+    A, B, z, e = (torch.from_numpy(a).cuda() for a in (A, B) + zs)
+    keep = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        runs = []
+        for _ in range(2):
+            m = full_model()
+            m.train_instance(A, B, z, e)
+            runs.append([p.detach().clone() for net in m.state.nets.values()
+                         for p in net.parameters()])
+    finally:
+        torch.backends.cudnn.deterministic = keep
+    return sum(not torch.equal(a, b) for a, b in zip(*runs)), len(runs[0])
+
+
+def check_pads(torch, P, shapes):
+    """Both pad kernels against their plain versions (``F.pad`` and its
+    backward, on the card) at every (N, C, H, W, pads, mode, dtype) of
+    ``shapes``: the forward bit for bit, the backward within PAD_BWD_RTOL
+    of max |dx| in float32 (bfloat16: within one ulp of the float32
+    backward), and two backward launches bit for bit."""
+    g = torch.Generator(device="cuda").manual_seed(13)
+    worst = {"bwd_float32": 0.0, "bwd_bfloat16_ulps": 0.0}
+    cl = torch.channels_last
+    for n, c, h, w, pads, mode, dtype in shapes:
+        dt = getattr(torch, dtype)
+        x = torch.randn((n, c, h, w), generator=g, device="cuda").to(dt)
+        y = P.pad2d(x.contiguous(memory_format=cl), pads, mode)
+        dy = torch.randn(y.shape, generator=g, device="cuda").to(
+            dt).contiguous(memory_format=cl)
+        dx, again = (P.pad2d_bwd(dy, x.shape, pads, mode) for _ in range(2))
+        want = P.pad2d_bwd_plain(dy.float(), x.shape, pads, mode)
+        what = "pad %r %r %s %s" % ((n, c, h, w), pads, mode, dtype)
+        if not torch.equal(y, P.pad2d_plain(x, pads, mode)):
+            raise AssertionError("%s: forward differs from F.pad" % what)
+        if not torch.equal(dx, again):
+            raise AssertionError("%s: backward does not repeat" % what)
+        if dt == torch.float32:
+            err = float((dx - want).abs().max() / want.abs().max())
+            key, limit = "bwd_float32", PAD_BWD_RTOL
+        else:
+            err = float(((dx.float() - want.to(dt).float()).abs()
+                         / _bf16_ulp(torch, want)).max())
+            key, limit = "bwd_bfloat16_ulps", 1.0
+        worst[key] = max(worst[key], err)
+        if err > limit:
+            raise AssertionError("%s: backward %g off (limit %g)"
+                                 % (what, err, limit))
+    return worst
+
+
+def time_pads(torch, P):
+    """Device ms of both pad kernels at PAD_TIMED (reflect, float32), in
+    turns with their plain versions (``F.pad``'s forward and backward, the
+    library calls too), beside the bound: x and y (dy and dx) moved once."""
+    rows, cl = [], torch.channels_last
+    for shape, pads in PAD_TIMED:
+        n, c, h, w = shape
+        out = (n, c, h + pads[2] + pads[3], w + pads[0] + pads[1])
+        nbytes = 4 * (n * c * h * w + int(np.prod(out)))
+        k = _n_buffers(nbytes)
+        xs, dys = ([torch.randn(s, device="cuda").contiguous(
+            memory_format=cl) for _ in range(k)] for s in (shape, out))
+        calls = {"fwd": (lambda i: P._launch(xs[i % k], pads, "reflect"),
+                         lambda i: P.pad2d_plain(xs[i % k], pads, "reflect")),
+                 "bwd": (lambda i: P.pad2d_bwd(dys[i % k], shape, pads,
+                                               "reflect"),
+                         lambda i: torch.ops.aten.reflection_pad2d_backward(
+                             dys[i % k], xs[i % k], list(pads)))}
+        row = {"shape": list(shape), "pads": list(pads),
+               "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3}
+        for d, (kern, plain) in calls.items():
+            t = [_time_device(torch, f) for f in (kern, plain, plain, kern)]
+            row[d + "_ms"], row[d + "_plain_ms"] = (t[0] + t[3]) / 2, \
+                (t[1] + t[2]) / 2
+        rows.append(row)
+    return rows
+
+
+def drive_phase13(torch):
+    """Phase 13: (a) ``entry()`` on the card, its example weights and
+    seed-drawn "sane" ones, against the same net with plain norms; (b)
+    ``dryrun_multichip(4)``; (c) the ``dp_sp_tp`` job (data x space x
+    model, 2x2x2) over 8 ranks sharing the card at full width against one
+    process at the float32 limits; (d) ROADMAP F5: the eval job twice in
+    one process, bit for bit, and an aug_cycle_gan float32 step at 32
+    twice from one state, every parameter bit-identical."""
+    import __graft_entry_torch__ as ge
+    from domain_transfer_gan_torch.config import TrainConfig
+    from domain_transfer_gan_torch.models.state import build_networks
+    from domain_transfer_gan_torch.parallel import selfcheck
+
+    fig, t0 = {}, time.perf_counter()
+    fn, (params, x, z) = ge.entry()
+    sane = build_networks(TrainConfig(**dict(
+        ge.ENTRY_CFG, init_scheme="sane")), torch.Generator().manual_seed(3))
+    errs = []
+    with torch.no_grad():
+        for p in (params, {k: v.cuda() for k, v in
+                           sane["netG_A_B"].state_dict().items()}):
+            y = fn(p, x, z)
+            _check_images(y.cpu().numpy(), 8, 64, 3, "entry()")
+            errs.append(float((y - fn(p, x, z, plain_norm=True)).abs().max()))
+    fig["entry_vs_plain_norms_max_abs_err"] = errs
+    if max(errs) > SERVE_ATOL:
+        raise AssertionError("entry() is %g from plain norms" % max(errs))
+    t = time.perf_counter()
+    fig["dryrun_multichip_4"] = ge.dryrun_multichip(4)
+    fig["dryrun_multichip_4_s"] = time.perf_counter() - t
+    job = dict(name="dp_sp_tp", width=dict(selfcheck.FULL))
+    t = time.perf_counter()
+    single = selfcheck.run_job(device="cuda", **job)
+    fig["dp_sp_tp_one_process_s"] = time.perf_counter() - t
+    t = time.perf_counter()
+    ranks = selfcheck.run_ranks([job], P13_RANKS, "cuda",
+                                timeout=P13_TIMEOUT)
+    fig["dp_sp_tp_8_ranks_s"] = time.perf_counter() - t
+    _rank_pads("phase13", ranks)
+    fig["dp_sp_tp_max_rel_dev"] = selfcheck.compare(
+        single, [r[0] for r in ranks], selfcheck.LIMITS["float32"],
+        params=False)
+    fig["dp_sp_tp_rank_step_ms"] = [r[0]["ms"] for r in ranks]
+    counts = [dict(r[0]["launches"], **r[0]["split_launches"]) for r in ranks]
+    fig["dp_sp_tp_launches"] = {k: sum(sum(c[k].values()) for c in counts)
+                                for k in counts[0]}  # each read from 0
+    if not all(fig["dp_sp_tp_launches"].values()):
+        raise AssertionError("phase 13: the ranks skipped a norm kernel")
+    fig["eval_repeats"] = eval_repeats()
+    fig["step_params_differing"] = step_repeats(torch)
+    if not fig["eval_repeats"]["bit_equal"] or \
+            fig["step_params_differing"][0]:
+        raise AssertionError("F5: a repeat differs %s" % json.dumps(fig))
+    fig["s"] = time.perf_counter() - t0
+    log("phase 13: %s" % json.dumps(fig))
+    return fig
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--profile", action="store_true",
@@ -4870,6 +4816,7 @@ def main(argv=None):
 
     from domain_transfer_gan_torch.ops.kernels import build
     from domain_transfer_gan_torch.ops.kernels import instance_norm as K
+    from domain_transfer_gan_torch.ops.kernels import pad as P
 
     t_start = time.perf_counter()
     # phase 1: the card
@@ -4897,13 +4844,24 @@ def main(argv=None):
     split_worst = check_split_kernels(torch, K)
     high_mean = check_split_high_mean(torch, K)
 
+    pads = {}  # the pad kernels' launches of each path, read from 0
+
+    def pads_of(phase):
+        pads[phase] = {w.__name__: dict(w.launches_by_shape)
+                       for w in P.WRAPPERS}
+        for name, by in RANK_PADS.get(phase, {}).items():
+            _add(pads[phase][name], by)
+        P.reset_counts()
+
     # phase 4: the serving path
+    P.reset_counts()
     with tempfile.TemporaryDirectory() as tmp:
         launches, serving_variants, site_counts, ctx = drive_serving_path(
             torch, K.instance_norm_fused, K.instance_norm_bwd_fused, tmp)
         if launches < 1:
             raise AssertionError("the serving path never launched the kernel")
         check_norm_sites(torch, ctx)
+        pads_of("serving")
 
         # phase 5: the training path
         train_variants, train_counts, _ = drive_training_path(torch, K)
@@ -4914,6 +4872,7 @@ def main(argv=None):
         for i in range(args.twin_seeds):
             drive_training_path(torch, K, seed_offset=100 * (i + 1),
                                 hold=False)
+        pads_of("steps")
 
         # phase 7: the training CLI, then export and serve from its
         # checkpoint (before phase 6, whose rows carry its launch counts)
@@ -4922,6 +4881,7 @@ def main(argv=None):
         cli_fwd = sum(cli_counts["fwd"].values())
         cli_bwd = sum(cli_counts["bwd"].values())
         served_fwd = sum(cli_served["fwd"].values())
+        pads_of("training_cli")
 
         # phase 8: the other variants' steps and the supervised step against
         # plain-norm twins, then one epoch of each through the training CLI
@@ -4938,6 +4898,7 @@ def main(argv=None):
         p8_fwd, p8_bwd = (sum(p8[d].values()) for d in ("fwd", "bwd"))
         log("phase 8: %.1f s, launches %d forward, %d backward"
             % (time.perf_counter() - t8, p8_fwd, p8_bwd))
+        pads_of("phase8")
 
         # phase 9: the step extras (gradient accumulation, the pool, EMA,
         # --remat) against plain-norm twins, then through the CLIs (before
@@ -4954,6 +4915,7 @@ def main(argv=None):
                           for d in ("fwd", "bwd"))
         log("phase 9: %.1f s, launches %d forward, %d backward"
             % (time.perf_counter() - t9, p9_fwd, p9_bwd))
+        pads_of("phase9")
 
         # phase 10: the per-file data path, the host feed, the Livneh ETL,
         # upstream-checkpoint interop (before phase 6 too)
@@ -4962,6 +4924,7 @@ def main(argv=None):
         p10_fwd, p10_bwd = (sum(p10[d].values()) for d in ("fwd", "bwd"))
         log("phase 10: %.1f s, launches %d forward, %d backward"
             % (time.perf_counter() - t10, p10_fwd, p10_bwd))
+        pads_of("phase10")
 
         # phase 11: a run moved between packages (the JAX package's flax
         # checkpoints) and trained over two ranks (before phase 6 too)
@@ -4971,6 +4934,7 @@ def main(argv=None):
                             for d in ("fwd", "bwd"))
         log("phase 11: %.1f s, launches %d forward, %d backward"
             % (time.perf_counter() - t11, p11_fwd, p11_bwd))
+        pads_of("phase11")
 
         # phase 12: the space, model and pipe axes over ranks, the split
         # kernels on the main path (the counts read from 0 in the ranks)
@@ -4984,6 +4948,19 @@ def main(argv=None):
                 p12_figures["s"], p12_fwd, p12_bwd, json.dumps(
                     {k: {str(s): v for s, v in by.items()}
                      for k, by in p12_split.items()})))
+        pads_of("phase12")
+
+        # phase 13: the root entry points, dp x sp x tp over 8 ranks, F5;
+        # then the pad kernels at every shape the paths gave them, timed
+        p13 = drive_phase13(torch)
+        pads_of("phase13")
+        for phase, by in pads.items():
+            if not by["pad2d"] or (phase != "serving" and not by["pad2d_bwd"]):
+                raise AssertionError("%s never launched a pad kernel" % phase)
+        pad_worst = check_pads(torch, P, sorted({s for by in pads.values()
+                                                 for d in by.values()
+                                                 for s in d}, key=str))
+        pad_rows = time_pads(torch, P)
 
         # phase 6: times
         rows = time_kernel(torch, F, K, site_counts, train_counts,
@@ -4995,11 +4972,12 @@ def main(argv=None):
                                    extras_counts=p9, p10_counts=p10,
                                    p11_counts=p11)
         e2e = time_end_to_end(torch, ctx)
-        e2e.update(time_train_step(torch))
+        e2e.update(time_train_step())
         e2e["phase9"] = p9_figures
         e2e["phase10"] = p10_figures
         e2e["phase11"] = p11_figures
         e2e["phase12"] = p12_figures
+        e2e["phase13"] = p13
         split_rows = time_split_kernels(torch, K, p12_split)
         log("phase 6: split kernels (ms, twin, library, bound, phase 12 "
             "launches) %s" % json.dumps({"card": smi, "rows": split_rows}))
@@ -5007,13 +4985,13 @@ def main(argv=None):
             sweep = sweep_split_plans(torch, K)
             log("phase 6: split reductions under every plan %s"
                 % json.dumps({"card": smi, "rows": sweep}))
-        e2e.update(time_ubo_step(torch))
+        e2e.update(time_ubo_step((EVAL_BATCH, TEST_BATCH)))
         prof = None
         if args.profile:
             prof = profile_forward(torch, ctx)
-            prof["train_step"] = profile_train_step(torch)
+            prof["train_step"] = profile_train_step()
             for n in (EVAL_BATCH, TEST_BATCH):
-                prof["ubo_step_b%d" % n] = profile_ubo_step(torch, n)
+                prof["ubo_step_b%d" % n] = profile_ubo_step(n)
 
     def head_of(table):
         return next(r for r in table
@@ -5117,6 +5095,7 @@ def main(argv=None):
                                      split_worst["dx_bfloat16_ulps"]),
             "check": split_worst,
             "launches_by_variant": p12_split_var[name],
+            "launches_phase13": p13["dp_sp_tp_launches"][name],
             "shape": list(SPLIT_HEADLINE[0]), "dtype": SPLIT_HEADLINE[1],
             # without the ReLU: the function the library call computes
             "ms": head_row["kernel_ms"], "plain_ms": head_row["plain_ms"],
@@ -5139,7 +5118,8 @@ def main(argv=None):
     # the main path ran on it: the cluster one and the ring route.  The
     # counts are calls of the wrappers, each one launch but the ring
     # route's, which launches its ring and then its apply / dx
-    for entry in kernels["kernels"][:2]:
+    for entry, d in zip(kernels["kernels"][:2], ("fwd", "bwd")):
+        entry["launches_phase13"] = p13["dp_sp_tp_launches"][d]
         ring_calls = entry["launches_by_variant"]["ring"]
         entry["counts_are"] = "calls; a ring-route call is two launches"
         entry["ring_route_launches"] = 2 * ring_calls
@@ -5148,6 +5128,26 @@ def main(argv=None):
             if entry["launches_by_variant"][v] < 1:
                 raise AssertionError("%s: the %s variant never launched on "
                                      "the main path" % (entry["name"], v))
+    for name, d in (("pad2d", "fwd"), ("pad2d_bwd", "bwd")):
+        kernels["kernels"].append({
+            "name": name, "route": "cuda",
+            "source": "domain_transfer_gan_torch/csrc/pad.cu",
+            "replaces": "no TPU kernel (jnp.pad, domain_transfer_gan_tpu/"
+            "ops/convs.py:29): a repair of F.pad's atomics, ROADMAP F5",
+            "launches": sum(sum(by[name].values()) for by in pads.values()),
+            "launches_by_path": {ph: sum(by[name].values())
+                                 for ph, by in pads.items()},
+            "launches_by_shape": {str(s): sum(by[name].get(s, 0) for by in
+                                              pads.values())
+                                  for s in set().union(*(
+                                      by[name] for by in pads.values()))},
+            "max_abs_err": 0.0 if d == "fwd" else pad_worst["bwd_float32"],
+            "check": pad_worst, "shape": pad_rows[0]["shape"],
+            "pads": pad_rows[0]["pads"], "dtype": "float32",
+            "ms": pad_rows[0][d + "_ms"],
+            "plain_ms": pad_rows[0][d + "_plain_ms"],
+            "bound_ms": pad_rows[0]["bound_ms"], "bound_by": "bytes",
+            "library_ms": pad_rows[0][d + "_plain_ms"], "shapes": pad_rows})
     log(json.dumps({"end_to_end": e2e, "card": smi}))
     if prof is not None:
         log(json.dumps({"profile": prof, "card": smi}))

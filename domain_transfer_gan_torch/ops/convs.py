@@ -4,7 +4,8 @@ Inside the networks an activation is an NCHW tensor (in
 ``torch.channels_last`` memory format); kernels are in PyTorch's layouts,
 ``(O, I, kh, kw)`` for a convolution and ``(I, O, kh, kw)`` for a transposed
 one.  ``utils.convert`` maps the JAX package's HWIO kernels onto them.  The
-convolutions themselves are cuDNN's, as the JAX package leaves them to XLA.
+convolutions themselves are cuDNN's, as the JAX package leaves them to XLA;
+the pads are the port's kernels (``ops/kernels/pad.py``).
 """
 
 from __future__ import annotations
@@ -12,19 +13,21 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from .kernels.pad import pad2d
+
 
 def reflect_pad2d(x: torch.Tensor, pad: int) -> torch.Tensor:
     """nn.ReflectionPad2d on an NCHW tensor."""
     if pad == 0:
         return x
-    return F.pad(x, (pad, pad, pad, pad), mode="reflect")
+    return pad2d(x, (pad, pad, pad, pad), "reflect")
 
 
 def replicate_pad2d(x: torch.Tensor, pad: int) -> torch.Tensor:
     """nn.ReplicationPad2d on an NCHW tensor."""
     if pad == 0:
         return x
-    return F.pad(x, (pad, pad, pad, pad), mode="replicate")
+    return pad2d(x, (pad, pad, pad, pad), "replicate")
 
 
 def conv2d_torch(x: torch.Tensor, w: torch.Tensor, b=None, stride: int = 1,

@@ -14,13 +14,16 @@ out as a ``data x space x model x pipe`` mesh (``--spatial``, ``--tensor``,
 ``--pipeline``, ``--microbatches`` in the job's flags) and name the world
 they take: ``pp*`` the GPipe trunks (M = S and M = 2S, the stoch and
 supervised steps, EMA, the unpipelined evaluation), ``sp*`` the row slices,
-``tp*`` the channel slices, ``dp_*`` / ``sp_tp`` two axes over 4 ranks.
+``tp*`` the channel slices, ``dp_*`` / ``sp_tp`` two axes over 4 ranks,
+``dp_sp_tp`` all three SPMD axes over 8 (``data x space x model``, 2x2x2).
 
     python -m domain_transfer_gan_torch.parallel.selfcheck --device cpu
     python -m domain_transfer_gan_torch.parallel.selfcheck --device cpu \\
         --jobs pp,pp_m4,sp,tp,pp_eval,sp_eval,tp_eval
     python -m domain_transfer_gan_torch.parallel.selfcheck --device cpu \\
         --world 4 --jobs dp_pp,dp_pp_m4,dp_sp,dp_tp,sp_tp
+    python -m domain_transfer_gan_torch.parallel.selfcheck --device cpu \\
+        --jobs dp_sp_tp
     python -m domain_transfer_gan_torch.parallel.selfcheck --device cuda \\
         --width full --jobs aug,norm_batch,pool
 
@@ -44,6 +47,7 @@ from typing import Dict, List, Optional
 import numpy as np
 import torch
 
+from ..ops.kernels import pad as pad_kernels
 from . import multihost, pipeline
 
 TINY = dict(ngf=4, nef=4, ndf=4, nlatent=8, n_blocks=3)
@@ -82,6 +86,7 @@ MESH_JOBS = {
     "dp_sp": ({"spatial": 2}, 4, 2, "main", 4),
     "dp_tp": ({"tensor": 2}, 4, 2, "main", 4),
     "sp_tp": ({"spatial": 2, "tensor": 2}, 4, 2, "main", 4),
+    "dp_sp_tp": ({"spatial": 2, "tensor": 2}, 8, 2, "main", 8),
 }
 
 
@@ -279,17 +284,32 @@ def run_job(name: str, device="cpu", width=TINY, batch=None, steps=None,
     the final state (numpy), the launch counts by shape and the seconds
     spent in collectives; with ``record_grads`` the gradients of every
     update too."""
-    from ..eval.metrics import eval_mse_A, variational_ubo
-    from ..models import create_model
-    from .mesh import DataParallel, state_bytes
-
     _, _, default_steps, kind = _job(name)
     cfg = job_config(name, width, device, batch, compute_dtype, seed,
                      **extra)
     steps = steps or default_steps
-    if torch.device(device).type == "cuda":  # full float32 on the card
+    on_card = torch.device(device).type == "cuda"
+    if on_card:  # full float32 on the card
         torch.backends.cudnn.allow_tf32 = False
         torch.backends.cuda.matmul.allow_tf32 = False
+    # the evaluation with cuDNN's algorithms pinned on the card: its numbers
+    # repeat bit for bit from run to run (the UBO's RMSprop steps turn a
+    # last-bit difference into one of ~1e-4)
+    keep = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = keep or (on_card and kind == "eval")
+    try:
+        return _run_job(device, cfg, kind, steps, seed, ubo_steps,
+                        record_grads, ckpt, eps)
+    finally:
+        torch.backends.cudnn.deterministic = keep
+
+
+def _run_job(device, cfg, kind, steps, seed, ubo_steps, record_grads, ckpt,
+             eps) -> dict:
+    from ..eval.metrics import eval_mse_A, variational_ubo
+    from ..models import create_model
+    from .mesh import DataParallel, state_bytes
+
     model = create_model(cfg, testing=True, device=device)
     if ckpt is not None:
         model.load(ckpt)
@@ -347,6 +367,10 @@ def run_job(name: str, device="cpu", width=TINY, batch=None, steps=None,
     out["collective_s"] = multihost.collective_seconds[0]
     out["launches"] = _launch_counts()
     out["launches_by_variant"] = _launch_counts("launches_by_variant")
+    # the pad kernels' launches of this process so far (a rank's total in
+    # its last job's result)
+    out["pad_launches"] = {w.__name__: dict(w.launches_by_shape)
+                           for w in pad_kernels.WRAPPERS}
     out["split_launches"] = _split_counts()
     out["split_variants"] = _split_counts("launches_by_variant")
     out["trunk_runs"] = pipeline.trunk_runs[0]

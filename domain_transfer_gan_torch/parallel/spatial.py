@@ -28,6 +28,7 @@ import torch
 import torch.nn.functional as F
 
 from ..ops.convs import conv_transpose2d_torch
+from ..ops.kernels.pad import pad2d
 from . import multihost
 from .multihost import Axis
 
@@ -107,7 +108,7 @@ def conv2d_layer(x: torch.Tensor, w: torch.Tensor, b, stride: int = 1,
     if pre_pad:
         if mode == "zeros":
             return F.conv2d(x, w, b, stride=stride, padding=pre_pad)
-        x = F.pad(x, (pre_pad,) * 4, mode=mode)
+        x = pad2d(x, (pre_pad,) * 4, mode)
     return F.conv2d(x, w, b, stride=stride, padding=padding)
 
 
@@ -263,7 +264,7 @@ def conv_rows(ext, weight, bias, stride: int, pad: int, mode: str):
     W only (the rows beyond the global edges are in ``ext`` already)."""
     if mode == "zeros":
         return F.conv2d(ext, weight, bias, stride=stride, padding=(0, pad))
-    ext = F.pad(ext, (pad, pad, 0, 0), mode=mode)
+    ext = pad2d(ext, (pad, pad, 0, 0), mode)
     return F.conv2d(ext, weight, bias, stride=stride)
 
 

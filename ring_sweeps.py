@@ -2,12 +2,15 @@
 """Sweeps on one NVIDIA Hopper card behind the rules of the instance-norm
 ring route and of the apply / dx grid (``cluster_plan`` / ``_ring_route``
 and ``apply_grid`` in ``domain_transfer_gan_torch/ops/kernels/
-instance_norm.py``), and the repeat check of the selfcheck's eval job.
+instance_norm.py``), the repeat check of the selfcheck's eval job, the
+pad kernels' times, and the repeat check of the training CLI's trace.
 Run from the repository root:
 
     python3 ring_sweeps.py ring [--wide] [--out FILE]
     python3 ring_sweeps.py grids [--out FILE]
-    python3 ring_sweeps.py eval [--out FILE]
+    python3 ring_sweeps.py eval [--deterministic] [--plain-pads] [--out FILE]
+    python3 ring_sweeps.py pads [--out FILE]
+    python3 ring_sweeps.py trace [--runs N] [--out FILE]
 
 ``ring`` times, at every 256x256 shape no cluster holds (``--wide``: at
 the wide rows whose ring is narrowed to fit, ``WIDE_SHAPES``), the
@@ -15,9 +18,18 @@ streaming variant, the ring route (its ring narrowed as far as it must
 be), the ring half under every
 ring of 1-16 CTAs and the apply / dx half under each grid; ``grids`` times
 the split apply / dx at every split shape under each grid; ``eval`` runs
-the selfcheck's eval job twice with cuDNN free and twice with
-``torch.backends.cudnn.deterministic`` and says whether each pair repeats
-bit for bit.  Each logs a line per row and writes the rows to ``--out`` as
+the selfcheck's eval job twice (cuDNN pinned by the job) and an
+aug_cycle_gan float32 step twice from one state, and says whether each
+pair repeats bit for bit (``--deterministic``: under
+``torch.use_deterministic_algorithms(True)``, with
+``CUBLAS_WORKSPACE_CONFIG=:4096:8``, so that the first op without a
+deterministic implementation raises and names itself; ``--plain-pads``:
+the pads through ``F.pad`` as before the pad kernels, ROADMAP F5);
+``pads`` times both pad kernels beside ``F.pad`` and the float32 step at
+32 with its pads through each, in turns; ``trace`` runs phase 10 (b)'s
+training CLI epoch with ``--profile_dir`` N times in one process and
+says of each trace whether it names K1 and K2, and what it holds by
+category.  Each logs a line per row and writes the rows to ``--out`` as
 JSON.  Needs a CUDA device and ``nvcc``; builds the kernels from this
 checkout at first use.  Times are device times of CUDA graphs, as
 ``chip_smoke.py``'s phase 6 takes them.
@@ -28,6 +40,7 @@ from __future__ import annotations
 import argparse
 import itertools
 import json
+import os
 import subprocess
 import sys
 
@@ -265,42 +278,140 @@ def sweep_apply_grids(torch, K):
     return out
 
 
-def eval_repeats(torch, reps=2):
-    """The selfcheck's eval job (full width, N = EVAL_BATCH, eval_mse_A and
-    the UBO of 1 and UBO_STEPS RMSprop steps, one process) run ``reps``
-    times with cuDNN free to pick its algorithms and ``reps`` times with
-    ``torch.backends.cudnn.deterministic``: each set's numbers, and
-    whether they repeat bit for bit."""
-    from domain_transfer_gan_torch.parallel import selfcheck
+def _plain_pads(on):
+    """A context in which (``on``) the networks pad through ``F.pad``, as
+    the port did before its pad kernels: the kernels' yardstick inside a
+    whole step."""
+    import contextlib
 
-    out = {}
-    keep = torch.backends.cudnn.deterministic
-    try:
-        for pinned in (False, True):
-            torch.backends.cudnn.deterministic = pinned
-            runs = []
-            for _ in range(reps):
-                r = selfcheck.run_job("eval", device="cuda",
-                                      width=dict(cs.CLI_WIDTH),
-                                      batch=cs.EVAL_BATCH,
-                                      ubo_steps=cs.UBO_STEPS, seed=2025)
-                runs.append([r["mse"]] + [r[k][v] for k in ("ubo1", "ubo")
-                                          for v in ("ubo", "kld", "bpp")])
-            out["deterministic" if pinned else "free"] = {
-                "mse, ubo1 (ubo, kld, bpp), ubo (ubo, kld, bpp)": runs,
-                "bit_equal": all(r == runs[0] for r in runs)}
-    finally:
-        torch.backends.cudnn.deterministic = keep
-    cs.log("eval job repeated in one process: %s" % json.dumps(out))
+    from domain_transfer_gan_torch.ops.kernels import pad as P
+    from domain_transfer_gan_torch.parallel import spatial
+
+    @contextlib.contextmanager
+    def swapped():
+        spatial.pad2d = P.pad2d_plain if on else P.pad2d
+        try:
+            yield
+        finally:
+            spatial.pad2d = P.pad2d
+    return swapped()
+
+
+def pad_step_turns(torch, pairs=10):
+    """The aug_cycle_gan float32 step at batch 32 (full width, one model)
+    with its pads through the kernels and through ``F.pad``, ``pairs``
+    times each in turns (F.pad, kernels, kernels, F.pad, ...): ms per step
+    (10 after 3) of each turn; under torch.profiler (3 steps, the first
+    turn of each way) the device's busy ms per step, its kernels per step
+    and the kernels whose device time moved most; and the host's time to
+    enqueue one pad's forward and backward (through autograd, and each
+    launch alone) at a small shape, where the device's time is below it, by
+    CUDA events around 200 calls."""
+    from domain_transfer_gan_torch.ops.kernels import pad as P
+    from domain_transfer_gan_torch.utils import timing
+
+    m = timing.full_model()
+    A, B = timing.card_inputs(timing.TRAIN_BATCH["float32"], seed=14)
+    out, by_name = {"F.pad": [], "kernels": []}, {}
+    copies = P.pad2d.copies
+    for way in ("F.pad", "kernels", "kernels", "F.pad") * (pairs // 2):
+        with _plain_pads(way == "F.pad"):
+            out[way].append(timing.step_ms(lambda: m.train_instance(A, B)))
+            if way not in by_name:
+                _, by_name[way], count = timing.profiled(
+                    lambda: m.train_instance(A, B), 3)
+                out[way + " profile"] = {
+                    "device_busy_ms": sum(by_name[way].values()) / 1e3,
+                    "device_kernels": count}
+    out["pad_input_copies"] = P.pad2d.copies - copies
+    names = set(by_name["F.pad"]) | set(by_name["kernels"])
+    moved = {k[:100]: by_name["kernels"].get(k, 0.0) - by_name["F.pad"].get(
+        k, 0.0) for k in names}
+    out["us_per_step_kernels_minus_f_pad"] = dict(sorted(
+        moved.items(), key=lambda kv: -abs(kv[1]))[:12])
+    x = torch.randn((2, 16, 8, 8), device="cuda").contiguous(
+        memory_format=torch.channels_last).requires_grad_(True)
+    dy = torch.randn((2, 16, 10, 10), device="cuda").contiguous(
+        memory_format=torch.channels_last)
+    pads = (1, 1, 1, 1)
+    calls = {
+        "F.pad fwd_bwd": lambda i: torch.autograd.grad(
+            P.pad2d_plain(x, pads, "reflect"), x, dy),
+        "kernels fwd_bwd": lambda i: torch.autograd.grad(
+            P.pad2d(x, pads, "reflect"), x, dy),
+        "F.pad fwd": lambda i: P.pad2d_plain(x.detach(), pads, "reflect"),
+        "kernels fwd": lambda i: P._launch(x.detach(), pads, "reflect"),
+        "F.pad bwd": lambda i: torch.ops.aten.reflection_pad2d_backward(
+            dy, x.detach(), list(pads)),
+        "kernels bwd": lambda i: P.pad2d_bwd(dy, x.shape, pads, "reflect")}
+    for name, call in calls.items():
+        out["host_us " + name] = 1e3 * cs._time_eager(torch, call, iters=200)
+    cs.log("pads: step %s" % json.dumps(out))
+    return out
+
+
+def trace_repeats(runs):
+    """Phase 10 (b)'s per-file epoch (published width, the prefetching
+    feed) with ``--profile_dir``, ``runs`` times in one process, each after
+    a profiled float32 step at 32 (as phase 9's profiler sessions come
+    before phase 10's): for each run, whether its trace names K1 and K2,
+    its events by category, and the first and last time stamp (us) of its
+    kernels and of its host ops."""
+    import collections
+    import tempfile
+
+    from domain_transfer_gan_torch.cli.train import train_model
+    from domain_transfer_gan_torch.data.synthetic import \
+        write_synthetic_perfile_dataset
+    from domain_transfer_gan_torch.utils import timing
+
+    p, out = cs.P10, []
+    m = timing.full_model()
+    A, B = timing.card_inputs(timing.TRAIN_BATCH["float32"], seed=3)
+    with tempfile.TemporaryDirectory() as tmp:
+        root = os.path.join(tmp, "perfile")
+        write_synthetic_perfile_dataset(root, n_train=p["n_train"],
+                                        n_test=p["n_test"], size=64, seed=11)
+        for i in range(runs):
+            timing.profile_window(lambda: m.train_instance(A, B), reps=2)
+            prof = os.path.join(tmp, "prof%d" % i)
+            train_model(argv=cs._p10_argv(
+                root, os.path.join(tmp, "runs"), "run%d" % i, "cuda",
+                cs.CLI_WIDTH, p, cs.P10_FEED["prefetch"] + [
+                    "--profile_dir", prof]))
+            with open(os.path.join(prof, "trace.json")) as f:
+                events = json.load(f)["traceEvents"]
+            names = {e.get("name", "") for e in events}
+            row = {"k1": any("instance_norm_fwd" in n for n in names),
+                   "k2": any("instance_norm_bwd" in n for n in names),
+                   "events_by_category": dict(collections.Counter(
+                       e.get("cat", "") for e in events))}
+            for cat in ("kernel", "cpu_op"):
+                ts = [e["ts"] for e in events if e.get("cat") == cat]
+                row[cat + "_ts"] = [min(ts), max(ts)] if ts else None
+            cs.log("trace %d: %s" % (i, json.dumps(row)))
+            out.append(row)
+    cs.log("trace: %d of %d traces lack K1 or K2" % (
+        sum(not (r["k1"] and r["k2"]) for r in out), runs))
     return out
 
 
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("sweep", choices=("ring", "grids", "eval"))
+    ap.add_argument("sweep", choices=("ring", "grids", "eval", "pads",
+                                      "trace"))
     ap.add_argument("--wide", action="store_true",
                     help="ring: sweep WIDE_SHAPES instead of the 256x256 "
                          "shapes")
+    ap.add_argument("--deterministic", action="store_true",
+                    help="eval: under torch.use_deterministic_algorithms"
+                         "(True), which raises at the first op that has no "
+                         "deterministic implementation on the card")
+    ap.add_argument("--plain-pads", action="store_true",
+                    help="eval: pad through F.pad, as before the pad "
+                         "kernels")
+    ap.add_argument("--runs", type=int, default=14,
+                    help="trace: training CLI runs with --profile_dir")
     ap.add_argument("--out", help="write the rows here as JSON")
     args = ap.parse_args(argv)
 
@@ -318,14 +429,31 @@ def main(argv=None):
         text=True).stdout.strip().splitlines()[0]
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
+    if args.deterministic:  # cuBLAS reads it when it starts
+        os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
+        torch.use_deterministic_algorithms(True)
     build.compile_all()
     if args.sweep == "ring":
         rows = sweep_ring_plans(
             torch, K, WIDE_SHAPES if args.wide else RING_SWEEP_SHAPES)
     elif args.sweep == "grids":
         rows = sweep_apply_grids(torch, K)
+    elif args.sweep == "eval":
+        with _plain_pads(args.plain_pads):
+            rows = {"deterministic_algorithms": args.deterministic,
+                    "plain_pads": args.plain_pads,
+                    "eval": cs.eval_repeats(),
+                    "step_params_differing": cs.step_repeats(torch)}
+        cs.log("eval job and step repeated in one process: %s"
+               % json.dumps(rows))
+    elif args.sweep == "trace":
+        rows = trace_repeats(args.runs)
     else:
-        rows = eval_repeats(torch)
+        from domain_transfer_gan_torch.ops.kernels import pad as P
+
+        rows = {"kernels": cs.time_pads(torch, P),
+                "steps": pad_step_turns(torch)}
+        cs.log("pads: %s" % json.dumps(rows["kernels"]))
     if args.out:
         with open(args.out, "w") as f:
             json.dump({"card": smi, "rows": rows}, f)

@@ -631,3 +631,42 @@ def test_ring_route_vs_plain(shape):
             assert all(torch.equal(a, b) for a, b in zip(got, run()))
             torch.cuda.synchronize()
             assert wrapper.launches_by_variant["ring"] == before["ring"] + 2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,pads,mode,dtype", [
+    ((4, 3, 64, 64), (3, 3, 3, 3), "reflect", torch.float32),
+    ((4, 128, 32, 32), (1, 1, 1, 1), "reflect", torch.float32),
+    ((4, 128, 32, 32), (1, 1, 1, 1), "reflect", torch.bfloat16),
+    ((3, 16, 18, 32), (1, 1, 0, 0), "reflect", torch.float32),
+    ((2, 5, 7, 6), (2, 1, 0, 3), "replicate", torch.float32),
+    ((2, 3, 9, 9), (3, 3, 3, 3), "replicate", torch.bfloat16),
+])
+def test_pad_kernels_vs_f_pad_on_the_card(shape, pads, mode, dtype):
+    """The forward is F.pad bit for bit; the backward is F.pad's within
+    1e-6 of max |dx| in float32 (bfloat16: one ulp of the float32
+    backward) and repeats bit for bit."""
+    _need_card()
+    from domain_transfer_gan_torch.ops.kernels import pad as P
+
+    g = torch.Generator(device="cuda").manual_seed(4)
+    x = torch.randn(shape, generator=g, device="cuda").to(dtype).contiguous(
+        memory_format=torch.channels_last).requires_grad_(True)
+    before = (P.pad2d.launches, P.pad2d_bwd.launches)
+    y = P.pad2d(x, pads, mode)
+    assert torch.equal(y, torch.nn.functional.pad(x, pads, mode=mode))
+    dy = torch.randn(y.shape, generator=g, device="cuda").to(dtype)
+    (dx,) = torch.autograd.grad(y, x, dy)
+    again = P.pad2d_bwd(dy, shape, pads, mode)
+    assert (P.pad2d.launches, P.pad2d_bwd.launches) == (before[0] + 1,
+                                                        before[1] + 2)
+    assert torch.equal(dx, again)
+    want = P.pad2d_bwd_plain(dy.float(), shape, pads, mode)
+    if dtype == torch.float32:
+        assert float((dx - want).abs().max()) <= 1e-6 * float(
+            want.abs().max())
+    else:
+        ulp = torch.exp2(torch.floor(torch.log2(
+            want.abs().clamp_min(2.0 ** -100))) - 7.0)
+        assert float(((dx.float() - want.to(dtype).float()).abs()
+                      / ulp).max()) <= 1.0

@@ -72,7 +72,9 @@ def test_every_module_imports_without_jax():
             "domain_transfer_gan_torch.parallel.selfcheck",
             "domain_transfer_gan_torch.parallel.pipeline",
             "domain_transfer_gan_torch.parallel.hints",
-            "domain_transfer_gan_torch.parallel.spatial"} <= set(names)
+            "domain_transfer_gan_torch.parallel.spatial",
+            "domain_transfer_gan_torch.ops.kernels.pad",
+            "domain_transfer_gan_torch.utils.timing"} <= set(names)
     code = (
         "import importlib, sys\n"
         "for n in %r: importlib.import_module(n)\n"
@@ -85,7 +87,8 @@ def test_every_module_imports_without_jax():
     assert r.returncode == 0, r.stdout + r.stderr
 
 
-@pytest.mark.parametrize("path", ["chip_smoke.py"] + sorted(
+@pytest.mark.parametrize("path", ["chip_smoke.py",
+                                  "__graft_entry_torch__.py"] + sorted(
     os.path.relpath(os.path.join(d, f), ROOT)
     for d, _, fs in os.walk(os.path.join(ROOT, "domain_transfer_gan_torch"))
     for f in fs if f.endswith(".py")))
@@ -96,6 +99,20 @@ def test_source_names_no_jax_import(path):
     pat = re.compile(r"^\s*(?:import|from)\s+(%s)\b" % "|".join(FORBIDDEN),
                      re.M)
     assert not pat.findall(src), path
+
+
+def test_the_root_entry_points_import_without_jax():
+    """In a fresh interpreter: ``__graft_entry_torch__`` (and the port it
+    reaches) leaves nothing of JAX in sys.modules."""
+    code = ("import sys, __graft_entry_torch__\n"
+            "import domain_transfer_gan_torch.ops.kernels.pad\n"
+            "bad = sorted(m for m in sys.modules if m.split('.')[0] in %r)\n"
+            "print('BAD', bad)\n"
+            "sys.exit(1 if bad else 0)\n" % (FORBIDDEN,))
+    env = dict(os.environ, PYTHONPATH=ROOT)
+    r = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                       capture_output=True, text=True, timeout=300)
+    assert r.returncode == 0, r.stdout + r.stderr
 
 
 def test_port_never_calls_a_library_norm_or_compile():
@@ -219,7 +236,7 @@ def test_build_needs_nvcc_only_at_first_launch(monkeypatch, tmp_path):
     """Importing the kernel modules builds nothing; a build without nvcc
     raises KernelCompileError with the reason; a failing nvcc raises with its
     output."""
-    assert build.kernel_names() == ["instance_norm", "instance_norm_bwd"]
+    assert build.kernel_names() == ["instance_norm", "instance_norm_bwd", "pad"]
     for name in build.kernel_names():
         assert os.path.isfile(build.source_path(name))
     assert build.build_dir() == os.path.join(ROOT, "build")
