@@ -42,7 +42,7 @@ It needs one CUDA device, ``nvcc`` and no network.  It
    to the counts the step's structure gives, and every launch must take the
    cluster variant;
 6. times both kernels (the library call, the streaming variant and the
-   cluster variant or the ring route, in turns in this run, with the plan
+   cluster variant or the ring route, one after the other, with the plan
    beside each row) at every site of the serving path, the train steps and
    the eval batch of 100 and at the 256x256 generator sites (N = 4, 8, 32)
    in both dtypes, beside their plain versions and the library calls
@@ -66,8 +66,8 @@ It needs one CUDA device, ``nvcc`` and no network.  It
    server's ``predict_B`` against the loaded checkpoint; it prints the
    CLI's train images/s, seconds per eval batch and the save's cost;
 8. (also before 6) the other two variants and the supervised step at the
-   same width: 3 float32 ``stoch_cycle_gan`` steps at batch 32, one
-   bfloat16-compute step at batch 128, one ``cycle_gan`` step and 3
+   same width: 2 float32 ``stoch_cycle_gan`` steps at batch 32, one
+   bfloat16-compute step at batch 128, one ``cycle_gan`` step and 2
    supervised steps, each against a plain-norm twin with phase 5's limits
    and its launches by shape held to the step's structure; one epoch each
    of ``--model stoch_cycle_gan``, ``--model cycle_gan`` and
@@ -84,7 +84,7 @@ It needs one CUDA device, ``nvcc`` and no network.  It
    the same noise (after the runs); it prints each run's and each
    metric's seconds;
 9. (also before 6) the step extras at the same width: ``--grad_accum 4``
-   steps of ``aug_cycle_gan`` (3 float32 at batch 32, one bfloat16 at 128,
+   steps of ``aug_cycle_gan`` (2 float32 at batch 32, one bfloat16 at 128,
    one float32 at batch 32 on 256x256 images) and of ``stoch_cycle_gan``
    (one float32 at 32), 3 float32 ``--pool_size 50 --ema 0.999`` steps at
    32 (the pool full by step 2, so it replays), one fused bfloat16
@@ -104,7 +104,7 @@ It needs one CUDA device, ``nvcc`` and no network.  It
    and time; the float32 batch-32 step with and without the pool and EMA:
    time; the 256x256 float32 ``--grad_accum 4`` step and the 256x256
    bfloat16 batch-32 step (the latter through the ring route and with the
-   streaming variant forced, in turns): time, peak memory and the
+   streaming variant forced, one after the other): time, peak memory and the
    instance norms' device time and share under ``torch.profiler``; then
    one epoch each of ``aug_cycle_gan --pool_size 50 --ema
    0.999 --remat`` and ``--grad_accum 4 --ema 0.999`` through the training
@@ -127,7 +127,7 @@ It needs one CUDA device, ``nvcc`` and no network.  It
    --metric mse`` (``TEST_MSE_A`` against ``eval_mse_A`` over the same
    DataLoader) and ``--metric visual``; (c) the prefetching feed's batches
    against a synchronous copy bit for bit, the native reader against
-   numpy (ms per batch), and the same epoch's images/s three ways in turns
+   numpy (ms per batch), and the same epoch's images/s three ways in turn
    (npz bundles on the card, the per-file set through the feed, and
    through a synchronous copy: the CLI with its feed swapped for a
    pass-through); (d) ``--supervised --device_data 1``;
@@ -149,7 +149,7 @@ It needs one CUDA device, ``nvcc`` and no network.  It
    ``eval_mse_A``; (b) two ranks on the card over gloo, each a process on
    half the batch, against one process on the full batch
    (``parallel/selfcheck.py``): ``aug_cycle_gan`` float32 at 32 and
-   bfloat16 at 128, ``--norm batch``, ``--pool_size 50`` (3 steps each, phase
+   bfloat16 at 128, ``--norm batch``, ``--pool_size 50`` (2 steps each, phase
    5's limits), a batch-norm pass at float32 rounding and the sharded
    eval-A and UBO of (c)'s checkpoint; each rank's launches held to the
    structure of its half batch; over NCCL as well where there are two
@@ -161,7 +161,7 @@ It needs one CUDA device, ``nvcc`` and no network.  It
    them (its step's generator and discriminator sites, its CLI's
    evaluation and visual sites) and at 256x256 at batch 8, both dtypes;
    two ranks on the card over gloo against one process on the full batch,
-   3 float32 steps each at phase 5's limits: ``--pipeline 2 --n_blocks 4``
+   2 float32 steps each at phase 5's limits: ``--pipeline 2 --n_blocks 4``
    at M = 2 and M = 4, ``--spatial 2`` (every split kernel launched, at
    the shapes ``split_sites`` gives), ``--tensor 2`` (each rank's bytes of
    parameters and moments below one process's); one epoch of the training
@@ -200,7 +200,6 @@ from __future__ import annotations
 
 import argparse
 import io
-import itertools
 import json
 import subprocess
 import sys
@@ -426,8 +425,7 @@ RING_SHAPES = ((4, 65536, 32),) + tuple(gen_sites(8, "B", hw=256)) + \
 #     folder.
 P10 = dict(batch=32, livneh_days=500, livneh_dev=100, n_train=567,
            n_test=230, dev_size=100, n_threads=4, jpg_dev=8,
-           feed_turns=("npz", "prefetch", "sync", "sync", "prefetch",
-                       "npz"))
+           feed_turns=("npz", "prefetch", "sync"))
 P10_EVAL, P10_UBO_STEPS, P10_TEST_VIS, P10_TEST_MULTI = 200, 50, 10, 5
 P10_TAIL = (P10["n_train"] - P10["dev_size"]) % P10["batch"]
 P10_EVAL_TAIL = P10["n_test"] % P10_EVAL
@@ -442,7 +440,7 @@ P10_PREDICT_ATOL = 1e-6  # predict_B after the upstream round trip
 # the card (gloo: they share it), each on half the batch: the generators at
 # N = 16 (float32 batch 32) and 64 (bfloat16 batch 128); the
 # discriminators' passes land on shapes of the other phases
-P11_RANKS, P11_STEPS = 2, 3
+P11_RANKS, P11_STEPS = 2, 2
 P11_JOBS = (  # (label, parallel/selfcheck.py job, dtype, batch, flags)
     ("aug_float32", "aug", "float32", 32, {}),
     ("aug_bfloat16", "aug", "bfloat16", 128, {}),
@@ -894,14 +892,15 @@ def _calls_for(nbytes):
 
 
 def _time_variants(torch, K, launch, shape, itemsize, arrays, sweep,
-                   library=None, calls=20):
+                   library=None, calls=20, others=True):
     """Device ms of ``launch(i, plan)`` under the cluster variant's plan
     (``cluster_ms``, where it can run), under the ring route's plan
     (``ring_ms``, where no cluster holds the slab and the route can run)
     and under the streaming plan (the kernels' first ports, ``streaming_ms``),
-    timed in turns (library, streaming, the other plan twice, streaming,
-    library) and averaged per plan; ``library(i)`` (the library call's
-    ``library_turns_ms``) where given.  ``kernel_ms`` is the time of the
+    timed one after the other (library, streaming, the other plan);
+    ``library(i)`` (the library call's ``library_turns_ms``) where
+    given; without ``others``, the variant the wrapper picks alone.
+    ``kernel_ms`` is the time of the
     variant the wrapper picks (``variant``), ``plan`` the cluster variant's
     or the ring route's plan.  With ``sweep`` also under every cluster size
     that holds the slab."""
@@ -918,10 +917,11 @@ def _time_variants(torch, K, launch, shape, itemsize, arrays, sweep,
 
     out = {"variant": picked, "plan": _plan_row(other or K.STREAMING, n),
            "cluster_ms": None, "ring_ms": None}
-    turns = [K.STREAMING] + ([other, other] if other is not None else []) \
-        + [K.STREAMING]
+    turns = [K.STREAMING] + ([other] if other is not None else [])
+    if not others:
+        turns = [K.STREAMING if picked == "streaming" else other]
     if library is not None:
-        turns = ["library"] + turns + ["library"]
+        turns = ["library"] + turns
     times = {}
     for p in turns:
         key = "library" if p == "library" else p.variant
@@ -949,10 +949,11 @@ def time_kernel(torch, F, K, site_counts, train_counts, cli_counts,
     affine, biased variance, fused ReLU: the case the library call covers
     too.  Times are device times (CUDA-graph replay).  Inputs rotate over
     enough buffers to exceed the 50 MB L2, so every launch reads x from
-    device memory, as the bound assumes.  ``cluster_ms`` and
-    ``streaming_ms`` are the two variants, timed in turns in this run,
-    ``kernel_ms`` the one the wrapper picks (``variant``); ``plan`` says how
-    the cluster variant ran.  ``site_counts[dtype][request][shape]`` are the launches
+    device memory, as the bound assumes.  ``kernel_ms`` is the variant the
+    wrapper picks (``variant``); ``plan`` says how the cluster variant ran.
+    At the headline shape (every shape with ``extra``) ``cluster_ms`` and
+    ``streaming_ms`` are the two variants, timed one after the other, and
+    the plain version's and the library call's times stand beside them.  ``site_counts[dtype][request][shape]`` are the launches
     the serving path was seen to make, ``train_counts[dtype]["fwd"][shape]``
     those of one train step, ``cli_counts["fwd"][shape]`` those of the
     whole training CLI phase (float32), ``variant_counts["fwd"][shape]``
@@ -961,8 +962,7 @@ def time_kernel(torch, F, K, site_counts, train_counts, cli_counts,
     ``extras_counts[dtype]["fwd"][shape]`` those of phase 9,
     ``p10_counts["fwd"][shape]`` those of phase 10 (float32),
     ``p11_counts[dtype]["fwd"][shape]`` those of phase 11 (both ranks).
-    Every row has the plain version's
-    and the library call's times beside the kernel's.  With ``extra`` every
+    With ``extra`` every
     row also has ``cluster_sweep_ms`` (the cluster variant at each cluster
     size that holds the slab), and the serving shapes gain:
     ``kernel_ms_l2_warm`` repeats on one buffer, which is closer to a norm
@@ -1004,13 +1004,16 @@ def time_kernel(torch, F, K, site_counts, train_counts, cli_counts,
 
         calls = _calls_for(x_bytes)
         row = {"shape": list(shape), "dtype": name, "bytes": nbytes}
+        full = extra or (shape, name) == HEADLINE  # the yardsticks too
         row.update(_time_variants(torch, K, launch, shape, itemsize, 1,
-                                  sweep=extra, library=library, calls=calls))
+                                  sweep=extra, library=library if full
+                                  else None, calls=calls, others=full))
         row.update({
             "bound_ms": max(t_bytes, t_ops),
             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-            "plain_ms": _time_device(torch, plain, calls=calls),
-            "library_ms": row["library_turns_ms"],
+            "plain_ms": _time_device(torch, plain, calls=calls) if full
+            else None,
+            "library_ms": row.get("library_turns_ms"),
             "launches_per_predict_B":
                 site_counts[name]["predict_B"].get(shape, 0),
             "launches_per_predict_A":
@@ -1113,16 +1116,19 @@ def time_bwd_kernel(torch, F, K, train_counts, cli_counts, variant_counts,
 
         calls = _calls_for(x_bytes)
         row = {"shape": list(shape), "dtype": name, "bytes": nbytes}
+        full = extra or (shape, name) == HEADLINE  # the yardsticks too
         row.update(_time_variants(torch, K, launch, shape, itemsize, 2,
-                                  sweep=extra, library=library_fwd_bwd,
-                                  calls=calls))
-        lib_both = row["library_turns_ms"]
-        lib_fwd = _time_device(torch, library_fwd, calls=calls)
+                                  sweep=extra, library=library_fwd_bwd
+                                  if full else None, calls=calls,
+                                  others=full))
+        lib_both = row.get("library_turns_ms")
         row.update({
             "bound_ms": max(t_bytes, t_ops),
             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-            "plain_ms": _time_device(torch, plain, calls=calls),
-            "library_ms": lib_both - lib_fwd,
+            "plain_ms": _time_device(torch, plain, calls=calls) if full
+            else None,
+            "library_ms": lib_both - _time_device(
+                torch, library_fwd, calls=calls) if full else None,
             "library_fwd_bwd_ms": lib_both,
             "launches_per_train_step":
                 train_counts[name]["bwd"].get(shape, 0),
@@ -1951,10 +1957,10 @@ def sup_sites(batch, n_blocks=3, ngf=32):
 
 # phase 8 (a): (model, compute dtype, batch, steps, step) against the
 # plain-norm twins, with phase 5's limits
-VARIANT_STEPS = (("stoch_cycle_gan", "float32", 32, 3, "main"),
+VARIANT_STEPS = (("stoch_cycle_gan", "float32", 32, 2, "main"),
                  ("stoch_cycle_gan", "bfloat16", 128, 1, "main"),
                  ("cycle_gan", "float32", 32, 1, "main"),
-                 ("aug_cycle_gan", "float32", 32, 3, "sup"))
+                 ("aug_cycle_gan", "float32", 32, 2, "sup"))
 
 
 def drive_variant_steps(torch, K):
@@ -2323,7 +2329,7 @@ def drive_variants_cli(torch, K, tmp, device="cuda", width=CLI_WIDTH):
 # of its 50 slots at step 1 and the rest at step 2, so steps 2 and 3 replay
 EXTRAS_STEPS = (
     ("aug_accum4_f32_b32", "aug_cycle_gan", dict(grad_accum=ACCUM_K),
-     "float32", 32, 64, 3),
+     "float32", 32, 64, 2),
     ("aug_accum4_bf16_b128", "aug_cycle_gan", dict(grad_accum=ACCUM_K),
      "bfloat16", 128, 64, 1),
     ("stoch_accum4_f32_b32", "stoch_cycle_gan", dict(grad_accum=ACCUM_K),
@@ -2406,8 +2412,7 @@ def ema_readings(shadows, twin_shadows, start, formula, largest, n_steps):
 MEMORY_WAYS = (("fused", {}), ("remat", dict(remat=True)),
                ("accum4", dict(grad_accum=ACCUM_K)))
 # the float32 batch-32 step with and without the pool and EMA: time after
-# two warm-up steps (the pools full), of EXTRAS_TIMED steps, twice each way
-# in turns
+# two warm-up steps (the pools full), of EXTRAS_TIMED steps, each way once
 EXTRAS_WAYS = (("fused", {}), ("pool50_ema", dict(pool_size=50, ema=0.999)))
 EXTRAS_TIMED = 10
 
@@ -2449,7 +2454,7 @@ def drive_extras_steps(torch, K):
     memory and step time; the float32 batch-32 step with and without the
     pool and EMA (EXTRAS_WAYS): step time; the bfloat16 batch-32 step on
     256x256 images with the ring route and with the streaming variant
-    forced (_streamed_ring), in turns, and the 256x256 --grad_accum 4
+    forced (_streamed_ring), and the 256x256 --grad_accum 4
     step: the instance norms' device time and share (_profile_window).
     Returns (launches by dtype, direction and shape, the same per variant,
     the figures)."""
@@ -2604,11 +2609,11 @@ def drive_extras_steps(torch, K):
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
-        for _ in range(3):
+        for _ in range(2):
             m.train_instance(A, B)
         torch.cuda.synchronize()
         figures["bf16_b128_%s_step_ms" % way] = \
-            (time.perf_counter() - t0) / 3 * 1e3
+            (time.perf_counter() - t0) / 2 * 1e3
         figures["bf16_b128_%s_peak_memory_gb" % way] = \
             torch.cuda.max_memory_allocated() / 2 ** 30
         del m
@@ -2622,15 +2627,14 @@ def drive_extras_steps(torch, K):
     for m in ways.values():
         for _ in range(2):
             m.train_instance(A, B)
-    for _ in range(2):
-        for way, m in ways.items():
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            for _ in range(EXTRAS_TIMED):
-                m.train_instance(A, B)
-            torch.cuda.synchronize()
-            figures.setdefault("f32_b32_%s_step_ms" % way, []).append(
-                (time.perf_counter() - t0) / EXTRAS_TIMED * 1e3)
+    for way, m in ways.items():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(EXTRAS_TIMED):
+            m.train_instance(A, B)
+        torch.cuda.synchronize()
+        figures["f32_b32_%s_step_ms" % way] = \
+            (time.perf_counter() - t0) / EXTRAS_TIMED * 1e3
     del ways, m
     torch.cuda.empty_cache()
     # the --grad_accum 4 step on 256x256 images, float32 at batch 32: time
@@ -2642,11 +2646,9 @@ def drive_extras_steps(torch, K):
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
-    for _ in range(2):
-        m.train_instance(A, B)
+    m.train_instance(A, B)
     torch.cuda.synchronize()
-    figures["f32_b32_256_accum4_step_ms"] = (time.perf_counter() - t0) / 2 \
-        * 1e3
+    figures["f32_b32_256_accum4_step_ms"] = (time.perf_counter() - t0) * 1e3
     figures["f32_b32_256_accum4_peak_memory_gb"] = \
         torch.cuda.max_memory_allocated() / 2 ** 30
     figures["f32_b32_256_accum4_profile"] = profile_window(
@@ -2655,14 +2657,14 @@ def drive_extras_steps(torch, K):
     torch.cuda.empty_cache()
     # the bfloat16 step on 256x256 images at batch 32, its 256x256
     # generator sites through the ring route (the plan's pick) and through
-    # the streaming variant forced, in turns: time, peak memory and the
+    # the streaming variant forced: time, peak memory and the
     # instance norms' device time under torch.profiler (the counters are
     # not read here)
     A, B, _ = train_inputs(STEP256_BATCH, nlatent, seed=17, hw=256)
     A, B = torch.from_numpy(A).cuda(), torch.from_numpy(B).cuda()
     m = model(compute_dtype="bfloat16", grid_size=256,
               batchSize=STEP256_BATCH)
-    for way in ("ring", "streaming", "streaming", "ring"):
+    for way in ("ring", "streaming"):
         with _streamed_ring(K, way == "streaming"):
             m.train_instance(A, B)
             torch.cuda.synchronize()
@@ -3119,7 +3121,7 @@ def drive_phase10(torch, K, tmp, smi, device="cuda", width=CLI_WIDTH,
     --profile_dir, then cli.test --metric mse and visual on its latest
     (TEST_MSE_A against eval_mse_A over the same DataLoader); (c) the feed:
     its batches against a synchronous copy bit for bit, the native reader
-    against numpy, the same epoch's images/s three ways in turns; (d)
+    against numpy, the same epoch's images/s three ways in turn; (d)
     --supervised --device_data 1; (e) the trace of (b) names K1 and K2; (f)
     export_torch_checkpoint -> cli.import_torch -> predict_B and one
     resumed epoch; (g) a paired-jpg folder where PIL is present.  Every
@@ -3319,7 +3321,7 @@ def drive_phase10(torch, K, tmp, smi, device="cuda", width=CLI_WIDTH,
     reader = DataLoader(dopt, "train", False, batch, load_in_mem=False)
     times, got = {}, {}
     saved = (native._LIB, native._TRIED, native._ERROR)
-    for way in ("native", "numpy", "numpy", "native"):
+    for way in ("native", "numpy"):
         if way == "numpy":
             native._LIB, native._TRIED, native._ERROR = None, True, "off"
         t = time.perf_counter()
@@ -3584,7 +3586,7 @@ def drive_phase11(torch, K, tmp, smi, device="cuda", width=CLI_WIDTH,
     (``parallel/selfcheck.py``), against one process on the full batch with
     the same weights, data and noise, at phase 5's limits:
     ``aug_cycle_gan`` float32 at 32 and bfloat16 at 128, ``--norm batch``,
-    ``--pool_size 50``, 3 steps each; one batch-norm pass at float32
+    ``--pool_size 50``, 2 steps each; one batch-norm pass at float32
     rounding; the sharded eval-A and UBO of (c)'s ``latest`` at the eval
     batch against one process (the UBO after one step within 1e-5, after
     50 within 1e-3).  Each rank's launches are held to the structure of the
@@ -3816,7 +3818,7 @@ def drive_phase11(torch, K, tmp, smi, device="cuda", width=CLI_WIDTH,
 # split forms of K1 and K2
 # ---------------------------------------------------------------------------
 
-P12_RANKS, P12_STEPS, P12_BATCH, P12_TIMEOUT = 2, 3, 32, 600
+P12_RANKS, P12_STEPS, P12_BATCH, P12_TIMEOUT = 2, 2, 32, 600
 
 
 def half_rows(sites, spatial=2):
@@ -4217,77 +4219,6 @@ def _split_plan_row(plan, n):
             "smem_bytes": plan.smem_bytes, "ctas": n * plan.cluster}
 
 
-def sweep_split_plans(torch, K, out_path=None):
-    """Device ms of the two split reductions at every ``SPLIT_SHAPES``
-    shape, float32 and bfloat16, (N, C) affine, no ReLU: the ``"rows"``
-    variant and the cluster variant under every cluster size of 1-16 CTAs
-    of 256 or 512 threads, ring of 2 or 4 slots, and chunk of 1 or 2 times
-    the default rows (``ring_plan``), each timed as phase 6 times a kernel;
-    beside them the plan ``split_plan`` picks.  The evidence for
-    ``split_plan``'s rule.
-    Returns the rows (also written to ``out_path`` as JSON)."""
-    out = []
-    for shape in SPLIT_SHAPES:
-        n, hw, c = shape
-        for name in ("float32", "bfloat16"):
-            dtype = getattr(torch, name)
-            item = 4 if name == "float32" else 2
-            nbuf = _n_buffers(n * hw * c * item * 2)
-            ins = [_make_inputs(torch, shape, dtype, "sample", 91 + i)
-                   for i in range(nbuf)]
-            dys = [torch.randn_like(t[0].float()).to(dtype) for t in ins]
-            mean, m2 = K.instance_norm_partial_stats_plain(ins[0][0])
-            rstd = torch.rsqrt(m2 / hw + 1e-5)
-            launch = {
-                1: lambda i, p: K.instance_norm_partial_stats(
-                    ins[i % nbuf][0], plan=p),
-                2: lambda i, p: K.instance_norm_bwd_partial_sums(
-                    ins[i % nbuf][0], dys[i % nbuf], mean, rstd,
-                    *ins[i % nbuf][1:], plan=p)}
-            for kname, arrays in _split_arrays(K).items():
-                row = {"shape": list(shape), "dtype": name, "kernel": kname,
-                       "picked": _split_plan_row(
-                           _split_picked(K, shape, item, arrays), n),
-                       "rows_ms": _time_device(torch, lambda i: launch[
-                           arrays](i, K.SPLIT_ROWS)), "cluster_ms": {}}
-                for k, stages, mult, threads in itertools.product(
-                        (1, 2, 4, 8, 16), (2, 4), (1, 2), (256, 512)):
-                    try:
-                        p = K.ring_plan(hw, c, item, arrays, k, stages,
-                                        threads=threads)
-                        if mult > 1:
-                            # the default chunk doubled, where it does
-                            # not hold the CTA's rows already
-                            if p.stage_rows >= p.rows:
-                                continue
-                            p = K.ring_plan(hw, c, item, arrays, k, stages,
-                                            min(mult * p.stage_rows, p.rows),
-                                            threads)
-                    except ValueError:
-                        continue
-                    key = "k%d s%d r%d t%d" % (k, stages, p.stage_rows,
-                                               p.threads)
-                    row["cluster_ms"][key] = _time_device(
-                        torch, lambda i, p=p: launch[arrays](i, p))
-                best = min(row["cluster_ms"], key=row["cluster_ms"].get)
-                row["best"], row["best_ms"] = best, row["cluster_ms"][best]
-                picked = row["picked"]
-                row["picked_ms"] = row["rows_ms"] if picked[
-                    "variant"] == "rows" else _time_device(
-                        torch, lambda i: launch[arrays](i, None))
-                out.append(row)
-                log("sweep %s %s %r: rows %.4f, picked %s %.4f, best %s "
-                    "%.4f" % (kname, name, shape, row["rows_ms"],
-                              "%(variant)s k%(cluster)d s%(stages)d "
-                              "r%(stage_rows)d t%(threads)d" % picked,
-                              row["picked_ms"], best, row["best_ms"]))
-            del ins, dys
-    if out_path:
-        with open(out_path, "w") as f:
-            json.dump(out, f)
-    return out
-
-
 def time_split_kernels(torch, K, launches):
     """Per ``SPLIT_SHAPES`` shape, float32, (N, C) affine: each split
     launch's device time (a CUDA graph of calls rotating over buffers
@@ -4374,15 +4305,13 @@ def time_split_kernels(torch, K, launches):
             bound = _split_bytes(shape, 4, arrays) / HBM_BYTES_PER_S * 1e3
             row = {"shape": list(shape), "dtype": "float32"}
             if name in _split_arrays(K):
-                # both variants in turns (rows, cluster, cluster, rows)
+                # both variants, one after the other
                 plans = _split_plans(K, shape, 4, arrays)
-                r1, c1, c2, r2 = (_time_device(torch, each(
-                    lambda i, fn=fn, p=plans[v]: fn(i, False, p)))
-                    for v in ("rows", "cluster", "cluster", "rows"))
+                row["rows_ms"], row["cluster_ms"] = (_time_device(
+                    torch, each(lambda i, fn=fn, p=plans[v]: fn(i, False, p)))
+                    for v in ("rows", "cluster"))
                 row["variant"] = _split_picked(K, shape, 4, arrays).variant
                 row["plan"] = _split_plan_row(plans["cluster"], shape[0])
-                row["cluster_ms"], row["rows_ms"] = (c1 + c2) / 2, \
-                    (r1 + r2) / 2
                 row["kernel_ms"] = row[row["variant"] + "_ms"]
             else:
                 row["kernel_ms"] = _time_device(torch, each(
@@ -4428,7 +4357,7 @@ def p12_test_mse(torch, root, expr, device):
 def drive_phase12(torch, K, tmp, smi, device="cuda", width=CLI_WIDTH):
     """Phase 12.  (a)-(c) Two ranks on the card over gloo
     (``parallel/selfcheck.py``), each a process, against one process on the
-    full batch with the same weights, data and noise, 3 ``aug_cycle_gan``
+    full batch with the same weights, data and noise, 2 ``aug_cycle_gan``
     float32 steps at 32 each, at phase 5's limits: ``--pipeline 2
     --n_blocks 4`` with M = 2 and M = 4, ``--spatial 2`` (the split
     kernels on the main path), ``--tensor 2`` (each rank's bytes of
@@ -4626,6 +4555,27 @@ PAD_BWD_RTOL = 1e-6  # float32 dx vs F.pad's backward, relative to max |dx|
 RANK_PADS = {}  # {phase: {wrapper: {shape: launches}}} of its selfcheck ranks
 
 
+def pad_sites(n, dtype, hw=64, c_in=3, ngf=32):
+    """(N, C, H, W, pads, mode, dtype) of a generator's pads at batch n:
+    conv0's 3-pixel pad, the residual blocks' 1-pixel pads."""
+    return [(n, c_in, hw, hw, (3,) * 4, "reflect", dtype),
+            (n, 4 * ngf, hw // 2, hw // 2, (1,) * 4, "reflect", dtype)]
+
+
+# every pad the main path launches: the generators' at each batch and dtype
+# of phases 4-13, at 256x256, Livneh's one-channel B, a rank's rows under
+# --spatial 2 (W pads only), the entry's width; phase 13 fails on any other
+PAD_SHAPES = frozenset(
+    [s for n in (5, 8, 10, 16, 19, 25, 30, 32, 50, 64, 100, 128, 150, 200,
+                 250, 320) for s in pad_sites(n, "float32")]
+    + [s for n in (32, 64, 128) for s in pad_sites(n, "bfloat16")]
+    + pad_sites(8, "float32", 256) + pad_sites(32, "bfloat16", 256)
+    + [(n, 1, 64, 64, (3,) * 4, "reflect", "float32") for n in (32, 100)]
+    + [(n, c, h, w, (p, p, 0, 0), "reflect", "float32") for n in (4, 32)
+       for c, h, w, p in ((3, 38, 64, 3), (128, 18, 32, 1))]
+    + pad_sites(8, "float32", ngf=8)[1:])
+
+
 def _rank_pads(phase, ranks):
     """Add the pad launches of a phase's selfcheck ranks (each rank's total
     is in its last job's result) to RANK_PADS."""
@@ -4727,6 +4677,9 @@ def time_pads(torch, P):
                              dys[i % k], xs[i % k], list(pads)))}
         row = {"shape": list(shape), "pads": list(pads),
                "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3}
+        for d in ("fwd", "bwd"):  # the kernel pad_plan picks there
+            row[d + "_kernel"] = "band" if P.pad_plan(
+                shape, pads, "reflect", 4, d == "bwd").rows else "words"
         for d, (kern, plain) in calls.items():
             t = [_time_device(torch, f) for f in (kern, plain, plain, kern)]
             row[d + "_ms"], row[d + "_plain_ms"] = (t[0] + t[3]) / 2, \
@@ -4818,7 +4771,15 @@ def main(argv=None):
     from domain_transfer_gan_torch.ops.kernels import instance_norm as K
     from domain_transfer_gan_torch.ops.kernels import pad as P
 
-    t_start = time.perf_counter()
+    seconds, lap_at = {}, [time.perf_counter()]
+    t_start = lap_at[0]
+
+    def lap(phase):
+        """The seconds since the last lap, as phase ``phase``'s."""
+        now = time.perf_counter()
+        seconds[phase], lap_at[0] = now - lap_at[0], now
+        return seconds[phase]
+
     # phase 1: the card
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -4831,11 +4792,11 @@ def main(argv=None):
         % (sys.version.split()[0], torch.__version__, torch.version.cuda,
            torch.backends.cudnn.allow_tf32,
            torch.backends.cuda.matmul.allow_tf32))
+    lap("1")
 
     # phase 2: build every kernel source from this checkout, together
-    t0 = time.perf_counter()
     built = build.compile_all()
-    build_s = time.perf_counter() - t0
+    build_s = lap("2")
     log("built %s in %.1f s" % (", ".join(built), build_s))
 
     # phase 3: kernels against their plain versions
@@ -4843,14 +4804,19 @@ def main(argv=None):
     bwd_worst = check_bwd_kernel(torch, K)
     split_worst = check_split_kernels(torch, K)
     high_mean = check_split_high_mean(torch, K)
+    lap("3")
 
-    pads = {}  # the pad kernels' launches of each path, read from 0
+    # the pad kernels' launches of each path, read from 0: by shape (its
+    # selfcheck ranks' too), and by kernel (this process's)
+    pads, pad_kernels = {}, {w.__name__: {} for w in P.WRAPPERS}
 
     def pads_of(phase):
         pads[phase] = {w.__name__: dict(w.launches_by_shape)
                        for w in P.WRAPPERS}
         for name, by in RANK_PADS.get(phase, {}).items():
             _add(pads[phase][name], by)
+        for w in P.WRAPPERS:
+            _add(pad_kernels[w.__name__], w.launches_by_kernel)
         P.reset_counts()
 
     # phase 4: the serving path
@@ -4862,6 +4828,7 @@ def main(argv=None):
             raise AssertionError("the serving path never launched the kernel")
         check_norm_sites(torch, ctx)
         pads_of("serving")
+        lap("4")
 
         # phase 5: the training path
         train_variants, train_counts, _ = drive_training_path(torch, K)
@@ -4873,6 +4840,7 @@ def main(argv=None):
             drive_training_path(torch, K, seed_offset=100 * (i + 1),
                                 hold=False)
         pads_of("steps")
+        lap("5")
 
         # phase 7: the training CLI, then export and serve from its
         # checkpoint (before phase 6, whose rows carry its launch counts)
@@ -4882,11 +4850,11 @@ def main(argv=None):
         cli_bwd = sum(cli_counts["bwd"].values())
         served_fwd = sum(cli_served["fwd"].values())
         pads_of("training_cli")
+        lap("7")
 
         # phase 8: the other variants' steps and the supervised step against
         # plain-norm twins, then one epoch of each through the training CLI
         # and the evaluation CLI on their checkpoints (before phase 6 too)
-        t8 = time.perf_counter()
         p8_steps, p8_step_variants, _, _ = drive_variant_steps(torch, K)
         p8_cli, p8_cli_variants, bpp_counts, _ = drive_variants_cli(
             torch, K, tmp)
@@ -4897,13 +4865,12 @@ def main(argv=None):
                            for v in p8_cli_variants[d]} for d in p8}
         p8_fwd, p8_bwd = (sum(p8[d].values()) for d in ("fwd", "bwd"))
         log("phase 8: %.1f s, launches %d forward, %d backward"
-            % (time.perf_counter() - t8, p8_fwd, p8_bwd))
+            % (lap("8"), p8_fwd, p8_bwd))
         pads_of("phase8")
 
         # phase 9: the step extras (gradient accumulation, the pool, EMA,
         # --remat) against plain-norm twins, then through the CLIs (before
         # phase 6 too)
-        t9 = time.perf_counter()
         p9, p9_step_variants, p9_figures = drive_extras_steps(torch, K)
         p9_cli, p9_cli_variants, _ = drive_extras_cli(torch, K, tmp)
         for d in ("fwd", "bwd"):
@@ -4914,35 +4881,32 @@ def main(argv=None):
         p9_fwd, p9_bwd = (sum(sum(p9[n][d].values()) for n in p9)
                           for d in ("fwd", "bwd"))
         log("phase 9: %.1f s, launches %d forward, %d backward"
-            % (time.perf_counter() - t9, p9_fwd, p9_bwd))
+            % (lap("9"), p9_fwd, p9_bwd))
         pads_of("phase9")
 
         # phase 10: the per-file data path, the host feed, the Livneh ETL,
         # upstream-checkpoint interop (before phase 6 too)
-        t10 = time.perf_counter()
         p10, p10_variants, p10_figures = drive_phase10(torch, K, tmp, smi)
         p10_fwd, p10_bwd = (sum(p10[d].values()) for d in ("fwd", "bwd"))
         log("phase 10: %.1f s, launches %d forward, %d backward"
-            % (time.perf_counter() - t10, p10_fwd, p10_bwd))
+            % (lap("10"), p10_fwd, p10_bwd))
         pads_of("phase10")
 
         # phase 11: a run moved between packages (the JAX package's flax
         # checkpoints) and trained over two ranks (before phase 6 too)
-        t11 = time.perf_counter()
         p11, p11_variants, p11_figures = drive_phase11(torch, K, tmp, smi)
         p11_fwd, p11_bwd = (sum(sum(p11[n][d].values()) for n in p11)
                             for d in ("fwd", "bwd"))
         log("phase 11: %.1f s, launches %d forward, %d backward"
-            % (time.perf_counter() - t11, p11_fwd, p11_bwd))
+            % (lap("11"), p11_fwd, p11_bwd))
         pads_of("phase11")
 
         # phase 12: the space, model and pipe axes over ranks, the split
         # kernels on the main path (the counts read from 0 in the ranks)
-        t12 = time.perf_counter()
         p12, p12_variants, p12_split, p12_split_var, p12_figures = \
             drive_phase12(torch, K, tmp, smi)
         p12_fwd, p12_bwd = (sum(p12[d].values()) for d in ("fwd", "bwd"))
-        p12_figures["s"] = time.perf_counter() - t12
+        p12_figures["s"] = lap("12")
         log("phase 12: %.1f s, launches %d forward, %d backward; split "
             "launches by shape %s" % (
                 p12_figures["s"], p12_fwd, p12_bwd, json.dumps(
@@ -4957,10 +4921,15 @@ def main(argv=None):
         for phase, by in pads.items():
             if not by["pad2d"] or (phase != "serving" and not by["pad2d_bwd"]):
                 raise AssertionError("%s never launched a pad kernel" % phase)
-        pad_worst = check_pads(torch, P, sorted({s for by in pads.values()
-                                                 for d in by.values()
-                                                 for s in d}, key=str))
+        other = {s for by in pads.values() for d in by.values()
+                 for s in d} - PAD_SHAPES
+        if other or not all(by["band"] for by in pad_kernels.values()):
+            raise AssertionError("pads at %r (list them in PAD_SHAPES); "
+                                 "by kernel %r" % (sorted(other, key=str),
+                                                   pad_kernels))
+        pad_worst = check_pads(torch, P, sorted(PAD_SHAPES, key=str))
         pad_rows = time_pads(torch, P)
+        lap("13")
 
         # phase 6: times
         rows = time_kernel(torch, F, K, site_counts, train_counts,
@@ -4981,10 +4950,6 @@ def main(argv=None):
         split_rows = time_split_kernels(torch, K, p12_split)
         log("phase 6: split kernels (ms, twin, library, bound, phase 12 "
             "launches) %s" % json.dumps({"card": smi, "rows": split_rows}))
-        if args.profile:
-            sweep = sweep_split_plans(torch, K)
-            log("phase 6: split reductions under every plan %s"
-                % json.dumps({"card": smi, "rows": sweep}))
         e2e.update(time_ubo_step((EVAL_BATCH, TEST_BATCH)))
         prof = None
         if args.profile:
@@ -4992,6 +4957,8 @@ def main(argv=None):
             prof["train_step"] = profile_train_step()
             for n in (EVAL_BATCH, TEST_BATCH):
                 prof["ubo_step_b%d" % n] = profile_ubo_step(n)
+
+    lap("6")
 
     def head_of(table):
         return next(r for r in table
@@ -5137,6 +5104,7 @@ def main(argv=None):
             "launches": sum(sum(by[name].values()) for by in pads.values()),
             "launches_by_path": {ph: sum(by[name].values())
                                  for ph, by in pads.items()},
+            "launches_by_kernel": pad_kernels[name],
             "launches_by_shape": {str(s): sum(by[name].get(s, 0) for by in
                                               pads.values())
                                   for s in set().union(*(
@@ -5151,6 +5119,7 @@ def main(argv=None):
     log(json.dumps({"end_to_end": e2e, "card": smi}))
     if prof is not None:
         log(json.dumps({"profile": prof, "card": smi}))
+    log(json.dumps({"phase_seconds": seconds}))
     log("total %.1f s (build %.1f s)" % (time.perf_counter() - t_start,
                                          build_s))
     log(json.dumps(kernels))

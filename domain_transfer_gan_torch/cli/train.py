@@ -178,16 +178,30 @@ def start_profiler(device: torch.device):
     return prof
 
 
-def stop_profiler(prof, device: torch.device, out_dir: str) -> str:
+def stop_profiler(prof, device: torch.device, out_dir: str):
     """Wait for the device, stop ``prof`` and write its Chrome trace to
-    ``out_dir/trace.json``; returns the file's path."""
+    ``out_dir/trace.json``; returns the file's path and the count of the
+    card's kernels in it (its ``kernel`` events)."""
     if device.type == "cuda":
         torch.cuda.synchronize(device)
     prof.stop()
     os.makedirs(out_dir, exist_ok=True)
     path = os.path.join(out_dir, "trace.json")
     prof.export_chrome_trace(path)
-    return path
+    with open(path) as f:
+        kernels = sum(e.get("cat") == "kernel"
+                      for e in json.load(f)["traceEvents"])
+    return path, kernels
+
+
+def write_trace(out_f, prof, device: torch.device, out_dir: str) -> None:
+    """:func:`stop_profiler`, then a log line that says how many of the
+    card's kernels the trace holds, so that a card's run whose trace holds
+    none (ROADMAP F7) is never silent."""
+    _, kernels = stop_profiler(prof, device, out_dir)
+    print_log(out_f, "profiler trace written to %s: %d kernel events of the "
+              "card%s" % (out_dir, kernels, " (WARNING: none)"
+                          if device.type == "cuda" and not kernels else ""))
 
 
 def _device(opt) -> torch.device:
@@ -475,10 +489,8 @@ def _train(opt: TrainConfig, device: torch.device, out_f):
             else:
                 losses, visuals = out
             if profiler is not None and i == 14:
-                stop_profiler(profiler, device, opt.profile_dir)
+                write_trace(out_f, profiler, device, opt.profile_dir)
                 profiler = None
-                print_log(out_f, "profiler trace written to %s"
-                          % opt.profile_dir)
             if opt.supervised:
                 sup_data = next(sup_iter)
                 # a supervised batch of another size gets a fresh draw
@@ -524,10 +536,8 @@ def _train(opt: TrainConfig, device: torch.device, out_f):
                 print_log(out_f, "  throughput: %.1f images/sec" % img_per_sec)
 
         if profiler is not None:  # an epoch of under 15 steps
-            stop_profiler(profiler, device, opt.profile_dir)
+            write_trace(out_f, profiler, device, opt.profile_dir)
             profiler = None
-            print_log(out_f, "profiler trace written to %s"
-                      % opt.profile_dir)
 
         if opt.save_epoch_freq and epoch % opt.save_epoch_freq == 0:
             print_log(out_f, "saving the model at the end of epoch %d, "

@@ -883,7 +883,7 @@ def ring_plan(hw: int, c: int, itemsize: int, arrays: int, cluster: int,
 
 
 # split_plan's rule, measured on an H100 at every rank shape phase 12 gives
-# the split reductions (``chip_smoke.sweep_split_plans``, PERF.md): the
+# the split reductions (``ring_sweeps.py splits``, PERF.md): the
 # cluster grows while the grid has fewer than _SPLIT_GRID_CTAS CTAs; the
 # partial statistics take 512 threads where the grid has fewer CTAs than
 # the card has SMs and a CTA streams at least _SPLIT_WIDE_CTA_BYTES; a
@@ -959,7 +959,7 @@ def split_plan(n: int, hw: int, c: int, itemsize: int, arrays: int,
     shapes without them take the ``"rows"`` variant (the first, streaming
     kernels), and every other shape takes the cluster variant.  In the
     sweep of every (shape, dtype, reduction) case phase 12 gives the
-    reductions (``chip_smoke.sweep_split_plans``, PERF.md) an H100 measured
+    reductions (``ring_sweeps.py splits``, PERF.md) an H100 measured
     that variant faster in 108 of the 116, several times faster at a
     256x256 rank's shapes, and 1.6-16 % slower in the other eight, each
     under 0.09 ms.  No observable of the shape separates those eight (the
@@ -967,7 +967,7 @@ def split_plan(n: int, hw: int, c: int, itemsize: int, arrays: int,
     so the rule accepts those losses.
 
     What the card measured fastest sets the ring
-    (``chip_smoke.sweep_split_plans``): the cluster size K is the smallest
+    (``ring_sweeps.py splits``): the cluster size K is the smallest
     power of two, up to the portable 8, that gives the grid of N * K CTAs
     at least ``_SPLIT_GRID_CTAS`` (about half an H100's SMs; more CTAs, each
     with less to stream, measured slower), as long as each CTA keeps at

@@ -1,38 +1,42 @@
 #!/usr/bin/env python3
 """Sweeps on one NVIDIA Hopper card behind the rules of the instance-norm
-ring route and of the apply / dx grid (``cluster_plan`` / ``_ring_route``
-and ``apply_grid`` in ``domain_transfer_gan_torch/ops/kernels/
-instance_norm.py``), the repeat check of the selfcheck's eval job, the
-pad kernels' times, and the repeat check of the training CLI's trace.
-Run from the repository root:
+ring route, of the apply / dx grid and of the split reductions' plans
+(``cluster_plan`` / ``_ring_route``, ``apply_grid`` and ``split_plan`` in
+``domain_transfer_gan_torch/ops/kernels/instance_norm.py``) and of the pad
+kernels' bands (``ops/kernels/pad.py::pad_plan``), the repeat check of the
+selfcheck's eval job, and ROADMAP F7's trace check.  Run from the
+repository root:
 
     python3 ring_sweeps.py ring [--wide] [--out FILE]
     python3 ring_sweeps.py grids [--out FILE]
+    python3 ring_sweeps.py splits [--out FILE]
     python3 ring_sweeps.py eval [--deterministic] [--plain-pads] [--out FILE]
-    python3 ring_sweeps.py pads [--out FILE]
+    python3 ring_sweeps.py pads [--bands] [--out FILE]
     python3 ring_sweeps.py trace [--runs N] [--out FILE]
 
 ``ring`` times, at every 256x256 shape no cluster holds (``--wide``: at
 the wide rows whose ring is narrowed to fit, ``WIDE_SHAPES``), the
 streaming variant, the ring route (its ring narrowed as far as it must
-be), the ring half under every
-ring of 1-16 CTAs and the apply / dx half under each grid; ``grids`` times
-the split apply / dx at every split shape under each grid; ``eval`` runs
-the selfcheck's eval job twice (cuDNN pinned by the job) and an
-aug_cycle_gan float32 step twice from one state, and says whether each
+be), the ring half under every ring of 1-16 CTAs and the apply / dx half
+under each grid; ``grids`` times the split apply / dx at every split shape
+under each grid; ``splits`` times the split reductions under every plan;
+``eval`` runs the selfcheck's eval job twice (cuDNN pinned by the job) and
+an aug_cycle_gan float32 step twice from one state, and says whether each
 pair repeats bit for bit (``--deterministic``: under
 ``torch.use_deterministic_algorithms(True)``, with
 ``CUBLAS_WORKSPACE_CONFIG=:4096:8``, so that the first op without a
 deterministic implementation raises and names itself; ``--plain-pads``:
 the pads through ``F.pad`` as before the pad kernels, ROADMAP F5);
 ``pads`` times both pad kernels beside ``F.pad`` and the float32 step at
-32 with its pads through each, in turns; ``trace`` runs phase 10 (b)'s
-training CLI epoch with ``--profile_dir`` N times in one process and
-says of each trace whether it names K1 and K2, and what it holds by
-category.  Each logs a line per row and writes the rows to ``--out`` as
-JSON.  Needs a CUDA device and ``nvcc``; builds the kernels from this
-checkout at first use.  Times are device times of CUDA graphs, as
-``chip_smoke.py``'s phase 6 takes them.
+32 with its pads through each, in turns (``--bands``: and both kernels at
+every pad shape of the main path under each band geometry); ``trace``
+runs ``chip_smoke.py``'s order in one process (the steps of phases 4-8,
+then N times phase 9's profiler sessions and phase 10 (b)'s training CLI
+epoch with ``--profile_dir``) and says of each trace whether it names K1
+and K2, and what it holds.  Each logs a line per row and writes the rows
+to ``--out`` as JSON.  Needs a CUDA device and ``nvcc``; builds the
+kernels from this checkout at first use.  Times are device times of CUDA
+graphs, as ``chip_smoke.py``'s phase 6 takes them.
 """
 
 from __future__ import annotations
@@ -40,6 +44,7 @@ from __future__ import annotations
 import argparse
 import itertools
 import json
+import math
 import os
 import subprocess
 import sys
@@ -278,6 +283,73 @@ def sweep_apply_grids(torch, K):
     return out
 
 
+def sweep_split_plans(torch, K):
+    """Device ms of the two split reductions at every ``SPLIT_SHAPES``
+    shape, float32 and bfloat16, (N, C) affine, no ReLU: the ``"rows"``
+    variant and the cluster variant under every cluster size of 1-16 CTAs
+    of 256 or 512 threads, ring of 2 or 4 slots, and chunk of 1 or 2 times
+    the default rows (``ring_plan``), each timed as phase 6 times a kernel;
+    beside them the plan ``split_plan`` picks.  The evidence for
+    ``split_plan``'s rule."""
+    out = []
+    for shape in cs.SPLIT_SHAPES:
+        n, hw, c = shape
+        for name in ("float32", "bfloat16"):
+            dtype = getattr(torch, name)
+            item = 4 if name == "float32" else 2
+            nbuf = cs._n_buffers(n * hw * c * item * 2)
+            ins = [cs._make_inputs(torch, shape, dtype, "sample", 91 + i)
+                   for i in range(nbuf)]
+            dys = [torch.randn_like(t[0].float()).to(dtype) for t in ins]
+            mean, m2 = K.instance_norm_partial_stats_plain(ins[0][0])
+            rstd = torch.rsqrt(m2 / hw + 1e-5)
+            launch = {
+                1: lambda i, p: K.instance_norm_partial_stats(
+                    ins[i % nbuf][0], plan=p),
+                2: lambda i, p: K.instance_norm_bwd_partial_sums(
+                    ins[i % nbuf][0], dys[i % nbuf], mean, rstd,
+                    *ins[i % nbuf][1:], plan=p)}
+            for kname, arrays in cs._split_arrays(K).items():
+                row = {"shape": list(shape), "dtype": name, "kernel": kname,
+                       "picked": cs._split_plan_row(
+                           cs._split_picked(K, shape, item, arrays), n),
+                       "rows_ms": cs._time_device(torch, lambda i: launch[
+                           arrays](i, K.SPLIT_ROWS)), "cluster_ms": {}}
+                for k, stages, mult, threads in itertools.product(
+                        (1, 2, 4, 8, 16), (2, 4), (1, 2), (256, 512)):
+                    try:
+                        p = K.ring_plan(hw, c, item, arrays, k, stages,
+                                        threads=threads)
+                        if mult > 1:
+                            # the default chunk doubled, where it does
+                            # not hold the CTA's rows already
+                            if p.stage_rows >= p.rows:
+                                continue
+                            p = K.ring_plan(hw, c, item, arrays, k, stages,
+                                            min(mult * p.stage_rows, p.rows),
+                                            threads)
+                    except ValueError:
+                        continue
+                    key = "k%d s%d r%d t%d" % (k, stages, p.stage_rows,
+                                               p.threads)
+                    row["cluster_ms"][key] = cs._time_device(
+                        torch, lambda i, p=p: launch[arrays](i, p))
+                best = min(row["cluster_ms"], key=row["cluster_ms"].get)
+                row["best"], row["best_ms"] = best, row["cluster_ms"][best]
+                picked = row["picked"]
+                row["picked_ms"] = row["rows_ms"] if picked[
+                    "variant"] == "rows" else cs._time_device(
+                        torch, lambda i: launch[arrays](i, None))
+                out.append(row)
+                cs.log("sweep %s %s %r: rows %.4f, picked %s %.4f, best "
+                       "%s %.4f" % (kname, name, shape, row["rows_ms"],
+                                    "%(variant)s k%(cluster)d s%(stages)d "
+                                    "r%(stage_rows)d t%(threads)d" % picked,
+                                    row["picked_ms"], best, row["best_ms"]))
+            del ins, dys
+    return out
+
+
 def _plain_pads(on):
     """A context in which (``on``) the networks pad through ``F.pad``, as
     the port did before its pad kernels: the kernels' yardstick inside a
@@ -350,14 +422,62 @@ def pad_step_turns(torch, pairs=10):
     return out
 
 
-def trace_repeats(runs):
-    """Phase 10 (b)'s per-file epoch (published width, the prefetching
-    feed) with ``--profile_dir``, ``runs`` times in one process, each after
-    a profiled float32 step at 32 (as phase 9's profiler sessions come
-    before phase 10's): for each run, whether its trace names K1 and K2,
-    its events by category, and the first and last time stamp (us) of its
-    kernels and of its host ops."""
+def phase9_sessions(torch, K):
+    """Phase 9's profiler sessions, the same count and kinds as
+    ``chip_smoke.py`` runs them: ``profile_window`` (2 steps) of the
+    float32 --grad_accum 4 step at 256x256 and batch 32, then of the
+    bfloat16 step at 256x256 and 32 through the ring route and with the
+    streaming variant forced, each after a step outside the window."""
+    from domain_transfer_gan_torch.utils import timing
+
+    m = timing.full_model(grid_size=256, batchSize=32,
+                          grad_accum=cs.ACCUM_K)
+    A, B = timing.card_inputs(32, seed=15, hw=256)
+    m.train_instance(A, B)
+    timing.profile_window(lambda: m.train_instance(A, B), reps=2)
+    del m
+    m = timing.full_model(compute_dtype="bfloat16", grid_size=256,
+                          batchSize=cs.STEP256_BATCH)
+    A, B = timing.card_inputs(cs.STEP256_BATCH, seed=17, hw=256)
+    for way in ("ring", "streaming"):
+        with cs._streamed_ring(K, way == "streaming"):
+            m.train_instance(A, B)
+            timing.profile_window(lambda: m.train_instance(A, B), reps=2)
+    del m, A, B
+    torch.cuda.empty_cache()
+
+
+def read_trace(path):
+    """What a --profile_dir trace holds: whether it names K1 and K2, its
+    events by category, the first and last time stamp (us) of its kernels
+    and of its host ops, and the metadata torch wrote beside the events."""
     import collections
+
+    with open(path) as f:
+        trace = json.load(f)
+    events = trace["traceEvents"]
+    names = {e.get("name", "") for e in events}
+    row = {"k1": any("instance_norm_fwd" in n for n in names),
+           "k2": any("instance_norm_bwd" in n for n in names),
+           "events_by_category": dict(collections.Counter(
+               e.get("cat", "") for e in events))}
+    for cat in ("kernel", "cpu_op"):
+        ts = [e["ts"] for e in events if e.get("cat") == cat]
+        row[cat + "_ts"] = [min(ts), max(ts)] if ts else None
+    row["metadata"] = {k: v for k, v in trace.items()
+                       if k != "traceEvents" and not isinstance(v, list)}
+    return row
+
+
+def trace_repeats(torch, K, runs):
+    """ROADMAP F7 in chip_smoke.py's order, in one process: the work of
+    phases 4-8 at reduced depth (a float32 and a bfloat16 full-width step,
+    a served batch through both generators), then ``runs`` times: phase
+    9's profiler sessions (:func:`phase9_sessions`), then phase 10 (b)'s
+    per-file epoch (published width, the prefetching feed) with
+    --profile_dir.  For each run :func:`read_trace` of its trace, the
+    kernel events the training CLI logged for it, and the CUPTI settings
+    torch leaves in the environment."""
     import tempfile
 
     from domain_transfer_gan_torch.cli.train import train_model
@@ -366,29 +486,33 @@ def trace_repeats(runs):
     from domain_transfer_gan_torch.utils import timing
 
     p, out = cs.P10, []
-    m = timing.full_model()
-    A, B = timing.card_inputs(timing.TRAIN_BATCH["float32"], seed=3)
+    for name, batch in timing.TRAIN_BATCH.items():
+        m = timing.full_model(compute_dtype=name)
+        A, B = timing.card_inputs(batch, seed=3)
+        for _ in range(2):
+            m.train_instance(A, B)
+        m.predict_A(m.predict_B(A, torch.randn(batch, 16, device="cuda")))
+        del m, A, B
+    torch.cuda.synchronize()
     with tempfile.TemporaryDirectory() as tmp:
         root = os.path.join(tmp, "perfile")
         write_synthetic_perfile_dataset(root, n_train=p["n_train"],
                                         n_test=p["n_test"], size=64, seed=11)
         for i in range(runs):
-            timing.profile_window(lambda: m.train_instance(A, B), reps=2)
+            phase9_sessions(torch, K)
             prof = os.path.join(tmp, "prof%d" % i)
             train_model(argv=cs._p10_argv(
                 root, os.path.join(tmp, "runs"), "run%d" % i, "cuda",
                 cs.CLI_WIDTH, p, cs.P10_FEED["prefetch"] + [
                     "--profile_dir", prof]))
-            with open(os.path.join(prof, "trace.json")) as f:
-                events = json.load(f)["traceEvents"]
-            names = {e.get("name", "") for e in events}
-            row = {"k1": any("instance_norm_fwd" in n for n in names),
-                   "k2": any("instance_norm_bwd" in n for n in names),
-                   "events_by_category": dict(collections.Counter(
-                       e.get("cat", "") for e in events))}
-            for cat in ("kernel", "cpu_op"):
-                ts = [e["ts"] for e in events if e.get("cat") == cat]
-                row[cat + "_ts"] = [min(ts), max(ts)] if ts else None
+            row = read_trace(os.path.join(prof, "trace.json"))
+            os.remove(os.path.join(prof, "trace.json"))  # ~100 MB each
+            with open(os.path.join(tmp, "runs", "run%d" % i,
+                                   "results.txt")) as f:
+                row["logged"] = [ln.strip() for ln in f
+                                 if "profiler trace" in ln]
+            row["env"] = {k: os.environ.get(k) for k in (
+                "TEARDOWN_CUPTI", "DISABLE_CUPTI_LAZY_REINIT")}
             cs.log("trace %d: %s" % (i, json.dumps(row)))
             out.append(row)
     cs.log("trace: %d of %d traces lack K1 or K2" % (
@@ -396,10 +520,95 @@ def trace_repeats(runs):
     return out
 
 
+BAND_ROWS = (1, 2, 4, 8, 16, 32)  # band row counts swept, times the step
+
+
+def sweep_pad_bands(torch, P, shapes=None):
+    """Device ms of both pad kernels at each pad shape of the main path
+    (``chip_smoke.PAD_SHAPES``, or ``shapes``) and direction: the word
+    kernels, and the band kernels under each band row count of BAND_ROWS
+    times the step that keeps bands on 16 bytes and 128, 256 and 512
+    threads, beside ``pad_plan``'s pick, a copy of the output's bytes
+    (``clone``: what moving them costs) and the bound: the evidence for
+    ``pad_plan``'s rule."""
+    out = []
+    for n, c, h, w, pads, mode, dtype in sorted(
+            shapes or cs.PAD_SHAPES, key=lambda s: (s[6], s[:4])):
+        dt = getattr(torch, dtype)
+        item = 4 if dtype == "float32" else 2
+        left, right, top, bottom = pads
+        ho, wo = h + top + bottom, w + left + right
+        nbytes = (n * c * h * w + n * c * ho * wo) * item
+        k = cs._n_buffers(nbytes)
+        cl = torch.channels_last
+        xs = [torch.randn((n, c, h, w), device="cuda").to(dt).contiguous(
+            memory_format=cl) for _ in range(k)]
+        dys = [torch.randn((n, c, ho, wo), device="cuda").to(dt).contiguous(
+            memory_format=cl) for _ in range(k)]
+        row = {"shape": [n, c, h, w], "pads": list(pads), "dtype": dtype,
+               "bound_ms": nbytes / cs.HBM_BYTES_PER_S * 1e3,
+               "clone_ms": cs._time_device(torch, lambda i: dys[i % k].clone())}
+        for backward in (False, True):
+            length = h if backward else ho
+            row_bytes = (w if backward else wo) * c * item
+            base = 16 // math.gcd(row_bytes, 16) \
+                if length * row_bytes % 16 == 0 else 1
+            plan = P.pad_plan((n, c, h, w), pads, mode, item, backward)
+
+            def launch(i, p):
+                with _planned(P, p):
+                    if backward:
+                        return P.pad2d_bwd(dys[i % k], (n, c, h, w), pads,
+                                           mode)
+                    return P._launch(xs[i % k], pads, mode)
+
+            times = {"words": cs._time_device(
+                torch, lambda i: launch(i, P.WORDS))}
+            fits = backward or 2 * wo * c * item <= P.TABLE_BYTES_MAX
+            for rows, threads in sorted({(r * base, t) for r in BAND_ROWS
+                                         for t in (128, 256, 512)
+                                         if fits and r * base <= length}):
+                q = P.PadPlan(rows, threads, -(-length // rows), False)
+                times["r%d t%d" % (rows, threads)] = cs._time_device(
+                    torch, lambda i, q=q: launch(i, q))
+            picked = "r%d t%d" % (plan.rows, plan.threads) if plan.rows \
+                else "words"
+            if picked not in times:
+                times[picked] = cs._time_device(
+                    torch, lambda i: launch(i, plan))
+            best = min(times, key=times.get)
+            row["bwd" if backward else "fwd"] = {
+                "picked": [picked, times[picked]], "best": [best, times[best]],
+                "ms": times}
+        out.append(row)
+        cs.log("bands %s: %s" % (json.dumps(row["shape"] + row["pads"]
+                                            + [dtype]), json.dumps(
+            {d: {k: row[d][k] for k in ("picked", "best")}
+             for d in ("fwd", "bwd")})))
+        del xs, dys
+        torch.cuda.empty_cache()
+    return out
+
+
+def _planned(P, plan):
+    """A context in which every pad launch takes ``plan``."""
+    import contextlib
+
+    @contextlib.contextmanager
+    def swapped():
+        keep = P.pad_plan
+        P.pad_plan = lambda *a, **kw: plan
+        try:
+            yield
+        finally:
+            P.pad_plan = keep
+    return swapped()
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("sweep", choices=("ring", "grids", "eval", "pads",
-                                      "trace"))
+    ap.add_argument("sweep", choices=("ring", "grids", "splits", "eval",
+                                      "pads", "trace"))
     ap.add_argument("--wide", action="store_true",
                     help="ring: sweep WIDE_SHAPES instead of the 256x256 "
                          "shapes")
@@ -410,8 +619,12 @@ def main(argv=None):
     ap.add_argument("--plain-pads", action="store_true",
                     help="eval: pad through F.pad, as before the pad "
                          "kernels")
-    ap.add_argument("--runs", type=int, default=14,
-                    help="trace: training CLI runs with --profile_dir")
+    ap.add_argument("--runs", type=int, default=30,
+                    help="trace: repeats of phase 9's profiler sessions "
+                         "and the training CLI run with --profile_dir")
+    ap.add_argument("--bands", action="store_true",
+                    help="pads: also sweep the band kernels' geometries at "
+                         "every pad shape of the main path")
     ap.add_argument("--out", help="write the rows here as JSON")
     args = ap.parse_args(argv)
 
@@ -438,6 +651,8 @@ def main(argv=None):
             torch, K, WIDE_SHAPES if args.wide else RING_SWEEP_SHAPES)
     elif args.sweep == "grids":
         rows = sweep_apply_grids(torch, K)
+    elif args.sweep == "splits":
+        rows = sweep_split_plans(torch, K)
     elif args.sweep == "eval":
         with _plain_pads(args.plain_pads):
             rows = {"deterministic_algorithms": args.deterministic,
@@ -447,13 +662,15 @@ def main(argv=None):
         cs.log("eval job and step repeated in one process: %s"
                % json.dumps(rows))
     elif args.sweep == "trace":
-        rows = trace_repeats(args.runs)
+        rows = trace_repeats(torch, K, args.runs)
     else:
         from domain_transfer_gan_torch.ops.kernels import pad as P
 
         rows = {"kernels": cs.time_pads(torch, P),
                 "steps": pad_step_turns(torch)}
         cs.log("pads: %s" % json.dumps(rows["kernels"]))
+        if args.bands:
+            rows["bands"] = sweep_pad_bands(torch, P)
     if args.out:
         with open(args.out, "w") as f:
             json.dump({"card": smi, "rows": rows}, f)

@@ -670,3 +670,138 @@ def test_pad_kernels_vs_f_pad_on_the_card(shape, pads, mode, dtype):
             want.abs().clamp_min(2.0 ** -100))) - 7.0)
         assert float(((dx.float() - want.to(dtype).float()).abs()
                       / ulp).max()) <= 1.0
+
+
+def _pad_case(shape, pads, mode, dtype, offset=0, seed=5):
+    """x (channels_last, its data ``offset`` elements into its storage, so
+    at any phase mod 16), F.pad of it, a cotangent at the same offset."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+
+    def placed(s):
+        n, c, h, w = s
+        flat = torch.randn(n * h * w * c + offset, generator=g,
+                           device="cuda").to(dtype)
+        return flat[offset:].view(n, h, w, c).permute(0, 3, 1, 2)
+
+    x = placed(shape)
+    y = torch.nn.functional.pad(x, pads, mode=mode)
+    return x, y, placed(tuple(y.shape))
+
+
+def _forced(monkeypatch, P, kernel):
+    """Every pad launch takes ``kernel``: the band kernels (two rows a
+    band, 128 threads) or the word kernels."""
+    plan = P.PadPlan(2, 128, 0, False) if kernel == "band" else P.WORDS
+    monkeypatch.setattr(P, "pad_plan", lambda *a, **k: plan)
+
+
+def _hold_pads(P, x, want_y, dy, shape, pads, mode, dtype):
+    """The forward is F.pad bit for bit; the backward repeats bit for bit
+    and is F.pad's within 1e-6 of max |dx| (float32) or one ulp of the
+    float32 backward (bfloat16)."""
+    assert torch.equal(P._launch(x, pads, mode), want_y)
+    dx, again = (P.pad2d_bwd(dy, shape, pads, mode) for _ in range(2))
+    assert torch.equal(dx, again)
+    want = P.pad2d_bwd_plain(dy.float(), shape, pads, mode)
+    if dtype == torch.float32:
+        assert float((dx - want).abs().max()) <= 1e-6 * float(
+            want.abs().max())
+    else:
+        ulp = torch.exp2(torch.floor(torch.log2(
+            want.abs().clamp_min(2.0 ** -100))) - 7.0)
+        assert float(((dx.float() - want.to(dtype).float()).abs()
+                      / ulp).max()) <= 1.0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kernel", ["band", "words"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("mode", ["reflect", "replicate"])
+@pytest.mark.parametrize("shape,pads", [((32, 3, 64, 64), (3, 3, 3, 3)),
+                                        ((32, 128, 32, 32), (1, 1, 1, 1))])
+def test_pads_at_conv0s_and_a_blocks_site(shape, pads, mode, dtype, kernel,
+                                          monkeypatch):
+    """Both pad kernels at the generators' two pad sites at the published
+    batch, each direction and mode (``_hold_pads``)."""
+    _need_card()
+    from domain_transfer_gan_torch.ops.kernels import pad as P
+
+    _forced(monkeypatch, P, kernel)
+    _hold_pads(P, *_pad_case(shape, pads, mode, dtype), shape, pads, mode,
+               dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kernel", ["band", "words"])
+@pytest.mark.parametrize("shape,pads,mode,dtype,offset", [
+    ((3, 3, 9, 7), (3, 3, 3, 3), "reflect", torch.float32, 1),
+    ((3, 3, 9, 7), (2, 1, 3, 0), "replicate", torch.bfloat16, 3),
+    ((2, 5, 6, 64), (1, 1, 1, 1), "reflect", torch.bfloat16, 7),
+    ((2, 16, 18, 32), (1, 1, 0, 0), "reflect", torch.float32, 2),
+])
+def test_pads_at_any_phase(shape, pads, mode, dtype, offset, kernel,
+                           monkeypatch):
+    """Tensors whose data start off 16 bytes, so that a band's first and
+    last bytes are stored apart from its 16-byte chunks (``_hold_pads``)."""
+    _need_card()
+    from domain_transfer_gan_torch.ops.kernels import pad as P
+
+    _forced(monkeypatch, P, kernel)
+    _hold_pads(P, *_pad_case(shape, pads, mode, dtype, offset), shape, pads,
+               mode, dtype)
+
+
+@pytest.mark.cuda
+def test_the_pad_plan_on_the_card():
+    """The wrapper's own pick at conv0's site launches the band kernel,
+    at a block's the word kernels, and both give F.pad."""
+    _need_card()
+    from domain_transfer_gan_torch.ops.kernels import pad as P
+
+    for shape, pads, kernel in (((32, 3, 64, 64), (3,) * 4, "band"),
+                                ((32, 128, 32, 32), (1,) * 4, "words")):
+        x, want_y, _ = _pad_case(shape, pads, "reflect", torch.float32)
+        before = dict(P.pad2d.launches_by_kernel)
+        assert torch.equal(P.pad2d(x, pads, "reflect"), want_y)
+        assert P.pad2d.launches_by_kernel[kernel] == before[kernel] + 1
+
+
+@pytest.mark.cuda
+def test_profile_dir_after_profiler_sessions_names_k1_and_k2(tmp_path):
+    """ROADMAP F7's order, short: profiler sessions in a row in one
+    process, then a training CLI run with --profile_dir, whose trace must
+    name K1 and K2 and whose log counts the card's kernels in it."""
+    _need_card()
+    import json
+    import os
+
+    from domain_transfer_gan_torch.cli.train import train_model
+    from domain_transfer_gan_torch.data.synthetic import \
+        write_synthetic_perfile_dataset
+    from domain_transfer_gan_torch.utils import timing
+
+    cfg = TrainConfig(model="aug_cycle_gan", grid_size=64, ngf=4, nef=4,
+                      ndf=4, nlatent=8)
+    m = create_model(cfg, testing=True, device="cuda")
+    A = torch.rand(2, 64, 64, 3, device="cuda") * 2 - 1
+    for _ in range(3):
+        timing.profile_window(lambda: m.train_instance(A, A), reps=1)
+    root, prof = str(tmp_path / "pf"), str(tmp_path / "prof")
+    write_synthetic_perfile_dataset(root, n_train=48, n_test=8, size=64,
+                                    seed=1)
+    train_model(argv=[
+        "--dataroot", root, "--name", "f7", "--checkpoints_dir",
+        str(tmp_path), "--grid_size", "64", "--batchSize", "2", "--ngf", "4",
+        "--nef", "4", "--ndf", "4", "--nlatent", "8", "--niter", "1",
+        "--niter_decay", "0", "--save_epoch_freq", "0", "--eval_A_freq",
+        "0", "--eval_B_freq", "0", "--display_freq", "0", "--dev_size", "8",
+        "--numpy_data", "0", "--nThreads", "2", "--device", "cuda",
+        "--num_devices", "1", "--profile_dir", prof])
+    with open(os.path.join(prof, "trace.json")) as f:
+        names = {e.get("name", "") for e in json.load(f)["traceEvents"]
+                 if e.get("cat") == "kernel"}
+    assert any("instance_norm_fwd" in n for n in names)
+    assert any("instance_norm_bwd" in n for n in names)
+    with open(os.path.join(str(tmp_path), "f7", "results.txt")) as f:
+        log = f.read()
+    assert "kernel events of the card" in log and "WARNING" not in log

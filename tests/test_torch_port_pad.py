@@ -2,10 +2,12 @@
 against ``F.pad`` and against the JAX package's ``reflect_pad2d`` /
 ``replicate_pad2d`` and their VJP; the kernels' source map and fixed-order
 gather (``csrc/pad.cu``) emulated in numpy against ``F.pad``'s CPU backward
-bit for bit; the routing (a CPU tensor to ``F.pad``, a card tensor to the
-launchers and nothing else); and the networks' pads going through it.  The
-kernels themselves run in ``tests/test_torch_port_cuda.py`` and
-``chip_smoke.py``."""
+bit for bit; the band kernels' chunks (16-byte stores, the ends off 16
+bytes, stepped counters) emulated against ``F.pad``; the band geometry
+(``pad_plan``) at every shape the main path pads; the routing (a CPU tensor
+to ``F.pad``, a card tensor to the launchers and nothing else); and the
+networks' pads going through it.  The kernels themselves run in
+``tests/test_torch_port_cuda.py`` and ``chip_smoke.py``."""
 
 import itertools
 
@@ -22,6 +24,8 @@ from domain_transfer_gan_torch.ops import convs
 from domain_transfer_gan_torch.ops.kernels import pad as P
 from domain_transfer_gan_torch.parallel import spatial
 from domain_transfer_gan_tpu.ops import convs as jax_convs
+
+from torch_port_helpers import load_chip_smoke
 
 JAX_PADS = {"reflect": jax_convs.reflect_pad2d,
             "replicate": jax_convs.replicate_pad2d}
@@ -208,3 +212,200 @@ def test_every_generator_pad_goes_through_the_wrapper(monkeypatch):
     want = [((2, 3, 64, 64), (3, 3, 3, 3), "reflect")] + \
         [((2, 16, 32, 32), (1, 1, 1, 1), "reflect")] * 4
     assert seen == want * 2
+
+
+# --- the band kernels, chunk by chunk ------------------------------------
+
+def _pixel_word(pixel_bytes, *addrs):
+    """csrc/pad.cu::pad2d_fwd's word: the widest of 16, 8, 4, 2 bytes that
+    divides a pixel and both tensors' addresses."""
+    return next(b for b in (16, 8, 4, 2)
+                if pixel_bytes % b == 0 and all(a % b == 0 for a in addrs))
+
+
+def _src(j, n, reflect):
+    return int(_source(np.array(j), n, "reflect" if reflect else
+                       "replicate"))
+
+
+@pytest.mark.parametrize("backward", [False, True])
+@pytest.mark.parametrize("mode", ["reflect", "replicate"])
+def test_the_band_geometry_at_every_main_path_pad(backward, mode):
+    """``pad_plan`` at every (shape, pads, dtype) ``chip_smoke.py`` holds
+    the pads at (``PAD_SHAPES``, what the main path launches), in both
+    modes: the word kernels where a pixel is a multiple of 16 bytes (and a
+    backward's dy is small), else bands; every row banded exactly once;
+    every band starting and ending on 16 bytes where it claims to; at least
+    two bands a multiprocessor where bands of one step give that many; the
+    forward's source table within its shared memory."""
+    cs = load_chip_smoke()
+    banded = 0
+    for n, c, h, w, pads, _, dtype in sorted(cs.PAD_SHAPES, key=str):
+        item = 4 if dtype == "float32" else 2
+        plan = P.pad_plan((n, c, h, w), pads, mode, item, backward)
+        left, right, top, bottom = pads
+        ho, wo = h + top + bottom, w + left + right
+        what = (n, c, h, w, pads, dtype, plan)
+        words = c * item % 16 == 0 or (
+            backward and n * ho * wo * c * item < P.BAND_BWD_MIN_BYTES)
+        assert (plan == P.WORDS) == words, what
+        if words:
+            continue
+        banded += 1
+        length = h if backward else ho
+        row = (w if backward else wo) * c * item
+        assert (plan.bands - 1) * plan.rows < length <= plan.bands * \
+            plan.rows, what
+        assert plan.threads in (P.BAND_THREADS, 2 * P.BAND_THREADS), what
+        if plan.store16:
+            starts = [(s * length + b * plan.rows) * row for s in range(n)
+                      for b in range(plan.bands)]
+            assert all(a % 16 == 0 for a in starts), what
+            assert length * row % 16 == 0, what
+        step = 16 // np.gcd(row, 16) if plan.store16 else 1
+        assert plan.rows % step == 0, what
+        if n * -(-length // step) >= 2 * P.SMS:
+            assert n * plan.bands >= 2 * P.SMS, what
+        if not backward:
+            assert 2 * wo * c * item <= P.TABLE_BYTES_MAX, what
+    assert banded >= (6 if backward else 20)  # conv0's sites
+
+
+def test_conv0s_rows_are_banded_in_pairs():
+    """conv0's float32 output rows are 840 bytes: bands of an even number
+    of rows start on 16 bytes (1680 = 105 * 16)."""
+    plan = P.pad_plan((32, 3, 64, 64), (3,) * 4, "reflect", 4, False)
+    assert plan.store16 and plan.rows % 2 == 0
+
+
+def test_wide_pixels_and_small_backwards_take_the_word_kernels():
+    """A residual block's 512-byte pixels take the word kernels both ways;
+    conv0's backward takes them below BAND_BWD_MIN_BYTES of dy (batch 32)
+    and the band kernel above it (batch 128); a forward whose source table
+    would not fit at 2-byte words (a row of 65536 two-channel float32
+    pixels) the word kernel."""
+    for backward in (False, True):
+        assert P.pad_plan((32, 128, 32, 32), (1,) * 4, "reflect", 4,
+                          backward) == P.WORDS
+    conv0 = ((3, 64, 64), (3,) * 4, "reflect", 4, True)
+    assert P.pad_plan((32,) + conv0[0], *conv0[1:]) == P.WORDS
+    assert P.pad_plan((128,) + conv0[0], *conv0[1:]).rows > 0
+    assert P.pad_plan((1, 2, 2, 65536), (1,) * 4, "reflect", 4,
+                      False) == P.WORDS
+
+
+def _band_fwd(x, pads, mode, rows, phase=(0, 0)):
+    """pad2d_band_fwd_kernel over every CTA and thread: each 16-byte
+    chunk of a band's output gathered word by word (the row and column
+    counters stepped as the kernel steps them), the ends off 16 bytes word
+    by word; y at phase[1] mod 16 (x's phase only sets the word)."""
+    left, right, top, bottom = pads
+    reflect = mode == "reflect"
+    n, h, w, c = x.shape
+    ho, wo = h + top + bottom, w + left + right
+    word = _pixel_word(c * x.itemsize, phase[0], phase[1])
+    pw, v = c * x.itemsize // word, 16 // word
+    in_words, out_words = w * pw, wo * pw
+    xw = np.frombuffer(x.tobytes(), "u%d" % word if word < 16 else "V16")
+    yw = np.zeros(n * ho * out_words, xw.dtype)
+    written = np.zeros(len(yw), np.int32)
+    table = [_src(j // pw - left, w, reflect) * pw + j % pw
+             for j in range(out_words)]
+    bands = -(-ho // rows)
+    for sample, band in itertools.product(range(n), range(bands)):
+        o0 = band * rows
+        words = min(rows, ho - o0) * out_words
+        ys = (sample * ho + o0) * out_words  # the band's first word
+        head = min(words, (16 - (phase[1] + ys * word) % 16) % 16 // word)
+        chunks = (words - head) // v
+        tail = head + chunks * v
+
+        def word_at(r, j):
+            return xw[sample * h * in_words + _src(o0 + r - top, h, reflect)
+                      * in_words + table[j]]
+
+        for at in list(range(head)) + list(range(tail, words)):
+            yw[ys + at] = word_at(at // out_words, at % out_words)
+            written[ys + at] += 1
+        for k in range(chunks):
+            e = head + k * v
+            assert (phase[1] + (ys + e) * word) % 16 == 0
+            r, j = divmod(e, out_words)
+            for i in range(v):
+                yw[ys + e + i] = word_at(r, j)
+                written[ys + e + i] += 1
+                j += 1
+                if j == out_words:
+                    j, r = 0, r + 1
+    assert (written == 1).all()
+    return np.frombuffer(yw.tobytes(), x.dtype).reshape(n, ho, wo, c)
+
+
+def _band_bwd(dy, h, w, pads, mode, rows, phase=0):
+    """pad2d_band_bwd_kernel (float32) over every CTA and thread: each
+    16-byte chunk of a band's dx (4 channels of a pixel where C % 4 == 0,
+    else 4 elements one by one), each element's sum in the kernel's order;
+    dx at phase mod 16."""
+    left, right, top, bottom = pads
+    n, ho, wo, c = dy.shape
+    dx = np.zeros(n * h * w * c, np.float32)
+    written = np.zeros(len(dx), np.int32)
+    packed = c % 4 == 0 and phase == 0
+
+    def element(sample, e, i0):
+        pixel, ch = divmod(e, c)
+        r, iw = divmod(pixel, w)
+        acc = np.float32(0)
+        for a in _sources(i0 + r, h, top, bottom, mode):
+            for b in _sources(iw, w, left, right, mode):
+                acc = np.float32(acc + dy[sample, a, b, ch])
+        return acc
+
+    for sample, band in itertools.product(range(n), range(-(-h // rows))):
+        i0 = band * rows
+        elems = min(rows, h - i0) * w * c
+        xs = (sample * h + i0) * w * c
+        head = min(elems, (16 - (phase + xs * 4) % 16) % 16 // 4)
+        chunks = (elems - head) // 4
+        tail = head + chunks * 4
+        assert not packed or head == 0
+        for e in list(range(head)) + list(range(tail, elems)) + [
+                head + k * 4 + i for k in range(chunks) for i in range(4)]:
+            dx[xs + e] = element(sample, e, i0)
+            written[xs + e] += 1
+    assert (written == 1).all()
+    return dx.reshape(n, h, w, c)
+
+
+@pytest.mark.parametrize("mode,pads,hw,c,dtype,rows,phase", [
+    ("reflect", (3, 3, 3, 3), (9, 7), 3, np.float32, 2, (0, 0)),
+    ("reflect", (3, 3, 3, 3), (9, 7), 3, np.float32, 5, (4, 8)),
+    ("reflect", (1, 1, 1, 1), (6, 5), 8, np.float32, 1, (0, 12)),
+    ("reflect", (3, 3, 3, 3), (9, 7), 3, np.uint16, 4, (2, 6)),
+    ("reflect", (1, 1, 0, 0), (4, 6), 16, np.uint16, 1, (0, 0)),
+    ("replicate", (2, 0, 1, 3), (6, 5), 4, np.float32, 3, (8, 4)),
+    ("replicate", (0, 1, 2, 0), (1, 2), 3, np.float32, 1, (4, 4)),
+])
+def test_the_band_kernels_are_f_pads(mode, pads, hw, c, dtype, rows,
+                                            phase):
+    """The band kernels emulated chunk by chunk, at uneven bands and
+    every phase mod 16 (the ends off 16 bytes): the forward is ``F.pad``'s
+    output, the backward (float32) ``F.pad``'s CPU backward, bit for bit;
+    every word and element written exactly once."""
+    h, w = hw
+    rng = np.random.RandomState(h * w + c + 1)
+    x = rng.randint(0, 2 ** 15, (2, h, w, c)).astype(dtype) \
+        if dtype == np.uint16 else rng.randn(2, h, w, c).astype(dtype)
+    y = _band_fwd(x, pads, mode, rows, phase)
+    xt = torch.from_numpy(x.astype(np.float32))
+    want = F.pad(xt.permute(0, 3, 1, 2), pads, mode=mode).permute(0, 2, 3, 1)
+    np.testing.assert_array_equal(y.astype(np.float32), want.numpy())
+    if dtype != np.float32:
+        return
+    xt = xt.permute(0, 3, 1, 2).contiguous().requires_grad_(True)
+    yt = F.pad(xt, pads, mode=mode)
+    dy = rng.randn(*yt.shape).astype(np.float32) * np.float32(1e3)
+    (gx,) = torch.autograd.grad(yt, xt, torch.from_numpy(dy))
+    dx = _band_bwd(np.ascontiguousarray(dy.transpose(0, 2, 3, 1)), h, w,
+                     pads, mode, rows, phase[1])
+    np.testing.assert_array_equal(dx, gx.permute(0, 2, 3, 1).numpy())
