@@ -141,7 +141,14 @@ It needs one CUDA device, ``nvcc`` and no network.  It
    (the JAX package's flax msgpack format) and back through the port's
    ``load``, every tensor, count and number equal and ``predict_B`` bit for
    bit, then one ``--continue_train`` epoch from the flax file (where
-   ``msgpack`` is missing, its refusal by name instead); (c) the training
+   ``msgpack`` is missing, its refusal by name instead); the same model
+   saved as the JAX package's orbax directory (``--ckpt_backend orbax``),
+   one ``--continue_train`` epoch of the CLI from it with that backend, its
+   ``latest`` directory reloaded equal to the run's model and
+   ``predict_B`` bit for bit, then the JAX-written orbax fixture
+   (``tests/fixtures/orbax_tiny``: OCDBT, zstd through the card machine's
+   libzstd) read with every leaf's sha256 held and one step from it within
+   phase 5's float32 limits of its plain-norm twin; (c) the training
    CLI as two processes on the card (``--coordinator --num_processes 2
    --process_id``), one epoch with eval-A and eval-B: rank 0's artifacts
    phase 7's, rank 1's under ``.worker1/``, equal losses on both, the run's
@@ -3518,23 +3525,7 @@ def _flax_round_trip(torch, fig, counters, account, sync, root, ckpt,
     sync()
     fig["load_jax_s"] = time.perf_counter() - t0
     t0 = time.perf_counter()
-    for name, net in src.nets.items():
-        theirs = dst.nets[name].state_dict()
-        a, b = src.state.opt_state[name], dst.state.opt_state[name]
-        if not all(torch.equal(v, theirs[k])
-                   for k, v in net.state_dict().items()) \
-                or a.count != b.count or not all(
-                    torch.equal(x, y) for x, y in zip(a.mu + a.nu,
-                                                      b.mu + b.nu)):
-            raise AssertionError("the flax round trip changed %s" % name)
-    if set(src.state.pools) != set(dst.state.pools) or any(
-            not torch.equal(p.buf, dst.state.pools[k].buf)
-            or p.n != dst.state.pools[k].n
-            for k, p in src.state.pools.items()) or \
-            (src.state.step, src.old_lr, src.epoch) != \
-            (dst.state.step, dst.old_lr, dst.epoch):
-        raise AssertionError("the flax round trip changed the pools or "
-                             "step / old_lr / epoch")
+    _equal_models(torch, src, dst, "the flax round trip")
     rng = np.random.RandomState(14)
     A = rng.uniform(-1, 1, (32, 64, 64, 3)).astype(np.float32)
     z = rng.randn(32, width["nlatent"]).astype(np.float32)
@@ -3568,6 +3559,162 @@ def _flax_round_trip(torch, fig, counters, account, sync, root, ckpt,
     del resumed
 
 
+def _equal_models(torch, a, b, what, old_lr=None):
+    """Every parameter, buffer, Adam moment and count, the pools, ``step``,
+    ``epoch`` and ``old_lr`` (``a``'s, or the one given) of ``b`` those of
+    ``a``."""
+    for name, net in a.nets.items():
+        theirs = b.nets[name].state_dict()
+        x, y = a.state.opt_state[name], b.state.opt_state[name]
+        if not all(torch.equal(v, theirs[k])
+                   for k, v in net.state_dict().items()) \
+                or x.count != y.count or not all(
+                    torch.equal(s, t) for s, t in zip(x.mu + x.nu,
+                                                      y.mu + y.nu)):
+            raise AssertionError("%s changed %s" % (what, name))
+    if set(a.state.pools) != set(b.state.pools) or any(
+            not torch.equal(p.buf, b.state.pools[k].buf)
+            or p.n != b.state.pools[k].n
+            for k, p in a.state.pools.items()) or \
+            set(a.state.ema) != set(b.state.ema) or any(
+                not torch.equal(s, t) for k in a.state.ema
+                for s, t in zip(a.state.ema[k], b.state.ema[k])) or \
+            (a.state.step, a.epoch, a.old_lr if old_lr is None
+             else old_lr) != (b.state.step, b.epoch, b.old_lr):
+        raise AssertionError("%s changed the pools, the shadows or step / "
+                             "old_lr / epoch" % what)
+
+
+def _orbax_round_trip(torch, fig, counters, account, sync, root, ckpt,
+                      latest7, expr7, device, width, smi):
+    """Phase 11 (a)'s orbax arm: phase 7's model saved as the JAX package's
+    orbax directory (``--ckpt_backend orbax``), one ``--continue_train``
+    epoch of the training CLI from it with that backend, its ``latest``
+    directory reloaded equal to the run's model and ``predict_B`` bit for
+    bit; then the JAX-written fixture read on the card, each leaf held to
+    its sha256, and one step from it against its plain-norm twin."""
+    import hashlib
+    import os
+
+    from domain_transfer_gan_torch.cli.train import train_model
+    from domain_transfer_gan_torch.config import TrainConfig, \
+        load_train_config_from_expr_dir
+    from domain_transfer_gan_torch.models import create_model
+    from domain_transfer_gan_torch.ops.kernels import pad as P
+    from domain_transfer_gan_torch.utils.orbax_dir import read_orbax
+
+    opt = load_train_config_from_expr_dir(expr7)
+    src = create_model(opt, testing=True, device=device)
+    src.load(latest7)
+    expr = os.path.join(ckpt, "from_orbax")
+    os.makedirs(expr)
+    src.opt.ckpt_backend, src.opt.expr_dir = "orbax", expr
+    sync()
+    t0 = time.perf_counter()
+    src.save("latest")
+    fig["orbax_save_s"] = time.perf_counter() - t0
+    latest = os.path.join(expr, "latest")
+    fig["orbax_bytes"] = sum(os.path.getsize(os.path.join(d, f))
+                             for d, _, fs in os.walk(latest) for f in fs)
+    epoch, step, old_lr = src.epoch, src.state.step, src.old_lr
+    del src
+    pads = [w.launches for w in P.WRAPPERS]
+    counters.reset()  # the resumed run of the orbax arm starts here
+    t0 = time.perf_counter()
+    resumed = train_model(argv=_cli_argv(
+        root, ckpt, device, width,
+        ["--name", "from_orbax", "--continue_train", "--niter_decay",
+         str(epoch), "--eval_B_freq", "0", "--ckpt_backend", "orbax"]))
+    sync()
+    fig["orbax_resume_s"] = time.perf_counter() - t0
+    account(counters.read(), getattr(counters, "variants", dict)(),
+            "float32", cli_expected(width, 1, ubo=False),
+            "orbax resume")  # ends here
+    fig["orbax_resume_pad_launches"] = [
+        w.launches - n for w, n in zip(P.WRAPPERS, pads)]
+    if device == "cuda" and min(fig["orbax_resume_pad_launches"]) < 1:
+        raise AssertionError("the orbax resume launched no pad kernel: %r"
+                             % fig["orbax_resume_pad_launches"])
+    with open(os.path.join(expr, "results.txt")) as f:
+        text = f.read()
+    steps = cli_expected(width, 1)["steps_per_epoch"]
+    if "(epoch %d, step %d)" % (epoch, step) not in text or \
+            (resumed.epoch, resumed.state.step) != (epoch + 1, step + steps):
+        raise AssertionError("the orbax latest did not resume: %s"
+                             % text[:1000])
+    _finite_loss_lines(text, "orbax resumed run")
+    back = create_model(load_train_config_from_expr_dir(expr), testing=True,
+                        device=device)
+    sync()
+    t0 = time.perf_counter()
+    back.load(latest)
+    sync()
+    fig["orbax_load_s"] = time.perf_counter() - t0
+    # latest holds the lr of before its epoch's decay, the one it resumed at
+    _equal_models(torch, resumed, back, "the orbax round trip", old_lr)
+    rng = np.random.RandomState(15)
+    A = rng.uniform(-1, 1, (32, 64, 64, 3)).astype(np.float32)
+    z = rng.randn(32, width["nlatent"]).astype(np.float32)
+    with torch.backends.cudnn.flags(enabled=True, benchmark=False,
+                                    deterministic=True):
+        fig["orbax_round_trip_max_abs_err"] = float(
+            (back.predict_B(A, z) - resumed.predict_B(A, z)).abs().max())
+    if fig["orbax_round_trip_max_abs_err"] != 0.0:
+        raise AssertionError("predict_B after the orbax round trip: %r"
+                             % fig["orbax_round_trip_max_abs_err"])
+    del resumed, back
+
+    # the JAX package's own orbax save (tests/fixtures/make_orbax_tiny.py)
+    fixture = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                           "tests", "fixtures", "orbax_tiny")
+    with open(os.path.join(fixture, "leaves.json")) as f:
+        want = json.load(f)
+    t0 = time.perf_counter()
+    tree = read_orbax(os.path.join(fixture, "latest"))
+    fig["fixture_read_s"] = time.perf_counter() - t0
+    got = {}
+
+    def walk(node, keys=()):
+        if isinstance(node, dict):
+            for k, v in node.items():
+                walk(v, keys + (k,))
+        else:
+            got[".".join(keys)] = {
+                "dtype": node.dtype.str, "shape": list(node.shape),
+                "sha256": hashlib.sha256(node.tobytes("C")).hexdigest()}
+    walk(tree)
+    bad = sorted(k for k in set(got) | set(want) if got.get(k) != want.get(k))
+    if bad:
+        raise AssertionError("the fixture read on the card: %d of %d leaves "
+                             "differ from their sha256, e.g. %r"
+                             % (len(bad), len(want), bad[:5]))
+    fig["fixture_leaves"] = len(got)
+    fopt = load_train_config_from_expr_dir(fixture)
+    cfg = {f: getattr(fopt, f) for f in TrainConfig.__dataclass_fields__
+           if f != "expr_dir"}
+    cfg["device"] = device
+    rng = np.random.RandomState(16)
+    A = rng.uniform(-1, 1, (4, 64, 64, 3)).astype(np.float32)
+    B = rng.uniform(-1, 1, (4, 64, 64, 3)).astype(np.float32)
+    z = rng.randn(4, fopt.nlatent).astype(np.float32)
+    eps = rng.randn(4, fopt.nlatent).astype(np.float32)
+    out = {}
+    for plain in (False, True):
+        m = create_model(TrainConfig(**cfg), testing=True, device=device)
+        m.load(os.path.join(fixture, "latest"))
+        losses, _, gnorms = m.train_instance(A, B, z, eps, plain_norm=plain)
+        out[plain] = (_floats(losses), _floats(gnorms))
+    sync()
+    rl, rg = TRAIN_STEP1_RTOL["float32"]
+    fig["fixture_step_losses"] = _held(out[False][0], out[True][0], rl,
+                                       "the fixture's step, fused vs plain")
+    fig["fixture_step_gnorms"] = _held(out[False][1], out[True][1], rg,
+                                       "the fixture's step, fused vs plain")
+    log("phase 11 (a) orbax: %s" % json.dumps(dict(
+        {k: v for k, v in fig.items() if k.startswith(("orbax", "fixture"))},
+        card=smi)))
+
+
 def drive_phase11(torch, K, tmp, smi, device="cuda", width=CLI_WIDTH,
                   counters=None):
     """Phase 11.  (a) Phase 7's ``latest`` through ``cli.export_jax`` (the
@@ -3575,7 +3722,8 @@ def drive_phase11(torch, K, tmp, smi, device="cuda", width=CLI_WIDTH,
     parameter, buffer, Adam moment and count, ``step``, ``old_lr`` and
     ``epoch`` equal, ``predict_B`` bit for bit (cuDNN pinned); then one
     ``--continue_train`` epoch from an expr_dir whose ``latest`` is the flax
-    file.  (c) The training CLI as two processes
+    file; then the orbax arm (:func:`_orbax_round_trip`).  (c) The training
+    CLI as two processes
     (``--coordinator/--num_processes/--process_id``) on phase 7's data, one
     epoch with eval-A and eval-B: rank 0's artifacts are phase 7's, rank
     1's are under ``.worker1/``, the logged losses are equal on both ranks,
@@ -3660,6 +3808,8 @@ def drive_phase11(torch, K, tmp, smi, device="cuda", width=CLI_WIDTH,
     if fig["msgpack"].startswith("present"):
         _flax_round_trip(torch, fig, counters, account, sync, root, ckpt,
                          latest7, jax_latest, expr7, device, width)
+    _orbax_round_trip(torch, fig, counters, account, sync, root, ckpt,
+                      latest7, expr7, device, width, smi)
 
 
     # (c) the training CLI as two processes on the card
@@ -4573,7 +4723,8 @@ PAD_SHAPES = frozenset(
     + [(n, 1, 64, 64, (3,) * 4, "reflect", "float32") for n in (32, 100)]
     + [(n, c, h, w, (p, p, 0, 0), "reflect", "float32") for n in (4, 32)
        for c, h, w, p in ((3, 38, 64, 3), (128, 18, 32, 1))]
-    + pad_sites(8, "float32", ngf=8)[1:])
+    + pad_sites(8, "float32", ngf=8)[1:]
+    + pad_sites(4, "float32", ngf=4))  # phase 11 (a)'s orbax fixture
 
 
 def _rank_pads(phase, ranks):
@@ -4893,7 +5044,7 @@ def main(argv=None):
         pads_of("phase10")
 
         # phase 11: a run moved between packages (the JAX package's flax
-        # checkpoints) and trained over two ranks (before phase 6 too)
+        # and orbax checkpoints) and trained over two ranks (before phase 6 too)
         p11, p11_variants, p11_figures = drive_phase11(torch, K, tmp, smi)
         p11_fwd, p11_bwd = (sum(sum(p11[n][d].values()) for n in p11)
                             for d in ("fwd", "bwd"))

@@ -30,7 +30,8 @@ port's training CLI wrote (its directory holds the run's ``opt.json``);
 ``--params``, an ``.npz`` with flat keys in the JAX package's layout
 (``netG_A_B/conv0/kernel`` ...), with ``--expr_dir`` naming the directory of
 ``opt.json``; ``--init_seed N``, weights drawn from seed N (with
-``--expr_dir``).  Reading the JAX package's checkpoints is ROADMAP M15.
+``--expr_dir``).  ``--chk_path`` may be a JAX package checkpoint as well (a
+flax file, or an orbax directory of ``--ckpt_backend orbax``).
 ``--use_ema 1`` exports the EMA shadow weights of a run trained with
 ``--ema``.
 
@@ -156,8 +157,8 @@ def main(argv=None):
                if a is not None]
     if len(sources) != 1:
         ap.error("give exactly one of --chk_path, --params and --init_seed")
-    expr_dir = args.expr_dir or (os.path.dirname(args.chk_path)
-                                 if args.chk_path else None)
+    expr_dir = args.expr_dir or (os.path.dirname(os.path.abspath(
+        args.chk_path)) if args.chk_path else None)
     if expr_dir is None:
         ap.error("--params and --init_seed need --expr_dir")
 

@@ -2,13 +2,15 @@
 moves from the port to the JAX package mid-training.
 
 Reads any checkpoint the port's ``load`` takes (the port's ``torch.save``
-format, or a JAX-package file) and writes ``--out`` in the JAX package's
+format, a JAX-package flax file or orbax directory) and writes ``--out`` in the JAX package's
 format: the tree its ``_ckpt_payload()`` serialises (params, batch_stats,
 opt_state, pools, step, old_lr, epoch and, with ``--ema``, the shadows),
 which its ``load`` restores and its ``--continue_train`` resumes.  The
 other direction needs no tool: the port's ``load`` reads a JAX file, so
 ``--continue_train`` on a JAX expr_dir, ``cli/test.py --chk_path`` and
-``cli/export.py --chk_path`` take one as it is.
+``cli/export.py --chk_path`` take one as it is.  (A run of the port with
+``--ckpt_backend orbax`` writes orbax directories, which the JAX package
+reads as they are.)
 
 The architecture comes from the ``opt.json`` (or ``opt.txt``) beside the
 checkpoint, or from ``--opt``.  Where ``--out``'s directory holds no

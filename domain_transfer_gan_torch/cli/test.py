@@ -109,7 +109,7 @@ def test_model(argv=None) -> dict:
     device = _device(topt)
     random.seed(SEED)
     np.random.seed(SEED)
-    expr_dir = os.path.dirname(topt.chk_path)
+    expr_dir = os.path.dirname(os.path.abspath(topt.chk_path))
     opt = load_train_config_from_expr_dir(expr_dir, dataroot=topt.dataroot,
                                           seed=SEED, device=topt.device)
     if opt.numpy_data:

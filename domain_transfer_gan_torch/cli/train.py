@@ -14,7 +14,9 @@ host reader (the native C++ one, or numpy and why).
 
 The artifact contract is the JAX one, file for file: ``results.{txt,json}``,
 ``history_mse_A.npy`` / ``history_ubo_B.npy``, the ``latest`` / ``best_A`` /
-``best_B`` checkpoints (the port's ``torch.save`` format) with
+``best_B`` checkpoints (the port's ``torch.save`` format, or under
+``--ckpt_backend orbax`` the JAX package's orbax directories, which its
+``--continue_train`` reads as well) with
 ``best_mse_A.txt`` / ``best_bpp_B.txt``, ``nets.txt``,
 ``opt.{txt,json,pkl}``, the vis dirs and their PNGs, and the source
 snapshot.  Resume is real: ``--continue_train`` reloads ``which_epoch``,
@@ -65,9 +67,8 @@ ranks out as the JAX CLI's ``data x space x model x pipe`` mesh
 weights by output channels over T, the residual trunks pipelined over P
 stages; the batch divides over the data axis, or over ``(data, pipe)``.
 
-Flags the port does not run yet are refused by name
-(``config.refuse_unported``), before anything is written; so is a
-paired-jpg dataroot where PIL cannot be imported.
+A paired-jpg dataroot where PIL cannot be imported is refused by name
+(``config.refuse_unported``), before anything is written.
 """
 
 from __future__ import annotations

@@ -10,14 +10,16 @@ field under the same name and default, so an ``opt.json`` / ``opt.pkl`` /
 names, defaults and choices, plus ``--device``.  The instance norms always
 run the hand-written CUDA kernels on a CUDA device (their plain PyTorch
 versions on a CPU tensor), so ``--use_pallas`` is accepted and selects
-nothing, like the TPU runtime's flags.  A flag that asks for something the port does not run
-yet is refused by :func:`refuse_unported` with an error that names the flag
-and its ROADMAP item; none is ignored silently.  ``README.md`` lists the
-flags that are accepted and have no effect.
+nothing, like the TPU runtime's flags.  ``--ckpt_backend orbax`` writes the
+JAX package's orbax checkpoint directories (``utils/orbax_dir.py``); no
+flag is ignored silently.  ``README.md`` lists the flags that are accepted
+and have no effect.
 
 :class:`TestOptions` is the evaluation CLI's parser (:class:`TestConfig`):
 the JAX package's flags with ``--device`` in place of ``--host_devices``;
-it refuses ``--fid_extractor`` the same way.
+it refuses ``--fid_extractor`` (a ``jax.export`` file, which only JAX can
+run) with an :class:`UnportedFlagError` that names the flag and its
+ROADMAP item.
 """
 
 from __future__ import annotations
@@ -252,34 +254,17 @@ def load_train_config_from_expr_dir(expr_dir: str, **overrides) -> TrainConfig:
     return cfg
 
 
-# (flag, the field whose value the message shows or None, is it asked for,
-# ROADMAP item): what the training CLI refuses
-_UNPORTED = (
-    ("--ckpt_backend", "ckpt_backend", lambda c: c.ckpt_backend != "flax",
-     "M15: an orbax checkpoint directory needs orbax and tensorstore, "
-     "which the port does not use"),
-)
-
-
 class UnportedFlagError(NotImplementedError):
     """A flag that asks for a part of the JAX package the port does not
     run, and why it will not."""
 
 
 def refuse_unported(cfg: TrainConfig) -> None:
-    """Raise :class:`UnportedFlagError` naming the first flag of ``cfg``
-    that asks for something the port's training CLI does not run, and the
-    ROADMAP item that says why.  A paired-jpg dataroot (a ``train/``
+    """The training CLI runs every flag of the JAX package's; what it
+    cannot run here is refused by name: a paired-jpg dataroot (a ``train/``
     directory and no ``trainA.npz``) without PIL raises
     ``data.edges2shoes.PILMissingError``.  Nothing is written before this
     check."""
-    for flag, field, asked, item in _UNPORTED:
-        if asked(cfg):
-            if field is not None:
-                flag = "%s %s" % (flag, getattr(cfg, field))
-            raise UnportedFlagError(
-                "%s is not supported by the PyTorch port, and will not be "
-                "(ROADMAP %s)" % (flag, item))
     if cfg.numpy_data:
         from .data.edges2shoes import require_pil_for
         require_pil_for(cfg.dataroot)

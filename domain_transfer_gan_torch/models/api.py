@@ -45,6 +45,7 @@ from ..nn.networks import frozen
 from ..ops.numerics import gauss_reparametrize_eps
 from ..utils.checkpoint import (
     AsyncCheckpointer,
+    OrbaxCheckpointer,
     read_checkpoint,
     to_cpu,
     write_checkpoint,
@@ -60,6 +61,12 @@ from ..utils.convert import (
     unflatten_params,
 )
 from ..utils.flax_msgpack import is_flax_bytes, read_flax, write_flax
+from ..utils.orbax_dir import (
+    OrbaxFormatError,
+    is_orbax_dir,
+    orbax_metadata,
+    read_orbax,
+)
 from .accum import make_aug_accum_step, make_stoch_accum_step
 from .pool import PoolState, draw_pool
 from .state import DTYPES, init_state
@@ -405,8 +412,15 @@ class CycleGANBase:
         """Write ``expr_dir/chk_name``.  With ``async_save`` the payload is
         copied to the CPU here and written by a background thread
         (``utils.checkpoint.AsyncCheckpointer``); either way the file is
-        published by an atomic rename."""
+        published by an atomic rename.  Under ``--ckpt_backend orbax`` the
+        checkpoint is the JAX package's payload (:meth:`_jax_payload`) as an
+        orbax directory, which either package's ``load`` restores."""
         chk_path = os.path.join(self.opt.expr_dir, chk_name)
+        if self.opt.ckpt_backend == "orbax":
+            if not hasattr(self, "_orbax_ckpt"):
+                self._orbax_ckpt = OrbaxCheckpointer()
+            self._orbax_ckpt.save(chk_path, self._jax_payload(), async_save)
+            return
         if async_save:
             if not hasattr(self, "_async_ckpt"):
                 self._async_ckpt = AsyncCheckpointer()
@@ -419,6 +433,8 @@ class CycleGANBase:
         failed one."""
         if hasattr(self, "_async_ckpt"):
             self._async_ckpt.wait()
+        if hasattr(self, "_orbax_ckpt"):
+            self._orbax_ckpt.wait()
 
     def _jax_payload(self) -> dict:
         """The tree the JAX package's ``_ckpt_payload()`` serialises, in its
@@ -474,7 +490,8 @@ class CycleGANBase:
     def load(self, chk_path: str):
         """Restore a checkpoint written by :meth:`save` (format 1 or 2) or
         by the JAX package (a flax msgpack file, told apart by its first
-        bytes before anything is unpickled; :meth:`_load_jax`):
+        bytes before anything is unpickled, :meth:`_load_jax`; or an orbax
+        checkpoint directory, :meth:`_load_orbax`):
         parameters, buffers and Adam moments are copied into this model's
         tensors (device and dtype stay), ``step``, ``old_lr``, ``epoch`` set,
         ``old_lr_d`` derived.  Raises if a net or an entry is missing or
@@ -485,6 +502,8 @@ class CycleGANBase:
         this config tracks EMA and the checkpoint predates it the shadows
         are seeded from the loaded parameters."""
         self.wait_for_saves()
+        if os.path.isdir(chk_path):
+            return self._load_orbax(chk_path)
         with open(chk_path, "rb") as f:
             head = f.read(4)
         if not head.startswith(b"PK"):
@@ -527,13 +546,7 @@ class CycleGANBase:
 
 
     def _load_jax(self, chk_path: str, data: bytes):
-        """Restore a JAX-package checkpoint by the JAX ``load``'s rules:
-        every net's parameters and running statistics, the Adam moments
-        (through the parameters' layout maps) and counts, ``step``,
-        ``old_lr``, ``epoch``; pools of other sizes are replaced by fresh
-        ones with the JAX warning; the file's EMA shadows are taken where
-        this config tracks EMA, and seeded from the loaded parameters where
-        the file has none."""
+        """Restore a JAX-package flax file (:meth:`_load_jax_tree`)."""
         try:
             raw = read_flax(data)
         except (ValueError, ImportError):
@@ -542,12 +555,40 @@ class CycleGANBase:
             raise ValueError("%s is neither a checkpoint of this package nor "
                              "a readable JAX package flax checkpoint (%s)"
                              % (chk_path, e)) from e
+        self._check_jax_tree(chk_path, raw, "a msgpack file")
+        self._load_jax_tree(chk_path, raw)
+
+    def _load_orbax(self, chk_path: str):
+        """Restore a JAX-package orbax directory as the JAX ``load`` does:
+        its metadata first (no chunk read), the nets checked against this
+        model's and the EMA shadows read only where this config tracks EMA;
+        then :meth:`_load_jax_tree`.  A directory that is no orbax
+        checkpoint, or one of another variant, is refused by name."""
+        if not is_orbax_dir(chk_path):
+            raise OrbaxFormatError(
+                "%s is a directory but not an orbax checkpoint (no "
+                "_METADATA)" % chk_path)
+        meta = orbax_metadata(chk_path)
+        self._check_jax_tree(chk_path, meta, "an orbax directory")
+        self._load_jax_tree(chk_path, read_orbax(
+            chk_path, skip=() if self.state.ema else ("ema",)))
+
+    def _check_jax_tree(self, chk_path: str, raw, what: str):
         if not isinstance(raw, dict) or "params" not in raw:
-            raise ValueError("%s is a msgpack file but not a JAX package "
-                             "checkpoint (no params)" % chk_path)
+            raise ValueError("%s is %s but not a JAX package checkpoint (no "
+                             "params)" % (chk_path, what))
         if set(raw["params"]) != set(self.nets):
             raise KeyError("%s holds nets %s, the model has %s" % (
                 chk_path, sorted(raw["params"]), sorted(self.nets)))
+
+    def _load_jax_tree(self, chk_path: str, raw: dict):
+        """Restore a JAX-package checkpoint's tree by the JAX ``load``'s
+        rules: every net's parameters and running statistics, the Adam
+        moments (through the parameters' layout maps) and counts, ``step``,
+        ``old_lr``, ``epoch``; pools of other sizes are replaced by fresh
+        ones with the JAX warning; the tree's EMA shadows are taken where
+        this config tracks EMA, and seeded from the loaded parameters where
+        it has none."""
         stats = raw.get("batch_stats") or {}
         with torch.no_grad():
             for name, net in self.nets.items():

@@ -1,4 +1,4 @@
-"""Asynchronous checkpoint writes.
+"""Checkpoint writes, synchronous or from a background thread.
 
 :class:`AsyncCheckpointer` writes checkpoints from one long-lived background
 thread in submission order, each to a temp file published with
@@ -10,7 +10,9 @@ background write is re-raised at the next ``save`` or ``wait``.
 
 The payload is written with ``torch.save`` and holds tensors, numbers,
 strings and containers only, so it reads back with
-``torch.load(weights_only=True)``.
+``torch.load(weights_only=True)``.  :class:`OrbaxCheckpointer` writes the
+JAX package's payload as an orbax checkpoint directory instead
+(``utils/orbax_dir.py``), through the same thread when asked to.
 """
 
 from __future__ import annotations
@@ -20,14 +22,20 @@ import queue
 import threading
 from typing import Optional
 
+import numpy as np
 import torch
+
+from .orbax_dir import write_orbax
 
 
 def to_cpu(payload):
-    """The payload with every tensor copied to the CPU (a clone, even for a
-    CPU tensor, so later in-place updates do not reach the snapshot)."""
+    """The payload with every tensor copied to the CPU and every numpy
+    array copied (a clone, even of a CPU tensor, so later in-place updates
+    do not reach the snapshot)."""
     if isinstance(payload, torch.Tensor):
         return payload.detach().to("cpu", copy=True)
+    if isinstance(payload, np.ndarray):
+        return payload.copy()
     if isinstance(payload, dict):
         return {k: to_cpu(v) for k, v in payload.items()}
     if isinstance(payload, (list, tuple)):
@@ -53,9 +61,12 @@ def read_checkpoint(path: str):
 
 class AsyncCheckpointer:
     """One writer thread; ``save`` snapshots and enqueues, ``wait`` blocks
-    until every pending write is durable and re-raises a failed one."""
+    until every pending write is durable and re-raises a failed one.
+    ``write(path, host_payload)`` writes one checkpoint; saves run in
+    submission order, so two saves to one path never overlap."""
 
-    def __init__(self):
+    def __init__(self, write=write_checkpoint):
+        self._write = write
         self._queue: "queue.Queue" = queue.Queue()
         self._error: Optional[BaseException] = None
         self._error_lock = threading.Lock()
@@ -67,7 +78,7 @@ class AsyncCheckpointer:
             try:
                 if item is None:
                     return
-                write_checkpoint(*item)
+                self._write(*item)
             except BaseException as e:  # handed to save() / wait()
                 with self._error_lock:
                     if self._error is None:
@@ -100,3 +111,24 @@ class AsyncCheckpointer:
             self._thread.join()
         self._thread = None
         self._raise_pending_error()
+
+
+class OrbaxCheckpointer:
+    """The JAX package's ``OrbaxCheckpointer`` in the port: ``save`` writes
+    a payload of numpy arrays as an orbax directory (``write_orbax``), at
+    once or, with ``async_save``, from an :class:`AsyncCheckpointer`'s
+    thread after a copy on the caller's; ``wait`` blocks until every
+    asynchronous save is published and re-raises a failed one."""
+
+    def __init__(self):
+        self._async = AsyncCheckpointer(write=write_orbax)
+
+    def save(self, path: str, payload, async_save: bool = False) -> None:
+        if async_save:
+            self._async.save(path, payload)
+        else:
+            write_orbax(path, payload)
+
+    def wait(self) -> None:
+        self._async.wait()
+

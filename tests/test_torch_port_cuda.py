@@ -8,11 +8,18 @@ is not installed.  chip_smoke.py runs the full matrix and the full-width
 serving and training paths; these are the small-shape versions.
 """
 
+import hashlib
+import json
+import os
+
 import numpy as np
 import pytest
 import torch
 
-from domain_transfer_gan_torch.config import TrainConfig
+from domain_transfer_gan_torch.config import (
+    TrainConfig,
+    load_train_config_from_expr_dir,
+)
 from domain_transfer_gan_torch.models import create_model
 from domain_transfer_gan_torch.ops.kernels import instance_norm as K
 from domain_transfer_gan_torch.ops.kernels.instance_norm import (
@@ -239,6 +246,49 @@ def test_stoch_step_fused_vs_plain_on_the_card():
         return dict(losses, **gnorms)
 
     assert _fused_vs_plain(cfg, run) == (44, 44)
+
+
+@pytest.mark.cuda
+def test_the_jax_orbax_fixture_steps_on_the_card():
+    """The JAX package's orbax checkpoint ``tests/fixtures/orbax_tiny`` read
+    on the card's machine (its libzstd, the OCDBT store), every leaf held to
+    its sha256, then one aug_cycle_gan step from it against its plain-norm
+    twin."""
+    _need_card()
+    from domain_transfer_gan_torch.utils.orbax_dir import read_orbax
+
+    fixture = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                           "fixtures", "orbax_tiny")
+    latest = os.path.join(fixture, "latest")
+    with open(os.path.join(fixture, "leaves.json")) as f:
+        want = json.load(f)
+    got = {}
+
+    def walk(node, keys=()):
+        if isinstance(node, dict):
+            for k, v in node.items():
+                walk(v, keys + (k,))
+        else:
+            got[".".join(keys)] = {
+                "dtype": node.dtype.str, "shape": list(node.shape),
+                "sha256": hashlib.sha256(node.tobytes("C")).hexdigest()}
+    walk(read_orbax(latest))
+    assert got == want
+    opt = load_train_config_from_expr_dir(fixture)
+    cfg = {f: getattr(opt, f) for f in TrainConfig.__dataclass_fields__
+           if f != "expr_dir"}
+    cfg["device"] = "cuda"
+    A, B, z, eps = _tiny_batch(21)
+
+    def run(m, plain_norm):
+        m.load(latest)
+        assert (m.state.step, m.epoch) == (40, 3)
+        losses, _, gnorms = m.train_instance(A, B, z, eps,
+                                             plain_norm=plain_norm)
+        return dict(losses, **(gnorms or {}))
+
+    fwd, bwd = _fused_vs_plain(cfg, run)
+    assert fwd > 0 and bwd > 0
 
 
 @pytest.mark.cuda

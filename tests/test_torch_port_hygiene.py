@@ -16,8 +16,8 @@ from domain_transfer_gan_torch.ops.kernels import build
 from domain_transfer_gan_torch.ops.kernels import instance_norm as K
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax",
-             "domain_transfer_gan_tpu")
+FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "tensorstore",
+             "zstandard", "zarr", "numcodecs", "domain_transfer_gan_tpu")
 
 
 def _modules():
@@ -65,6 +65,8 @@ def test_every_module_imports_without_jax():
             "domain_transfer_gan_torch.utils.torch_interop",
             "domain_transfer_gan_torch.cli.import_torch",
             "domain_transfer_gan_torch.utils.flax_msgpack",
+            "domain_transfer_gan_torch.utils.orbax_dir",
+            "domain_transfer_gan_torch.utils.zstd",
             "domain_transfer_gan_torch.cli.export_jax",
             "domain_transfer_gan_torch.parallel",
             "domain_transfer_gan_torch.parallel.multihost",
@@ -93,7 +95,8 @@ def test_every_module_imports_without_jax():
     for d, _, fs in os.walk(os.path.join(ROOT, "domain_transfer_gan_torch"))
     for f in fs if f.endswith(".py")))
 def test_source_names_no_jax_import(path):
-    """By text: no import of JAX, flax, optax, orbax or the JAX package."""
+    """By text: no import of JAX, flax, optax, orbax, tensorstore, zstandard,
+    zarr, numcodecs or the JAX package."""
     with open(os.path.join(ROOT, path)) as f:
         src = f.read()
     pat = re.compile(r"^\s*(?:import|from)\s+(%s)\b" % "|".join(FORBIDDEN),

@@ -31,7 +31,6 @@ from domain_transfer_gan_torch.cli.serve import build_server
 from domain_transfer_gan_torch.cli.train import train_model
 from domain_transfer_gan_torch.config import (
     TrainConfig,
-    UnportedFlagError,
     load_train_config_from_expr_dir,
 )
 from domain_transfer_gan_torch.data import PILMissingError
@@ -197,27 +196,6 @@ def test_export_from_checkpoint_serves_the_model(run, tmp_path):
                        "trained with --ema"):
         export_main(["--chk_path", latest, "--out", out, "--use_ema", "1",
                      "--device", "cpu"])
-
-
-REFUSED = [
-    (["--ckpt_backend", "orbax"], "--ckpt_backend orbax", "M15"),
-]
-
-
-@pytest.mark.parametrize("flags,named,item", REFUSED,
-                         ids=[r[1] for r in REFUSED])
-def test_unported_flags_are_refused_by_name(tmp_path, flags, named, item):
-    argv = ["--dataroot", str(tmp_path / "none"), "--name", "r",
-            "--checkpoints_dir", str(tmp_path), "--device", "cpu", *flags]
-    with pytest.raises(UnportedFlagError) as e:
-        train_model(argv=argv)
-    assert named in str(e.value) and ("ROADMAP %s" % item) in str(e.value)
-    assert not os.path.exists(str(tmp_path / "r"))  # refused before writing
-
-
-def test_a_config_passed_in_is_refused_too():
-    with pytest.raises(UnportedFlagError, match="--ckpt_backend orbax"):
-        train_model(opt=TrainConfig(ckpt_backend="orbax", device="cpu"))
 
 
 def test_a_paired_jpg_dataroot_is_refused_before_anything_is_written(
