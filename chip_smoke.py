@@ -77,7 +77,13 @@ It needs one CUDA device, ``nvcc`` and no network.  It
    evaluation CLI, ``python -m domain_transfer_gan_torch.cli.test`` as a
    user calls it, on the three checkpoints: every ``--metric`` on the
    supervised one (``bpp`` with ``--train_logvar 1``: 500 UBO steps at
-   N = 200), all but ``bpp`` on the other two; each run's launches by
+   N = 200), all but ``bpp`` on the other two, and ``--metric fid
+   --fid_extractor`` on the supervised one with the JAX package's proxy
+   net as a ``jax.export`` artifact, run by the port's StableHLO
+   interpreter (its features held to the built-in extractor's and
+   ``FID_B`` to ``PROXY_FID_B``, its load time and images/s printed on a
+   ``fid_extractor:`` line with the card's name and power limit); each
+   run's launches by
    shape and variant held to its structure, each metric's files and
    numbers checked, ``TEST_MSE_A`` held to ``eval_mse_A`` over the same
    batch, and the first ``bpp`` chunk held to the same with plain norms on
@@ -398,6 +404,18 @@ TEST_CLI_BATCHES = tuple(sorted({
     TEST_VIS_BATCH, TEST_VIS_BATCH * TEST_NUM_MULTI, TEST_NUM_MULTI,
     DEV_VIS_BATCH, Z_DIV_INPUTS * NUM_MULTI}))
 TEST_SHAPES = tuple(gen_sites(TEST_BATCH, "B"))
+# phase 8's --fid_extractor call: the JAX package's save_extractor artifact
+# of its width-64 proxy net (tests/fixtures/make_jax_export_fixtures.py),
+# run by the port's StableHLO interpreter on the supervised checkpoint.
+# Its features against the built-in extractor (the same weights, from
+# fid_weights.npz) on the 150 test images, float32 with TF32 off; FID_B
+# against that checkpoint's PROXY_FID_B; each extractor's images/s over
+# FID_REPS passes of those images
+FID_EXTRACTOR = ("tests", "fixtures", "jax_export",
+                 "proxy_w64_64x64x3.jaxexp")
+FID_FEATURE_RTOL = 1e-4  # of max |feature|
+FID_RTOL = 1e-3
+FID_REPS = 5
 
 # phase 9: the step extras.  --grad_accum 4 at batch 32 runs both kernels
 # at microbatches of 8 (the discriminators' fake|real pass at 16), at 64x64
@@ -2139,16 +2157,61 @@ TEST_FILES = {"visual": ("cycle_0.png", "multi_0.png", "cycle_B_multi_0.png",
               "z_div": ("z_diversity.json",)}
 
 
-def drive_variants_cli(torch, K, tmp, device="cuda", width=CLI_WIDTH):
+def check_fid_extractor(torch, images, device, proxy_fid, fid_b, smi,
+                        launches):
+    """The interpreted --fid_extractor artifact against the built-in
+    extractor on ``images``, FID_B against PROXY_FID_B, and both
+    extractors' load time and images/s; logs them on a line of their
+    own, with the CLI call's kernel ``launches``, and returns them."""
+    import os
+
+    from domain_transfer_gan_torch.eval import fid
+
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                        *FID_EXTRACTOR)
+    t = time.perf_counter()
+    ext = fid.load_extractor(path, device=device)
+    load_s = time.perf_counter() - t
+    builtin = fid.random_feature_extractor(device=device)
+    x = torch.from_numpy(images).to(device)
+    got, want = ext(x), builtin(x)
+    fig = {"card": smi, "images": len(images), "load_s": load_s,
+           "feature_max_abs_err": float(np.abs(got - want).max()),
+           "feature_max_abs": float(np.abs(want).max()),
+           "FID_B": fid_b, "PROXY_FID_B": proxy_fid,
+           "fid_rel_err": abs(fid_b - proxy_fid) / abs(proxy_fid),
+           "cli_launches": launches}
+    for name, fn in (("interpreted", ext), ("builtin", builtin)):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        for _ in range(FID_REPS):
+            fn(x)
+        torch.cuda.synchronize()
+        fig[name + "_images_per_s"] = FID_REPS * len(images) / (
+            time.perf_counter() - t)
+    log("fid_extractor: %s" % json.dumps(fig))
+    if not fig["feature_max_abs_err"] <= \
+            FID_FEATURE_RTOL * fig["feature_max_abs"]:
+        raise AssertionError("--fid_extractor features vs the built-in "
+                             "extractor's: %r" % fig)
+    if not fig["fid_rel_err"] <= FID_RTOL:
+        raise AssertionError("FID_B vs PROXY_FID_B: %r" % fig)
+    return fig
+
+
+def drive_variants_cli(torch, K, tmp, device="cuda", width=CLI_WIDTH,
+                       smi=""):
     """Phase 8 (b) and (c): one epoch each of stoch_cycle_gan, cycle_gan and
     aug_cycle_gan --supervised through the training CLI on the phase-7 data
     set (eval-A, eval-B and latest every epoch), an export of the
     stoch_cycle_gan checkpoint and one served predict_B, then the
     evaluation CLI on the three checkpoints: every --metric on the
     supervised one (bpp with --train_logvar 1), all but bpp on the other
-    two.  Launches are read around each run and held to its structure;
-    TEST_MSE_A is held to eval_mse_A of the checkpoint over the same batch
-    of 150; after the runs, the first bpp chunk (the test set padded to 200)
+    two, and --metric fid --fid_extractor (the JAX package's proxy net as a
+    jax.export artifact) on the supervised one.  Launches are read around
+    each run and held to its structure; TEST_MSE_A is held to eval_mse_A
+    of the checkpoint over the same batch of 150, the extractor's
+    features and FID_B to the built-in extractor's; after the runs, the first bpp chunk (the test set padded to 200)
     through the kernels against the same with plain norms on the same
     noise.  Returns (launches by direction and shape of all of it, the same
     by variant, those of the bpp run by direction and shape, the
@@ -2166,6 +2229,7 @@ def drive_variants_cli(torch, K, tmp, device="cuda", width=CLI_WIDTH):
         UnalignedIterator, load_numpy_data
     from domain_transfer_gan_torch.eval import eval_mse_A, train_logvar
     from domain_transfer_gan_torch.models import create_model
+    from domain_transfer_gan_torch.ops.kernels import pad as P
 
     root, ckpt = tmp + "/cli_data", tmp + "/variant_runs"
     counters = _Counters(K)
@@ -2290,6 +2354,26 @@ def drive_variants_cli(torch, K, tmp, device="cuda", width=CLI_WIDTH):
                 not np.isfinite(noise).all():
             raise AssertionError("test CLI %s: noise_sens %r"
                                  % (name, noise.shape))
+    # --fid_extractor on the supervised checkpoint: the same decode
+    argv = ["--chk_path", os.path.join(ckpt, "sup", "latest"), "--dataroot",
+            root, "--metric", "fid", "--device", device, "--fid_extractor",
+            os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                         *FID_EXTRACTOR)]
+    pads_before = [w.launches for w in P.WRAPPERS]
+    results["sup", "fid_extractor"], figures["metric_s"][
+        "sup_fid_extractor"] = counted(
+        "test CLI sup --metric fid --fid_extractor",
+        test_cli_expected("sup", "fid", width),
+        lambda: test_cli.test_model(argv))
+    fid_launches = {"K1": sum(runs["test CLI sup --metric fid "
+                                   "--fid_extractor"]["fwd"].values()),
+                    "K2": sum(runs["test CLI sup --metric fid "
+                                   "--fid_extractor"]["bwd"].values())}
+    for w, n in zip(P.WRAPPERS, pads_before):
+        fid_launches[w.__name__] = w.launches - n
+    if not os.path.getsize(os.path.join(ckpt, "sup", "test_res",
+                                        "fid.txt")):
+        raise AssertionError("test CLI sup --fid_extractor: fid.txt empty")
     # cycle_gan decodes every z of an input alike: only float noise of the
     # batched convs (4e-7 of 0.34 seen on an H100) parts them
     if results["cycle", "z_div"]["ratio"] > 1e-5:
@@ -2310,6 +2394,9 @@ def drive_variants_cli(torch, K, tmp, device="cuda", width=CLI_WIDTH):
     if figures["test_mse_A_vs_eval_mse_A"] > 1e-6 * direct:
         raise AssertionError("TEST_MSE_A %r, eval_mse_A %r" % (
             results["sup", "mse"]["TEST_MSE_A"], direct))
+    figures["fid_extractor"] = check_fid_extractor(
+        torch, testB, device, results["sup", "fid"]["PROXY_FID_B"],
+        results["sup", "fid_extractor"]["FID_B"], smi, fid_launches)
     logvar_B = train_logvar(UnalignedIterator(
         trainA[:TEST_SUBSET], trainB[:TEST_SUBSET], batch_size=TEST_BATCH),
         model, verbose=False)
@@ -5008,7 +5095,7 @@ def main(argv=None):
         # and the evaluation CLI on their checkpoints (before phase 6 too)
         p8_steps, p8_step_variants, _, _ = drive_variant_steps(torch, K)
         p8_cli, p8_cli_variants, bpp_counts, _ = drive_variants_cli(
-            torch, K, tmp)
+            torch, K, tmp, smi=smi)
         p8 = {d: dict(p8_steps[d]) for d in ("fwd", "bwd")}
         for d in p8:
             _add(p8[d], p8_cli[d])

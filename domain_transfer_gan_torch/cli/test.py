@@ -7,7 +7,8 @@ drawn).
 
     python -m domain_transfer_gan_torch.cli.test --chk_path RUN/latest \\
         --dataroot DATA --metric {bpp,mse,visual,noise_sens,mvgauss,fid,z_div} \\
-        [--res_dir test_res] [--train_logvar 1] [--use_ema 1] [--device cuda]
+        [--res_dir test_res] [--train_logvar 1] [--use_ema 1] \\
+        [--device cuda] [--fid_extractor EXTRACTOR.jaxexp]
 
 The run's options are read back from the checkpoint's directory (its
 ``opt.json``), with ``seed`` set to 12345: ``random``, ``np.random`` and the
@@ -25,14 +26,18 @@ What each metric prints and writes under ``expr_dir/res_dir``:
 - ``noise_sens``: ``noise_sens.npy``;
 - ``mvgauss``: ``MVGauss BPP: ...``, ``mvgauss_bpp.txt``;
 - ``fid``: ``PROXY_FID_B: ...``, ``fid.txt`` (the JAX package's
-  random-feature extractor, stored with ``eval/fid.py``);
+  random-feature extractor, stored with ``eval/fid.py``); with
+  ``--fid_extractor F`` (a ``jax.export`` artifact of the JAX package's
+  ``save_extractor``, run by ``eval/stablehlo.py`` on the same device)
+  ``FID_B: ...`` instead;
 - ``z_div``: ``Z_DIV_RATIO: ...``, ``z_diversity.json`` (strict JSON, NaN
   written as null).
 
 ``--use_ema 1`` scores the EMA shadows of a run trained with ``--ema`` (and
-refuses a checkpoint without them).  Refused by name: ``--fid_extractor``
-(a ``jax.export`` artifact), and a paired-jpg dataroot where PIL cannot be
-imported (``PILMissingError``).
+refuses a checkpoint without them).  Refused by name: a paired-jpg
+dataroot where PIL cannot be imported (``PILMissingError``), and an
+``--fid_extractor`` artifact that uses what the port does not run, before
+any image is read.
 """
 
 from __future__ import annotations
@@ -58,6 +63,7 @@ from ..eval import (
     sensitivity_to_edge_noise,
     train_logvar,
 )
+from ..eval.fid import load_extractor
 from ..eval.visualize import (
     cycle_B_multi_grid,
     inference_grid,
@@ -107,6 +113,10 @@ def test_model(argv=None) -> dict:
     ``visual`` and ``noise_sens``, whose results are files)."""
     topt = TestOptions().parse(argv)
     device = _device(topt)
+    extractor = None
+    if topt.metric == "fid" and topt.fid_extractor:
+        # checked whole before anything is read or written
+        extractor = load_extractor(topt.fid_extractor, device=device)
     random.seed(SEED)
     np.random.seed(SEED)
     expr_dir = os.path.dirname(os.path.abspath(topt.chk_path))
@@ -201,10 +211,13 @@ def test_model(argv=None) -> dict:
             f.write("%f\n" % out["MVGAUSS_BPP_B"])
 
     elif topt.metric == "fid":
-        out["PROXY_FID_B"] = eval_fid_B(test_dataset, model)
-        print("PROXY_FID_B: %.4f" % out["PROXY_FID_B"])
+        # --fid_extractor swaps in a serialized real extractor (a
+        # jax.export artifact, e.g. Inception features) for true FID
+        label = "FID_B" if extractor is not None else "PROXY_FID_B"
+        out[label] = eval_fid_B(test_dataset, model, extractor=extractor)
+        print("%s: %.4f" % (label, out[label]))
         with open(os.path.join(opt.res_dir, "fid.txt"), "w") as f:
-            f.write("%f\n" % out["PROXY_FID_B"])
+            f.write("%f\n" % out[label])
 
     elif topt.metric == "z_div":
         batch = next(iter(dev_dataset))

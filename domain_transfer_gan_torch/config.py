@@ -17,9 +17,8 @@ and have no effect.
 
 :class:`TestOptions` is the evaluation CLI's parser (:class:`TestConfig`):
 the JAX package's flags with ``--device`` in place of ``--host_devices``;
-it refuses ``--fid_extractor`` (a ``jax.export`` file, which only JAX can
-run) with an :class:`UnportedFlagError` that names the flag and its
-ROADMAP item.
+``--fid_extractor`` (a ``jax.export`` file) is read by
+``eval/fid.py::load_extractor``.
 """
 
 from __future__ import annotations
@@ -404,15 +403,6 @@ class TestConfig:
     device: str = "cuda"
 
 
-# what the evaluation CLI refuses, as _UNPORTED: an --fid_extractor file
-# is a jax.export (StableHLO) artifact, which nothing without JAX can run
-_UNPORTED_TEST = (
-    ("--fid_extractor", "fid_extractor", lambda c: bool(c.fid_extractor),
-     "M8: the file is a jax.export StableHLO artifact, which only JAX can "
-     "run"),
-)
-
-
 class TestOptions:
     """argparse shim with the JAX evaluation CLI's flags, ``--device``
     instead of ``--host_devices``."""
@@ -436,12 +426,4 @@ class TestOptions:
                             "tests)")
 
     def parse(self, args=None) -> TestConfig:
-        """Parse, then refuse what the port does not run by name."""
-        cfg = TestConfig(**vars(self.parser.parse_args(args)))
-        for flag, field, asked, item in _UNPORTED_TEST:
-            if asked(cfg):
-                raise UnportedFlagError(
-                    "%s %s is not supported by the PyTorch port, and will "
-                    "not be (ROADMAP %s)" % (flag, getattr(cfg, field),
-                                            item))
-        return cfg
+        return TestConfig(**vars(self.parser.parse_args(args)))

@@ -16,9 +16,13 @@ rasters; flax draws ``conv1`` .. ``conv3`` the same whatever C is).  So a
 checkpoint scores the same ``PROXY_FID_B`` in both packages.  The port draws
 no extractor weights of its own: another width or seed, or C > 16, is a
 ``ValueError``.  The file is written from the JAX package by
-``tests/test_torch_port_fid.py::write_fid_weights``.  The JAX package's
-``--fid_extractor`` files are ``jax.export`` artifacts, which only JAX can
-run; the evaluation CLI refuses the flag.
+``tests/test_torch_port_fid.py::write_fid_weights``.
+
+A real extractor (Inception features, for true FID) comes as the JAX
+package's ``--fid_extractor`` file, a ``jax.export`` artifact written by
+its ``save_extractor``: :func:`load_extractor` reads it
+(``utils/jax_export.py``) and runs its StableHLO program with torch on
+the card (``eval/stablehlo.py``), without JAX.
 
 The convolutions are cuDNN's (the JAX package computes them outside any
 Pallas kernel).  Images are NHWC numpy arrays or tensors in [-1, 1];
@@ -37,7 +41,9 @@ from scipy import linalg
 from torch import nn
 from torch.nn import functional as F
 
+from ..utils import jax_export, vhlo
 from ..utils.convert import jax_fid_params_to_state_dict
+from .stablehlo import Program
 
 FID_WEIGHTS = os.path.join(os.path.dirname(os.path.abspath(__file__)),
                            "fid_weights.npz")
@@ -124,6 +130,52 @@ def random_feature_extractor(width: int = FID_WIDTH, seed: int = FID_SEED,
             for i in range(0, len(images), batch):
                 outs.append(net(images[i:i + batch].to(device,
                                                        torch.float32)))
+        return torch.cat(outs).cpu().numpy()
+
+    return extract
+
+
+def load_extractor(path: str, device="cuda") -> Callable:
+    """Load a ``save_extractor`` artifact (the JAX package's
+    ``eval/fid.py``) as an extractor callable on ``device``
+    (``--fid_extractor PATH`` in the evaluation CLI).
+
+    The whole module is checked here, before any image is read (what the
+    port does not run is refused by name: ``utils/jax_export.py``,
+    ``eval/stablehlo.py``).  The serialized function has a fixed traced
+    batch; inputs are fed in chunks of that batch (the final chunk
+    zero-padded and trimmed), so the returned callable accepts any N and
+    returns numpy features.
+    """
+    exp = jax_export.load(path)
+    program = Program(exp.mlir_module_serialized, device=device)
+    (aval,) = exp.in_avals
+    fixed_batch = aval.shape[0]
+    sample_shape = tuple(aval.shape[1:])
+    dtype = vhlo.DTYPES[aval.dtype][0]
+    lead = []
+    if exp.platform_index is not None:
+        lead = [torch.tensor(exp.platform_index, dtype=torch.int32,
+                             device=program.device)]
+
+    def extract(images) -> np.ndarray:
+        if not isinstance(images, torch.Tensor):
+            images = torch.from_numpy(np.ascontiguousarray(images,
+                                                           np.float32))
+        if tuple(images.shape[1:]) != sample_shape:
+            raise ValueError(
+                "extractor %s was traced for %s images, got %s"
+                % (path, sample_shape, tuple(images.shape[1:])))
+        outs = []
+        with torch.no_grad():
+            for i in range(0, len(images), fixed_batch):
+                chunk = images[i:i + fixed_batch].to(program.device, dtype)
+                n = len(chunk)
+                if n < fixed_batch:
+                    chunk = torch.cat([chunk, chunk.new_zeros(
+                        (fixed_batch - n,) + sample_shape)])
+                args = lead + ([chunk] if exp.module_kept_var_idx else [])
+                outs.append(program(*args)[0][:n])
         return torch.cat(outs).cpu().numpy()
 
     return extract

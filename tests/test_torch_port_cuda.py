@@ -855,3 +855,35 @@ def test_profile_dir_after_profiler_sessions_names_k1_and_k2(tmp_path):
     with open(os.path.join(str(tmp_path), "f7", "results.txt")) as f:
         log = f.read()
     assert "kernel events of the card" in log and "WARNING" not in log
+
+
+@pytest.mark.cuda
+def test_fid_extractor_artifact_on_the_card_against_the_builtin():
+    """The JAX package's width-64 proxy net as a jax.export artifact, run by
+    the port's StableHLO interpreter on the card, against the built-in
+    extractor (the same weights) on the same images: features within
+    1e-4 x max |feature| with TF32 off, FID within 1e-3 relative."""
+    _need_card()
+    from domain_transfer_gan_torch.eval import fid
+
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                        "fixtures", "jax_export", "proxy_w64_64x64x3.jaxexp")
+    tf32 = (torch.backends.cudnn.allow_tf32,
+            torch.backends.cuda.matmul.allow_tf32)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        rng = np.random.RandomState(15)
+        real = rng.uniform(-1, 1, (70, 64, 64, 3)).astype(np.float32)
+        fake = np.clip(real + 0.3 * rng.randn(*real.shape), -1, 1).astype(
+            np.float32)
+        ext = fid.load_extractor(path)  # on the card by default
+        builtin = fid.random_feature_extractor()
+        got, want = ext(real), builtin(real)
+        assert np.abs(got - want).max() <= 1e-4 * np.abs(want).max()
+        a = fid.compute_fid(real, fake, ext)
+        b = fid.compute_fid(real, fake, builtin)
+        assert abs(a - b) <= 1e-3 * abs(b)
+    finally:
+        (torch.backends.cudnn.allow_tf32,
+         torch.backends.cuda.matmul.allow_tf32) = tf32

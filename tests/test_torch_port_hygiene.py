@@ -17,7 +17,8 @@ from domain_transfer_gan_torch.ops.kernels import instance_norm as K
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "tensorstore",
-             "zstandard", "zarr", "numcodecs", "domain_transfer_gan_tpu")
+             "zstandard", "zarr", "numcodecs", "flatbuffers", "mlir",
+             "domain_transfer_gan_tpu")
 
 
 def _modules():
@@ -76,7 +77,11 @@ def test_every_module_imports_without_jax():
             "domain_transfer_gan_torch.parallel.hints",
             "domain_transfer_gan_torch.parallel.spatial",
             "domain_transfer_gan_torch.ops.kernels.pad",
-            "domain_transfer_gan_torch.utils.timing"} <= set(names)
+            "domain_transfer_gan_torch.utils.timing",
+            "domain_transfer_gan_torch.utils.jax_export",
+            "domain_transfer_gan_torch.utils.mlir_bytecode",
+            "domain_transfer_gan_torch.utils.vhlo",
+            "domain_transfer_gan_torch.eval.stablehlo"} <= set(names)
     code = (
         "import importlib, sys\n"
         "for n in %r: importlib.import_module(n)\n"
@@ -96,7 +101,7 @@ def test_every_module_imports_without_jax():
     for f in fs if f.endswith(".py")))
 def test_source_names_no_jax_import(path):
     """By text: no import of JAX, flax, optax, orbax, tensorstore, zstandard,
-    zarr, numcodecs or the JAX package."""
+    zarr, numcodecs, flatbuffers, an MLIR binding or the JAX package."""
     with open(os.path.join(ROOT, path)) as f:
         src = f.read()
     pat = re.compile(r"^\s*(?:import|from)\s+(%s)\b" % "|".join(FORBIDDEN),
@@ -130,6 +135,16 @@ def test_port_never_calls_a_library_norm_or_compile():
                 with open(os.path.join(d, f)) as fh:
                     hits = [m for m in pat.findall(fh.read())]
                 assert not hits, (f, hits)
+
+
+def test_the_jax_export_extractor_runs_on_cuda_by_default():
+    """``--fid_extractor``'s reader and interpreter ask for the card unless
+    the caller names another device."""
+    import inspect
+
+    from domain_transfer_gan_torch.eval import fid, stablehlo
+    for fn in (fid.load_extractor, stablehlo.Program.__init__):
+        assert inspect.signature(fn).parameters["device"].default == "cuda"
 
 
 def test_chip_smoke_refuses_to_run_without_a_card():

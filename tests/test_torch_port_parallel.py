@@ -12,9 +12,7 @@ ranks run once per test session, whichever worker asks first (a lock file
 shared by the workers); every rank process is killed on its own timeout.
 """
 
-import fcntl
 import os
-import pickle
 import re
 import signal
 import subprocess
@@ -31,6 +29,7 @@ from domain_transfer_gan_torch.nn.layers import Dropout
 from domain_transfer_gan_torch.parallel import multihost, selfcheck
 
 from torch_port_helpers import load_chip_smoke
+from torch_port_helpers import once as _once
 from torch_port_helpers import one_torch_thread  # noqa: F401 (a fixture)
 
 pytestmark = pytest.mark.usefixtures("one_torch_thread")
@@ -38,23 +37,6 @@ pytestmark = pytest.mark.usefixtures("one_torch_thread")
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 RANK_TIMEOUT = 240  # seconds; a pair of ranks takes ~8 s here
 ONE_THREAD = {"OMP_NUM_THREADS": "1", "MKL_NUM_THREADS": "1"}
-
-
-def _once(tmp_path_factory, name, compute):
-    """``compute()``'s result, computed by one worker of the session and
-    read by the others."""
-    if not os.environ.get("PYTEST_XDIST_WORKER"):
-        return compute()
-    path = tmp_path_factory.getbasetemp().parent / (name + ".pkl")
-    with open(str(path) + ".lock", "w") as lock:
-        fcntl.flock(lock, fcntl.LOCK_EX)
-        if path.exists():
-            with open(str(path), "rb") as f:
-                return pickle.load(f)
-        data = compute()
-        with open(str(path), "wb") as f:
-            pickle.dump(data, f)
-        return data
 
 
 # two groups, each one pair of rank processes (~8 s apiece here)

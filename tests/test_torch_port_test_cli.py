@@ -18,10 +18,7 @@ from domain_transfer_gan_torch.cli import test as test_cli
 from domain_transfer_gan_torch.cli.export import load_exported
 from domain_transfer_gan_torch.cli.export import main as export_main
 from domain_transfer_gan_torch.cli.train import train_model
-from domain_transfer_gan_torch.config import (
-    UnportedFlagError,
-    load_train_config_from_expr_dir,
-)
+from domain_transfer_gan_torch.config import load_train_config_from_expr_dir
 from domain_transfer_gan_torch.data import AlignedIterator, load_numpy_data
 from domain_transfer_gan_torch.data.synthetic import write_synthetic_dataset
 from domain_transfer_gan_torch.eval import eval_mse_A
@@ -205,20 +202,48 @@ def test_export_from_a_checkpoint_of_the_other_variants(runs, name,
         assert json.load(f)["model"] == runs[name]["model"].opt.model
 
 
+FIXTURES = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                        "fixtures", "jax_export")
+# --fid_extractor artifacts the port does not run, refused by name before
+# anything is read or written (tests/fixtures/make_jax_export_fixtures.py)
 REFUSED = [
-    (["--fid_extractor", "inception.bin"], "--fid_extractor inception.bin",
-     "M8"),
+    ("custom_call_tpu.jaxexp", "custom_call to 'tpu_custom_call_fixture'"),
+    ("cpu_tpu.jaxexp", "platforms = ['cpu', 'tpu']"),
+    ("sine_tpu.jaxexp", "stablehlo.sine"),
+    ("two_devices.jaxexp", "nr_devices = 2"),
 ]
 
 
-@pytest.mark.parametrize("flags,named,item", REFUSED,
-                         ids=[r[1].split()[0] for r in REFUSED])
-def test_unported_evaluations_are_refused_by_name(runs, flags, named, item):
-    with pytest.raises(UnportedFlagError) as e:
+@pytest.mark.parametrize(
+    "artifact,named", REFUSED,
+    ids=["--fid_extractor"] + ["--fid_extractor-" + r[0].split(".")[0]
+                               for r in REFUSED[1:]])
+def test_unported_evaluations_are_refused_by_name(runs, artifact, named):
+    res = "refused_" + artifact.split(".")[0]
+    with pytest.raises(ValueError) as e:
         test_cli.test_model(["--chk_path", runs["stoch"]["latest"],
-                             "--dataroot", runs["root"], "--metric", "mse",
-                             "--device", "cpu", *flags])
-    assert named in str(e.value) and ("ROADMAP %s" % item) in str(e.value)
+                             "--dataroot", runs["root"], "--metric", "fid",
+                             "--device", "cpu", "--res_dir", res,
+                             "--fid_extractor",
+                             os.path.join(FIXTURES, artifact)])
+    assert named in str(e.value)
+    assert not os.path.exists(os.path.join(runs["stoch"]["expr"], res))
+
+
+def test_fid_with_a_jax_export_extractor_prints_FID_B(runs, capsys):
+    """--metric fid --fid_extractor: the JAX package's width-64 proxy net
+    as a jax.export artifact, interpreted on the CPU; the same weights as
+    the built-in extractor, so FID_B is PROXY_FID_B of the same images."""
+    proxy = _test(runs, "sup", "fid")["PROXY_FID_B"]
+    capsys.readouterr()
+    out = _test(runs, "sup", "fid", "--fid_extractor",
+                os.path.join(FIXTURES, "proxy_w64_64x64x3.jaxexp"))
+    printed = capsys.readouterr().out
+    assert re.search(r"^FID_B: \d+\.\d{4}$", printed, re.M)
+    assert "PROXY_FID_B" not in printed
+    assert abs(out["FID_B"] - proxy) <= 1e-4 * abs(proxy)
+    with open(_res(runs, "sup", "fid.txt")) as f:
+        assert float(f.read()) == pytest.approx(out["FID_B"], abs=1e-6)
 
 
 def test_use_ema_without_a_shadow_is_refused(runs):

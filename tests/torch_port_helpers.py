@@ -2,8 +2,10 @@
 inputs and weights handed to both the JAX package and the PyTorch port."""
 
 import contextlib
+import fcntl
 import importlib.util
 import os
+import pickle
 
 import numpy as np
 import pytest
@@ -21,6 +23,23 @@ def one_torch_thread():
     torch.set_num_threads(1)
     yield
     torch.set_num_threads(n)
+
+
+def once(tmp_path_factory, name, compute):
+    """``compute()``'s result, computed by one worker of the session and
+    read by the others (a lock file shared by the workers)."""
+    if not os.environ.get("PYTEST_XDIST_WORKER"):
+        return compute()
+    path = tmp_path_factory.getbasetemp().parent / (name + ".pkl")
+    with open(str(path) + ".lock", "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)
+        if path.exists():
+            with open(str(path), "rb") as f:
+                return pickle.load(f)
+        data = compute()
+        with open(str(path), "wb") as f:
+            pickle.dump(data, f)
+        return data
 
 
 def load_chip_smoke():
