@@ -32,6 +32,14 @@ It needs one CUDA device, ``nvcc`` and no network.  It
    ``predict_B`` and ``predict_A`` again from a
    bfloat16 artifact; then every norm site of both generators on the input
    its forward gives it, kernel against plain version, in both dtypes;
+   then the JAX package's own export directories
+   (``tests/fixtures/jax_serve``: ``jax.export`` StableHLO lowered for
+   ``tpu``, the full-width one and six tiny ones: bfloat16 on two
+   draws, ``cycle_gan``, ``["cpu", "tpu"]``) behind the same server, run
+   by the port's StableHLO interpreter, each against ``exp.call``'s
+   committed outputs, with no kernel of the port launched (phase 6 times
+   the full-width one beside the port's own artifact, as callables and
+   over HTTP);
 5. drives the training path at the same width (nef 32, ndf 64, all six
    networks): ``create_model`` -> ``train_instance``, 3 steps in float32 at
    batch 32 against a twin model with the same weights whose norms run the
@@ -361,6 +369,21 @@ BF16_MEAN_ATOL = 1.2e-2
 # float32.
 BF16_SERVE_MAX_ATOL = 6e-2
 BF16_SERVE_MEAN_ATOL = 4e-3
+# phase 4's JAX arm: the JAX package's own export directories
+# (tests/fixtures/make_jax_serve_fixtures.py) served by cli/serve.py and
+# run by the port's StableHLO interpreter, no hand-written kernel: the
+# full-width one (aug_cycle_gan, ngf 32, nlatent 16, batch 32, lowered for
+# tpu) and six tiny ones (bfloat16 on two draws of weights, cycle_gan's
+# dropped z, a ["cpu", "tpu"] module's case on _platform_index), each
+# against exp.call's committed outputs on its seeded inputs: float32 within
+# JAX_SERVE_ATOL (the JAX norm's E[x^2] - mean^2 puts exp.call itself
+# 2.5e-5 from the module in float64 on the CPU), bfloat16 within
+# BF16_MAX_ATOL / BF16_MEAN_ATOL of the bfloat16 exp.call
+JAX_SERVE = ("tests", "fixtures", "jax_serve")
+JAX_SERVE_FULL = "aug_full_f32_tpu"
+JAX_SERVE_TINY = ("aug_f32_tpu", "aug_bf16_tpu", "cycle_f32_tpu",
+                  "aug_f32_cpu_tpu", "aug_f32_s2_tpu", "aug_bf16_s2_tpu")
+JAX_SERVE_ATOL = 1e-4
 
 
 # the training CLI phase (phase 7): a synthetic npz set of 420 train images
@@ -1184,19 +1207,17 @@ def _post(url, arrays=None, raw=None):
         return np.load(io.BytesIO(resp.read()))
 
 
-class Served:
-    """An exported artifact behind a running server (context manager)."""
+class Serving:
+    """A server on an export directory, running in a thread (context
+    manager); ``load_s`` is what ``build_server`` took."""
 
-    def __init__(self, cfg, out_dir, batch):
-        from domain_transfer_gan_torch.cli.export import export_model
+    def __init__(self, out_dir):
         from domain_transfer_gan_torch.cli.serve import build_server
-        from domain_transfer_gan_torch.models import create_model
 
         self.out_dir = out_dir
-        model = create_model(cfg, testing=True, device="cuda")
-        self.manifest = export_model(model, out_dir, batch=batch,
-                                     device="cuda")
+        t = time.perf_counter()
         self.server = build_server(out_dir, port=0, device="cuda")
+        self.load_s = time.perf_counter() - t
         self.url = "http://127.0.0.1:%d" % self.server.server_address[1]
         self.thread = threading.Thread(target=self.server.serve_forever,
                                        daemon=True)
@@ -1211,6 +1232,20 @@ class Served:
         self.thread.join(timeout=30)
         if self.thread.is_alive():
             raise RuntimeError("the server thread did not stop")
+
+
+class Served(Serving):
+    """A model exported by the port's ``export_model`` behind a running
+    server."""
+
+    def __init__(self, cfg, out_dir, batch):
+        from domain_transfer_gan_torch.cli.export import export_model
+        from domain_transfer_gan_torch.models import create_model
+
+        model = create_model(cfg, testing=True, device="cuda")
+        self.manifest = export_model(model, out_dir, batch=batch,
+                                     device="cuda")
+        super().__init__(out_dir)
 
 
 def _check_images(y, n, hw, nc, what):
@@ -1379,6 +1414,69 @@ def drive_serving_path(torch, fused, fused_bwd, tmp):
     ctx = {"fp32_dir": fp32_dir, "bf16_dir": bf16_dir, "A": A, "B": B,
            "z": z, "batch": batch, "cfg": cfg}
     return main_path_launches, by_variant, site_counts, ctx
+
+
+def serve_jax_exports(torch, K, P, ctx, smi):
+    """Phase 4's JAX arm: each directory of ``JAX_SERVE`` behind
+    ``cli/serve.py`` on the card, ``predict_B`` and ``predict_A`` on the
+    fixture's inputs (``tests/fixtures/jax_serve_inputs.py``) against
+    ``exp.call``'s committed outputs; no K1, K2, split or pad kernel may
+    launch for these requests.  Logs and returns the figures; phase 6
+    times the full-width directory beside the port's own artifact."""
+    import importlib.util
+    import os
+
+    fixtures = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                            *JAX_SERVE[:-1])
+    root = os.path.join(fixtures, JAX_SERVE[-1])
+    spec = importlib.util.spec_from_file_location(
+        "jax_serve_inputs", os.path.join(fixtures, "jax_serve_inputs.py"))
+    draw = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(draw)
+    with open(os.path.join(root, "index.json")) as f:
+        index = json.load(f)
+    wrappers = ((K.instance_norm_fused, K.instance_norm_bwd_fused)
+                + tuple(K.SPLIT_WRAPPERS) + tuple(P.WRAPPERS))
+    before = [w.launches for w in wrappers]
+    fig = {"card": smi, "max_abs_err": {}, "load_s": {}}
+    for name in (JAX_SERVE_FULL,) + JAX_SERVE_TINY:
+        d = os.path.join(root, name)
+        with open(os.path.join(d, "manifest.json")) as f:
+            manifest = json.load(f)
+        x = draw.inputs(manifest, index[name]["seed"])
+        with np.load(os.path.join(root, name + ".outputs.npz")) as f:
+            want = {k: f[k] for k in f.files}
+        with Serving(d) as srv:
+            fig["load_s"][name] = srv.load_s
+            got = {"predict_B": _post(srv.url + "/predict_B",
+                                      {"A": x["A"], "z": x["z"]}),
+                   "predict_A": _post(srv.url + "/predict_A", {"B": x["B"]})}
+        for fn, y in got.items():
+            what = "%s %s" % (name, fn)
+            _check_images(y, manifest["batch"], manifest["grid_size"], 3,
+                          what)
+            d_abs = np.abs(y - want[fn])
+            fig["max_abs_err"][what] = float(d_abs.max())
+            if index[name]["serve_dtype"] == "bfloat16":
+                fig["max_abs_err"][what + " mean"] = float(d_abs.mean())
+                if d_abs.max() > BF16_MAX_ATOL or \
+                        d_abs.mean() > BF16_MEAN_ATOL:
+                    raise AssertionError(
+                        "%s differs from exp.call by max %g mean %g (limits "
+                        "%g, %g)" % (what, d_abs.max(), d_abs.mean(),
+                                     BF16_MAX_ATOL, BF16_MEAN_ATOL))
+            elif d_abs.max() > JAX_SERVE_ATOL:
+                raise AssertionError("%s differs from exp.call by %g (limit "
+                                     "%g)" % (what, d_abs.max(),
+                                              JAX_SERVE_ATOL))
+    launched = {w.__name__: w.launches - n for w, n in zip(wrappers, before)
+                if w.launches != n}
+    if launched:
+        raise AssertionError("serving the JAX package's export launched %r"
+                             % launched)
+    log("serving path, the JAX package's export: %s" % json.dumps(fig))
+    fig["dir"] = os.path.join(root, JAX_SERVE_FULL)
+    return fig
 
 
 def check_norm_sites(torch, ctx):
@@ -2986,8 +3084,10 @@ def drive_extras_cli(torch, K, tmp, device="cuda", width=CLI_WIDTH):
 
 def time_end_to_end(torch, ctx):
     """images/s of the two generators at batch 32: the exported callables on
-    device tensors (wall time around a final synchronize) and whole HTTP
-    requests, 20 timed calls after 3 warm-ups each."""
+    device tensors (wall time around a final synchronize; the port's float32
+    and bfloat16 artifacts and the JAX package's full-width float32 export,
+    interpreted) and whole HTTP requests (the port's float32 artifact and
+    the JAX package's export), 20 timed calls after 3 warm-ups each."""
     from domain_transfer_gan_torch.cli.export import load_exported
     from domain_transfer_gan_torch.cli.serve import build_server
 
@@ -2996,7 +3096,8 @@ def time_end_to_end(torch, ctx):
     B = torch.from_numpy(ctx["B"]).cuda()
     z = torch.from_numpy(ctx["z"][:batch]).cuda()
     out = {"batch": batch, "timed_calls": 20, "warmups": 3}
-    for d, tag in ((ctx["fp32_dir"], "float32"), (ctx["bf16_dir"], "bfloat16")):
+    for d, tag in ((ctx["fp32_dir"], "float32"), (ctx["bf16_dir"], "bfloat16"),
+                   (ctx["jax_dir"], "jax_export_float32")):
         pb = load_exported(d, "predict_B", "cuda")
         pa = load_exported(d, "predict_A", "cuda")
         for name, call in (("predict_B", lambda: pb(A, z)),
@@ -3012,25 +3113,28 @@ def time_end_to_end(torch, ctx):
             out["%s_%s_images_per_s" % (name, tag)] = 20 * batch / dt
             out["%s_%s_ms_per_call" % (name, tag)] = dt / 20 * 1e3
 
-    server = build_server(ctx["fp32_dir"], port=0, device="cuda")
-    thread = threading.Thread(target=server.serve_forever, daemon=True)
-    thread.start()
-    try:
-        url = "http://127.0.0.1:%d" % server.server_address[1]
-        reqs = (("predict_B", {"A": ctx["A"][:batch], "z": ctx["z"][:batch]}),
-                ("predict_A", {"B": ctx["B"]}))
-        for name, arrays in reqs:
-            for _ in range(3):
-                _post(url + "/" + name, arrays)
-            t0 = time.perf_counter()
-            for _ in range(20):
-                _post(url + "/" + name, arrays)
-            dt = time.perf_counter() - t0
-            out["http_%s_float32_images_per_s" % name] = 20 * batch / dt
-    finally:
-        server.shutdown()
-        server.server_close()
-        thread.join(timeout=30)
+    reqs = (("predict_B", {"A": ctx["A"][:batch], "z": ctx["z"][:batch]}),
+            ("predict_A", {"B": ctx["B"]}))
+    for d, tag in ((ctx["fp32_dir"], "float32"),
+                   (ctx["jax_dir"], "jax_export_float32")):
+        server = build_server(d, port=0, device="cuda")
+        thread = threading.Thread(target=server.serve_forever, daemon=True)
+        thread.start()
+        try:
+            url = "http://127.0.0.1:%d" % server.server_address[1]
+            for name, arrays in reqs:
+                for _ in range(3):
+                    _post(url + "/" + name, arrays)
+                t0 = time.perf_counter()
+                for _ in range(20):
+                    _post(url + "/" + name, arrays)
+                dt = time.perf_counter() - t0
+                out["http_%s_%s_images_per_s" % (name, tag)] = (
+                    20 * batch / dt)
+        finally:
+            server.shutdown()
+            server.server_close()
+            thread.join(timeout=30)
     return out
 
 
@@ -5065,6 +5169,8 @@ def main(argv=None):
         if launches < 1:
             raise AssertionError("the serving path never launched the kernel")
         check_norm_sites(torch, ctx)
+        jax_serving = serve_jax_exports(torch, K, P, ctx, smi)
+        ctx["jax_dir"] = jax_serving["dir"]
         pads_of("serving")
         lap("4")
 
@@ -5179,6 +5285,8 @@ def main(argv=None):
                                    extras_counts=p9, p10_counts=p10,
                                    p11_counts=p11)
         e2e = time_end_to_end(torch, ctx)
+        e2e["phase4_jax_export"] = {k: v for k, v in jax_serving.items()
+                                    if k != "dir"}
         e2e.update(time_train_step())
         e2e["phase9"] = p9_figures
         e2e["phase10"] = p10_figures

@@ -35,7 +35,10 @@ flax file, or an orbax directory of ``--ckpt_backend orbax``).
 ``--use_ema 1`` exports the EMA shadow weights of a run trained with
 ``--ema``.
 
-Round-trip loading: :func:`load_exported`.
+Round-trip loading: :func:`load_exported`, which also loads the JAX
+package's export directory (``predict_{A,B}.stablehlo``, written by its
+``cli/export.py`` for any platforms) and runs it with the port's StableHLO
+interpreter, without JAX.
 """
 
 from __future__ import annotations
@@ -47,8 +50,10 @@ import os
 import torch
 
 from ..config import TrainConfig, load_train_config_from_expr_dir
+from ..eval.stablehlo import Program
 from ..models.api import DTYPES, create_model
 from ..nn import networks as N
+from ..utils import jax_export
 
 _FILES = {"predict_B": "netG_A_B", "predict_A": "netG_B_A"}
 
@@ -87,17 +92,39 @@ def export_model(model, out_dir: str, batch: int = 32, device="cuda"):
     return manifest
 
 
+def artifact_kind(out_dir: str) -> str:
+    """``"pt"`` for a directory this module wrote (``predict_{A,B}.pt``),
+    ``"stablehlo"`` for one the JAX package's ``cli/export.py`` wrote
+    (``predict_{A,B}.stablehlo``, no ``.pt``); anything else is refused,
+    naming the files found."""
+    files = sorted(os.listdir(out_dir))
+    kinds = [k for k in ("pt", "stablehlo")
+             if any(f.endswith("." + k) for f in files)]
+    if len(kinds) == 1 and all(n + "." + kinds[0] in files for n in _FILES):
+        return kinds[0]
+    raise ValueError(
+        "%s holds %s: an export directory holds predict_B.pt and "
+        "predict_A.pt (the port's cli.export) or predict_B.stablehlo and "
+        "predict_A.stablehlo (the JAX package's cli.export), not both"
+        % (out_dir, ", ".join(files) or "no file"))
+
+
 def load_exported(out_dir: str, name: str, device="cuda"):
     """Load one exported generator; returns a callable over NHWC tensors at
     the artifact's fixed batch: ``fn(A, z)`` for ``predict_B``, ``fn(B)``
     for ``predict_A``.  The answer is a float32 tensor on ``device``.
     ``plain_norm=True`` (for tests) runs every norm through the kernel's
-    plain version."""
+    plain version.
+
+    A directory of the JAX package's export (:func:`artifact_kind`) is run
+    by the StableHLO interpreter instead (:func:`_load_stablehlo`)."""
     if name not in _FILES:
         raise ValueError("unknown function %r (have %s)"
                          % (name, ", ".join(_FILES)))
     with open(os.path.join(out_dir, "manifest.json")) as f:
         m = json.load(f)
+    if artifact_kind(out_dir) == "stablehlo":
+        return _load_stablehlo(out_dir, name, m, device)
     kw = dict(ngf=m["ngf"], n_blocks=m["n_blocks"],
               use_dropout=m["use_dropout"], init_scheme=m["init_scheme"])
     if name == "predict_B":
@@ -114,16 +141,57 @@ def load_exported(out_dir: str, name: str, device="cuda"):
     ones_z = name == "predict_B" and m["model"] == "cycle_gan"
 
     def fn(*args: torch.Tensor, plain_norm: bool = False) -> torch.Tensor:
-        if any(a.shape[0] != batch for a in args):
-            raise ValueError("%s was exported at batch %d, got %s"
-                             % (name, batch,
-                                [tuple(a.shape) for a in args]))
+        _check_batch(name, batch, args)
         # inference_mode is thread-local: enter it on the calling thread
         with torch.inference_mode():
             args = [a.to(device) for a in args]
             if ones_z:  # cycle_gan: z == 1
                 args[1] = torch.ones_like(args[1])
             return net(*args, plain_norm=plain_norm).float()
+
+    return fn
+
+
+def _check_batch(name, batch, args):
+    if any(a.shape[0] != batch for a in args):
+        raise ValueError("%s was exported at batch %d, got %s"
+                         % (name, batch, [tuple(a.shape) for a in args]))
+
+
+def _load_stablehlo(out_dir: str, name: str, m: dict, device):
+    """One function of the JAX package's export directory, run by
+    ``eval/stablehlo.py::Program`` on ``device`` whatever platforms it was
+    lowered for: its module is read and checked here (the envelope, the
+    manifest's arguments and output, every op), and called with the
+    ``_platform_index`` its platforms give and the arguments it keeps."""
+    path = os.path.join(out_dir, name + ".stablehlo")
+    nc = m["output_nc" if name == "predict_B" else "input_nc"]
+    out_shape = [m["batch"], m["grid_size"], m["grid_size"], nc]
+    exp = jax_export.check_serving(
+        jax_export.load(path), m["functions"][name]["args"], out_shape,
+        where=path)
+    if list(exp.platforms) != m["platforms"]:
+        raise jax_export.ExportFormatError(
+            "%s: platforms = %s, manifest.json says %s" % (
+                path, list(exp.platforms), m["platforms"]))
+    program = Program(exp.mlir_module_serialized, device=device)
+    lead = []
+    if exp.platform_index is not None:
+        lead = [torch.tensor(exp.platform_index, dtype=torch.int32,
+                             device=program.device)]
+    kept = exp.module_kept_var_idx
+    batch = int(m["batch"])
+
+    def fn(*args: torch.Tensor, plain_norm: bool = False) -> torch.Tensor:
+        if plain_norm:
+            raise ValueError(
+                "plain_norm=True: %s is interpreted StableHLO, which runs no "
+                "hand-written kernel, so there is no norm kernel to switch "
+                "to its plain version" % path)
+        _check_batch(name, batch, args)
+        with torch.inference_mode():
+            args = [args[i].to(program.device) for i in kept]
+            return program(*lead, *args)[0].float()
 
     return fn
 

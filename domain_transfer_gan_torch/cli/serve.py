@@ -2,8 +2,12 @@
 
 Loads the artifact written by :mod:`cli.export` (weights plus manifest; the
 port's own model code rebuilds the generators, see there why this is not a
-self-contained program as the JAX package's StableHLO artifact is) and serves
-the two generator directions over HTTP with stdlib-only machinery:
+self-contained program as the JAX package's StableHLO artifact is), or the
+directory the JAX package's ``cli/export.py`` writes
+(``predict_{A,B}.stablehlo``, lowered for any platforms: run by the port's
+StableHLO interpreter, ``eval/stablehlo.py``, without JAX; both programs
+are read and checked before the socket binds), and serves the two
+generator directions over HTTP with stdlib-only machinery:
 
   POST /predict_B   body = .npz bytes with array  A (N,H,W,C) float32 in
                     [-1,1] and optionally z (N,nlatent); z is sampled from
@@ -15,12 +19,18 @@ the two generator directions over HTTP with stdlib-only machinery:
 Responses are .npy bytes of the generated batch (float32).  Requests of any N
 are handled by padding to the artifact's fixed serving batch and chunking
 above it, so the generators only ever see one shape.  On a CUDA device every
-norm site of a request runs the hand-written instance-norm kernel.
+norm site of a request to the port's own artifact runs the hand-written
+instance-norm kernel; the JAX package's export runs as the library calls its
+StableHLO ops map to, and no hand-written kernel.
 
 Usage:
   python -m domain_transfer_gan_torch.cli.export --expr_dir ckpt/exp \
       --params exp_params.npz --out /srv/exp1 --serve_dtype bfloat16
   python -m domain_transfer_gan_torch.cli.serve --export_dir /srv/exp1 \
+      --port 8000 --device cuda
+  # a directory of the JAX package's export, e.g. written on a TPU host by
+  #   python -m domain_transfer_gan_tpu.cli.export --chk_path ... --out /srv/j
+  python -m domain_transfer_gan_torch.cli.serve --export_dir /srv/j \
       --port 8000 --device cuda
 """
 
@@ -36,7 +46,8 @@ from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 import numpy as np
 import torch
 
-from .export import load_exported
+from ..utils.jax_export import lowering_index
+from .export import artifact_kind, load_exported
 
 
 class ExportedEndpoint:
@@ -72,9 +83,11 @@ def build_server(export_dir: str, host: str = "127.0.0.1",
     with open(os.path.join(export_dir, "manifest.json")) as f:
         manifest = json.load(f)
     device = torch.device(device)
-    # fail FAST on a platform mismatch (otherwise every request 500s)
+    kind = artifact_kind(export_dir)
+    # fail FAST on a platform mismatch (otherwise every request 500s); the
+    # JAX package's StableHLO runs on any device (see load_exported)
     plats = manifest.get("platforms")
-    if plats and device.type not in plats:
+    if kind == "pt" and plats and device.type not in plats:
         raise ValueError(
             "artifact %s was exported for platforms %s but this server runs "
             "on %r; re-export with `--device %s`, or serve with "
@@ -92,6 +105,13 @@ def build_server(export_dir: str, host: str = "127.0.0.1",
         "/predict_A": (ExportedEndpoint(export_dir, "predict_A", batch,
                                         device), ("B",)),
     }
+    if kind == "stablehlo":
+        i = lowering_index(plats)
+        print("%s: the JAX package's export, interpreted StableHLO on %s "
+              "(no hand-written kernel runs); lowered for %s, running %s"
+              % (export_dir, device, ", ".join(plats),
+                 "its one lowering" if i is None else
+                 "lowering %d (%s)" % (i, plats[i])), flush=True)
     # the same stream of prior draws as the JAX package's server
     rng = np.random.RandomState(0)
     rng_lock = threading.Lock()
@@ -166,7 +186,8 @@ def build_server(export_dir: str, host: str = "127.0.0.1",
 def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--export_dir", required=True,
-                    help="directory written by cli.export")
+                    help="directory written by cli.export, the port's or "
+                         "the JAX package's")
     ap.add_argument("--host", default="127.0.0.1")
     ap.add_argument("--port", type=int, default=8000)
     ap.add_argument("--device", default="cuda")

@@ -147,7 +147,7 @@ def load_extractor(path: str, device="cuda") -> Callable:
     zero-padded and trimmed), so the returned callable accepts any N and
     returns numpy features.
     """
-    exp = jax_export.load(path)
+    exp = jax_export.check_extractor(jax_export.load(path), where=path)
     program = Program(exp.mlir_module_serialized, device=device)
     (aval,) = exp.in_avals
     fixed_batch = aval.shape[0]

@@ -1,5 +1,7 @@
 """An interpreter of a StableHLO module on torch tensors: how the port runs a
-``jax.export`` feature extractor (``--fid_extractor``) without JAX.
+``jax.export`` artifact without JAX, a feature extractor
+(``--fid_extractor``) or the JAX package's serving export (``cli/serve.py``
+on a directory of ``predict_{A,B}.stablehlo``).
 
 ``Program(data, device)`` takes the module's bytes (a StableHLO portable
 artifact, read by ``utils/mlir_bytecode.py`` and ``utils/vhlo.py``) and
@@ -13,7 +15,7 @@ eagerly on ``device``, op by op, and returns its results.  Nothing falls
 back to the CPU.
 
 The ops, by StableHLO name: ``constant iota convert reshape
-broadcast_in_dim transpose slice concatenate pad select compare add
+broadcast_in_dim transpose reverse slice concatenate pad select compare add
 subtract multiply divide maximum minimum negate abs and or not
 exponential log sqrt rsqrt tanh logistic power clamp dot_general
 convolution reduce reduce_window case call return`` (``func.call`` and
@@ -34,8 +36,16 @@ convolution reduce reduce_window case call return`` (``func.call`` and
   its two arguments, recognised at load and run as the tensor reduction
   (``sum``, ``amax``, ...), never per element; any other body (an argmax's
   compare and select) is refused with its ops listed.
+- ``reverse`` is one ``torch.flip`` over its dimensions (none: the
+  identity).
 - ``case`` reads its index on the host (one synchronisation) and runs
   one branch; an index out of range runs the last, as StableHLO says.
+- bfloat16 follows XLA's float normalization, as ``exp.call`` computes
+  it: an op of bfloat16 result is computed in float32 and rounded to
+  bfloat16 for its users, except that a ``convert`` of it to float32 takes
+  the float32 value unrounded (XLA's ``FloatNormalization`` hands such a
+  convert the wide result).  The JAX norm's ``x.astype(float32)`` after a
+  bfloat16 bias add reads that add unrounded, as on XLA.
 - Integer ``divide`` truncates toward zero, as StableHLO's does; a
   ``compare`` of type TOTALORDER orders floats by IEEE 754's totalOrder
   (:func:`total_order_key`).
@@ -55,11 +65,19 @@ from ..utils.vhlo import TensorType, dims, op_attr
 
 # the op set, by VHLO name without its version
 OPS = ("constant", "iota", "convert", "reshape", "broadcast_in_dim",
-       "transpose", "slice", "concatenate", "pad", "select", "compare",
-       "add", "subtract", "multiply", "divide", "maximum", "minimum",
-       "negate", "abs", "and", "or", "not", "exponential", "log", "sqrt",
-       "rsqrt", "tanh", "logistic", "power", "clamp", "dot_general",
-       "convolution", "reduce", "reduce_window", "case", "call", "return")
+       "transpose", "reverse", "slice", "concatenate", "pad", "select",
+       "compare", "add", "subtract", "multiply", "divide", "maximum",
+       "minimum", "negate", "abs", "and", "or", "not", "exponential",
+       "log", "sqrt", "rsqrt", "tanh", "logistic", "power", "clamp",
+       "dot_general", "convolution", "reduce", "reduce_window", "case",
+       "call", "return")
+
+
+# ops that only move or pick values: a bfloat16 result of one is exact,
+# so it is never widened
+_MOVES = ("constant", "iota", "convert", "reshape", "broadcast_in_dim",
+          "transpose", "reverse", "slice", "concatenate", "pad", "case",
+          "call", "return")
 
 
 class StableHLOError(vhlo.VhloError):
@@ -226,8 +244,30 @@ class Program:
             self._refuse(op, "function %s has %d blocks; one is run"
                          % (name, len(region.blocks) if region else 0))
         block = region.blocks[0]
+        self._wide = self._widened(block)
         steps, results = self._compile_block(block)
         return _Func([v for v, _ in block.args], steps, results)
+
+    def _widened(self, block: mb.Block) -> set:
+        """The bfloat16 results that a ``convert`` to float32 reads, of ops
+        that compute: they are kept in float32 beside their rounded value
+        (XLA's float normalization)."""
+        computed, read_wide = set(), set()
+
+        def walk(ops):
+            for op in ops:
+                kind = self._kind(op)
+                outs = self._out(op)
+                if (kind not in _MOVES and len(outs) == 1
+                        and outs[0].dtype == "bf16"):
+                    computed.add(op.results[0])
+                if kind == "convert" and outs[0].dtype == "f32":
+                    read_wide.update(op.operands)
+                for region in op.regions:
+                    for b in region.blocks:
+                        walk(b.ops)
+        walk(block.ops)
+        return computed & read_wide
 
     def _compile_block(self, block: mb.Block):
         steps, results = [], None
@@ -236,8 +276,14 @@ class Program:
             if kind == "return":
                 results = list(op.operands)
                 continue
-            steps.append((self._compile_op(op, kind), op.operands,
-                          op.results))
+            operands, outs = list(op.operands), list(op.results)
+            if kind == "convert":
+                operands = [("f32", v) if v in self._wide else v
+                            for v in operands]
+            wide = bool(outs) and outs[0] in self._wide
+            if wide:
+                outs.append(("f32", outs[0]))
+            steps.append((self._compile_op(op, kind, wide), operands, outs))
         if results is None:
             raise StableHLOError("a block (producer %s) without a return"
                                  % self.producer)
@@ -255,10 +301,25 @@ class Program:
                                  % (t.dtype, self.producer))
         return vhlo.DTYPES[t.dtype][0]
 
-    def _compile_op(self, op: mb.Op, kind: str) -> Callable:
+    def _compile_op(self, op: mb.Op, kind: str, wide=False) -> Callable:
+        """``op`` as a step; ``wide``: computed in float32, returning its
+        bfloat16 result and the float32 value."""
+        run = self._step(op, kind, wide)
+        if not wide:
+            return run
+
+        def widened(*xs):
+            (y,) = run(*[x.float() if x.dtype == torch.bfloat16 else x
+                         for x in xs])
+            return [y.to(torch.bfloat16), y]
+        return widened
+
+    def _step(self, op: mb.Op, kind: str, wide: bool) -> Callable:
         if op.successors:
             self._refuse(op, "successors (branching between blocks)")
         outs = self._out(op)
+        # the type a convolution or dot_general computes and returns
+        dt = torch.float32 if wide else self._dtype(outs[0])
         if kind == "constant":
             value = self._attr(op, "value").to(self.device)
             return lambda: [value]
@@ -282,6 +343,11 @@ class Program:
         if kind == "transpose":
             perm = dims(self._attr(op, "permutation"))
             return lambda x: [x.permute(perm)]
+        if kind == "reverse":
+            rdims = dims(self._attr(op, "dimensions"))
+            if not rdims:
+                return lambda x: [x]
+            return lambda x: [x.flip(rdims)]
         if kind == "slice":
             idx = tuple(slice(a, b, c) for a, b, c in zip(
                 dims(self._attr(op, "start_indices")),
@@ -306,9 +372,9 @@ class Program:
             fn = _ELEMENTWISE[kind]
             return lambda *xs: [fn(*xs)]
         if kind == "dot_general":
-            return self._dot_general(op, outs[0])
+            return self._dot_general(op, outs[0].shape, dt)
         if kind == "convolution":
-            return self._convolution(op, outs[0])
+            return self._convolution(op, dt)
         if kind in ("reduce", "reduce_window"):
             if len(op.operands) != 2:
                 self._refuse(op, "%d operands and body %s; one operand is "
@@ -348,13 +414,12 @@ class Program:
             return [x.reshape(view).expand(shape)]
         return run
 
-    def _dot_general(self, op, out: TensorType):
+    def _dot_general(self, op, shape, dt: torch.dtype):
         lb = dims(self._attr(op, "lhs_batching_dimensions"))
         rb = dims(self._attr(op, "rhs_batching_dimensions"))
         lc = dims(self._attr(op, "lhs_contracting_dimensions"))
         rc = dims(self._attr(op, "rhs_contracting_dimensions"))
-        dt = self._dtype(out)
-        shape = list(out.shape)
+        shape = list(shape)
 
         def run(a, b):
             la = [d for d in range(a.dim()) if d not in lb + lc]
@@ -369,7 +434,7 @@ class Program:
             return [torch.matmul(a2, b2).to(dt).reshape(shape)]
         return run
 
-    def _convolution(self, op, out: TensorType):
+    def _convolution(self, op, dt: torch.dtype):
         a = {n: self._attr(op, n) for n in vhlo.OP_ATTRS["convolution_v1"]}
         spatial = dims(a["input_spatial_dimensions"])
         if len(spatial) != 2:
@@ -394,7 +459,6 @@ class Program:
         flip = [i + 2 for i, r in enumerate(a["window_reversal"].tolist())
                 if r]
         groups = a["feature_group_count"]
-        dt = self._dtype(out)
         # symmetric padding without lhs dilation is conv2d's own
         native = all(d == 1 for d in lhs_dil) and all(
             lo == hi >= 0 for lo, hi in pad)

@@ -28,28 +28,32 @@ module reads the flatbuffer with ``struct`` alone (the schema is jax's
 
 (the shardings, slots 7 and 8, and the ``vjp``, slot 17, are not read).
 
-:func:`check` refuses, each by the field's name and value, what the port
-cannot run: a serialization version it does not know, a calling
-convention outside 9 and 10, ``nr_devices`` other than 1 (a sharded
-export), any effect, a symbolic (shape-polymorphic) dimension, a dtype
-outside ``utils/vhlo.py``'s, several platforms of which none is ``cuda``,
-and an input or output tree that is not one array (``save_extractor``'s
-contract: one ``(batch, H, W, C)`` array in, one array out).
+Two checks hold an artifact, each refusing by the field's name and value.
+:func:`check`, the envelope, holds every artifact: a serialization version
+this reader knows, a calling convention of 9 or 10, ``nr_devices`` 1 (no
+sharded export), no effect, at least one platform, no symbolic
+(shape-polymorphic) dimension and only ``utils/vhlo.py``'s dtypes.  A
+contract then holds what the caller runs: :func:`check_extractor`
+``save_extractor``'s (one ``(batch, H, W, C)`` array in, one array out,
+``--fid_extractor``), :func:`check_serving` the JAX package's
+``cli/export.py::export_model``'s (the arguments of its manifest, one
+float32 image batch out).
 
 **The platform an artifact was lowered for does not matter** as long as
 its module holds no ``custom_call``: StableHLO without custom calls means
-the same on every device, so a single-platform artifact of any platform,
-``tpu`` included, is taken and run on the card (the interpreter refuses a
-``custom_call`` by its target's name).  Of a multi-platform artifact the
-``cuda`` lowering is taken: its index among the platforms is passed as
-the module's first argument, ``_platform_index``.
+the same on every device, and the interpreter checks the whole module for
+custom calls at load (refusing one by its target's name).  So an artifact
+of any platforms, ``tpu`` included, is taken and run on the card: of a
+multi-platform one the ``cuda`` lowering where it lists one, else the
+first platform's.  Its index among the platforms is passed as the module's
+first argument, ``_platform_index`` (:attr:`Exported.platform_index`).
 """
 
 from __future__ import annotations
 
 import dataclasses
 import struct
-from typing import List, Optional, Tuple
+from typing import List, Optional, Sequence, Tuple
 
 SERIALIZATION_VERSIONS = range(1, 7)  # jax 0.4.x .. 0.9: the schema above
 CALLING_CONVENTIONS = (9, 10)
@@ -177,12 +181,20 @@ class Exported:
 
     @property
     def platform_index(self) -> Optional[int]:
-        """The index of the lowering to run, passed as the module's
-        ``_platform_index`` argument; None for a single-platform export,
-        whose module takes no such argument."""
-        if len(self.platforms) == 1:
-            return None
-        return self.platforms.index("cuda")
+        """:func:`lowering_index` of its platforms."""
+        return lowering_index(self.platforms)
+
+
+def lowering_index(platforms: Sequence[str]) -> Optional[int]:
+    """The index of the lowering to run, passed as the module's
+    ``_platform_index`` argument: ``cuda``'s where ``platforms`` lists it,
+    else 0, the first platform's; None for a single-platform export, whose
+    module takes no such argument."""
+    if len(platforms) == 1:
+        return None
+    if "cuda" in platforms:
+        return list(platforms).index("cuda")
+    return 0
 
 
 def _tree(t: Optional[_Table], depth: int = 0) -> str:
@@ -251,52 +263,90 @@ def read(data: bytes) -> Exported:
     )
 
 
-def check(exp: Exported, where: str = "the artifact") -> Exported:
-    """Refuse, by the field's name and value, what the port does not run
-    (see the module's docstring); return ``exp``."""
-    def refuse(field, value, why):
-        raise ExportFormatError("%s: %s = %s: %s" % (where, field, value,
-                                                      why))
+def _refuse(where, field, value, why):
+    raise ExportFormatError("%s: %s = %s: %s" % (where, field, value, why))
 
+
+def check(exp: Exported, where: str = "the artifact") -> Exported:
+    """Refuse, by the field's name and value, an envelope the port does not
+    run (see the module's docstring); return ``exp``."""
     if exp.serialization_version not in SERIALIZATION_VERSIONS:
-        refuse("serialization_version", exp.serialization_version,
-               "this reader knows versions %d to %d"
-               % (SERIALIZATION_VERSIONS[0], SERIALIZATION_VERSIONS[-1]))
+        _refuse(where, "serialization_version", exp.serialization_version,
+                "this reader knows versions %d to %d"
+                % (SERIALIZATION_VERSIONS[0], SERIALIZATION_VERSIONS[-1]))
     if exp.calling_convention_version not in CALLING_CONVENTIONS:
-        refuse("calling_convention_version", exp.calling_convention_version,
-               "this reader runs versions %s" % (CALLING_CONVENTIONS,))
+        _refuse(where, "calling_convention_version",
+                exp.calling_convention_version,
+                "this reader runs versions %s" % (CALLING_CONVENTIONS,))
     if exp.nr_devices != 1:
-        refuse("nr_devices", exp.nr_devices,
-               "a sharded export; the port runs one device's")
+        _refuse(where, "nr_devices", exp.nr_devices,
+                "a sharded export; the port runs one device's")
     for field in ("ordered_effects", "unordered_effects"):
         if getattr(exp, field):
-            refuse(field, list(getattr(exp, field)),
-                   "an export with effects; the port runs pure functions")
+            _refuse(where, field, list(getattr(exp, field)),
+                    "an export with effects; the port runs pure functions")
     if not exp.platforms:
-        refuse("platforms", [], "no platform")
-    if len(exp.platforms) > 1 and "cuda" not in exp.platforms:
-        refuse("platforms", list(exp.platforms),
-               "several platforms, none of them cuda")
-    if exp.in_tree != "((*,), {})" or len(exp.in_avals) != 1:
-        refuse("in_tree", exp.in_tree, "the function must take one array")
-    if exp.out_tree != "*" or len(exp.out_avals) != 1:
-        refuse("out_tree", exp.out_tree, "the function must return one "
-               "array")
+        _refuse(where, "platforms", [], "no platform")
     for field in ("in_avals", "out_avals"):
         for a in getattr(exp, field):
             if not all(isinstance(d, int) for d in a.shape):
-                refuse(field, "%s%s" % (a.dtype, list(a.shape)),
-                       "a symbolic (shape-polymorphic) dimension")
+                _refuse(where, field, "%s%s" % (a.dtype, list(a.shape)),
+                        "a symbolic (shape-polymorphic) dimension")
             if a.dtype not in DTYPES.values():
-                refuse(field, "%s%s" % (a.dtype, list(a.shape)),
-                       "an element type the port does not run")
+                _refuse(where, field, "%s%s" % (a.dtype, list(a.shape)),
+                        "an element type the port does not run")
+    return exp
+
+
+def check_extractor(exp: Exported, where: str = "the artifact") -> Exported:
+    """``save_extractor``'s contract: one array in, one array out, no input
+    kept beyond it; return ``exp``."""
+    if exp.in_tree != "((*,), {})" or len(exp.in_avals) != 1:
+        _refuse(where, "in_tree", exp.in_tree,
+                "the function must take one array")
+    if exp.out_tree != "*" or len(exp.out_avals) != 1:
+        _refuse(where, "out_tree", exp.out_tree,
+                "the function must return one array")
     if not set(exp.module_kept_var_idx) <= {0}:
-        refuse("module_kept_var_idx", list(exp.module_kept_var_idx),
-               "inputs beyond the one array")
+        _refuse(where, "module_kept_var_idx", list(exp.module_kept_var_idx),
+                "inputs beyond the one array")
+    return exp
+
+
+def _avals(avals):
+    return ["%s%s" % (a.dtype, list(a.shape)) for a in avals]
+
+
+def check_serving(exp: Exported, args, out_shape,
+                  where: str = "the artifact") -> Exported:
+    """``export_model``'s contract: the arguments its manifest names
+    (``functions[name]["args"]``, ``[name, shape, "float32"]`` each) in, one
+    float32 array of ``out_shape`` out; return ``exp``.  The module takes
+    the arguments ``module_kept_var_idx`` keeps."""
+    if not all(len(a) == 3 and a[2] == "float32" for a in args):
+        _refuse(where, "the manifest's args", args,
+                "each is [name, shape, \"float32\"]")
+    tree = "((%s), {})" % ("*," if len(args) == 1
+                           else ", ".join("*" for _ in args))
+    if exp.in_tree != tree:
+        _refuse(where, "in_tree", exp.in_tree,
+                "the manifest names %d arguments, %s"
+                % (len(args), ", ".join(a[0] for a in args)))
+    want = _avals(Aval(tuple(a[1]), "f32") for a in args)
+    if _avals(exp.in_avals) != want:
+        _refuse(where, "in_avals", _avals(exp.in_avals),
+                "the manifest's args are %s" % want)
+    want = _avals([Aval(tuple(out_shape), "f32")])
+    if exp.out_tree != "*" or _avals(exp.out_avals) != want:
+        _refuse(where, "out_avals", _avals(exp.out_avals),
+                "the manifest gives %s" % want)
+    if not set(exp.module_kept_var_idx) <= set(range(len(args))):
+        _refuse(where, "module_kept_var_idx", list(exp.module_kept_var_idx),
+                "indices beyond the %d arguments" % len(args))
     return exp
 
 
 def load(path: str) -> Exported:
-    """Read and :func:`check` the artifact at ``path``."""
+    """Read the artifact at ``path`` and :func:`check` its envelope."""
     with open(path, "rb") as f:
         return check(read(f.read()), where=path)

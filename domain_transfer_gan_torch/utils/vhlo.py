@@ -160,6 +160,7 @@ OP_ATTRS: Dict[str, Tuple[str, ...]] = {
                        "output_spatial_dimensions", "feature_group_count",
                        "batch_group_count", "precision_config"),
     "reduce_v1": ("dimensions",),
+    "reverse_v1": ("dimensions",),
     "reduce_window_v1": ("window_dimensions", "window_strides",
                          "base_dilations", "window_dilations", "padding"),
     "custom_call_v1": ("call_target_name", "has_side_effect",

@@ -17,9 +17,9 @@ the port's ``--fid_extractor`` reader is held to.
   "tpu")``, which takes the ``_platform_index`` argument;
   ``logistic_tpu.jaxexp`` the one op of the set that jax never emits
   (:func:`logistic_export`); ``x64_tpu.jaxexp`` float64 and int64
-  (:func:`x64_tiny`);
-- refused: ``cpu_tpu.jaxexp`` (two platforms, neither ``cuda``),
-  ``custom_call_tpu.jaxexp`` (a ``custom_call`` to
+  (:func:`x64_tiny`); ``cpu_tpu.jaxexp`` two platforms, neither ``cuda``
+  (the first one's lowering runs);
+- refused: ``custom_call_tpu.jaxexp`` (a ``custom_call`` to
   ``tpu_custom_call_fixture``, exported with that safety check disabled),
   ``two_devices.jaxexp`` (``nr_devices`` 2, over two CPU devices),
   ``sine_tpu.jaxexp`` (an op outside the set) and ``argmax_tpu.jaxexp``
@@ -49,9 +49,9 @@ SEED = 15
 # the ops the port's interpreter runs (eval/stablehlo.py), by StableHLO name
 OP_SET = {
     "constant", "iota", "convert", "reshape", "broadcast_in_dim",
-    "transpose", "slice", "concatenate", "pad", "select", "compare", "add",
-    "subtract", "multiply", "divide", "maximum", "minimum", "negate", "abs",
-    "and", "or", "not", "exponential", "log", "sqrt", "rsqrt", "tanh",
+    "transpose", "reverse", "slice", "concatenate", "pad", "select",
+    "compare", "add", "subtract", "multiply", "divide", "maximum", "minimum",
+    "negate", "abs", "and", "or", "not", "exponential", "log", "sqrt", "rsqrt", "tanh",
     "logistic", "power", "clamp", "dot_general", "convolution", "reduce",
     "reduce_window", "case", "call", "return"}
 
@@ -185,6 +185,13 @@ def ops_tiny(x):
                                 c2.reshape(x.shape[0], -1)], axis=1)
 
     @jax.jit
+    def flips(x):
+        n = x.shape[0]
+        return jnp.concatenate([jnp.flip(x, axis=(1, 2)).reshape(n, -1),
+                                lax.rev(x, (0, 3)).reshape(n, -1)[:, :20]],
+                               axis=1)
+
+    @jax.jit
     def branches(x):
         s = jnp.sum(x > 0).astype(jnp.int32)
         i = (s > 30).astype(jnp.int32) + (s > 40).astype(jnp.int32)
@@ -195,7 +202,7 @@ def ops_tiny(x):
 
     n = x.shape[0]
     parts = [elementwise(x), integers(x), low_precision(x), shapes(x),
-             reductions(x), linear(x), branches(x)]
+             reductions(x), linear(x), branches(x), flips(x)]
     return jnp.concatenate([p.reshape(n, -1) for p in parts], axis=1)
 
 
@@ -304,14 +311,14 @@ def main():
     with jax.enable_x64(True):
         covered |= write("x64_tpu.jaxexp", export(x64_tiny, (2, 5),
                                                   ("tpu",)))
+    covered |= write("cpu_tpu.jaxexp",
+                     export(lambda x: jnp.tanh(x), (2, 3), ("cpu", "tpu")))
     missing = OP_SET - covered
     assert not missing, "ops of the set no artifact emits: %s" % missing
     print("covered: every op of the set;",
           "beyond it:", " ".join(sorted(covered - OP_SET)) or "nothing")
 
     # refused
-    write("cpu_tpu.jaxexp",
-          export(lambda x: jnp.tanh(x), (2, 3), ("cpu", "tpu")))
     write("sine_tpu.jaxexp", export(lambda x: jnp.sin(x), (2, 3), ("tpu",)))
     write("argmax_tpu.jaxexp",
           export(lambda x: jnp.argmax(x, axis=1).astype(jnp.float32),

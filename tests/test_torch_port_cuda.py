@@ -887,3 +887,72 @@ def test_fid_extractor_artifact_on_the_card_against_the_builtin():
     finally:
         (torch.backends.cudnn.allow_tf32,
          torch.backends.cuda.matmul.allow_tf32) = tf32
+
+
+@pytest.mark.cuda
+def test_jax_export_directories_served_on_the_card():
+    """The JAX package's tiny export directories (tests/fixtures/jax_serve,
+    lowered for tpu and for cpu + tpu) behind cli/serve.py on the card,
+    interpreted with TF32 off, against exp.call's committed outputs on the
+    fixture's inputs (tests/fixtures/jax_serve_inputs.py): float32 within
+    1e-4, bfloat16 within max 0.1 / mean 0.012; no instance-norm kernel
+    launches for them."""
+    _need_card()
+    import importlib.util
+    import io
+    import threading
+    import urllib.request
+
+    from domain_transfer_gan_torch.cli.serve import build_server
+
+    fixtures = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                            "fixtures")
+    root = os.path.join(fixtures, "jax_serve")
+    spec = importlib.util.spec_from_file_location(
+        "jax_serve_inputs", os.path.join(fixtures, "jax_serve_inputs.py"))
+    draw = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(draw)
+    with open(os.path.join(root, "index.json")) as f:
+        index = json.load(f)
+    tf32 = (torch.backends.cudnn.allow_tf32,
+            torch.backends.cuda.matmul.allow_tf32)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    before = (instance_norm_fused.launches, instance_norm_bwd_fused.launches)
+    try:
+        for name in sorted(n for n in index if index[n]["ngf"] == 4):
+            d = os.path.join(root, name)
+            with open(os.path.join(d, "manifest.json")) as f:
+                x = draw.inputs(json.load(f), index[name]["seed"])
+            srv = build_server(d, port=0)
+            thread = threading.Thread(target=srv.serve_forever, daemon=True)
+            thread.start()
+            try:
+                got = {}
+                for fn, arrays in (("predict_B", {"A": x["A"], "z": x["z"]}),
+                                   ("predict_A", {"B": x["B"]})):
+                    buf = io.BytesIO()
+                    np.savez(buf, **arrays)
+                    req = urllib.request.Request(
+                        "http://127.0.0.1:%d/%s" % (srv.server_address[1],
+                                                    fn),
+                        data=buf.getvalue(), method="POST")
+                    with urllib.request.urlopen(req, timeout=60) as resp:
+                        got[fn] = np.load(io.BytesIO(resp.read()))
+            finally:
+                srv.shutdown()
+                srv.server_close()
+                thread.join(timeout=30)
+            with np.load(os.path.join(root, name + ".outputs.npz")) as want:
+                for fn, y in got.items():
+                    err = np.abs(y - want[fn])
+                    if index[name]["serve_dtype"] == "float32":
+                        assert err.max() <= 1e-4, (name, fn, err.max())
+                    else:
+                        assert err.max() <= 0.1 and err.mean() <= 0.012, (
+                            name, fn, err.max(), err.mean())
+        assert (instance_norm_fused.launches,
+                instance_norm_bwd_fused.launches) == before
+    finally:
+        (torch.backends.cudnn.allow_tf32,
+         torch.backends.cuda.matmul.allow_tf32) = tf32

@@ -10,6 +10,7 @@ the same code with 1 step."""
 import json
 import os
 import re
+import struct
 
 import numpy as np
 import pytest
@@ -23,6 +24,7 @@ from domain_transfer_gan_torch.data import AlignedIterator, load_numpy_data
 from domain_transfer_gan_torch.data.synthetic import write_synthetic_dataset
 from domain_transfer_gan_torch.eval import eval_mse_A
 from domain_transfer_gan_torch.models import create_model
+from domain_transfer_gan_torch.utils import jax_export
 
 from torch_port_helpers import (  # noqa: F401 (a fixture)
     images,
@@ -205,27 +207,47 @@ def test_export_from_a_checkpoint_of_the_other_variants(runs, name,
 FIXTURES = os.path.join(os.path.dirname(os.path.abspath(__file__)),
                         "fixtures", "jax_export")
 # --fid_extractor artifacts the port does not run, refused by name before
-# anything is read or written (tests/fixtures/make_jax_export_fixtures.py)
+# anything is read or written (tests/fixtures/make_jax_export_fixtures.py);
+# cpu_tpu.jaxexp, which runs its first platform's lowering, with its
+# platforms emptied (_without_platforms)
 REFUSED = [
     ("custom_call_tpu.jaxexp", "custom_call to 'tpu_custom_call_fixture'"),
-    ("cpu_tpu.jaxexp", "platforms = ['cpu', 'tpu']"),
+    ("cpu_tpu.jaxexp", "platforms = []: no platform"),
     ("sine_tpu.jaxexp", "stablehlo.sine"),
     ("two_devices.jaxexp", "nr_devices = 2"),
 ]
+
+
+def _without_platforms(path, tmp_path):
+    """A copy of the artifact at ``path`` whose platforms vector (slot 9 of
+    the ``Exported`` table) holds none."""
+    with open(path, "rb") as f:
+        data = bytearray(f.read())
+    root = jax_export._Table(bytes(data), struct.unpack_from("<I", data)[0])
+    pos = root._ref(9)
+    assert struct.unpack_from("<I", data, pos)[0] == 2
+    struct.pack_into("<I", data, pos, 0)
+    out = str(tmp_path / "no_platforms.jaxexp")
+    with open(out, "wb") as f:
+        f.write(bytes(data))
+    return out
 
 
 @pytest.mark.parametrize(
     "artifact,named", REFUSED,
     ids=["--fid_extractor"] + ["--fid_extractor-" + r[0].split(".")[0]
                                for r in REFUSED[1:]])
-def test_unported_evaluations_are_refused_by_name(runs, artifact, named):
+def test_unported_evaluations_are_refused_by_name(runs, artifact, named,
+                                                  tmp_path):
     res = "refused_" + artifact.split(".")[0]
+    path = os.path.join(FIXTURES, artifact)
+    if artifact == "cpu_tpu.jaxexp":
+        path = _without_platforms(path, tmp_path)
     with pytest.raises(ValueError) as e:
         test_cli.test_model(["--chk_path", runs["stoch"]["latest"],
                              "--dataroot", runs["root"], "--metric", "fid",
                              "--device", "cpu", "--res_dir", res,
-                             "--fid_extractor",
-                             os.path.join(FIXTURES, artifact)])
+                             "--fid_extractor", path])
     assert named in str(e.value)
     assert not os.path.exists(os.path.join(runs["stoch"]["expr"], res))
 
